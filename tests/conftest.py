@@ -80,3 +80,4 @@ def lm_setup():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card; skips without one")
