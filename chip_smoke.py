@@ -21,8 +21,9 @@ beside it.  Phases, each of which fails the run:
   3. the last round's accumulator goes through the hist pipeline once
      more, with each kernel's operands captured: each kernel is held
      against its plain PyTorch version on the same operands (counts
-     equal, binarize bit-equal, moment sums to ``rtol=1e-6``), the whole
-     kernel pipeline against the whole plain pipeline, and both are timed;
+     equal, binarize bit-equal, moment sums to ``rtol=1e-6``, with the
+     largest relative error printed), the whole kernel pipeline against
+     the whole plain pipeline, and both are timed;
   4. print one ``{"kernels": [...]}`` line, then the card line, then the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -30,20 +31,18 @@ After the five rounds one more round runs under ``torch.profiler`` and
 the script prints its device-busy share and its costliest device
 operations.
 
-Kernel times are device time per call of the wrapper, from CUPTI
-(``torch.profiler``): the sum over what one call launches (for the
-histogram also its output memset and int→f32 copy), averaged over many
-calls after a warm-up (``kernel_ms``: the hand-written kernels alone).
-``ms`` and ``plain_ms`` rotate over copies of the operands that together
-exceed the 50 MB L2 cache, so every call reads device memory, as
-``bound_ms`` assumes; ``ms_l2_warm`` repeats one operand set, which stays
-in L2 as the accumulator does on the path.  ``wall_ms`` is the time per
-call between two CUDA events with calls back to back, which includes the
-host's cost of a launch through the Python wrapper.  Should the profiler
-see no device time, ``ms`` falls back to that event time and ``timing``
-says so.  The bound is the larger of bytes moved (each input read once,
-each output written once) over 3.35 TB/s and operations over 67 TFLOP/s
-(an H100 SXM's published f32 rates).
+``ms`` and ``plain_ms`` are device time per call of the wrapper and of
+the plain version, from CUPTI (``torch.profiler``): the sum over all the
+device work one call launches (for the histogram also its output memset
+and int→f32 copy), averaged over many calls after a warm-up.  The calls
+rotate over copies of the operands that together exceed the 50 MB L2
+cache, so every call reads device memory, as ``bound_ms`` assumes.  Time
+between CUDA events would include the host's cost of a launch through
+the Python wrapper, several times the kernels' own; so the script fails
+if the profiler sees no device time, and has no other timing.  The bound
+is the larger of bytes moved (each input read once, each output written
+once) over 3.35 TB/s and operations over 67 TFLOP/s (an H100 SXM's
+published f32 rates).
 """
 from __future__ import annotations
 
@@ -93,30 +92,15 @@ def _run(fn, operands, iters: int) -> None:
         fn(*operands[i % len(operands)])
 
 
-def wall_ms(fn, operands, iters: int) -> float:
-    """Mean ms per call of ``fn(*operands[i % len(operands)])`` between two
-    CUDA events, calls back to back: includes the host's launch cost."""
-    import torch
-
-    _run(fn, operands, 5)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    _run(fn, operands, iters)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _self_device_us(event) -> float:
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0.0)
 
 
-def device_ms(fn, operands, iters: int, only: str = "") -> float:
-    """Mean device ms per call, summed over the kernels (and memsets) that
-    the call launches, from CUPTI (``torch.profiler``); ``only`` keeps the
-    kernels whose name contains it.  0.0 when the profiler saw no device
+def device_ms(fn, operands, iters: int) -> float:
+    """Mean device ms per call of ``fn(*operands[i % len(operands)])``,
+    summed over the kernels, memsets and copies that the call launches,
+    from CUPTI (``torch.profiler``).  Fails if the profiler saw no device
     time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -126,7 +110,8 @@ def device_ms(fn, operands, iters: int, only: str = "") -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _run(fn, operands, iters)
         torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages() if only in e.key)
+    total_us = sum(_self_device_us(e) for e in prof.key_averages())
+    check(total_us > 0, "torch.profiler saw no device time")
     return total_us / iters / 1e3
 
 
@@ -245,6 +230,7 @@ def main() -> int:
         step_ms = (time.perf_counter() - t0) * 1e3
     events = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
     busy_ms = sum(_self_device_us(e) for e in events) / 1e3
+    check(busy_ms > 0, "torch.profiler saw no device time in the profiled round")
     print(f"profiled round {ROUNDS + 1}: step {step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / step_ms:.1f}% of the step), {sum(e.count for e in events)} "
           f"device operations; top by device time:")
@@ -276,7 +262,7 @@ def main() -> int:
     print("kernel pipeline == plain pipeline on the last round's accumulator "
           "(same selection, mu to rtol 1e-6)")
 
-    rows = {}
+    rows, moments_rel = {}, 0.0
     for name, args, kwargs in calls:
         xpad, params = args
         got = getattr(kflat, name)(xpad, params, **kwargs)
@@ -290,6 +276,9 @@ def main() -> int:
             check(torch.allclose(got[:, :, 0], want[:, :, 0], rtol=1e-6, atol=0),
                   f"{name}: sums beyond rtol 1e-6")
             err = float((got - want).abs().max())
+            sums = want[:, :, 0] != 0
+            rel = (got[:, :, 0] - want[:, :, 0]).abs()[sums] / want[:, :, 0].abs()[sums]
+            moments_rel = max(moments_rel, float(rel.max()) if rel.numel() else 0.0)
         else:
             check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                       for g, w in zip(got, want)), f"{name}: not bit-equal")
@@ -305,35 +294,22 @@ def main() -> int:
         nbytes = 4 * (xpad.numel() + params.numel()) + out_bytes
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = OPS_PER_ELEMENT[name] * xpad.numel() / F32_OPS_PER_S * 1e3
-        times = {
-            "ms": device_ms(fn_k, copies, 240),
-            "ms_l2_warm": device_ms(fn_k, copies[:1], 240),
-            "kernel_ms": device_ms(fn_k, copies, 240, only=name + "_"),
-            "plain_ms": device_ms(fn_p, copies, 48),
-            "wall_ms": wall_ms(fn_k, copies, 240),
-            "plain_wall_ms": wall_ms(fn_p, copies, 48),
-            "timing": "cupti",
-        }
-        if not (times["ms"] > 0 and times["plain_ms"] > 0):  # profiler saw nothing
-            times.update(ms=times["wall_ms"], plain_ms=times["plain_wall_ms"],
-                         ms_l2_warm=wall_ms(fn_k, copies[:1], 240), kernel_ms=None,
-                         timing="cuda_events")
         rows[name] = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err,
-            "ms": times.pop("ms"), "plain_ms": times.pop("plain_ms"),
+            "ms": device_ms(fn_k, copies, 240), "plain_ms": device_ms(fn_p, copies, 48),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bytes": nbytes, **times,
+            "library_ms": None,
         }
         del copies
         r = rows[name]
-        print(f"{name}: {r['ms'] * 1e3:.2f} us device per call ({r['timing']}; "
-              f"L2-warm {r['ms_l2_warm'] * 1e3:.2f} us; back to back "
-              f"{r['wall_ms'] * 1e3:.2f} us), plain {r['plain_ms'] * 1e3:.2f} us, "
-              f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
-              f"{r['launches']} launches on the path")
+        print(f"{name}: {r['ms'] * 1e3:.2f} us device per call, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']}, {nbytes} bytes), {r['launches']} launches on the path")
     check(set(rows) == set(PER_ROUND), f"kernels compared: {sorted(rows)}")
+    print(f"seg_moments: sums' largest relative error {moments_rel:.3e} over "
+          f"{sum(1 for c in calls if c[0] == 'seg_moments')} calls (limit 1e-6)")
 
     # ---- 4. results
     print(json.dumps({"kernels": [rows[k] for k in PER_ROUND]}))

@@ -10,12 +10,15 @@ import dataclasses
 import importlib
 from typing import Any
 
-import torch
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One architecture (the CNN fields of the reference's config)."""
+    """One architecture (the CNN fields of the reference's config).
+
+    The reference's ``residual_dtype`` is not carried: the flat hist route
+    keeps an f32 residual, and the bf16 residual of its largest
+    architectures takes the per-leaf exchange (ROADMAP A9).
+    """
 
     name: str
     family: str  # 'cnn' in this slice
@@ -30,7 +33,6 @@ class ModelConfig:
     client_mode: str = "data"  # one client per data coordinate (DESIGN.md §4)
     local_opt: str = "momentum"  # client-side optimizer for this arch
     base_lr: float = 0.01
-    residual_dtype: Any = torch.float32
 
 
 PORTED_CONFIGS = ("lenet5",)

@@ -47,7 +47,7 @@ def tree_keys(tree: Dict[str, Any]) -> Tuple[str, ...]:
 @dataclasses.dataclass(eq=False)
 class ShardedGspmdChannel:
     """Compression + exchange of the GSPMD backend on the §11 flat path
-    with the hist engine (the only route of this slice).
+    with the hist engine and an f32 residual (the only route of this slice).
 
     ``flat_space`` is the :class:`~repro_torch.core.flat.ShardedFlatParamSpace`
     the channel compresses in.
@@ -57,17 +57,6 @@ class ShardedGspmdChannel:
     client_axes: Tuple[str, ...]
     n_clients: int
     flat_space: Any
-    residual_dtype: Any = torch.float32
-    flat_engine: str = "hist"
-
-    def __post_init__(self) -> None:
-        if self.flat_engine != "hist":
-            raise NotImplementedError(
-                f"flat_engine={self.flat_engine!r}: the exact engine comes with "
-                "ROADMAP A4 (local) and A9 (sharded)"
-            )
-        if self.flat_space is None:
-            raise ValueError("flat_engine='hist' needs the sharded flat fast path")
 
     # ------------------------------------------------------------- protocol
 

@@ -16,6 +16,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.device import resolve_device
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -47,11 +49,12 @@ def make_classification_task(
     batch: int,
     noise: float = 0.35,
     seed: int = 0,
-    device="cpu",
+    device=None,
 ) -> Task:
     """Gaussian class-blob images (NHWC f32) with int64 labels: class c has
-    a fixed mean image; samples add isotropic noise.  Drawn on ``device``."""
-    dev = torch.device(device)
+    a fixed mean image; samples add isotropic noise.  Drawn on ``device``
+    (default: the CUDA card; raises ``RuntimeError`` without one)."""
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(_seed_of(seed, 23))
     means = torch.randn((n_classes, img_size, img_size, channels),

@@ -26,8 +26,14 @@
 //   * histogram counts are integers: shared-memory uint32 atomics per
 //     CTA, then one integer atomicAdd per non-empty bin into the
 //     segment's global row.  Exact and independent of CTA order.
-//   * moments write per-block partials (f32 sums, uint32 counts) and a
+//   * moments write per-block partials (f64 sums, uint32 counts) and a
 //     second launch reduces each segment's blocks in a fixed order.
+//     The sums are accumulated in f64 and rounded to f32 once, at the
+//     end: every sum of a side has one sign, so the f64 result is within
+//     1e-12 (relative) of the exact sum, and any other f64 summation (the
+//     plain version's) rounds to the same f32 or to its neighbour.  In
+//     f32, this kernel's order and another would drift apart by up to
+//     (chain length) * 2^-24, about 4e-6 for LeNet5's f1.
 //
 // Numerics: built with -fmad=false and without --use_fast_math, so the
 // bucket coordinate uses the IEEE division and the full-precision log2f
@@ -101,7 +107,7 @@ seg_hist2side_kernel(const float* __restrict__ x, const float* __restrict__ para
   }
 }
 
-__device__ __forceinline__ float warp_sum_f(float v) {
+__device__ __forceinline__ double warp_sum_d(double v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
@@ -111,25 +117,25 @@ __device__ __forceinline__ unsigned warp_sum_u(unsigned v) {
   return v;
 }
 
-__device__ __forceinline__ void moment_one(float v, float tpos, float ntneg, float& s0,
-                                           unsigned& c0, float& s1, unsigned& c1) {
-  if (v >= tpos) { s0 += v; c0 += 1u; }
-  if (v <= ntneg) { s1 += v; c1 += 1u; }
+__device__ __forceinline__ void moment_one(float v, float tpos, float ntneg, double& s0,
+                                           unsigned& c0, double& s1, unsigned& c1) {
+  if (v >= tpos) { s0 += (double)v; c0 += 1u; }
+  if (v <= ntneg) { s1 += (double)v; c1 += 1u; }
 }
 
 // Pass 1: grid = nblocks, block = kThreads.  params rows: (seg, t+, t-).
-// Writes block b's [sum+, sum-] to psum[b, 0:2] and [n+, n-] to pcnt[b, 0:2].
+// Writes block b's f64 [sum+, sum-] to psum[b, 0:2] and [n+, n-] to pcnt[b, 0:2].
 __global__ void __launch_bounds__(kThreads)
 seg_moments_partial_kernel(const float* __restrict__ x, const float* __restrict__ params,
-                           float* __restrict__ psum, unsigned* __restrict__ pcnt,
+                           double* __restrict__ psum, unsigned* __restrict__ pcnt,
                            int block_elems) {
-  __shared__ float ssum[2][kThreads / 32];
+  __shared__ double ssum[2][kThreads / 32];
   __shared__ unsigned scnt[2][kThreads / 32];
   const int b = blockIdx.x;
   const float tpos = params[(size_t)b * 3 + 1];
   const float ntneg = -params[(size_t)b * 3 + 2];
 
-  float s0 = 0.0f, s1 = 0.0f;
+  double s0 = 0.0, s1 = 0.0;
   unsigned c0 = 0u, c1 = 0u;
   const float4* x4 = reinterpret_cast<const float4*>(x + (size_t)b * block_elems);
   for (int i = threadIdx.x; i < block_elems / 4; i += blockDim.x) {
@@ -139,8 +145,8 @@ seg_moments_partial_kernel(const float* __restrict__ x, const float* __restrict_
     moment_one(v.z, tpos, ntneg, s0, c0, s1, c1);
     moment_one(v.w, tpos, ntneg, s0, c0, s1, c1);
   }
-  s0 = warp_sum_f(s0);
-  s1 = warp_sum_f(s1);
+  s0 = warp_sum_d(s0);
+  s1 = warp_sum_d(s1);
   c0 = warp_sum_u(c0);
   c1 = warp_sum_u(c1);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -150,7 +156,7 @@ seg_moments_partial_kernel(const float* __restrict__ x, const float* __restrict_
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float t0 = 0.0f, t1 = 0.0f;
+    double t0 = 0.0, t1 = 0.0;
     unsigned n0 = 0u, n1 = 0u;
     for (int w = 0; w < kThreads / 32; ++w) {
       t0 += ssum[0][w]; t1 += ssum[1][w];
@@ -163,14 +169,14 @@ seg_moments_partial_kernel(const float* __restrict__ x, const float* __restrict_
 
 // Pass 2: grid = nseg, block = 32 (one warp per segment).  Lane l sums the
 // segment's blocks l, l + 32, ... in block order; the warp then folds the
-// 32 lane sums in a fixed order.  out: f32[nseg, 2, 2] =
-// [[sum+, n+], [sum-, n-]].
+// 32 lane sums in a fixed order, in f64; the sums are rounded to f32 once.
+// out: f32[nseg, 2, 2] = [[sum+, n+], [sum-, n-]].
 __global__ void __launch_bounds__(32)
-seg_moments_final_kernel(const float* __restrict__ psum, const unsigned* __restrict__ pcnt,
+seg_moments_final_kernel(const double* __restrict__ psum, const unsigned* __restrict__ pcnt,
                          const float* __restrict__ params, float* __restrict__ out,
                          int nblocks) {
   const int seg = blockIdx.x;
-  float s0 = 0.0f, s1 = 0.0f;
+  double s0 = 0.0, s1 = 0.0;
   unsigned c0 = 0u, c1 = 0u;
   for (int b = threadIdx.x; b < nblocks; b += 32) {
     if ((int)params[(size_t)b * 3] == seg) {
@@ -178,13 +184,13 @@ seg_moments_final_kernel(const float* __restrict__ psum, const unsigned* __restr
       c0 += pcnt[(size_t)b * 2]; c1 += pcnt[(size_t)b * 2 + 1];
     }
   }
-  s0 = warp_sum_f(s0);
-  s1 = warp_sum_f(s1);
+  s0 = warp_sum_d(s0);
+  s1 = warp_sum_d(s1);
   c0 = warp_sum_u(c0);
   c1 = warp_sum_u(c1);
   if (threadIdx.x == 0) {
     float* o = out + (size_t)seg * 4;
-    o[0] = s0; o[1] = (float)c0; o[2] = s1; o[3] = (float)c1;
+    o[0] = (float)s0; o[1] = (float)c0; o[2] = (float)s1; o[3] = (float)c1;
   }
 }
 
@@ -245,14 +251,14 @@ extern "C" int seg_moments_launch(const void* x, const void* params, void* psum,
   cudaStream_t s = (cudaStream_t)stream;
   if (nblocks > 0) {
     seg_moments_partial_kernel<<<nblocks, kThreads, 0, s>>>(
-        (const float*)x, (const float*)params, (float*)psum, (unsigned*)pcnt,
+        (const float*)x, (const float*)params, (double*)psum, (unsigned*)pcnt,
         block_elems);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (nseg > 0) {
     seg_moments_final_kernel<<<nseg, 32, 0, s>>>(
-        (const float*)psum, (const unsigned*)pcnt, (const float*)params, (float*)out,
+        (const double*)psum, (const unsigned*)pcnt, (const float*)params, (float*)out,
         nblocks);
   }
   return (int)cudaGetLastError();

@@ -60,8 +60,17 @@ def _check(xpad: torch.Tensor, params: torch.Tensor, ncols: int, bm: int,
     return nblocks
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch(entry, name: str, xpad: torch.Tensor, *args) -> None:
+    """Call the C entry point ``entry`` of the kernel library on
+    ``xpad``'s card and its current stream; raise on a CUDA error.
+
+    The library launches on the CUDA runtime's current device, so the
+    call is made with ``xpad``'s card current: a tensor on ``cuda:1``
+    launches there even while ``cuda:0`` is the current device.
+    """
+    with torch.cuda.device(xpad.device):
+        err = entry(*args, torch.cuda.current_stream(xpad.device).cuda_stream)
+    _build.check(err, name)
 
 
 # ------------------------------------------------------------- histogram
@@ -111,12 +120,9 @@ def seg_hist2side(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     if not 1 <= nbins <= 4096:
         raise ValueError(f"nbins must be in [1, 4096], got {nbins}")
     hist = torch.zeros((nseg, 2, nbins), dtype=torch.int32, device=xpad.device)
-    lib = _build.library()
-    err = lib.seg_hist2side_launch(
-        xpad.data_ptr(), params.data_ptr(), hist.data_ptr(),
-        nblocks, bm * lanes, nbins, _stream(xpad),
-    )
-    _build.check(err, "seg_hist2side")
+    _launch(_build.library().seg_hist2side_launch, "seg_hist2side", xpad,
+            xpad.data_ptr(), params.data_ptr(), hist.data_ptr(),
+            nblocks, bm * lanes, nbins)
     seg_hist2side.launches += 1
     return hist.to(torch.float32)
 
@@ -132,11 +138,13 @@ def seg_moments_plain(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     """(nseg, 2, 2) f32 ``[[Σx·[x ≥ t⁺], n⁺], [Σx·[x ≤ −t⁻], n⁻]]``.
 
     params rows ``(seg, t⁺, t⁻)``.  Per-block partials first, then each
-    segment's partials in block order (the CPU's ``index_add_`` adds them
-    sequentially).  Pad zeros are never selected since t⁺, t⁻ > 0.
+    segment's partials; sums are taken in f64 and rounded to f32 once, as
+    the kernel does, and with ``torch.sum`` only (no atomics), so the
+    result is the same from run to run on the CPU and on the card.  Pad
+    zeros are never selected since t⁺, t⁻ > 0.
     """
     nblocks = xpad.shape[0] // bm
-    x = xpad.reshape(nblocks, bm * lanes)
+    x = xpad.reshape(nblocks, bm * lanes).to(torch.float64)
     pos = x >= params[:, 1, None]
     neg = x <= -params[:, 2, None]
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
@@ -144,8 +152,10 @@ def seg_moments_plain(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
         torch.stack([torch.where(pos, x, zero).sum(1), pos.sum(1).to(x.dtype)], 1),
         torch.stack([torch.where(neg, x, zero).sum(1), neg.sum(1).to(x.dtype)], 1),
     ], 1)  # (nblocks, 2, 2)
-    out = torch.zeros((nseg, 2, 2), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, params[:, 0].to(torch.int64), block)
+    segs = torch.arange(nseg, device=x.device)
+    member = params[None, :, 0].to(torch.int64) == segs[:, None]  # (nseg, nblocks)
+    out = torch.where(member[:, :, None, None], block[None], zero).sum(1)
+    return out.to(torch.float32)
 
 
 def seg_moments(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
@@ -153,22 +163,19 @@ def seg_moments(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     """(nseg, 2, 2) f32 masked moments; see :func:`seg_moments_plain`.
 
     Replaces the Pallas ``repro.kernels.flat.seg_moments``.  On the card:
-    two launches (per-block partials, then a fixed-order per-segment
+    two launches (per-block f64 partials, then a fixed-order per-segment
     reduction), counted as one call of this wrapper.
     """
     nblocks = _check(xpad, params, 3, bm, lanes)
     if not xpad.is_cuda:
         return seg_moments_plain(xpad, params, nseg=nseg, bm=bm, lanes=lanes)
     dev = xpad.device
-    psum = torch.empty((nblocks, 2), dtype=torch.float32, device=dev)
+    psum = torch.empty((nblocks, 2), dtype=torch.float64, device=dev)
     pcnt = torch.empty((nblocks, 2), dtype=torch.int32, device=dev)
     out = torch.empty((nseg, 2, 2), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    err = lib.seg_moments_launch(
-        xpad.data_ptr(), params.data_ptr(), psum.data_ptr(), pcnt.data_ptr(),
-        out.data_ptr(), nblocks, bm * lanes, nseg, _stream(xpad),
-    )
-    _build.check(err, "seg_moments")
+    _launch(_build.library().seg_moments_launch, "seg_moments", xpad,
+            xpad.data_ptr(), params.data_ptr(), psum.data_ptr(), pcnt.data_ptr(),
+            out.data_ptr(), nblocks, bm * lanes, nseg)
     seg_moments.launches += 1
     return out
 
@@ -209,12 +216,9 @@ def seg_binarize_apply(xpad: torch.Tensor, params: torch.Tensor, *,
         return seg_binarize_apply_plain(xpad, params, bm=bm, lanes=lanes)
     out = torch.empty_like(xpad)
     res = torch.empty_like(xpad)
-    lib = _build.library()
-    err = lib.seg_binarize_apply_launch(
-        xpad.data_ptr(), params.data_ptr(), out.data_ptr(), res.data_ptr(),
-        nblocks, bm * lanes, _stream(xpad),
-    )
-    _build.check(err, "seg_binarize_apply")
+    _launch(_build.library().seg_binarize_apply_launch, "seg_binarize_apply", xpad,
+            xpad.data_ptr(), params.data_ptr(), out.data_ptr(), res.data_ptr(),
+            nblocks, bm * lanes)
     seg_binarize_apply.launches += 1
     return out, res
 

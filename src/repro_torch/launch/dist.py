@@ -5,9 +5,10 @@ its step on a mesh; on one device that mesh is
 ``Mesh(devices.reshape(1, 1), ("data", "model"))``, which gives one client
 on the "data" axis and a size-1 "model" axis.  This slice ports exactly
 that topology with the §11 flat fast path and the hist engine, where every
-leaf is SBC-compressed.  More clients (``torch.distributed``), the
-per-leaf and exact exchanges, and other codecs raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+leaf is SBC-compressed and the residual is f32.  ``repro_torch.run.build_run``
+refuses every other combination (more clients over ``torch.distributed``,
+the per-leaf and exact exchanges, other codecs) with
+``NotImplementedError`` naming the ROADMAP item that brings it.
 
 Behaviour of the reference that the step reproduces as it is:
 
@@ -34,12 +35,12 @@ from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import AdamState, get_optimizer
 
 
-def client_topology(cfg: ModelConfig, n_devices: int = 1) -> tuple[int, tuple[str, ...]]:
-    """(n_clients, client axes) of the in-process topology: one "data"
-    axis over ``n_devices`` devices and a size-1 "model" axis."""
+def client_topology(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
+    """(n_clients, client axes) of the one-device topology: a size-1
+    "data" axis and a size-1 "model" axis."""
     if cfg.client_mode == "pod":
         return 1, ()  # the in-process topology has no "pod" axis
-    return n_devices, ("data",)
+    return 1, ("data",)
 
 
 class DistTrainFns(NamedTuple):
@@ -65,49 +66,20 @@ def _zip_states(fn, states):
 def build_dist_train(
     cfg: ModelConfig,
     *,
-    compressor: str = "sbc",
     sparsity: float = 0.001,
     model: Optional[Model] = None,
-    fast: Optional[bool] = None,
-    flat_engine: str = "exact",
     device=None,
-    n_devices: int = 1,
 ) -> DistTrainFns:
-    """Build the DSGD train step for ``cfg`` on one device.
+    """Build the DSGD train step for ``cfg`` on one device: the reference's
+    ``compressor='sbc', fast=True, flat_engine='hist'`` route.
 
     State = ``{'params', 'opt', 'residual'}``; the batch has a leading
-    client axis of size ``client_topology(cfg)[0]`` (1 here).  Only the
-    flat hist route is ported: ``compressor='sbc'``, ``fast=True`` and
-    ``flat_engine='hist'``.
+    client axis of size ``client_topology(cfg)[0]`` (1 here).
     """
-    if compressor != "sbc":
-        raise NotImplementedError(
-            f"compressor {compressor!r}: only 'sbc' is ported; the other codecs "
-            "come with ROADMAP A2 and A12"
-        )
-    if not fast:
-        raise NotImplementedError(
-            "the per-leaf GSPMD exchange (fast=False) comes with ROADMAP A9"
-        )
-    if flat_engine != "hist":
-        raise NotImplementedError(
-            f"flat_engine={flat_engine!r}: the exact engine comes with ROADMAP "
-            "A4 (local) and A9 (sharded)"
-        )
-    if n_devices != 1:
-        raise NotImplementedError(
-            "one client per device across several cards needs "
-            "torch.distributed (ROADMAP A9)"
-        )
-    if cfg.residual_dtype != torch.float32:
-        raise NotImplementedError(
-            "a non-f32 residual takes the per-leaf exchange (ROADMAP A9)"
-        )
     device = resolve_device(device)
     model = model or build_model(cfg)
-    n_clients, client_axes = client_topology(cfg, n_devices)
-    opt_kw = {} if cfg.local_opt == "sgd" else {"state_dtype": cfg.residual_dtype}
-    opt = get_optimizer(cfg.local_opt, **opt_kw)
+    n_clients, client_axes = client_topology(cfg)
+    opt = get_optimizer(cfg.local_opt)
 
     # leaf plan from the parameter shapes (every leaf replicated: one shard)
     shapes = {k: tuple(v.shape) for k, v in model.init(torch.Generator()).items()}
@@ -129,8 +101,7 @@ def build_dist_train(
     )
     channel = ShardedGspmdChannel(
         leaves=leaves, client_axes=client_axes, n_clients=n_clients,
-        flat_space=space, residual_dtype=cfg.residual_dtype,
-        flat_engine=flat_engine,
+        flat_space=space,
     )
     bits = channel.bits()
 
@@ -156,8 +127,7 @@ def build_dist_train(
                 p2, os2 = opt.apply(_zip_states(lambda v: v[0][c], [state["opt"]]),
                                     grads, params, cfg.base_lr, 0)
                 deltas.append({
-                    k: (p2[k].to(torch.float32) - params[k].to(torch.float32)
-                        ).to(cfg.residual_dtype)
+                    k: p2[k].to(torch.float32) - params[k].to(torch.float32)
                     for k in keys
                 })
             opt_states.append(os2)

@@ -128,10 +128,7 @@ def build_run(spec: RunSpec, device=None) -> GspmdRun:
     cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
                              seed=spec.seed, device=dev)
     model = build_model(cfg)
-    fns = build_dist_train(
-        cfg, compressor=spec.compressor, sparsity=spec.sparsity, model=model,
-        fast=spec.fast, flat_engine=spec.flat_engine, device=dev,
-    )
+    fns = build_dist_train(cfg, sparsity=spec.sparsity, model=model, device=dev)
     n_clients, _ = client_topology(cfg)
     return GspmdRun(spec=spec, cfg=cfg, model=model, task=task,
                     channel=fns.channel, fns=fns, n_clients=n_clients, device=dev)

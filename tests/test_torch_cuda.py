@@ -8,7 +8,9 @@ it as ``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``.
 Tolerances, on the same device and inputs:
   * histogram and moment counts are integers: equal;
   * ``seg_binarize_apply`` is elementwise: bit-equal;
-  * moment sums are f32 sums taken in another order: ``rtol=1e-6``.
+  * moment sums: the kernel and the plain version both sum in f64, in
+    other orders, and round to f32 once, so they differ by at most one
+    f32 ulp (2⁻²³ relative); held to ``rtol=1e-6``.
 """
 import numpy as np
 import pytest
@@ -107,6 +109,33 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     misaligned = x.reshape(-1)[1:1 + x.numel() - LANES].reshape(-1, LANES)[:x.shape[0] - BM]
     with pytest.raises(ValueError):
         tflat.seg_binarize_apply(misaligned, t(np.zeros((p5.shape[0] - 1, 4), np.float32), cuda))
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_the_operands_card(cuda):
+    """Operands on the last card while card 0 is current: every kernel
+    runs on the operands' card (on a one-card machine both are card 0)."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    sizes, zero = LAYOUTS["ragged"]
+    segs, xpad, sob = segment_layout(sizes, seed=17, zero_segments=zero)
+    x = t(xpad, dev)
+    p5 = t(hist_params(sob, *coarse_ranges(segs)), dev)
+    p3 = p5[:, [0, 1, 3]].contiguous()  # (seg, t+ = lo+, t- = lo-)
+    p4 = torch.cat([p5[:, [1, 3]], p5[:, 2:3], (p5[:, :1] % 2)], 1).contiguous()
+    with torch.cuda.device(0):
+        got = [tflat.seg_hist2side(x, p5, nseg=len(segs)),
+               tflat.seg_moments(x, p3, nseg=len(segs)),
+               *tflat.seg_binarize_apply(x, p4)]
+    torch.cuda.synchronize(dev)
+    want = [tflat.seg_hist2side_plain(x, p5, nseg=len(segs)),
+            tflat.seg_moments_plain(x, p3, nseg=len(segs)),
+            *tflat.seg_binarize_apply_plain(x, p4)]
+    assert all(g.device == dev for g in got)
+    np.testing.assert_array_equal(n(got[0]), n(want[0]))
+    np.testing.assert_array_equal(n(got[1])[:, :, 1], n(want[1])[:, :, 1])
+    np.testing.assert_allclose(n(got[1])[:, :, 0], n(want[1])[:, :, 0], rtol=1e-6)
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
 
 
 @pytest.mark.cuda

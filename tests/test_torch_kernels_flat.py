@@ -7,8 +7,9 @@ plain versions on the card.
 
 Tolerances:
   * ``seg_binarize_apply`` is elementwise compare/select/subtract: bit-equal.
-  * ``seg_moments`` counts are integers: equal.  Sums are f32 sums over
-    up to a few thousand entries taken in another order: ``rtol=1e-6``.
+  * ``seg_moments`` counts are integers: equal.  Sums over up to a few
+    thousand entries, in f32 by the JAX kernel and in f64 rounded once by
+    the port: ``rtol=1e-6``.
   * ``seg_hist2side`` counts are equal except next to a bucket edge: XLA's
     and torch's CPU ``log2`` differ by one ulp on about 25% of inputs, so
     an entry whose bucket coordinate (in float64) lies within ``1e-4`` of

@@ -49,7 +49,7 @@ def test_loss_and_grads_match_jax(img_size):
         jparams, {k: jnp.asarray(v) for k, v in bt.items()})
 
     params = {k: p.requires_grad_(True) for k, p in
-              params_from_jax(jax.tree.map(np.asarray, jparams)).items()}
+              params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu").items()}
     loss = tmodel.loss_fn(params, {"images": t(bt["images"]),
                                    "labels": t(bt["labels"]).long()})
     keys = sorted(params)
@@ -132,7 +132,8 @@ def _leaves(state):
 
 
 def test_blob_task_is_deterministic_per_step_and_client():
-    task = make_classification_task(n_classes=10, img_size=28, channels=1, batch=6)
+    task = make_classification_task(n_classes=10, img_size=28, channels=1, batch=6,
+                                    device="cpu")
     a, b = task.sample(3, 0), task.sample(3, 0)
     assert tuple(a["images"].shape) == (6, 28, 28, 1) and a["images"].dtype == torch.float32
     assert tuple(a["labels"].shape) == (6,) and int(a["labels"].max()) < 10
@@ -141,6 +142,7 @@ def test_blob_task_is_deterministic_per_step_and_client():
     assert not torch.equal(a["images"], task.sample(4, 0)["images"])
     # same distribution as the reference: class means of scale 0.5, noise 0.35
     jt = j_task(n_classes=10, img_size=28, channels=1, batch=256)
-    tt = make_classification_task(n_classes=10, img_size=28, channels=1, batch=256)
+    tt = make_classification_task(n_classes=10, img_size=28, channels=1, batch=256,
+                                  device="cpu")
     np.testing.assert_allclose(float(tt.sample(0, 0)["images"].std()),
                                float(jnp.std(jt.sample(0, 0)["images"])), rtol=0.05)

@@ -45,11 +45,12 @@ from repro.optim.optimizers import get_optimizer as j_get_optimizer
 from repro.run.flags import build_parser as j_build_parser
 from repro.run.spec import RunSpec as JRunSpec
 from repro_torch.configs.base import get_config
-from repro_torch.convert import state_from_jax
+from repro_torch.convert import params_from_jax, state_from_jax
 from repro_torch.core.flat import _hist_pipeline as t_hist_pipeline
+from repro_torch.data import make_classification_task
 from repro_torch.kernels import flat as tflat
 from repro_torch.launch.dist import build_dist_train
-from repro_torch.run import RunSpec, build_parser, build_run
+from repro_torch.run import RunSpec, build_parser, build_preset, build_run
 from torch_helpers import n, near_edge_mask, t
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -69,8 +70,7 @@ def pair():
     jfns = j_build_dist_train(jcfg, one_device_mesh(), compressor="sbc",
                               sparsity=0.01, fast=True, flat_engine="hist")
     tfns = build_dist_train(dataclasses.replace(get_config("lenet5"), img_size=12),
-                            compressor="sbc", sparsity=0.01, fast=True,
-                            flat_engine="hist", device="cpu")
+                            sparsity=0.01, device="cpu")
     jstate = jfns.init_state(jax.random.PRNGKey(0))
     rng = np.random.default_rng(42)
     jstate["opt"] = JAdamState(
@@ -101,7 +101,7 @@ def t_batch(b):
 def test_three_rounds_match_jax(pair):
     _, jfns, tfns, np_state = pair
     jstate = jax.tree.map(jnp.asarray, np_state)
-    tstate = state_from_jax(np_state)
+    tstate = state_from_jax(np_state, device="cpu")
     for r, b in enumerate(batches(3)):
         jstate, jm = jfns.train_step(jstate, j_batch(b))
         tstate, tm = tfns.train_step(tstate, t_batch(b))
@@ -223,6 +223,30 @@ def test_build_run_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         build_run(RunSpec(**SLICE))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build_preset("lenet5", batch=8, seq_len=64)
+
+
+@pytest.mark.parametrize("entry", ["make_classification_task", "params_from_jax",
+                                   "state_from_jax", "build_dist_train"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Every entry point that takes a device runs on the card unless the
+    caller passes ``device="cpu"``: without a card it raises, never
+    carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    leaf = {"w": np.ones((2, 3), np.float32)}
+    call = {
+        "make_classification_task": lambda **kw: make_classification_task(
+            n_classes=10, img_size=4, channels=1, batch=2, **kw),
+        "params_from_jax": lambda **kw: params_from_jax(leaf, **kw),
+        "state_from_jax": lambda **kw: state_from_jax(
+            {"params": leaf, "opt": (), "residual": np.zeros((1, 1, 8), np.float32)}, **kw),
+        "build_dist_train": lambda **kw: build_dist_train(
+            dataclasses.replace(get_config("lenet5"), img_size=12), sparsity=0.01, **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        call()
+    call(device="cpu")
 
 
 @pytest.mark.parametrize("change", [
