@@ -9,27 +9,43 @@ beside it.  Phases, each of which fails the run:
 
   1. print the card's name and power limit (``nvidia-smi``); build the
      CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
-     ``sm_90a`` and print the build time;
-  2. the main path: ``repro_torch.run.build_run`` for LeNet5 (1,256,010
+     ``sm_90a`` (one ``nvcc`` per source, all at once) and print the build
+     time;
+  2. the hist path: ``repro_torch.run.build_run`` for LeNet5 (1,256,010
      parameters, batch 128, p = 0.01) on the GSPMD backend's flat hist
-     engine, 5 rounds.  The kernels' launch counts are set to 0 just
+     engine, 5 rounds.  Every kernel's launch count is set to 0 just
      before and read just after; every round must launch
-     ``seg_hist2side`` twice and ``seg_moments`` and
-     ``seg_binarize_apply`` once, every loss must be finite, and the last
-     round's residual must be ``acc − ΔW*`` bit for bit with each
-     segment's ΔW* holding only 0 and that segment's μ;
-  3. the last round's accumulator goes through the hist pipeline once
-     more, with each kernel's operands captured: each kernel is held
-     against its plain PyTorch version on the same operands (counts
-     equal, binarize bit-equal, moment sums to ``rtol=1e-6``, with the
-     largest relative error printed), the whole kernel pipeline against
-     the whole plain pipeline, and both are timed;
-  4. print one ``{"kernels": [...]}`` line, then the card line, then the
-     last line ``{"ok": true, "device": {...}}``.
+     ``seg_hist2side`` twice, ``seg_moments`` and ``seg_binarize_apply``
+     once and no packer, every loss must be finite, and the last round's
+     residual must be ``acc − ΔW*`` bit for bit with each segment's ΔW*
+     holding only 0 and that segment's μ.  The last round's accumulator
+     goes through the hist pipeline once more with each kernel's operands
+     captured: each kernel is held against its plain PyTorch version on
+     the same operands (counts equal, binarize bit-equal, moment sums to
+     ``rtol=1e-6``, with the largest relative error printed), the kernel
+     pipeline against the plain pipeline, and both are timed;
+  3. the exact path: ``build_run`` for the same model on the exact engine
+     with the device-packed Golomb wire and wire metering
+     (``flat_engine="exact", device_pack=True, measure_wire=True``), 5
+     rounds.  Every round must launch ``seg_packbits`` once and nothing
+     else; every loss must be finite; on the last round the residual must
+     be ``acc − ΔW*`` bit for bit, and each (segment, row) of ΔW* must
+     hold one value ±μ in exactly k slots; every (segment, row)'s slice of
+     the packed words and its bit count must equal the host Golomb
+     encoder's bytes of the row's positions (``encode_positions_packed``),
+     byte for byte; ``seg_select_pack`` on the same rows' masks must give
+     the same words and bit counts; and the ledger's measured bits must be
+     Σ nbits + 32 · n_mu for every round.  ``seg_packbits`` is held
+     against its plain version on the path's own bit planes and
+     ``seg_select_pack`` on the path's masks (both exactly), and both are
+     timed (``seg_select_pack`` on the largest row, f1);
+  4. print one ``{"kernels": [...]}`` line with all five kernels, then the
+     card line, then the last line ``{"ok": true, "device": {...}}``.
 
-After the five rounds one more round runs under ``torch.profiler`` and
-the script prints its device-busy share and its costliest device
-operations.
+After each path's five rounds one more round runs under ``torch.profiler``
+and the script prints its device-busy share and its costliest device
+operations; the exact path also prints the host-clock time of its
+exchange with and without the device pack, on the last round's operands.
 
 ``ms`` and ``plain_ms`` are device time per call of the wrapper and of
 the plain version, from CUPTI (``torch.profiler``): the sum over all the
@@ -41,8 +57,9 @@ between CUDA events would include the host's cost of a launch through
 the Python wrapper, several times the kernels' own; so the script fails
 if the profiler sees no device time, and has no other timing.  The bound
 is the larger of bytes moved (each input read once, each output written
-once) over 3.35 TB/s and operations over 67 TFLOP/s (an H100 SXM's
-published f32 rates).
+once) over 3.35 TB/s and operations over 67 T/s (an H100 SXM's published
+f32 rate outside the tensor cores, used for the packers' integer
+operations too).
 """
 from __future__ import annotations
 
@@ -56,17 +73,32 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+OPS_PER_S = 67e12
 ROUNDS = 5
-PER_ROUND = {"seg_hist2side": 2, "seg_moments": 1, "seg_binarize_apply": 1}
-SOURCE = "src/repro_torch/kernels/csrc/seg_sbc.cu"
+KERNELS = ("seg_hist2side", "seg_moments", "seg_binarize_apply", "seg_packbits",
+           "seg_select_pack")
+HIST_PER_ROUND = {"seg_hist2side": 2, "seg_moments": 1, "seg_binarize_apply": 1,
+                  "seg_packbits": 0, "seg_select_pack": 0}
+EXACT_PER_ROUND = {"seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0,
+                   "seg_packbits": 1, "seg_select_pack": 0}
+SOURCE = {
+    "seg_hist2side": "src/repro_torch/kernels/csrc/seg_sbc.cu",
+    "seg_moments": "src/repro_torch/kernels/csrc/seg_sbc.cu",
+    "seg_binarize_apply": "src/repro_torch/kernels/csrc/seg_sbc.cu",
+    "seg_packbits": "src/repro_torch/kernels/csrc/pack.cu",
+    "seg_select_pack": "src/repro_torch/kernels/csrc/pack.cu",
+}
 REPLACES = {
     "seg_hist2side": "src/repro/kernels/flat.py:71",
     "seg_moments": "src/repro/kernels/flat.py:126",
     "seg_binarize_apply": "src/repro/kernels/flat.py:168",
+    "seg_packbits": "src/repro/kernels/pack.py:128",
+    "seg_select_pack": "src/repro/kernels/pack.py:183",
 }
-# operations per element of the buffer, counted from each kernel's body
+# operations per element of the buffer, counted from each SBC kernel's body
 OPS_PER_ELEMENT = {"seg_hist2side": 12, "seg_moments": 4, "seg_binarize_apply": 3}
+SPEC = dict(preset="lenet5", backend="gspmd", fast=True, sparsity=0.01, batch=128,
+            rounds=ROUNDS)
 
 
 class SmokeFailure(Exception):
@@ -115,6 +147,27 @@ def device_ms(fn, operands, iters: int) -> float:
     return total_us / iters / 1e3
 
 
+def copies_past_l2(nbytes: int) -> int:
+    """How many copies of ``nbytes`` of operands exceed the 50 MB L2."""
+    return max(2, -(-60_000_000 // max(nbytes, 1)))
+
+
+def kernel_row(name, launches, err, ms, plain_ms, nbytes, ops) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+    print(f"{name}: {ms * 1e3:.2f} us device per call, plain {plain_ms * 1e3:.2f} us, "
+          f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes} bytes), "
+          f"{launches} launches on the path")
+    return row
+
+
 def recording(module, names, log):
     """Stand-ins for ``module.<name>`` that append ``(name, args, kwargs)``
     to ``log`` and call through."""
@@ -140,85 +193,69 @@ def swapped(module, replacements):
             setattr(module, name, fn)
 
 
-def main() -> int:
+def drive(run, exchange_name: str, per_round: dict, label: str) -> dict:
+    """Five rounds of ``run`` with the launch counts set to 0 just before
+    and read just after; the space's ``exchange_name`` method is observed
+    so the last round's operands and outputs are kept.  Returns the
+    capture: ``launches`` (counts of the run), ``last`` (bodies, res, out
+    of the last exchange), ``metrics`` (each round's train-step metrics,
+    before the run's metering consumes them) and the run's ``state``."""
     import torch
+    from repro_torch import kernels
 
-    if not torch.cuda.is_available():
-        raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
-    check((ROOT / "src" / "repro_torch").is_dir(),
-          f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import flat as core_flat
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flat as kflat
-    from repro_torch.run import RunSpec, build_run
-
-    # a parity port of an f32 reference: full f32 matmuls and convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-
-    # ---- 1. card and build
-    card = card_line()
-    print(f"card: {card}")
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    print(f"built {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-
-    # ---- 2. the main path
-    spec = RunSpec(preset="lenet5", backend="gspmd", fast=True, flat_engine="hist",
-                   sparsity=0.01, batch=128, rounds=ROUNDS)
-    run = build_run(spec, device="cuda:0")
     space = run.fns.flat_space
-    n_params = sum(s.global_size for s in space.segments)
-    print(f"lenet5: {n_params} params in {len(space.segments)} segments, "
-          f"{space.n_blocks} blocks, n_pad {space.n_pad}; "
-          f"bits_per_client {run.fns.bits_per_client:.1f}")
-    check(n_params == 1_256_010 and space.n_pad == 1_259_520, "LeNet5 layout")
-
-    last = {}
-    exchange = space.exchange_local_hist
+    exchange = getattr(space, exchange_name)
+    last, metrics = {}, []
 
     def observed_exchange(bodies, res_flat, **kw):
         out = exchange(bodies, res_flat, **kw)
         last.update(bodies=[b.clone() for b in bodies], res=res_flat.clone(), out=out)
         return out
 
-    space.exchange_local_hist = observed_exchange
-    state = run.init()
-    torch.cuda.synchronize()
-    kflat.reset_launches()
-    losses, per_round = [], []
-    for r in range(ROUNDS):
-        before = kflat.launch_counts()
-        t0 = time.perf_counter()
-        state, m = run.step(state, r)
-        loss = float(m["loss"])
+    step = run.fns.train_step
+
+    def observed_step(state, batch):
+        state, m = step(state, batch)
+        metrics.append(dict(m))
+        return state, m
+
+    setattr(space, exchange_name, observed_exchange)
+    run.fns = run.fns._replace(train_step=observed_step)
+    try:
+        state = run.init()
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3
-        after = kflat.launch_counts()
-        per_round.append({k: after[k] - before[k] for k in after})
-        losses.append(loss)
-        print(f"round {r + 1}: loss {loss:.6f}  step {step_ms:.3f} ms  launches {per_round[-1]}")
-    launches = kflat.launch_counts()
-    del space.exchange_local_hist
-    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
-    check(all(p == PER_ROUND for p in per_round), f"launches per round {per_round}")
-
+        kernels.reset_launches()
+        losses, counts = [], []
+        for r in range(ROUNDS):
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            state, m = run.step(state, r)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            after = kernels.launch_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+            losses.append(loss)
+            print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms:.3f} ms  "
+                  f"launches {counts[-1]}")
+        launches = kernels.launch_counts()
+    finally:
+        delattr(space, exchange_name)
+        run.fns = run.fns._replace(train_step=step)
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss: {losses}")
+    check(all(c == per_round for c in counts), f"{label}: launches per round {counts}")
     acc = last["res"] + space.flatten_local(last["bodies"])
-    mean, own, new_res = last["out"]
+    mean, own, new_res = last["out"][:3]
     check(torch.equal(new_res.view(torch.int32), (acc - own).view(torch.int32)),
-          "residual != acc - dW* bit for bit")
-    check(mean is own, "one client: the mean is the client's own dW*")
-    for i, s in enumerate(space.segments):
-        vals = torch.unique(own[s.offset:s.offset + s.rows * s.n_loc])
-        nonzero = vals[vals != 0]
-        check(nonzero.numel() <= 1, f"segment {s.path}: dW* holds {nonzero.numel()} values")
-    print(f"last round: residual == acc - dW* bit for bit; dW* per segment is 0 or its mu; "
-          f"{int((own != 0).sum())} entries sent")
+          f"{label}: residual != acc - dW* bit for bit")
+    check(mean is own, f"{label}: one client: the mean is the client's own dW*")
+    return {"launches": launches, "last": last, "acc": acc, "metrics": metrics,
+            "state": state}
 
-    # one more round under the profiler: where a round's time goes
+
+def profiled_round(run, state, label: str) -> None:
+    """One more round under the profiler: where a round's time goes."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -230,14 +267,43 @@ def main() -> int:
         step_ms = (time.perf_counter() - t0) * 1e3
     events = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
     busy_ms = sum(_self_device_us(e) for e in events) / 1e3
-    check(busy_ms > 0, "torch.profiler saw no device time in the profiled round")
-    print(f"profiled round {ROUNDS + 1}: step {step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / step_ms:.1f}% of the step), {sum(e.count for e in events)} "
-          f"device operations; top by device time:")
-    for e in events[:10]:
+    check(busy_ms > 0, f"{label}: torch.profiler saw no device time in the profiled round")
+    print(f"{label} profiled round {ROUNDS + 1}: step {step_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / step_ms:.1f}% of the step), "
+          f"{sum(e.count for e in events)} device operations; top by device time:")
+    for e in events[:12]:
         print(f"  {_self_device_us(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:100]}")
 
-    # ---- 3. each kernel against its plain version, on the path's operands
+
+# --------------------------------------------------------------- hist path
+
+
+def hist_path(dev) -> dict:
+    """Phase 2; returns the three SBC kernels' rows of the kernels line."""
+    import torch
+    from repro_torch.core import flat as core_flat
+    from repro_torch.kernels import flat as kflat
+    from repro_torch.run import RunSpec, build_run
+
+    run = build_run(RunSpec(**SPEC, flat_engine="hist"), device=dev)
+    space = run.fns.flat_space
+    n_params = sum(s.global_size for s in space.segments)
+    print(f"lenet5: {n_params} params in {len(space.segments)} segments, "
+          f"{space.n_blocks} blocks, n_pad {space.n_pad}; "
+          f"bits_per_client {run.fns.bits_per_client:.1f}")
+    check(n_params == 1_256_010 and space.n_pad == 1_259_520, "LeNet5 layout")
+
+    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, "hist")
+    acc, own = cap["acc"], cap["last"]["out"][1]
+    for s in space.segments:
+        vals = torch.unique(own[s.offset:s.offset + s.rows * s.n_loc])
+        nonzero = vals[vals != 0]
+        check(nonzero.numel() <= 1, f"segment {s.path}: dW* holds {nonzero.numel()} values")
+    print(f"hist last round: residual == acc - dW* bit for bit; dW* per segment is 0 or "
+          f"its mu; {int((own != 0).sum())} entries sent")
+    profiled_round(run, cap["state"], "hist")
+
+    # each kernel against its plain version, on the path's operands
     bounds = [(s.offset, s.rows * s.n_loc) for s in space.segments]
     ks = [s.k for s in space.segments]
     rates = [s.rate for s in space.segments]
@@ -247,8 +313,9 @@ def main() -> int:
         return core_flat._hist_pipeline(acc, bounds, ks, rates, sob, space.n_blocks,
                                         space.bm, space.lanes, 128)
 
+    names = ("seg_hist2side", "seg_moments", "seg_binarize_apply")
     calls: list = []
-    with swapped(core_flat, recording(core_flat, PER_ROUND, calls)):
+    with swapped(core_flat, recording(core_flat, names, calls)):
         k_out, k_res, k_stats = pipeline()
     plain = {"seg_hist2side": kflat.seg_hist2side_plain,
              "seg_moments": kflat.seg_moments_plain,
@@ -291,28 +358,172 @@ def main() -> int:
         out_bytes = {"seg_hist2side": 4 * kwargs.get("nseg", 0) * 2 * kwargs.get("nbins", 128),
                      "seg_moments": 4 * kwargs.get("nseg", 0) * 4,
                      "seg_binarize_apply": 2 * 4 * xpad.numel()}[name]
-        nbytes = 4 * (xpad.numel() + params.numel()) + out_bytes
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_ELEMENT[name] * xpad.numel() / F32_OPS_PER_S * 1e3
-        rows[name] = {
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": err,
-            "ms": device_ms(fn_k, copies, 240), "plain_ms": device_ms(fn_p, copies, 48),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-        }
+        rows[name] = kernel_row(
+            name, cap["launches"][name], err, device_ms(fn_k, copies, 240),
+            device_ms(fn_p, copies, 48), 4 * (xpad.numel() + params.numel()) + out_bytes,
+            OPS_PER_ELEMENT[name] * xpad.numel())
         del copies
-        r = rows[name]
-        print(f"{name}: {r['ms'] * 1e3:.2f} us device per call, plain "
-              f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']}, {nbytes} bytes), {r['launches']} launches on the path")
-    check(set(rows) == set(PER_ROUND), f"kernels compared: {sorted(rows)}")
+    check(set(rows) == set(names), f"kernels compared: {sorted(rows)}")
     print(f"seg_moments: sums' largest relative error {moments_rel:.3e} over "
           f"{sum(1 for c in calls if c[0] == 'seg_moments')} calls (limit 1e-6)")
+    return rows
+
+
+# -------------------------------------------------------------- exact path
+
+
+def exact_path(dev) -> dict:
+    """Phase 3; returns the two packers' rows of the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.core import flat as core_flat
+    from repro_torch.core.golomb import encode_positions_packed, packed_words_to_bytes
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.run import RunSpec, build_run
+
+    run = build_run(RunSpec(**SPEC, flat_engine="exact", device_pack=True,
+                            measure_wire=True), device=dev)
+    space = run.fns.flat_space
+    print(f"exact: n_mu {space.n_mu}, n_pos {space.n_pos}, n_pack_words "
+          f"{space.n_pack_words}; (b*, words/row, word offset) per segment "
+          f"{list(space._pack_info)}")
+    check((space.n_mu, space.n_pos, space.n_pack_words) == (6, 12_561, 3_358),
+          "LeNet5 exact layout")
+    cap = drive(run, "exchange_local", EXACT_PER_ROUND, "exact")
+
+    # the last round: ΔW* per (segment, row) is ±μ in exactly k slots, and
+    # its packed stream is the host encoder's bytes
+    _, own, _, words, nbits = cap["last"]["out"]
+    m_last = cap["metrics"][-1]
+    check(torch.equal(m_last["packed_words_client0"][0].view(torch.int32),
+                      words.view(torch.int32)), "packed_words_client0 != the exchange's words")
+    own_np, words_np, nbits_np = own.cpu().numpy(), words.cpu().numpy(), nbits.cpu().numpy()
+    masks, mu_row = [], 0
+    for s, (b, w, off) in zip(space._sparse, space._pack_info):
+        x = own_np[s.offset:s.offset + s.rows * s.n_loc].reshape(s.rows, s.n_loc)
+        for r in range(s.rows):
+            pos = np.flatnonzero(x[r])
+            vals = np.unique(x[r][pos])
+            check(pos.size == s.k and vals.size == 1,
+                  f"{s.path} row {r}: dW* holds {vals.size} values in {pos.size} slots, "
+                  f"not one in k={s.k}")
+            host, host_nb = encode_positions_packed(pos, s.rate)
+            nb = int(nbits_np[mu_row])
+            check(nb == host_nb and packed_words_to_bytes(
+                words_np[off + r * w:off + (r + 1) * w], nb) == host,
+                f"{s.path} row {r}: packed words are not the host encoder's bytes")
+            mu_row += 1
+        masks.append((s, b, w, off, torch.from_numpy((x != 0).astype(np.int32)).to(dev)))
+    print(f"exact last round: residual == acc - dW* bit for bit; each of {space.n_mu} "
+          f"rows holds one +-mu in exactly k slots; its packed words are the host "
+          f"encoder's bytes ({int(nbits_np.sum())} bits)")
+
+    # the ledger meters Σ nbits + 32 bits per μ every round
+    led = run.ledger.history()["up_bits_measured"]
+    want = [float(m["packed_nbits"].sum()) + 32.0 * space.n_mu for m in cap["metrics"]]
+    check(led == want, f"ledger measured bits {led} != sum(nbits) + 32 n_mu {want}")
+    print(f"ledger: up_bits_measured per round {led} (analytic "
+          f"{run.ledger.records[0].up_bits_analytic}); up bytes "
+          f"{run.ledger.totals()['up_bytes']}")
+    profiled_round(run, cap["state"], "exact")
+
+    # where the exchange's time goes: with and without the device pack
+    last = cap["last"]
+    for pack in (False, True):
+        for _ in range(2):
+            space.exchange_local(last["bodies"], last["res"], device_pack=pack)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            space.exchange_local(last["bodies"], last["res"], device_pack=pack)
+        torch.cuda.synchronize()
+        print(f"exact exchange_local (device_pack={pack}): "
+              f"{(time.perf_counter() - t0) * 100:.3f} ms host clock per call")
+
+    rows = {}
+    # seg_packbits on the path's own bit planes
+    calls: list = []
+    with swapped(core_flat, recording(core_flat, ("seg_packbits",), calls)):
+        space.exchange_local(last["bodies"], last["res"], device_pack=True)
+    check(len(calls) == 1, f"one seg_packbits call per exchange, saw {len(calls)}")
+    planes, kw = calls[0][1][0], calls[0][2]
+    got = kpack.seg_packbits(planes, **kw)
+    want = kpack.seg_packbits_plain(planes, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "seg_packbits: kernel words != plain words")
+    check(torch.equal(got[:space.n_pack_words].view(torch.int32), words.view(torch.int32)),
+          "seg_packbits: words != the path's words")
+    nwords = planes.shape[1]
+    print(f"seg_packbits: {nwords} words ({nwords // space.lanes} blocks of "
+          f"{space.lanes}) bit-equal to the plain version and the path")
+    copies = [(planes.clone(),) for _ in range(copies_past_l2(4 * planes.numel()))]
+    rows["seg_packbits"] = kernel_row(
+        "seg_packbits", cap["launches"]["seg_packbits"], 0.0,
+        device_ms(lambda p: kpack.seg_packbits(p, **kw), copies, 240),
+        device_ms(lambda p: kpack.seg_packbits_plain(p, **kw), copies, 48),
+        4 * (planes.numel() + nwords), 64 * nwords)
+    del copies
+
+    # seg_select_pack on the path's masks: the same words and bit counts
+    mu_row = 0
+    for s, b, w, off, mask in masks:
+        sw, snb = kpack.seg_select_pack(mask, k=s.k, bstar=b)
+        pw, pnb = kpack.seg_select_pack_plain(mask, k=s.k, bstar=b)
+        torch.cuda.synchronize()
+        seg_words = words[off:off + s.rows * w].view(torch.int32).reshape(s.rows, w)
+        check(torch.equal(sw.view(torch.int32), pw.view(torch.int32))
+              and torch.equal(snb, pnb), f"seg_select_pack {s.path}: kernel != plain")
+        check(torch.equal(sw.view(torch.int32), seg_words)
+              and torch.equal(snb, nbits[mu_row:mu_row + s.rows]),
+              f"seg_select_pack {s.path}: words != seg_packbits' words")
+        mu_row += s.rows
+    print("seg_select_pack: every segment's words and bit counts equal to its plain "
+          "version and to seg_packbits'")
+    s, b, w, off, mask = max(masks, key=lambda e: e[4].numel())
+    copies = [(mask.clone(),) for _ in range(copies_past_l2(4 * mask.numel()))]
+    nrows, n = mask.shape
+    rows["seg_select_pack"] = kernel_row(
+        "seg_select_pack", cap["launches"]["seg_select_pack"], 0.0,
+        device_ms(lambda m: kpack.seg_select_pack(m, k=s.k, bstar=b), copies, 60),
+        device_ms(lambda m: kpack.seg_select_pack_plain(m, k=s.k, bstar=b), copies, 12),
+        4 * (nrows * n + nrows * w + nrows), 2 * nrows * n + 8 * nrows * s.k)
+    print(f"seg_select_pack timed on {s.path}: n {n}, k {s.k}, {w} words")
+    del copies
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
+    check((ROOT / "src" / "repro_torch").is_dir(),
+          f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    # a parity port of an f32 reference: full f32 matmuls and convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # ---- 1. card and build
+    card = card_line()
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    libs = _build.build()
+    _build.library()
+    print(f"built {[str(p.relative_to(ROOT)) for p in libs]} in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- 2. and 3. the two paths
+    rows = hist_path(dev)
+    rows.update(exact_path(dev))
+    check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
 
     # ---- 4. results
-    print(json.dumps({"kernels": [rows[k] for k in PER_ROUND]}))
+    print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,13 @@ The port mirrors ``repro``'s module layout.  It imports ``torch`` and
 numpy only — never ``jax`` and never ``repro`` — and its entry points run
 on the CUDA card unless the caller passes ``device="cpu"``.
 
-This slice carries the GSPMD backend's flat hist engine on one card:
+The port carries the GSPMD backend on one card with both flat engines:
 ``repro_torch.run.build_run(RunSpec(preset="lenet5", backend="gspmd",
 fast=True, flat_engine="hist"))``, whose three SBC passes run on the
-hand-written CUDA kernels of :mod:`repro_torch.kernels.flat`.
+hand-written CUDA kernels of :mod:`repro_torch.kernels.flat`, and
+``flat_engine="exact"`` with ``device_pack=True, measure_wire=True``,
+whose Golomb wire is packed by the kernels of
+:mod:`repro_torch.kernels.pack` and metered into the ledger.
 """
 from repro_torch.device import on_cuda, resolve_device
 

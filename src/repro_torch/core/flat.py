@@ -1,9 +1,9 @@
 """Flat-buffer compression for the sharded backend: layout and hist engine.
 
-Counterpart of ``repro.core.flat`` (DESIGN.md §10/§11).  This slice ports
+Counterpart of ``repro.core.flat`` (DESIGN.md §10/§11).  The port carries
 the block-padded layout helpers, the three-pass hist pipeline, and the
-parts of :class:`ShardedFlatParamSpace` that the GSPMD backend's hist
-engine runs on one card.
+parts of :class:`ShardedFlatParamSpace` that the GSPMD backend runs on one
+card: the hist engine and the exact engine with its device-packed wire.
 
 Layout contract (identical to the reference):
 
@@ -21,11 +21,12 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.golomb import expected_position_bits
+from repro_torch.core.golomb import expected_position_bits, golomb_bstar
 from repro_torch.core.stages import k_for
 from repro_torch.kernels.flat import seg_binarize_apply, seg_hist2side, seg_moments
 from repro_torch.kernels.hist2side import SPAN_OCTAVES, bucket_lower_edges
 from repro_torch.kernels.ops import _side_threshold
+from repro_torch.kernels.pack import bits_from_positions, row_words, seg_packbits
 
 
 def _pad_maps(
@@ -131,6 +132,40 @@ def _hist_pipeline(
     return out_pad.reshape(-1), res_pad.reshape(-1), stats
 
 
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """f32 → int32 keys that order as the floats' total order does (−0
+    below +0): the bits, with the magnitude bits flipped for negatives."""
+    b = x.view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` along the last axis: the k largest entries under the
+    float total order, largest first, the lower index first among equal
+    values.  ``torch.topk`` orders ties arbitrarily and a float sort takes
+    ±0 as equal, so rank a stable sort of the total-order integer keys."""
+    idx = torch.sort(_total_order_key(x), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def _two_sided_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row of ``x[rows, n]``: paper Alg. 2's exact two-sided top-k.
+    Returns ``(idx int64[rows, k], mu f32[rows])``: the k largest entries
+    or the k most negative, whichever side's mean magnitude is larger, and
+    that side's signed mean.  Means are summed in f64 and rounded to f32
+    once (the reference sums in f32), so μ may differ from the reference's
+    in its last ulp; the selection does not."""
+    val_pos, idx_pos = _top_k(x, k)
+    val_neg, idx_neg = _top_k(-x, k)
+    mu_pos = val_pos.to(torch.float64).mean(-1).to(torch.float32)
+    mu_neg = val_neg.to(torch.float64).mean(-1).to(torch.float32)
+    pos_wins = mu_pos > mu_neg
+    idx = torch.where(pos_wins[:, None], idx_pos, idx_neg)
+    mu = torch.where(pos_wins, mu_pos, -mu_neg)
+    return idx, mu
+
+
 # ===================================================================== sharded
 
 
@@ -160,10 +195,11 @@ class ShardedFlatParamSpace:
     (DESIGN.md §11), holding every local leaf shard.
 
     The residual buffer has shape ``(n_clients, shards_per_client,
-    n_pad)``; each device owns its ``(1, 1, n_pad)`` slice.  This slice
-    runs one client on one card, so the hist exchange's ``pmean`` over
-    the client axes is the identity; more clients need
-    ``torch.distributed`` (ROADMAP A9) and raise ``NotImplementedError``.
+    n_pad)``; each device owns its ``(1, 1, n_pad)`` slice.  The port runs
+    one client on one card, so the exchange across the client axes (the
+    hist engine's ``pmean``, the exact engine's ``all_gather``) is the
+    identity; more clients need ``torch.distributed`` (ROADMAP A9) and
+    raise ``NotImplementedError``.
     """
 
     segments: Tuple[DistSegment, ...]
@@ -181,14 +217,47 @@ class ShardedFlatParamSpace:
         self.n_pad = self.n_blocks * per_block
         self.n_total = sum(sizes)
         seg_of_block = np.zeros((self.n_blocks,), np.int32)
+        dense_mask = np.zeros((self.n_pad,), bool)
         for i, (s, sz) in enumerate(zip(self.segments, sizes)):
             blk0 = s.offset // per_block
             nblk = max(1, -(-sz // per_block))
             seg_of_block[blk0:blk0 + nblk] = i
+            if s.kind == "dense":
+                dense_mask[s.offset:s.offset + sz] = True
         self.seg_of_block = seg_of_block
         self._pad_to_raw, self._pad_valid = _pad_maps(
             [s.offset for s in self.segments], sizes, self.n_pad
         )
+        self._dense_idx = np.flatnonzero(dense_mask).astype(np.int32)
+        # the exact engine's static maps: every (row, k-slot) of every
+        # sparse segment gets one position slot; ``_pos_row`` maps it to
+        # its row's slot in the μ stream
+        self._sparse = tuple(s for s in self.segments if s.kind == "sparse")
+        pos_row: List[np.ndarray] = []
+        mu_slot = 0
+        for s in self._sparse:
+            pos_row.append(
+                np.repeat(np.arange(mu_slot, mu_slot + s.rows, dtype=np.int32), s.k)
+            )
+            mu_slot += s.rows
+        self.n_mu = mu_slot
+        self._pos_row = (
+            np.concatenate(pos_row) if pos_row else np.zeros((0,), np.int32)
+        )
+        self.n_pos = int(self._pos_row.shape[0])
+        # device-pack layout: one packed uint32 Golomb stream per (segment,
+        # row), capacity-padded to whole words, so the concatenated word
+        # buffer and every row's slice of it are static.  ``(b*, words/row,
+        # word offset)`` per sparse segment.
+        winfo: List[Tuple[int, int, int]] = []
+        woff = 0
+        for s in self._sparse:
+            b = golomb_bstar(s.rate)
+            w = row_words(s.n_loc, s.k, b)
+            winfo.append((b, w, woff))
+            woff += s.rows * w
+        self._pack_info = tuple(winfo)
+        self.n_pack_words = woff
         self._maps: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
 
     # ------------------------------------------------------------- building
@@ -233,14 +302,17 @@ class ShardedFlatParamSpace:
         )
 
     def _device_maps(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """``(pad_to_raw, pad_valid, seg_of_block)`` as tensors on
-        ``device``, copied there once."""
+        """``(pad_to_raw, pad_valid, seg_of_block, pos_row, dense_idx)`` as
+        int64/bool tensors on ``device``, copied there once."""
         maps = self._maps.get(device)
         if maps is None:
-            maps = (
-                torch.from_numpy(self._pad_to_raw).to(device),
-                torch.from_numpy(self._pad_valid).to(device),
-                torch.from_numpy(self.seg_of_block.astype(np.int64)).to(device),
+            maps = tuple(
+                torch.from_numpy(a).to(device) for a in (
+                    self._pad_to_raw, self._pad_valid,
+                    self.seg_of_block.astype(np.int64),
+                    self._pos_row.astype(np.int64),
+                    self._dense_idx.astype(np.int64),
+                )
             )
             self._maps[device] = maps
         return maps
@@ -249,7 +321,7 @@ class ShardedFlatParamSpace:
 
     def flatten_local(self, bodies: Sequence[torch.Tensor]) -> torch.Tensor:
         """Local leaf shards (in segment order) → one local flat buffer."""
-        pad_to_raw, pad_valid, _ = self._device_maps(bodies[0].device)
+        pad_to_raw, pad_valid = self._device_maps(bodies[0].device)[:2]
         return _flatten_padded(bodies, pad_to_raw, pad_valid,
                                contiguous=self.n_pad == self.n_total)
 
@@ -282,6 +354,90 @@ class ShardedFlatParamSpace:
             elif s.kind == "dense":
                 total += 32.0 * s.global_size
         return total
+
+    # ------------------------------------------------------- exact exchange
+
+    def exchange_local(
+        self,
+        bodies: Sequence[torch.Tensor],
+        res_flat: Optional[torch.Tensor],
+        *,
+        device_pack: bool = False,
+    ) -> tuple:
+        """Compress this device's shard of every leaf and exchange.
+        Returns ``(mean_flat, own_flat, new_res_flat)``: the aggregated
+        update, this client's ΔW*, and the new residual, all in the local
+        flat layout.
+
+        Per-(segment, row) exact two-sided top-k (paper Alg. 2,
+        :func:`_two_sided_topk`); dense segments send their values, skip
+        segments nothing (their update stays in the residual).  With one
+        client the exchange is the identity, so the mean is ΔW*.
+
+        ``device_pack=True`` also Golomb-packs every (segment, row)'s
+        surviving positions on the device (:meth:`_pack_local`, one
+        :func:`~repro_torch.kernels.pack.seg_packbits` launch) and returns
+        two more outputs, ``(words u32[n_pack_words], nbits int32[n_mu])``:
+        this shard's packed streams and exact per-row bit counts,
+        byte-identical to the host ``encode_positions_packed``.
+        """
+        if self.client_axes and self.n_clients > 1:
+            raise NotImplementedError(
+                "the exact exchange over more than one client needs "
+                "torch.distributed (ROADMAP A9)"
+            )
+        acc = self.flatten_local(bodies)
+        if res_flat is not None:
+            acc = res_flat + acc
+        _, _, _, pos_row, dense_idx = self._device_maps(acc.device)
+
+        pos_parts, mu_parts, idx_parts = [], [], []
+        for s in self._sparse:
+            x = acc[s.offset:s.offset + s.rows * s.n_loc].reshape(s.rows, s.n_loc)
+            idx, mu = _two_sided_topk(x, s.k)
+            base = s.offset + s.n_loc * torch.arange(s.rows, device=acc.device)
+            pos_parts.append((idx + base[:, None]).reshape(-1))
+            mu_parts.append(mu)
+            idx_parts.append(idx)
+
+        own = torch.zeros((self.n_pad,), dtype=torch.float32, device=acc.device)
+        if pos_parts:
+            own[torch.cat(pos_parts)] = torch.cat(mu_parts)[pos_row]
+        if self._dense_idx.size:
+            own[dense_idx] = acc[dense_idx]
+        # one client: the all_gather of (positions, μ) and the pmean of the
+        # dense values are the identity
+        mean = own
+        new_res = acc - own if res_flat is not None else None
+        if device_pack:
+            words, nbits = self._pack_local(idx_parts, acc.device)
+            return mean, own, new_res, words, nbits
+        return mean, own, new_res
+
+    def _pack_local(self, idx_parts: List[torch.Tensor], device: torch.device) -> tuple:
+        """This shard's survivors → (packed u32 words, per-row bit counts).
+
+        Builds every (segment, row)'s Golomb bit stream at its static
+        offset in one concatenated bit buffer, then folds the bits into
+        ``uint32`` words with ONE ``seg_packbits`` launch over the whole
+        flat set.
+        """
+        if not idx_parts:
+            return (torch.zeros((0,), dtype=torch.int32, device=device).view(torch.uint32),
+                    torch.zeros((0,), dtype=torch.int32, device=device))
+        chunks, nb_parts = [], []
+        for (b, w, _), idx_s in zip(self._pack_info, idx_parts):
+            bits_s, nb_s = bits_from_positions(torch.sort(idx_s, dim=1).values,
+                                               bstar=b, cap32=32 * w)
+            chunks.append(bits_s.reshape(-1))
+            nb_parts.append(nb_s)
+        allbits = torch.cat(chunks)
+        pad = -allbits.shape[0] % (32 * self.lanes)
+        if pad:
+            allbits = torch.cat([allbits, allbits.new_zeros((pad,))])
+        planes = allbits.reshape(-1, 32).T.contiguous()
+        words = seg_packbits(planes, lanes=self.lanes)
+        return words[: self.n_pack_words], torch.cat(nb_parts)
 
     # -------------------------------------------------------- hist exchange
 

@@ -60,19 +60,6 @@ def _check(xpad: torch.Tensor, params: torch.Tensor, ncols: int, bm: int,
     return nblocks
 
 
-def _launch(entry, name: str, xpad: torch.Tensor, *args) -> None:
-    """Call the C entry point ``entry`` of the kernel library on
-    ``xpad``'s card and its current stream; raise on a CUDA error.
-
-    The library launches on the CUDA runtime's current device, so the
-    call is made with ``xpad``'s card current: a tensor on ``cuda:1``
-    launches there even while ``cuda:0`` is the current device.
-    """
-    with torch.cuda.device(xpad.device):
-        err = entry(*args, torch.cuda.current_stream(xpad.device).cuda_stream)
-    _build.check(err, name)
-
-
 # ------------------------------------------------------------- histogram
 
 
@@ -120,7 +107,7 @@ def seg_hist2side(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     if not 1 <= nbins <= 4096:
         raise ValueError(f"nbins must be in [1, 4096], got {nbins}")
     hist = torch.zeros((nseg, 2, nbins), dtype=torch.int32, device=xpad.device)
-    _launch(_build.library().seg_hist2side_launch, "seg_hist2side", xpad,
+    _build.launch(_build.library().seg_hist2side_launch, "seg_hist2side", xpad,
             xpad.data_ptr(), params.data_ptr(), hist.data_ptr(),
             nblocks, bm * lanes, nbins)
     seg_hist2side.launches += 1
@@ -173,7 +160,7 @@ def seg_moments(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     psum = torch.empty((nblocks, 2), dtype=torch.float64, device=dev)
     pcnt = torch.empty((nblocks, 2), dtype=torch.int32, device=dev)
     out = torch.empty((nseg, 2, 2), dtype=torch.float32, device=dev)
-    _launch(_build.library().seg_moments_launch, "seg_moments", xpad,
+    _build.launch(_build.library().seg_moments_launch, "seg_moments", xpad,
             xpad.data_ptr(), params.data_ptr(), psum.data_ptr(), pcnt.data_ptr(),
             out.data_ptr(), nblocks, bm * lanes, nseg)
     seg_moments.launches += 1
@@ -216,7 +203,7 @@ def seg_binarize_apply(xpad: torch.Tensor, params: torch.Tensor, *,
         return seg_binarize_apply_plain(xpad, params, bm=bm, lanes=lanes)
     out = torch.empty_like(xpad)
     res = torch.empty_like(xpad)
-    _launch(_build.library().seg_binarize_apply_launch, "seg_binarize_apply", xpad,
+    _build.launch(_build.library().seg_binarize_apply_launch, "seg_binarize_apply", xpad,
             xpad.data_ptr(), params.data_ptr(), out.data_ptr(), res.data_ptr(),
             nblocks, bm * lanes)
     seg_binarize_apply.launches += 1

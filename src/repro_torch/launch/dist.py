@@ -3,11 +3,12 @@
 Counterpart of ``repro.launch.dist`` (DESIGN.md §4).  The reference builds
 its step on a mesh; on one device that mesh is
 ``Mesh(devices.reshape(1, 1), ("data", "model"))``, which gives one client
-on the "data" axis and a size-1 "model" axis.  This slice ports exactly
-that topology with the §11 flat fast path and the hist engine, where every
-leaf is SBC-compressed and the residual is f32.  ``repro_torch.run.build_run``
+on the "data" axis and a size-1 "model" axis.  The port carries exactly
+that topology with the §11 flat fast path, the exact engine (optionally
+with the device-packed Golomb wire) or the hist engine, every leaf
+SBC-compressed and an f32 residual.  ``repro_torch.run.build_run``
 refuses every other combination (more clients over ``torch.distributed``,
-the per-leaf and exact exchanges, other codecs) with
+the per-leaf exchange, other codecs and policies) with
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 Behaviour of the reference that the step reproduces as it is:
@@ -67,14 +68,22 @@ def build_dist_train(
     cfg: ModelConfig,
     *,
     sparsity: float = 0.001,
+    flat_engine: str = "exact",
+    measure: bool = False,
+    device_pack: bool = False,
     model: Optional[Model] = None,
     device=None,
 ) -> DistTrainFns:
     """Build the DSGD train step for ``cfg`` on one device: the reference's
-    ``compressor='sbc', fast=True, flat_engine='hist'`` route.
+    ``compressor='sbc', fast=True`` route with ``flat_engine`` ("exact" or
+    "hist").
 
     State = ``{'params', 'opt', 'residual'}``; the batch has a leading
-    client axis of size ``client_topology(cfg)[0]`` (1 here).
+    client axis of size ``client_topology(cfg)[0]`` (1 here).  ``measure``
+    adds client 0's transmitted ΔW* to the metrics (``own_client0``) for
+    wire metering; with ``device_pack`` (exact engine) also the packed
+    bit counts of every (client, shard, row) (``packed_nbits``) and client
+    0's packed word buffer (``packed_words_client0``).
     """
     device = resolve_device(device)
     model = model or build_model(cfg)
@@ -101,7 +110,7 @@ def build_dist_train(
     )
     channel = ShardedGspmdChannel(
         leaves=leaves, client_axes=client_axes, n_clients=n_clients,
-        flat_space=space,
+        flat_space=space, flat_engine=flat_engine, device_pack=device_pack,
     )
     bits = channel.bits()
 
@@ -115,6 +124,7 @@ def build_dist_train(
         }
 
     need_mask = cfg.local_opt != "sgd"  # momentum masking needs ΔW*_i
+    need_own = need_mask or measure
 
     def train_step(state: dict, batch: dict) -> tuple:
         params = state["params"]
@@ -135,9 +145,9 @@ def build_dist_train(
 
         with torch.no_grad():
             stacked = {k: torch.stack([d[k] for d in deltas]) for k in keys}
-            mean_tree, new_residual, own_tree = channel.round_exchange(
-                state["residual"], stacked, need_own=need_mask
-            )
+            out = channel.round_exchange(state["residual"], stacked,
+                                         need_own=need_own)
+            mean_tree, new_residual, own_tree = out[:3]
             # every client reconstructs the identical mean; take client 0
             new_params = {
                 k: (params[k].to(torch.float32) + mean_tree[k][0].to(torch.float32)
@@ -149,6 +159,15 @@ def build_dist_train(
                 transmitted = {k: (o != 0).to(torch.float32) for k, o in own_tree.items()}
                 opt_state = opt.mask(opt_state, transmitted)
             metrics = {"loss": torch.stack(losses).mean()}
+            if measure:
+                # client 0's transmitted ΔW*, for host-side wire metering
+                metrics["own_client0"] = {k: o[0] for k, o in own_tree.items()}
+                if device_pack:
+                    # exact per-(client, shard, row) packed wire bits +
+                    # client 0's packed word buffer
+                    words, nbits = out[3]
+                    metrics["packed_nbits"] = nbits
+                    metrics["packed_words_client0"] = words[0]
         return {"params": new_params, "opt": opt_state, "residual": new_residual}, metrics
 
     def residual_to_tree(flat_res: torch.Tensor) -> dict:

@@ -1,9 +1,11 @@
 """``python -m repro_torch.run``: the declarative launcher of the port.
 
-Same flags as ``python -m repro.run``; this slice runs
+Same flags as ``python -m repro.run``; the port runs
 
   PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend gspmd \\
       --fast --flat-engine hist --sparsity 0.01 --batch 128 --rounds 5
+  PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend gspmd \\
+      --fast --flat-engine exact --device-pack --measure-wire --sparsity 0.01
 
 on the CUDA card (``--device cpu`` runs the kernels' plain versions).
 """
@@ -31,7 +33,8 @@ def main(argv=None):
         f"arch={run.cfg.name} params={n_params/1e6:.2f}M "
         f"compressor={spec.compressor} clients={run.n_clients} "
         f"delay={spec.delay} p={spec.sparsity} fast={spec.fast} "
-        f"engine={spec.flat_engine} device={run.device}"
+        f"engine={spec.flat_engine} device_pack={spec.device_pack} "
+        f"device={run.device}"
     )
     t0 = time.time()
     state, hist = run.run(log_every=args.log_every)
@@ -43,6 +46,13 @@ def main(argv=None):
         f"upload {hist['total_upload_bits']/8e6:.2f} MB/client  "
         f"compression ×{hist['compression_rate']:.0f}"
     )
+    if spec.measure_wire and run.ledger.records:
+        t = run.ledger.totals()
+        print(
+            f"wire: up {t['up_bytes']/1e3:.1f} kB, down {t['down_bytes']/1e3:.1f} kB "
+            f"(measured/analytic up "
+            f"×{t['up_bits_measured']/max(t['up_bits_analytic'],1):.3f})"
+        )
     if args.history:
         os.makedirs(os.path.dirname(os.path.abspath(args.history)), exist_ok=True)
         with open(args.history, "w") as f:

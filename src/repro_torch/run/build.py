@@ -1,10 +1,14 @@
 """``build_run(spec) -> GspmdRun``: a declarative spec drives the port.
 
-Counterpart of ``repro.run.build``.  This slice carries the GSPMD backend
-on one card with the flat hist engine:
+Counterpart of ``repro.run.build``.  The port carries the GSPMD backend
+on one card with either flat engine, the exact one optionally with the
+device-packed Golomb wire and its metering:
 
     build_run(RunSpec(preset="lenet5", backend="gspmd", fast=True,
                       flat_engine="hist", sparsity=0.01))
+    build_run(RunSpec(preset="lenet5", backend="gspmd", fast=True,
+                      flat_engine="exact", device_pack=True,
+                      measure_wire=True, sparsity=0.01))
 
 Every other combination raises ``NotImplementedError`` naming the ROADMAP
 item that brings it; none runs a different path in silence.  The run is
@@ -38,23 +42,17 @@ def _check_slice(spec: RunSpec) -> None:
         todo.append(f"compressor {spec.compressor!r} (ROADMAP A2/A12)")
     if not spec.fast:
         todo.append("fast=False, the per-leaf exchange (ROADMAP A9)")
-    if spec.flat_engine != "hist":
-        todo.append("flat_engine='exact' (ROADMAP A4/A9)")
-    if spec.device_pack:
-        todo.append("device_pack (ROADMAP A7)")
-    if spec.measure_wire:
-        todo.append("measure_wire, the wire ledger (ROADMAP A3/A9)")
     if spec.telemetry:
         todo.append("telemetry (ROADMAP A11)")
     if spec.dense_pattern or spec.skip_pattern:
-        todo.append(
-            "dense_pattern/skip_pattern: the hist engine needs every leaf "
-            "SBC-compressed; mixed policies take the exact engine (ROADMAP A9)"
-        )
+        todo.append("dense_pattern/skip_pattern, the per-leaf policy rules "
+                    "(ROADMAP A2)")
     if todo:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(todo) + ". This port carries "
-            "preset='lenet5', backend='gspmd', fast=True, flat_engine='hist'."
+            "preset='lenet5', backend='gspmd', fast=True with "
+            "flat_engine='hist' or 'exact' (device_pack and measure_wire "
+            "included)."
         )
 
 
@@ -81,10 +79,25 @@ class GspmdRun:
         per = [self.task.sample(round_idx, c) for c in range(self.n_clients)]
         return {k: torch.stack([b[k] for b in per]) for k in per[0]}
 
+    @property
+    def ledger(self):
+        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`."""
+        return self.channel.ledger
+
     def step(self, state: dict, round_idx: int) -> tuple:
-        """One communication round; returns ``(state, metrics)``."""
+        """One communication round; returns ``(state, metrics)``.  With
+        ``measure_wire`` the round's uploads are metered into the ledger
+        (every client's packed bits with ``device_pack``, else client 0's
+        host-encoded ΔW*), which waits for the device."""
         state, m = self.fns.train_step(state, self._batch(round_idx))
         m = dict(m)
+        if self.spec.measure_wire:
+            own_client0 = m.pop("own_client0")
+            packed_nbits = m.pop("packed_nbits", None)
+            m.pop("packed_words_client0", None)
+            m["measured_bits_per_client"] = self.channel.record_round(
+                round_idx, own_client0=own_client0, packed_nbits=packed_nbits
+            )
         m["bits_per_client"] = self.fns.bits_per_client
         m["bits_dense"] = self.fns.bits_dense
         return state, m
@@ -128,7 +141,9 @@ def build_run(spec: RunSpec, device=None) -> GspmdRun:
     cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
                              seed=spec.seed, device=dev)
     model = build_model(cfg)
-    fns = build_dist_train(cfg, sparsity=spec.sparsity, model=model, device=dev)
+    fns = build_dist_train(cfg, sparsity=spec.sparsity, flat_engine=spec.flat_engine,
+                           measure=spec.measure_wire, device_pack=spec.device_pack,
+                           model=model, device=dev)
     n_clients, _ = client_topology(cfg)
     return GspmdRun(spec=spec, cfg=cfg, model=model, task=task,
                     channel=fns.channel, fns=fns, n_clients=n_clients, device=dev)

@@ -120,7 +120,7 @@ def add_run_flags(ap: argparse.ArgumentParser, **defaults) -> argparse.ArgumentP
 def build_parser(**defaults) -> argparse.ArgumentParser:
     """The parser of ``python -m repro_torch.run``."""
     ap = argparse.ArgumentParser(
-        description="One declarative RunSpec (PyTorch port: gspmd hist slice)"
+        description="One declarative RunSpec (PyTorch port: gspmd, hist or exact engine)"
     )
     add_run_flags(ap, **defaults)
     return ap

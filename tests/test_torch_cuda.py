@@ -8,6 +8,9 @@ it as ``PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py``.
 Tolerances, on the same device and inputs:
   * histogram and moment counts are integers: equal;
   * ``seg_binarize_apply`` is elementwise: bit-equal;
+  * the wire packers ``seg_packbits`` and ``seg_select_pack`` are integer
+    bit work: words and bit counts equal, and equal to the host Golomb
+    encoder's bytes;
   * moment sums: the kernel and the plain version both sum in f64, in
     other orders, and round to f32 once, so they differ by at most one
     f32 ulp (2⁻²³ relative); held to ``rtol=1e-6``.
@@ -16,7 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
+from repro_torch.core.flat import _top_k
+from repro_torch.core.golomb import encode_positions_packed, golomb_bstar, packed_words_to_bytes
 from repro_torch.kernels import flat as tflat
+from repro_torch.kernels import pack as tpack
 from repro_torch.run import RunSpec, build_run
 from torch_helpers import (
     BM,
@@ -152,3 +159,162 @@ def test_lenet5_rounds_run_through_the_kernels(cuda):
         "seg_hist2side": 4, "seg_moments": 2, "seg_binarize_apply": 2}
     res = state["residual"]
     assert res.is_cuda and tuple(res.shape) == (1, 1, 1_259_520)
+
+
+# --------------------------------------------------------------- packers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", ["bits", "full-words", "exact-path-shape"])
+def test_seg_packbits_kernel_matches_plain(cuda, planes):
+    rng = np.random.default_rng(20)
+    if planes == "full-words":  # any u32 value: bits shifted past bit 31 are lost
+        x = rng.integers(0, 2 ** 32, (32, 1024), dtype=np.uint64).astype(np.uint32)
+    else:  # 0/1 planes; LeNet5's exact path folds 3,456 words
+        x = rng.integers(0, 2, (32, 3456 if planes == "exact-path-shape" else 1024)
+                         ).astype(np.uint32)
+    p = t(x.view(np.int32), cuda)
+    before = tpack.seg_packbits.launches
+    got = tpack.seg_packbits(p)
+    torch.cuda.synchronize()
+    assert tpack.seg_packbits.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.uint32
+    np.testing.assert_array_equal(n(got), n(tpack.seg_packbits_plain(p)))
+
+
+def _pack_rows():
+    """``(id, n, k, p, masks int32[rows, n])``: adversarial rows and one
+    row at the size of LeNet5's f1 segment."""
+    rng = np.random.default_rng(21)
+    cases = []
+    for p in (0.01, 0.05, 0.5):  # b* = 6, 4, 0
+        step = 1 << golomb_bstar(p)
+        rows = {
+            "first": [[0]], "last": [[999]], "all": [list(range(1000))],
+            "gap-multiple": [list(range(2 * step, 1000, 2 * step + 1))],
+            "gap-pow2": [list(range(step - 1, 1000, step))],
+            "random": [sorted(rng.choice(1000, 37, replace=False)) for _ in range(5)],
+        }
+        for name, pos in rows.items():
+            m = np.zeros((len(pos), 1000), np.int32)
+            for r, row in enumerate(pos):
+                m[r, row] = 1
+            cases.append((f"{name}-p{p}", len(pos[0]), p, m))
+    m = np.zeros((1, 1_225_000), np.int32)
+    m[0, rng.choice(1_225_000, 12_250, replace=False)] = 1
+    cases.append(("lenet5-f1", 12_250, 0.01, m))
+    return cases
+
+
+PACK_ROWS = _pack_rows()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PACK_ROWS, ids=[c[0] for c in PACK_ROWS])
+def test_seg_select_pack_kernel_matches_plain_and_the_host_bytes(cuda, case):
+    _, k, p, masks = case
+    b = golomb_bstar(p)
+    m = t(masks, cuda)
+    before = tpack.seg_select_pack.launches
+    words, nbits = tpack.seg_select_pack(m, k=k, bstar=b)
+    torch.cuda.synchronize()
+    assert tpack.seg_select_pack.launches == before + 1
+    want_w, want_nb = tpack.seg_select_pack_plain(m, k=k, bstar=b)
+    np.testing.assert_array_equal(n(words), n(want_w))
+    np.testing.assert_array_equal(n(nbits), n(want_nb))
+    for r in range(masks.shape[0]):
+        host, host_nb = encode_positions_packed(np.flatnonzero(masks[r]), p)
+        assert int(nbits[r]) == host_nb
+        assert packed_words_to_bytes(n(words)[r], host_nb) == host
+    # the same words from run to run (atomicOr is order-free)
+    again, _ = tpack.seg_select_pack(m, k=k, bstar=b)
+    np.testing.assert_array_equal(n(again), n(words))
+
+
+@pytest.mark.cuda
+def test_seg_select_pack_kernel_rows_with_other_counts(cuda):
+    """More than k set slots: the first k are packed, as the plain version
+    (and the reference's dropping scatter) does.  Fewer than k: nbits is
+    −1, since the reference's result is undefined there."""
+    rng = np.random.default_rng(22)
+    masks = (rng.uniform(size=(3, 500)) < 0.05).astype(np.int32)
+    counts = masks.sum(1)
+    k = int(counts.min())
+    m = t(masks, cuda)
+    words, nbits = tpack.seg_select_pack(m, k=k, bstar=4)
+    want_w, want_nb = tpack.seg_select_pack_plain(m, k=k, bstar=4)
+    np.testing.assert_array_equal(n(words), n(want_w))
+    np.testing.assert_array_equal(n(nbits), n(want_nb))
+    _, short = tpack.seg_select_pack(m, k=int(counts.max()) + 1, bstar=4)
+    assert n(short).tolist() == [-1, -1, -1]
+
+
+@pytest.mark.cuda
+def test_pack_wrappers_raise_instead_of_falling_back(cuda):
+    with pytest.raises(TypeError):
+        tpack.seg_packbits(torch.zeros((32, 128), device=cuda))
+    with pytest.raises(ValueError):
+        tpack.seg_packbits(torch.zeros((32, 100), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        tpack.seg_select_pack(torch.ones((2, 10), dtype=torch.int32, device=cuda), k=11,
+                              bstar=0)
+    with pytest.raises(TypeError):
+        tpack.seg_select_pack(torch.ones((2, 10), device=cuda), k=1, bstar=0)
+
+
+@pytest.mark.cuda
+def test_pack_wrappers_launch_on_the_operands_card(cuda):
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    rng = np.random.default_rng(23)
+    planes = t(rng.integers(0, 2, (32, 256)).astype(np.int32), dev)
+    masks = np.zeros((2, 700), np.int32)
+    masks[:, rng.choice(700, 7, replace=False)] = 1
+    m = t(masks, dev)
+    with torch.cuda.device(0):
+        words = tpack.seg_packbits(planes)
+        sw, snb = tpack.seg_select_pack(m, k=7, bstar=6)
+    torch.cuda.synchronize(dev)
+    assert words.device == sw.device == snb.device == dev
+    np.testing.assert_array_equal(n(words), n(tpack.seg_packbits_plain(planes)))
+    want_w, want_nb = tpack.seg_select_pack_plain(m, k=7, bstar=6)
+    np.testing.assert_array_equal(n(sw), n(want_w))
+    np.testing.assert_array_equal(n(snb), n(want_nb))
+
+
+@pytest.mark.cuda
+def test_exact_top_k_on_the_card_orders_as_on_the_cpu(cuda):
+    """The stable sort of total-order keys gives the same tie order (lower
+    index first, +0 above −0) on the card as on the CPU."""
+    rng = np.random.default_rng(24)
+    x = rng.choice(np.array([0.0, -0.0, 1.0, -1.0, 0.5], np.float32), size=(3, 200_000))
+    for sign in (1, -1):
+        for k in (1, 2000):
+            got = _top_k(t(sign * x, cuda), k)[1]
+            want = _top_k(t(sign * x), k)[1]
+            np.testing.assert_array_equal(n(got), n(want))
+
+
+@pytest.mark.cuda
+def test_exact_rounds_run_through_the_packer(cuda):
+    run = build_run(RunSpec(preset="lenet5", backend="gspmd", fast=True,
+                            flat_engine="exact", device_pack=True, measure_wire=True,
+                            sparsity=0.01, batch=32, rounds=2), device="cuda")
+    state = run.init()
+    kernels.reset_launches()
+    nbits = []
+    step = run.fns.train_step
+
+    def observed(state, batch):
+        state, m = step(state, batch)
+        nbits.append(int(m["packed_nbits"].sum()))
+        return state, m
+
+    run.fns = run.fns._replace(train_step=observed)
+    for r in range(2):
+        state, m = run.step(state, r)
+        assert np.isfinite(float(m["loss"]))
+    assert kernels.launch_counts() == {
+        "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0,
+        "seg_packbits": 2, "seg_select_pack": 0}
+    n_mu = run.fns.flat_space.n_mu
+    assert [r.up_bits_measured for r in run.ledger.records] == [b + 32.0 * n_mu for b in nbits]

@@ -33,6 +33,7 @@ import torch
 from jax.sharding import Mesh
 
 from repro.configs.base import get_config as j_get_config
+from repro.core.channel import ShardedGspmdChannel as JShardedGspmdChannel
 from repro.core.flat import _hist_pipeline as j_hist_pipeline
 from repro.kernels.flat import seg_hist2side as j_seg_hist2side
 from repro.kernels.hist2side import SPAN_OCTAVES
@@ -45,7 +46,9 @@ from repro.optim.optimizers import get_optimizer as j_get_optimizer
 from repro.run.flags import build_parser as j_build_parser
 from repro.run.spec import RunSpec as JRunSpec
 from repro_torch.configs.base import get_config
+from repro_torch import kernels
 from repro_torch.convert import params_from_jax, state_from_jax
+from repro_torch.core.channel import ShardedGspmdChannel
 from repro_torch.core.flat import _hist_pipeline as t_hist_pipeline
 from repro_torch.data import make_classification_task
 from repro_torch.kernels import flat as tflat
@@ -70,7 +73,7 @@ def pair():
     jfns = j_build_dist_train(jcfg, one_device_mesh(), compressor="sbc",
                               sparsity=0.01, fast=True, flat_engine="hist")
     tfns = build_dist_train(dataclasses.replace(get_config("lenet5"), img_size=12),
-                            sparsity=0.01, device="cpu")
+                            sparsity=0.01, flat_engine="hist", device="cpu")
     jstate = jfns.init_state(jax.random.PRNGKey(0))
     rng = np.random.default_rng(42)
     jstate["opt"] = JAdamState(
@@ -250,15 +253,61 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("change", [
-    dict(backend="local"), dict(backend="fed"), dict(flat_engine="exact"),
+    dict(backend="local"), dict(backend="fed"),
+    dict(flat_engine="exact", dense_pattern="b$"),
     dict(fast=False), dict(preset="charlstm"), dict(compressor="topk"),
-    dict(measure_wire=True), dict(telemetry=True),
+    dict(flat_engine="exact", skip_pattern="f2"), dict(telemetry=True),
     dict(dense_pattern="b$"), dict(skip_pattern="f2"),
-    dict(flat_engine="exact", device_pack=True),
+    dict(flat_engine="exact", fast=False),
 ])
 def test_specs_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         build_run(RunSpec(**{**SLICE, **change}), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def full_width_jax_bits():
+    """The reference's Eq. 1 bits per client per round, LeNet5 at p = 0.01."""
+    return j_build_dist_train(j_get_config("lenet5"), one_device_mesh(), compressor="sbc",
+                              sparsity=0.01, fast=True).bits_per_client
+
+
+@pytest.mark.parametrize("change", [
+    dict(flat_engine="exact"), dict(measure_wire=True),
+    dict(flat_engine="exact", device_pack=True),
+])
+def test_specs_now_in_the_port_run_on_the_cpu(change, full_width_jax_bits):
+    """Full-width LeNet5 on the CPU: finite losses, the reference's Eq. 1
+    bits (102,035.46 a client a round), one ledger row a round when the
+    wire is metered, and no kernel launch."""
+    run = build_run(RunSpec(**{**SLICE, **change}, batch=8, rounds=2), device="cpu")
+    kernels.reset_launches()
+    state, hist = run.run()
+    assert all(np.isfinite(hist["loss"])) and len(hist["loss"]) == 2
+    assert run.fns.bits_per_client == full_width_jax_bits
+    assert len(run.ledger.records) == (2 if run.spec.measure_wire else 0)
+    assert set(kernels.launch_counts().values()) == {0}
+    assert tuple(state["residual"].shape) == (1, 1, 1_259_520)
+
+
+def test_gspmd_channel_refuses_what_the_reference_refuses():
+    """The channel's option checks raise the reference's ValueErrors with
+    its messages; a spec with device_pack outside the exact engine is
+    refused by RunSpec itself, as in the reference."""
+    space = object()  # the checks only ask whether there is a flat space
+    for kw in (dict(flat_space=space, flat_engine="hist", device_pack=True),
+               dict(flat_space=None, flat_engine="hist"),
+               dict(flat_space=None, flat_engine="exact", device_pack=True),
+               dict(flat_space=space, flat_engine="topk")):
+        with pytest.raises(ValueError) as want:
+            JShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=1, **kw)
+        with pytest.raises(ValueError) as got:
+            ShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=1, **kw)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        ShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=1)
+    with pytest.raises(ValueError, match="device_pack"):
+        RunSpec(**SLICE, device_pack=True)
 
 
 def test_runspec_and_flags_copy_the_reference():
