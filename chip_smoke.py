@@ -39,8 +39,22 @@ beside it.  Phases, each of which fails the run:
      against its plain version on the path's own bit planes and
      ``seg_select_pack`` on the path's masks (both exactly), and both are
      timed (``seg_select_pack`` on the largest row, f1);
-  4. print one ``{"kernels": [...]}`` line with all five kernels, then the
-     card line, then the last line ``{"ok": true, "device": {...}}``.
+  4. the per-leaf path: ``repro_torch.kernels.ops.sbc_compress_hist(leaf,
+     p=0.01, bm=8, lanes=128)`` on each of LeNet5's 6 leaves, as views
+     into the hist path's last accumulator, with the launch counts set to
+     0 just before and read just after: 12 ``hist2side``, 6
+     ``masked_moments``, 6 ``binarize_apply`` and nothing else.  Each
+     leaf's ΔW*, residual, μ and count must equal the flat hist engine's
+     on the same buffer bit for bit, and its residual ``acc − ΔW*``; the
+     six calls run again under ``torch.cuda.set_sync_debug_mode("error")``
+     (a host sync fails the run).  Each kernel is held against its plain
+     version on every call's operands (counts equal, binarize bit-equal,
+     moment sums to ``rtol=1e-6``) and timed on f1 (n 1,225,000).  The
+     survivor count of each leaf is printed against k; the reference's
+     ±2% band (on k, and on μ against the exact top-k's) is checked on
+     seeded Gaussian data of f1's size, the data it is asserted on;
+  5. print one ``{"kernels": [...]}`` line with all eight kernels, then
+     the card line, then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
 and the script prints its device-busy share and its costliest device
@@ -76,27 +90,35 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 ROUNDS = 5
 KERNELS = ("seg_hist2side", "seg_moments", "seg_binarize_apply", "seg_packbits",
-           "seg_select_pack")
-HIST_PER_ROUND = {"seg_hist2side": 2, "seg_moments": 1, "seg_binarize_apply": 1,
-                  "seg_packbits": 0, "seg_select_pack": 0}
-EXACT_PER_ROUND = {"seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0,
-                   "seg_packbits": 1, "seg_select_pack": 0}
-SOURCE = {
-    "seg_hist2side": "src/repro_torch/kernels/csrc/seg_sbc.cu",
-    "seg_moments": "src/repro_torch/kernels/csrc/seg_sbc.cu",
-    "seg_binarize_apply": "src/repro_torch/kernels/csrc/seg_sbc.cu",
-    "seg_packbits": "src/repro_torch/kernels/csrc/pack.cu",
-    "seg_select_pack": "src/repro_torch/kernels/csrc/pack.cu",
-}
+           "seg_select_pack", "hist2side", "masked_moments", "binarize_apply")
+LEAF_KERNELS = ("hist2side", "masked_moments", "binarize_apply")
+
+
+def per_call(**counts) -> dict:
+    """Launches of every kernel: ``counts``, and 0 for the others."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
+HIST_PER_ROUND = per_call(seg_hist2side=2, seg_moments=1, seg_binarize_apply=1)
+EXACT_PER_ROUND = per_call(seg_packbits=1)
+LEAF_PER_LEAF = per_call(hist2side=2, masked_moments=1, binarize_apply=1)
+SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
+SOURCE = {name: SEG_SBC for name in KERNELS}
+SOURCE.update(seg_packbits="src/repro_torch/kernels/csrc/pack.cu",
+              seg_select_pack="src/repro_torch/kernels/csrc/pack.cu")
 REPLACES = {
     "seg_hist2side": "src/repro/kernels/flat.py:71",
     "seg_moments": "src/repro/kernels/flat.py:126",
     "seg_binarize_apply": "src/repro/kernels/flat.py:168",
     "seg_packbits": "src/repro/kernels/pack.py:128",
     "seg_select_pack": "src/repro/kernels/pack.py:183",
+    "hist2side": "src/repro/kernels/hist2side.py:70",
+    "masked_moments": "src/repro/kernels/moments.py:45",
+    "binarize_apply": "src/repro/kernels/binarize_apply.py:40",
 }
 # operations per element of the buffer, counted from each SBC kernel's body
-OPS_PER_ELEMENT = {"seg_hist2side": 12, "seg_moments": 4, "seg_binarize_apply": 3}
+OPS_PER_ELEMENT = {"seg_hist2side": 12, "seg_moments": 4, "seg_binarize_apply": 3,
+                   "hist2side": 12, "masked_moments": 4, "binarize_apply": 3}
 SPEC = dict(preset="lenet5", backend="gspmd", fast=True, sparsity=0.01, batch=128,
             rounds=ROUNDS)
 
@@ -129,21 +151,39 @@ def _self_device_us(event) -> float:
         event, "self_cuda_time_total", 0.0)
 
 
-def device_ms(fn, operands, iters: int) -> float:
+def device_ms(fn, operands, iters: int, label: str = "") -> float:
     """Mean device ms per call of ``fn(*operands[i % len(operands)])``,
     summed over the kernels, memsets and copies that the call launches,
     from CUPTI (``torch.profiler``).  Fails if the profiler saw no device
-    time."""
+    time.  With a ``label``, prints each device operation's share of a
+    call.
+
+    Every call launches the same device operations, so each one's count
+    must be a whole multiple of ``iters``.  A trace that lost records (seen
+    on the card: a kernel counted 0.70 times a call) is taken again, up to
+    three times in all, and then fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     _run(fn, operands, 5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _run(fn, operands, iters)
+    for attempt in range(3):
         torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _run(fn, operands, iters)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
+        if all(e.count % iters == 0 for e in events):
+            break
+        print(f"  {label or 'plain'}: the trace lost records "
+              f"({[e.count for e in events]} for {iters} calls); timing again")
+    else:
+        raise SmokeFailure(f"{label or 'plain'}: the profiler lost records three times")
+    total_us = sum(_self_device_us(e) for e in events)
     check(total_us > 0, "torch.profiler saw no device time")
+    if label:
+        for e in sorted(events, key=_self_device_us, reverse=True):
+            print(f"  {label}: {_self_device_us(e) / iters:.2f} us per call, "
+                  f"{e.count / iters:g} per call: {e.key[:80]}")
     return total_us / iters / 1e3
 
 
@@ -278,8 +318,10 @@ def profiled_round(run, state, label: str) -> None:
 # --------------------------------------------------------------- hist path
 
 
-def hist_path(dev) -> dict:
-    """Phase 2; returns the three SBC kernels' rows of the kernels line."""
+def hist_path(dev) -> tuple:
+    """Phase 2; returns the three SBC kernels' rows of the kernels line,
+    and the last round's accumulator with the flat engine's results on it
+    (``acc``, ``space``, ``out``, ``res``, ``stats``) for phase 4."""
     import torch
     from repro_torch.core import flat as core_flat
     from repro_torch.kernels import flat as kflat
@@ -359,14 +401,15 @@ def hist_path(dev) -> dict:
                      "seg_moments": 4 * kwargs.get("nseg", 0) * 4,
                      "seg_binarize_apply": 2 * 4 * xpad.numel()}[name]
         rows[name] = kernel_row(
-            name, cap["launches"][name], err, device_ms(fn_k, copies, 240),
+            name, cap["launches"][name], err, device_ms(fn_k, copies, 240, name),
             device_ms(fn_p, copies, 48), 4 * (xpad.numel() + params.numel()) + out_bytes,
             OPS_PER_ELEMENT[name] * xpad.numel())
         del copies
     check(set(rows) == set(names), f"kernels compared: {sorted(rows)}")
     print(f"seg_moments: sums' largest relative error {moments_rel:.3e} over "
           f"{sum(1 for c in calls if c[0] == 'seg_moments')} calls (limit 1e-6)")
-    return rows
+    return rows, {"acc": acc, "space": space, "out": k_out, "res": k_res,
+                  "stats": k_stats}
 
 
 # -------------------------------------------------------------- exact path
@@ -460,7 +503,7 @@ def exact_path(dev) -> dict:
     copies = [(planes.clone(),) for _ in range(copies_past_l2(4 * planes.numel()))]
     rows["seg_packbits"] = kernel_row(
         "seg_packbits", cap["launches"]["seg_packbits"], 0.0,
-        device_ms(lambda p: kpack.seg_packbits(p, **kw), copies, 240),
+        device_ms(lambda p: kpack.seg_packbits(p, **kw), copies, 240, "seg_packbits"),
         device_ms(lambda p: kpack.seg_packbits_plain(p, **kw), copies, 48),
         4 * (planes.numel() + nwords), 64 * nwords)
     del copies
@@ -485,11 +528,142 @@ def exact_path(dev) -> dict:
     nrows, n = mask.shape
     rows["seg_select_pack"] = kernel_row(
         "seg_select_pack", cap["launches"]["seg_select_pack"], 0.0,
-        device_ms(lambda m: kpack.seg_select_pack(m, k=s.k, bstar=b), copies, 60),
+        device_ms(lambda m: kpack.seg_select_pack(m, k=s.k, bstar=b), copies, 60,
+                  "seg_select_pack"),
         device_ms(lambda m: kpack.seg_select_pack_plain(m, k=s.k, bstar=b), copies, 12),
         4 * (nrows * n + nrows * w + nrows), 2 * nrows * n + 8 * nrows * s.k)
     print(f"seg_select_pack timed on {s.path}: n {n}, k {s.k}, {w} words")
     del copies
+    return rows
+
+
+# ----------------------------------------------------------- per-leaf path
+
+
+def bit_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def leaf_path(dev, hist: dict) -> dict:
+    """Phase 4; returns the three per-leaf kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import binarize_apply as kbin
+    from repro_torch.kernels import hist2side as khist
+    from repro_torch.kernels import moments as kmom
+    from repro_torch.kernels import ops
+
+    acc, space = hist["acc"], hist["space"]
+    segs = [(s, s.offset, s.rows * s.n_loc) for s in space.segments]
+    leaves = [acc[off:off + size] for _, off, size in segs]  # views into the flat buffer
+
+    def compress_all():
+        return [ops.sbc_compress_hist(leaf, p=s.rate, bm=space.bm, lanes=space.lanes)
+                for leaf, (s, _, _) in zip(leaves, segs)]
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = compress_all()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {name: c * len(leaves) for name, c in LEAF_PER_LEAF.items()}
+    check(launches == want, f"per-leaf launches {launches} != {want}")
+    print(f"per-leaf: sbc_compress_hist on {len(leaves)} leaves (views into the hist "
+          f"path's last accumulator, bm={space.bm}, lanes={space.lanes}): launches "
+          f"{ {k: v for k, v in launches.items() if v} }, no other kernel")
+    for i, ((s, off, size), leaf, out) in enumerate(zip(segs, leaves, outs)):
+        check(bit_equal(out.delta_star, hist["out"][off:off + size])
+              and bit_equal(out.residual, hist["res"][off:off + size])
+              and bit_equal(out.mean, hist["stats"]["mu"][i])
+              and bit_equal(out.count, hist["stats"]["count"][i]),
+              f"{s.path}: per-leaf dW*, residual, mu or count != the flat engine's")
+        check(bit_equal(out.residual, leaf - out.delta_star),
+              f"{s.path}: residual != acc - dW* bit for bit")
+        print(f"  {s.path}: n {size}, k {s.k}, survivors {int(out.count)} "
+              f"({float(out.count) / s.k - 1:+.2%}), mu {float(out.mean):.6e}")
+    print("per-leaf == flat hist engine bit for bit on every leaf (dW*, residual, mu, "
+          "count); residual == acc - dW* bit for bit")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = compress_all()
+    except RuntimeError as e:
+        raise SmokeFailure(f"per-leaf path waited for the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(all(bit_equal(a.delta_star, b.delta_star) for a, b in zip(again, outs)),
+          "per-leaf: a second run differs")
+    print("per-leaf: the six calls ran again under set_sync_debug_mode('error'): "
+          "no host sync, same results")
+
+    # each kernel against its plain version, on the path's own operands
+    wrap = {"hist2side": khist.hist2side, "masked_moments": kmom.masked_moments,
+            "binarize_apply": kbin.binarize_apply}
+    plain = {"hist2side": khist.hist2side_plain,
+             "masked_moments": kmom.masked_moments_plain,
+             "binarize_apply": kbin.binarize_apply_plain}
+    calls: list = []
+    with swapped(ops, recording(ops, LEAF_KERNELS, calls)):
+        compress_all()
+    check([c[0] for c in calls] == list(LEAF_KERNELS[:1] + LEAF_KERNELS) * len(leaves),
+          f"per-leaf calls {[c[0] for c in calls]}")
+    errs = {name: 0.0 for name in LEAF_KERNELS}
+    for name, args, kwargs in calls:
+        got, want_ = wrap[name](*args, **kwargs), plain[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        if name == "hist2side":
+            check(torch.equal(got, want_), f"{name}: counts differ")
+        elif name == "masked_moments":
+            check(torch.equal(got[:, 1], want_[:, 1]), f"{name}: counts differ")
+            check(torch.allclose(got[:, 0], want_[:, 0], rtol=1e-6, atol=0),
+                  f"{name}: sums beyond rtol 1e-6")
+        else:
+            check(all(bit_equal(g, w) for g, w in zip(got, want_)), f"{name}: not bit-equal")
+        err = 0.0 if name == "binarize_apply" else float((got - want_).abs().max())
+        errs[name] = max(errs[name], err)
+    print(f"per-leaf kernels == plain versions on all {len(calls)} calls of the path "
+          f"(counts equal, binarize bit-equal, moment sums to rtol 1e-6); largest "
+          f"absolute differences {errs}")
+
+    # timed on the largest leaf (f1), operands rotated past the L2 cache
+    f1 = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    rows, nbins = {}, 128
+    for name, args, kwargs in calls:
+        x = args[0]
+        if name in rows or x.numel() != leaves[f1].numel():
+            continue
+        nel = x.numel()
+        copies = [(x.clone(), *args[1:]) for _ in range(copies_past_l2(4 * nel))]
+        out_bytes = {"hist2side": 4 * 2 * nbins, "masked_moments": 16,
+                     "binarize_apply": 8 * nel}[name]
+        scalar_bytes = {"hist2side": 16, "masked_moments": 8, "binarize_apply": 16}[name]
+        rows[name] = kernel_row(
+            name, launches[name], errs[name],
+            device_ms(lambda *a, f=wrap[name], kw=kwargs: f(*a, **kw), copies, 240, name),
+            device_ms(lambda *a, f=plain[name], kw=kwargs: f(*a, **kw), copies, 24),
+            4 * nel + scalar_bytes + out_bytes, OPS_PER_ELEMENT[name] * nel)
+        del copies
+    check(set(rows) == set(LEAF_KERNELS), f"per-leaf kernels timed: {sorted(rows)}")
+    print(f"per-leaf kernels timed on {segs[f1][0].path}: n {leaves[f1].numel()}, "
+          f"k {segs[f1][0].k}")
+
+    # the survivor band of the reference's own test, on seeded Gaussian data
+    n_f1, p = leaves[f1].numel(), segs[f1][0].rate
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(n_f1).astype(np.float32)
+                         ).to(dev)
+    gh, ge = ops.sbc_compress_hist(g, p=p), ops.sbc_compress_exact(g, p=p)
+    k = max(1, round(p * n_f1))
+    count, mean, exact_mean = float(gh.count), float(gh.mean), float(ge.mean)
+    check(abs(count - k) <= max(2, 0.02 * k)
+          and abs(mean - exact_mean) <= 0.02 * abs(exact_mean),
+          f"Gaussian n {n_f1}: survivors {count} against k {k}, mu {mean} against the "
+          f"exact {exact_mean}: outside the +-2% band")
+    print(f"Gaussian n {n_f1}, p {p}: survivors {int(count)} against k {k} "
+          f"({count / k - 1:+.2%}), mu {mean:.6e} against the exact top-k's "
+          f"{exact_mean:.6e}: inside the +-2% band")
     return rows
 
 
@@ -517,12 +691,13 @@ def main() -> int:
     print(f"built {[str(p.relative_to(ROOT)) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- 2. and 3. the two paths
-    rows = hist_path(dev)
+    # ---- 2., 3. and 4. the three paths
+    rows, hist = hist_path(dev)
     rows.update(exact_path(dev))
+    rows.update(leaf_path(dev, hist))
     check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
 
-    # ---- 4. results
+    # ---- 5. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,9 @@ _SIGNATURES = {
         "seg_hist2side_launch": (_P, _P, _P, _I, _I, _I, _P),
         "seg_moments_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
         "seg_binarize_apply_launch": (_P, _P, _P, _P, _I, _I, _P),
+        "hist2side_launch": (_P, _I, _P, _I, _P, _I, _P, _I, _P),
+        "masked_moments_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P),
+        "binarize_apply_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P),
     },
     "pack.cu": {
         "seg_packbits_launch": (_P, _P, _I, _P),

@@ -120,29 +120,86 @@ seg_hist2side.launches = 0
 # --------------------------------------------------------------- moments
 
 
+_THREADS = 32 * 8  # threads of a CUDA moments CTA: 8 warps
+
+
+def _warp_fold(v: torch.Tensor) -> torch.Tensor:
+    """A warp's ``__shfl_down`` sum over the last axis (32 lanes): lane l
+    adds lane l + 16, then l + 8, ... 1; the result is lane 0's."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def block_moments(x: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-partial ``(sums f64[nparts, 2], counts int64[nparts, 2])`` of
+    ``x[nparts, span]`` over the masks ``pos`` and ``neg`` (side 0, 1), in
+    the CUDA partial kernel's order: thread t of 256 adds the entries of
+    its quads t, t + 256, ... in order, each warp folds its 32 threads
+    (:func:`_warp_fold`), and the 8 warp sums are added in order.  Every
+    step is the same f64 addition as on the card, so the sums are equal
+    bit for bit.
+    """
+    nparts, span = x.shape
+    steps = -(-span // (4 * _THREADS))
+    pad = steps * 4 * _THREADS - span
+    sel = torch.stack([pos, neg])  # (2, nparts, span)
+    vals = torch.where(sel, x.to(torch.float64), torch.zeros((), dtype=torch.float64,
+                                                            device=x.device))
+    vals = torch.nn.functional.pad(vals, (0, pad)).reshape(2, nparts, steps, _THREADS, 4)
+    acc = torch.zeros((2, nparts, _THREADS), dtype=torch.float64, device=x.device)
+    for r in range(steps):
+        for c in range(4):
+            acc = acc + vals[:, :, r, :, c]
+    warps = _warp_fold(acc.reshape(2, nparts, _THREADS // 32, 32))
+    sums = torch.zeros((2, nparts), dtype=torch.float64, device=x.device)
+    for w in range(_THREADS // 32):
+        sums = sums + warps[:, :, w]
+    return sums.T, sel.sum(-1).T
+
+
+def fold_moments(sums: torch.Tensor, counts: torch.Tensor, seg: torch.Tensor,
+                 nseg: int) -> torch.Tensor:
+    """``(nseg, 2, 2)`` f32 ``[[Σ⁺, n⁺], [Σ⁻, n⁻]]`` from per-partial sums
+    and counts, in the CUDA fold's order: counted from the segment's first
+    partial b₀, partial b goes to lane (b − b₀) mod 32, each lane adds its
+    partials in index order, then the warp folds the 32 lanes; sums are
+    rounded to f32 once.  ``seg`` is the int64 segment id of each partial.
+    """
+    nparts = sums.shape[0]
+    dev = sums.device
+    rows = -(-nparts // 32)
+    b = torch.arange(nparts, device=dev)
+    first = torch.full((nseg,), nparts, dtype=torch.int64, device=dev).scatter_reduce(
+        0, seg, b, reduce="amin")
+    slots = torch.zeros((nseg, rows * 32, 2), dtype=torch.float64, device=dev)
+    slots[seg, b - first[seg]] = sums
+    slots = slots.reshape(nseg, rows, 32, 2)
+    acc = torch.zeros((nseg, 32, 2), dtype=torch.float64, device=dev)
+    for r in range(rows):
+        acc = acc + slots[:, r]
+    total = _warp_fold(acc.transpose(1, 2))  # (nseg, 2)
+    cnt = torch.zeros((nseg, 2), dtype=torch.int64, device=dev).index_add_(0, seg, counts)
+    return torch.stack([total.to(torch.float32), cnt.to(torch.float32)], -1)
+
+
 def seg_moments_plain(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
                       bm: int = 8, lanes: int = 128) -> torch.Tensor:
     """(nseg, 2, 2) f32 ``[[Σx·[x ≥ t⁺], n⁺], [Σx·[x ≤ −t⁻], n⁻]]``.
 
-    params rows ``(seg, t⁺, t⁻)``.  Per-block partials first, then each
-    segment's partials; sums are taken in f64 and rounded to f32 once, as
-    the kernel does, and with ``torch.sum`` only (no atomics), so the
-    result is the same from run to run on the CPU and on the card.  Pad
-    zeros are never selected since t⁺, t⁻ > 0.
+    params rows ``(seg, t⁺, t⁻)``.  Per-block partials first
+    (:func:`block_moments`), then each segment's partials
+    (:func:`fold_moments`), both in f64 and in the CUDA kernel's order,
+    rounded to f32 once: the result equals the kernel's bit for bit and is
+    the same from run to run (no atomics).  Pad zeros are never selected
+    since t⁺, t⁻ > 0.
     """
     nblocks = xpad.shape[0] // bm
-    x = xpad.reshape(nblocks, bm * lanes).to(torch.float64)
-    pos = x >= params[:, 1, None]
-    neg = x <= -params[:, 2, None]
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    block = torch.stack([
-        torch.stack([torch.where(pos, x, zero).sum(1), pos.sum(1).to(x.dtype)], 1),
-        torch.stack([torch.where(neg, x, zero).sum(1), neg.sum(1).to(x.dtype)], 1),
-    ], 1)  # (nblocks, 2, 2)
-    segs = torch.arange(nseg, device=x.device)
-    member = params[None, :, 0].to(torch.int64) == segs[:, None]  # (nseg, nblocks)
-    out = torch.where(member[:, :, None, None], block[None], zero).sum(1)
-    return out.to(torch.float32)
+    x = xpad.reshape(nblocks, bm * lanes)
+    sums, counts = block_moments(x, x >= params[:, 1, None], x <= -params[:, 2, None])
+    return fold_moments(sums, counts, params[:, 0].to(torch.int64), nseg)
 
 
 def seg_moments(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,

@@ -11,9 +11,17 @@ Tolerances, on the same device and inputs:
   * the wire packers ``seg_packbits`` and ``seg_select_pack`` are integer
     bit work: words and bit counts equal, and equal to the host Golomb
     encoder's bytes;
-  * moment sums: the kernel and the plain version both sum in f64, in
-    other orders, and round to f32 once, so they differ by at most one
-    f32 ulp (2⁻²³ relative); held to ``rtol=1e-6``.
+  * moment sums: the kernel and the plain version both sum in f64 and
+    round to f32 once, so any two f64 orders differ by at most one f32
+    ulp (2⁻²³ relative): held to ``rtol=1e-6``.  The plain versions
+    repeat the kernels' order step by step, so they also agree bit for
+    bit (``test_moment_kernels_are_bit_equal_to_plain``).
+
+The per-leaf kernels (``hist2side``, ``masked_moments``,
+``binarize_apply``) are held the same way, on unpadded leaves of any
+length, at offsets that are not 16-byte aligned, and on all-zero,
+all-equal and bf16 leaves; ``sbc_compress_hist`` must not wait for the
+card (``torch.cuda.set_sync_debug_mode("error")``).
 """
 import numpy as np
 import pytest
@@ -22,7 +30,12 @@ import torch
 from repro_torch import kernels
 from repro_torch.core.flat import _top_k
 from repro_torch.core.golomb import encode_positions_packed, golomb_bstar, packed_words_to_bytes
+from repro_torch.core.flat import _hist_pipeline
+from repro_torch.kernels import binarize_apply as tbin
 from repro_torch.kernels import flat as tflat
+from repro_torch.kernels import hist2side as thist
+from repro_torch.kernels import moments as tmom
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pack as tpack
 from repro_torch.run import RunSpec, build_run
 from torch_helpers import (
@@ -315,6 +328,161 @@ def test_exact_rounds_run_through_the_packer(cuda):
         assert np.isfinite(float(m["loss"]))
     assert kernels.launch_counts() == {
         "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0,
-        "seg_packbits": 2, "seg_select_pack": 0}
+        "seg_packbits": 2, "seg_select_pack": 0, "hist2side": 0, "masked_moments": 0,
+        "binarize_apply": 0}
     n_mu = run.fns.flat_space.n_mu
     assert [r.up_bits_measured for r in run.ledger.records] == [b + 32.0 * n_mu for b in nbits]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_moment_kernels_are_bit_equal_to_plain(cuda, layout):
+    """The plain versions add in the kernels' order: the same f64 sums."""
+    sizes, zero = LAYOUTS[layout]
+    segs, xpad, sob = segment_layout(sizes, seed=25, zero_segments=zero)
+    x = t(xpad, cuda)
+    p = t(np.stack([sob.astype(np.float32), np.full(sob.shape, 0.3, np.float32),
+                    np.full(sob.shape, 0.4, np.float32)], axis=1), cuda)
+    got = n(tflat.seg_moments(x, p, nseg=len(segs)))
+    want = n(tflat.seg_moments_plain(x, p, nseg=len(segs)))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    leaf = x.reshape(-1)[segs[-1][0]:segs[-1][0] + segs[-1][1]]
+    for bm, lanes in ((8, 128), (256, 1024)):
+        got = n(tmom.masked_moments(leaf, 0.3, 0.4, bm=bm, lanes=lanes))
+        want = n(tmom.masked_moments_plain(leaf, 0.3, 0.4, bm=bm, lanes=lanes))
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# ------------------------------------------------------- per-leaf kernels
+
+LEAF_CASES = ("63", "1024", "4096", "100000", "262145", "offset", "zeros", "ones", "bf16")
+
+
+def _leaf(case, dev):
+    """A leaf for ``case``: a Gaussian of that size, a view one element
+    into a buffer (not 16-byte aligned), an all-zero or all-equal leaf,
+    or bf16 values."""
+    rng = np.random.default_rng(26)
+    if case == "offset":
+        base = t((rng.standard_normal(100_002) * 2.0).astype(np.float32), dev)
+        x = base[1:]
+        assert x.data_ptr() % 16 != 0
+        return x
+    if case in ("zeros", "ones"):
+        return torch.full((5000,), 0.0 if case == "zeros" else 1.0, device=dev)
+    if case == "bf16":
+        return t((rng.standard_normal(70_001) * 2.0).astype(np.float32), dev).to(torch.bfloat16)
+    return t((rng.standard_normal(int(case)) * 2.0).astype(np.float32), dev)
+
+
+def _leaf_ranges(x):
+    """The coarse pass's ranges and a zoomed per-side pair, as the
+    pipeline computes them."""
+    scale = x.float().abs().amax() + 1e-30
+    zoom_lo = torch.stack([scale * 0.25, scale * 0.3])
+    return (scale * 2.0 ** -30, scale * 1.0001), (zoom_lo, zoom_lo * 1.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LEAF_CASES)
+def test_hist2side_kernel_matches_plain(cuda, case):
+    x = _leaf(case, cuda)
+    for lo, hi in _leaf_ranges(x):
+        before = thist.hist2side.launches
+        got = thist.hist2side(x, lo, hi, nbins=128)
+        torch.cuda.synchronize()
+        assert thist.hist2side.launches == before + 1
+        want = thist.hist2side_plain(x, lo, hi, nbins=128)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (2, 128)
+        np.testing.assert_array_equal(n(got), n(want))
+    lo, hi = (float(v) for v in _leaf_ranges(x)[0])  # numbers, not tensors
+    coarse = n(thist.hist2side(x, lo, hi))
+    np.testing.assert_array_equal(coarse, n(thist.hist2side_plain(x, lo, hi)))
+    assert coarse.sum() == int((x != 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LEAF_CASES)
+def test_masked_moments_kernel_matches_plain(cuda, case):
+    x = _leaf(case, cuda)
+    for bm, lanes in ((8, 128), (256, 1024)):
+        before = tmom.masked_moments.launches
+        got = n(tmom.masked_moments(x, 0.7, 0.5, bm=bm, lanes=lanes))
+        assert tmom.masked_moments.launches == before + 1
+        want = n(tmom.masked_moments_plain(x, 0.7, 0.5, bm=bm, lanes=lanes))
+        np.testing.assert_array_equal(got[:, 1], want[:, 1])
+        np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-6)
+        again = n(tmom.masked_moments(x, 0.7, 0.5, bm=bm, lanes=lanes))
+        np.testing.assert_array_equal(again.view(np.uint32), got.view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LEAF_CASES)
+def test_binarize_apply_kernel_is_bit_equal_to_plain(cuda, case):
+    x = _leaf(case, cuda)
+    for mu, side in ((0.55, 1.0), (-0.8, 0.0)):
+        before = tbin.binarize_apply.launches
+        got = tbin.binarize_apply(x, 0.5, 0.6, mu, side)
+        torch.cuda.synchronize()
+        assert tbin.binarize_apply.launches == before + 1
+        want = tbin.binarize_apply_plain(x, 0.5, 0.6, mu, side)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == (x.numel(),) and g.dtype == torch.float32
+            np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_leaf_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.randn(4096, device=cuda)
+    for bad, error in ((x.to(torch.int32), TypeError), (x.reshape(64, 64), ValueError),
+                       (x[::2], ValueError), (x[:0], ValueError)):
+        with pytest.raises(error):
+            thist.hist2side(bad, 0.1, 1.0)
+        with pytest.raises(error):
+            tmom.masked_moments(bad, 0.1, 1.0)
+        with pytest.raises(error):
+            tbin.binarize_apply(bad, 0.1, 1.0, 0.5, 1.0)
+    with pytest.raises(ValueError):
+        thist.hist2side(x, torch.zeros(3, device=cuda), 1.0)
+    with pytest.raises(ValueError):
+        thist.hist2side(x, 0.1, 1.0, nbins=5000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["100000", "offset", "zeros", "ones"])
+def test_sbc_compress_hist_runs_the_kernels_without_a_host_sync(cuda, case, monkeypatch):
+    x = _leaf(case, cuda)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tops.sbc_compress_hist(x, p=0.01, bm=8, lanes=128)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = kernels.launch_counts()
+    assert (counts["hist2side"], counts["masked_moments"], counts["binarize_apply"]) == (2, 1, 1)
+    assert sum(counts.values()) == 4
+    for name, fn in (("hist2side", thist.hist2side_plain),
+                     ("masked_moments", tmom.masked_moments_plain),
+                     ("binarize_apply", tbin.binarize_apply_plain)):
+        monkeypatch.setattr(tops, name, fn)
+    want = tops.sbc_compress_hist(x, p=0.01, bm=8, lanes=128)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
+    assert torch.equal(got.residual, x - got.delta_star)
+
+
+@pytest.mark.cuda
+def test_per_leaf_pipeline_equals_the_flat_hist_engine(cuda):
+    sizes, zero = LAYOUTS["lenet5"]
+    segs, xpad, sob = segment_layout(sizes, seed=27, zero_segments=zero)
+    acc = t(xpad, cuda).reshape(-1)
+    ks = [max(1, min(s, int(round(0.01 * s)))) for s in sizes]
+    out, res, stats = _hist_pipeline(acc, [(o, s) for o, s, _ in segs], ks,
+                                     [0.01] * len(sizes), t(sob.astype(np.int64), cuda),
+                                     len(sob), BM, LANES, 128)
+    for i, (o, s, _) in enumerate(segs):
+        got = tops.sbc_compress_hist(acc[o:o + s], p=0.01, bm=BM, lanes=LANES)
+        for g, w in ((got.delta_star, out[o:o + s]), (got.residual, res[o:o + s]),
+                     (got.mean, stats["mu"][i]), (got.count, stats["count"][i])):
+            np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
