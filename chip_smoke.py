@@ -23,7 +23,10 @@ beside it.  Phases, each of which fails the run:
      captured: each kernel is held against its plain PyTorch version on
      the same operands (counts equal, binarize bit-equal, moment sums to
      ``rtol=1e-6``, with the largest relative error printed), the kernel
-     pipeline against the plain pipeline, and both are timed;
+     pipeline against the plain pipeline, and both are timed.  The
+     persistent grid of ``seg_hist2side`` and ``seg_moments`` is printed
+     (G and the CTAs an SM holds), and each call of either must be one
+     device operation (the per-call counts of the profiler's trace);
   3. the exact path: ``build_run`` for the same model on the exact engine
      with the device-packed Golomb wire and wire metering
      (``flat_engine="exact", device_pack=True, measure_wire=True``), 5
@@ -63,10 +66,10 @@ exchange with and without the device pack, on the last round's operands.
 
 ``ms`` and ``plain_ms`` are device time per call of the wrapper and of
 the plain version, from CUPTI (``torch.profiler``): the sum over all the
-device work one call launches (for the histogram also its output memset
-and int→f32 copy), averaged over many calls after a warm-up.  The calls
-rotate over copies of the operands that together exceed the 50 MB L2
-cache, so every call reads device memory, as ``bound_ms`` assumes.  Time
+device work one call launches, averaged over many calls after a warm-up.
+The calls rotate over copies of the operands that together exceed the
+50 MB L2 cache, so every call reads device memory, as ``bound_ms``
+assumes.  Time
 between CUDA events would include the host's cost of a launch through
 the Python wrapper, several times the kernels' own; so the script fails
 if the profiler sees no device time, and has no other timing.  The bound
@@ -92,6 +95,7 @@ ROUNDS = 5
 KERNELS = ("seg_hist2side", "seg_moments", "seg_binarize_apply", "seg_packbits",
            "seg_select_pack", "hist2side", "masked_moments", "binarize_apply")
 LEAF_KERNELS = ("hist2side", "masked_moments", "binarize_apply")
+ONE_OP = ("seg_hist2side", "seg_moments")  # one device operation per call
 
 
 def per_call(**counts) -> dict:
@@ -151,12 +155,12 @@ def _self_device_us(event) -> float:
         event, "self_cuda_time_total", 0.0)
 
 
-def device_ms(fn, operands, iters: int, label: str = "") -> float:
+def device_ms(fn, operands, iters: int, label: str = "", ops: int | None = None) -> float:
     """Mean device ms per call of ``fn(*operands[i % len(operands)])``,
     summed over the kernels, memsets and copies that the call launches,
     from CUPTI (``torch.profiler``).  Fails if the profiler saw no device
-    time.  With a ``label``, prints each device operation's share of a
-    call.
+    time, or, with ``ops``, unless each call is ``ops`` device operations.
+    With a ``label``, prints each device operation's share of a call.
 
     Every call launches the same device operations, so each one's count
     must be a whole multiple of ``iters``.  A trace that lost records (seen
@@ -180,6 +184,9 @@ def device_ms(fn, operands, iters: int, label: str = "") -> float:
         raise SmokeFailure(f"{label or 'plain'}: the profiler lost records three times")
     total_us = sum(_self_device_us(e) for e in events)
     check(total_us > 0, "torch.profiler saw no device time")
+    per_call = sum(e.count for e in events) / iters
+    check(ops is None or per_call == ops,
+          f"{label}: {per_call:g} device operations per call, not {ops}")
     if label:
         for e in sorted(events, key=_self_device_us, reverse=True):
             print(f"  {label}: {_self_device_us(e) / iters:.2f} us per call, "
@@ -308,9 +315,11 @@ def profiled_round(run, state, label: str) -> None:
     events = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
     busy_ms = sum(_self_device_us(e) for e in events) / 1e3
     check(busy_ms > 0, f"{label}: torch.profiler saw no device time in the profiled round")
+    on_device = sum(e.count for e in events if _self_device_us(e) > 0)
     print(f"{label} profiled round {ROUNDS + 1}: step {step_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / step_ms:.1f}% of the step), "
-          f"{sum(e.count for e in events)} device operations; top by device time:")
+          f"{sum(e.count for e in events)} profiler events, {on_device} of them device "
+          f"operations; top by device time:")
     for e in events[:12]:
         print(f"  {_self_device_us(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:100]}")
 
@@ -334,6 +343,11 @@ def hist_path(dev) -> tuple:
           f"{space.n_blocks} blocks, n_pad {space.n_pad}; "
           f"bits_per_client {run.fns.bits_per_client:.1f}")
     check(n_params == 1_256_010 and space.n_pad == 1_259_520, "LeNet5 layout")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ONE_OP:
+        grid, resident = kflat.launch_grid(name, dev, space.n_blocks)
+        print(f"{name}: persistent grid G = {grid} CTAs ({resident} resident per SM x "
+              f"{sms} SMs, {space.n_blocks} blocks), one launch per call")
 
     cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, "hist")
     acc, own = cap["acc"], cap["last"]["out"][1]
@@ -401,7 +415,8 @@ def hist_path(dev) -> tuple:
                      "seg_moments": 4 * kwargs.get("nseg", 0) * 4,
                      "seg_binarize_apply": 2 * 4 * xpad.numel()}[name]
         rows[name] = kernel_row(
-            name, cap["launches"][name], err, device_ms(fn_k, copies, 240, name),
+            name, cap["launches"][name], err,
+            device_ms(fn_k, copies, 240, name, ops=1 if name in ONE_OP else None),
             device_ms(fn_p, copies, 48), 4 * (xpad.numel() + params.numel()) + out_bytes,
             OPS_PER_ELEMENT[name] * xpad.numel())
         del copies

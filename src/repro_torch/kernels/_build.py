@@ -43,8 +43,10 @@ _I = ctypes.c_int
 # c_void_p, so ctypes never truncates a 64-bit address to a 32-bit int)
 _SIGNATURES = {
     "seg_sbc.cu": {
-        "seg_hist2side_launch": (_P, _P, _P, _I, _I, _I, _P),
-        "seg_moments_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "seg_hist2side_resident": (_I,),
+        "seg_moments_resident": (),
+        "seg_hist2side_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "seg_moments_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "seg_binarize_apply_launch": (_P, _P, _P, _P, _I, _I, _P),
         "hist2side_launch": (_P, _I, _P, _I, _P, _I, _P, _I, _P),
         "masked_moments_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P),

@@ -13,8 +13,8 @@
 //
 // The per-leaf passes are the segment passes over a single segment, and
 // share their per-element and per-partial code with them (hist_one,
-// moments_partial, fold_partials), so both give the same bits on the same
-// values by construction.
+// moment_quad, partial_store, fold_warps), so both give the same
+// bits on the same values by construction.
 //
 // Segment layout (the flat contract of the JAX package's core/flat.py):
 // the buffer is `nblocks` data blocks of `block_elems` f32 (bm * lanes =
@@ -28,26 +28,61 @@
 // thresholds, mu, side) are read from device memory, so nothing waits
 // for the host.
 //
-// What bounds them on an H100: all stream the data once and do a handful
-// of operations per element (one log2 in the histogram), so they are
-// bound by device-memory bytes, not by arithmetic.  The design keeps to
-// one read of the data per pass: 256 threads a CTA, each loading float4s
-// (16 bytes, neighbouring threads on neighbouring addresses).
+// What bounds them on an H100: all stream the data once (5 MB for LeNet5,
+// 1.5 us at 3.35 TB/s).  The binarize passes do a few operations per
+// element and are bound by bytes.  The histogram does an IEEE division
+// and a full-precision log2f per counted element, tens of instructions,
+// so its coarse pass (nearly every element counted) is bound by that
+// arithmetic and by how many warps an SM holds to cover its latency, not
+// by bytes.  At this size a pass is over before latency is hidden, so
+// beyond the bytes and the arithmetic a call costs its device operations
+// and the waits that no other work covers.
 //
-// Where the TPU kernels carried a sum across the sequential grid, the
-// CTAs here run in no order, so the cross-CTA reductions are made
-// deterministic without float atomics:
-//   * histogram counts are integers: shared-memory uint32 atomics per
-//     CTA, then one integer atomicAdd per non-empty bin into the global
-//     row.  Exact and independent of CTA order.
-//   * moments write per-partial sums (f64 sums, uint32 counts; a partial
-//     is one data block, or bm * lanes consecutive entries of a leaf) and
-//     a second launch folds each segment's partials in a fixed order:
-//     counted from the segment's first partial, lane l of one warp takes
-//     the partials l, l + 32, ... in order, then the warp folds the 32
-//     lane sums.  The sums are rounded to f32 once, at the end.  Every sum of a side has one sign, so the
-//     f64 result is within 1e-12 (relative) of the exact sum.  The plain
-//     versions in kernels/flat.py repeat this order step by step.
+// seg_hist2side and seg_moments are one launch each, on a persistent grid
+// of G CTAs that fits in one wave (G = SMs x the CTAs an SM holds at once,
+// from cudaOccupancyMaxActiveBlocksPerMultiprocessor, at most nblocks; the
+// wrapper passes it).  CTA c walks the contiguous blocks [c*nblocks/G,
+// (c+1)*nblocks/G), so it meets few segments.
+//
+//   * seg_hist2side loads a block's float4 and params row and bins them,
+//     one block at a time: loads of more blocks in flight would cost
+//     registers, and so resident warps, that the coarse pass's arithmetic
+//     needs more.  A block whose ranges repeat the previous block's keeps
+//     its log2 terms (4 log2f per block, besides one per element).  A warp
+//     does the division and the log2 of a slot (v.x, v.y, ...) if any of
+//     its lanes counts an entry there, so where the counted entries of a
+//     warp are few (the zoomed pass) they are packed into fewer rounds
+//     first (hist_quad_warp).  A CTA adds its shared counts into a
+//     uint32 workspace, one global atomicAdd per non-empty counter, when
+//     its segment changes and once at its end.  The last CTA converts the
+//     workspace to the f32 result and zeroes it: no memset before the
+//     kernel and no int->f32 copy after it.
+//   * seg_moments loads the first quads and thresholds of kMomentsAhead
+//     blocks at once, and writes each block's partial (f64 sums, uint32
+//     counts).  The last CTA finds each segment's first and last block in
+//     one pass over params column 0 (shared atomicMin / atomicMax at the
+//     changes of segment id), stages up to kFoldChunk partials at a time
+//     in shared memory, every thread with its kBatch loads in flight, and
+//     its 8 warps fold 8 segments at a time, each lane loading kChainStep
+//     steps of its chain before adding them.
+//
+// The last CTA is found with a ticket: after a barrier, thread 0 fences
+// the CTA's writes and takes atomicInc(ticket, G - 1); the CTA that draws
+// G - 1 is last, and the ticket has wrapped to 0 for the next launch.  The
+// workspace (tickets, counts) is allocated zeroed once per
+// (device, stream) by the wrapper and every launch leaves the words it
+// used zero, so nothing clears it between calls.
+//
+// Results do not depend on which CTA runs when: histogram counts are sums
+// of integers, exact in any order; the moment sums are f64 additions in an order fixed by the data's layout
+// alone: a block's partial is summed by one CTA in thread and warp order,
+// and the fold adds a segment's partials in index order (counted from the
+// segment's first partial b0, lane L of one warp takes b0 + L, b0 + L +
+// 32, ... in order, then the warp folds the 32 lane sums with warp_sum_d),
+// after every partial is written.  The sums are rounded to f32 once, at
+// the end.  Every sum of a side has one sign, so the f64 result is within
+// 1e-12 (relative) of the exact sum.  The plain versions in
+// kernels/flat.py repeat this order step by step.
 //
 // Numerics: built with -fmad=false and without --use_fast_math, so the
 // bucket coordinate uses the IEEE division and the full-precision log2f
@@ -55,13 +90,20 @@
 // flush-to-zero), as in the plain PyTorch versions beside the wrappers.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kLeafElemsPerCta = 8192;  // per-leaf histogram and binarize
 constexpr int kLeafMaxCtas = 2048;
+constexpr int kMomentsAhead = 4;        // blocks whose loads a moments CTA issues at once
+constexpr int kBatch = 5;               // loads a thread of the last CTA issues at once
+constexpr int kFoldChunk = kThreads * kBatch;  // partials the fold stages at once: 1,280,
+                                        // LeNet5's 1,230 blocks in one
+constexpr int kChainStep = 4;           // steps of a lane's fold loaded at once
 
 // The two sides' magnitude ranges and their log2 terms.
 struct HistRanges {
@@ -100,6 +142,51 @@ __device__ __forceinline__ void hist_one(float v, const HistRanges& r, float nbi
   atomicAdd(&sh[side * nbins + bucket], 1u);
 }
 
+// Whether hist_one counts an entry (its first two tests alone).
+__device__ __forceinline__ bool hist_counts(float v, const HistRanges& r) {
+  const float a = fabsf(v);
+  return v > 0.0f ? (a >= r.lo0 && a < r.hi0) : (v < 0.0f && a >= r.lo1 && a < r.hi1);
+}
+
+__device__ __forceinline__ void hist_quad(float4 v, const HistRanges& r, float nbins_f,
+                                          int nbins, unsigned* sh) {
+  hist_one(v.x, r, nbins_f, nbins, sh);
+  hist_one(v.y, r, nbins_f, nbins, sh);
+  hist_one(v.z, r, nbins_f, nbins, sh);
+  hist_one(v.w, r, nbins_f, nbins, sh);
+}
+
+// hist_quad by a whole warp (all 32 lanes call it).  A warp pays for the
+// log2 and the division of a slot (v.x, v.y, ...) when any of its lanes
+// counts an entry there, so when the warp's counted entries fit in fewer
+// rounds of 32 than the slots they occupy (the zoomed pass, where few
+// entries are in range), they are first packed into the warp's 128 floats
+// of `buf` and each lane takes every 32nd.
+__device__ __forceinline__ void hist_quad_warp(float4 v, const HistRanges& r,
+                                               float nbins_f, int nbins, unsigned* sh,
+                                               float* buf) {
+  const bool i0 = hist_counts(v.x, r), i1 = hist_counts(v.y, r);
+  const bool i2 = hist_counts(v.z, r), i3 = hist_counts(v.w, r);
+  const unsigned m0 = __ballot_sync(0xffffffffu, i0), m1 = __ballot_sync(0xffffffffu, i1);
+  const unsigned m2 = __ballot_sync(0xffffffffu, i2), m3 = __ballot_sync(0xffffffffu, i3);
+  const int n0 = __popc(m0), n01 = n0 + __popc(m1), n012 = n01 + __popc(m2);
+  const int n = n012 + __popc(m3);
+  const int slots = (m0 != 0u) + (m1 != 0u) + (m2 != 0u) + (m3 != 0u);
+  if ((n + 31) / 32 >= slots) {  // uniform over the warp
+    hist_quad(v, r, nbins_f, nbins, sh);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  if (i0) buf[__popc(m0 & below)] = v.x;
+  if (i1) buf[n0 + __popc(m1 & below)] = v.y;
+  if (i2) buf[n01 + __popc(m2 & below)] = v.z;
+  if (i3) buf[n012 + __popc(m3 & below)] = v.w;
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) hist_one(buf[i], r, nbins_f, nbins, sh);
+  __syncwarp();
+}
+
 __device__ __forceinline__ void hist_flush(const unsigned* sh, unsigned* out, int nbins) {
   for (int i = threadIdx.x; i < 2 * nbins; i += blockDim.x) {
     const unsigned c = sh[i];
@@ -107,38 +194,111 @@ __device__ __forceinline__ void hist_flush(const unsigned* sh, unsigned* out, in
   }
 }
 
-// grid = nblocks, block = kThreads, dynamic smem = 2 * nbins * 4 bytes.
-// params rows: (seg, lo+, hi+, lo-, hi-).  hist: uint32[nseg, 2, nbins],
-// zeroed by the caller.
-__global__ void __launch_bounds__(kThreads)
-seg_hist2side_kernel(const float* __restrict__ x, const float* __restrict__ params,
-                     unsigned* __restrict__ hist, int block_elems, int nbins) {
-  extern __shared__ unsigned sh[];
-  const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < 2 * nbins; i += blockDim.x) sh[i] = 0u;
+size_t hist_smem(int nbins) { return 2 * (size_t)nbins * sizeof(unsigned); }
 
-  const float* p = params + (size_t)b * 5;
-  const int seg = (int)p[0];
-  const HistRanges r = make_ranges(p[1], p[2], p[3], p[4]);
-  const float nbins_f = (float)nbins;
+// Called by every thread once the CTA's writes are issued: true in the CTA
+// that finishes last, after which that CTA sees every other CTA's writes.
+// The ticket counts finished CTAs and wraps to 0 by itself.  As in a grid
+// barrier of cooperative groups, the CTA's barrier orders its threads'
+// writes before thread 0's fence and ticket, and the last CTA's thread 0
+// fences again before the barrier that releases its other threads.
+__device__ __forceinline__ bool last_cta(unsigned* ticket) {
+  __shared__ bool last;
   __syncthreads();
-
-  const float4* x4 = reinterpret_cast<const float4*>(x + (size_t)b * block_elems);
-  for (int i = threadIdx.x; i < block_elems / 4; i += blockDim.x) {
-    const float4 v = x4[i];
-    hist_one(v.x, r, nbins_f, nbins, sh);
-    hist_one(v.y, r, nbins_f, nbins, sh);
-    hist_one(v.z, r, nbins_f, nbins, sh);
-    hist_one(v.w, r, nbins_f, nbins, sh);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+    if (last) __threadfence();
   }
   __syncthreads();
-  hist_flush(sh, hist + (size_t)seg * 2 * nbins, nbins);
+  return last;
 }
 
-// grid <= kLeafMaxCtas, block = kThreads, dynamic smem = 2 * nbins * 4
-// bytes.  Side s's range is [lo[s * lo_step], hi[s * hi_step]): a step of
-// 0 gives both sides one scalar.  hist: uint32[2, nbins], zeroed by the
-// caller.  kVec: x is 16-byte aligned (float4 body, scalar tail).
+// The contiguous blocks [lo, hi) that CTA blockIdx.x of a persistent grid walks.
+__device__ __forceinline__ void cta_blocks(int nblocks, int& lo, int& hi) {
+  lo = (int)((long long)blockIdx.x * nblocks / gridDim.x);
+  hi = (int)((long long)(blockIdx.x + 1) * nblocks / gridDim.x);
+}
+
+// grid = G <= nblocks (G >= 1), block = kThreads, dynamic smem =
+// hist_smem(nbins).  params rows: (seg, lo+, hi+, lo-, hi-).  work:
+// uint32[nseg, 2, nbins] and *ticket, zero on entry and left zero.  out:
+// f32[nseg, 2, nbins], written whole by the last CTA.
+__global__ void __launch_bounds__(kThreads)
+seg_hist2side_kernel(const float* __restrict__ x, const float* __restrict__ params,
+                     unsigned* __restrict__ work, unsigned* __restrict__ ticket,
+                     float* __restrict__ out, int nblocks, int block_elems, int nbins,
+                     int nseg) {
+  extern __shared__ unsigned sh[];
+  __shared__ float packed[kWarps][128];
+  float* buf = packed[threadIdx.x >> 5];
+  for (int i = threadIdx.x; i < 2 * nbins; i += kThreads) sh[i] = 0u;
+  int b_lo, b_hi;
+  cta_blocks(nblocks, b_lo, b_hi);
+  const int quads = block_elems / 4;
+  const bool mine = threadIdx.x < quads;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float nbins_f = (float)nbins;
+
+  // A block whose ranges repeat the previous block's keeps its log2 terms.
+  int cur = -1;
+  bool have = false;
+  float rl0 = 0.0f, rh0 = 0.0f, rl1 = 0.0f, rh1 = 0.0f;
+  HistRanges r;
+  for (int b = b_lo; b < b_hi; ++b) {
+    const float4 v = mine ? x4[(size_t)b * quads + threadIdx.x] : zero4;
+    const float* p = params + (size_t)b * 5;
+    const int seg = (int)p[0];
+    const float l0 = p[1], h0 = p[2], l1 = p[3], h1 = p[4];
+    if (seg != cur) {  // uniform: every thread reads the same row
+      __syncthreads();
+      if (cur >= 0) {
+        hist_flush(sh, work + (size_t)cur * 2 * nbins, nbins);
+        for (int i = threadIdx.x; i < 2 * nbins; i += kThreads) sh[i] = 0u;
+      }
+      cur = seg;
+      __syncthreads();
+    }
+    if (!(have && l0 == rl0 && h0 == rh0 && l1 == rl1 && h1 == rh1)) {
+      r = make_ranges(l0, h0, l1, h1);
+      rl0 = l0; rh0 = h0; rl1 = l1; rh1 = h1;
+      have = true;
+    }
+    hist_quad_warp(v, r, nbins_f, nbins, sh, buf);  // zeros are not counted
+    for (int q0 = kThreads; q0 < quads; q0 += kThreads) {
+      const int q = q0 + threadIdx.x;
+      hist_quad_warp(q < quads ? x4[(size_t)b * quads + q] : zero4, r, nbins_f, nbins, sh,
+                     buf);
+    }
+  }
+  __syncthreads();
+  if (cur >= 0) hist_flush(sh, work + (size_t)cur * 2 * nbins, nbins);
+
+  if (!last_cta(ticket)) return;
+  const int words = nseg * 2 * nbins;
+  for (int i0 = 0; i0 < words; i0 += kThreads * kBatch) {
+    unsigned c[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = min(i0 + u * kThreads + (int)threadIdx.x, words - 1);
+      c[u] = __ldcg(work + i);  // other CTAs' atomics: from L2
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads + threadIdx.x;
+      if (i < words) {
+        out[i] = (float)c[u];
+        work[i] = 0u;
+      }
+    }
+  }
+}
+
+// grid <= kLeafMaxCtas, block = kThreads, dynamic smem = hist_smem(nbins).
+// Side s's range is [lo[s * lo_step], hi[s * hi_step]): a step of 0 gives
+// both sides one scalar.  hist: uint32[2, nbins], zeroed by the caller.
+// kVec: x is 16-byte aligned (float4 body, scalar tail).
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 hist2side_kernel(const float* __restrict__ x, int n, const float* __restrict__ lo,
@@ -185,34 +345,24 @@ __device__ __forceinline__ void moment_one(float v, float tpos, float ntneg, dou
   if (v <= ntneg) { s1 += (double)v; c1 += 1u; }
 }
 
-// One partial's sums, by one CTA of kThreads: the entries xb[0 .. count).
-// Thread t takes the quads (4 entries) t, t + kThreads, ... in order, each
-// quad's entries in order; the warps fold their 32 threads with
-// warp_sum_d, and thread 0 adds the 8 warp sums in order and writes f64
-// [sum+, sum-] to psum[0:2] and [n+, n-] to pcnt[0:2].  vec: xb is
-// 16-byte aligned, so a whole quad is one float4 load.
-__device__ __forceinline__ void moments_partial(const float* __restrict__ xb, int count,
-                                                bool vec, float tpos, float ntneg,
-                                                double* __restrict__ psum,
-                                                unsigned* __restrict__ pcnt) {
-  __shared__ double ssum[2][kThreads / 32];
-  __shared__ unsigned scnt[2][kThreads / 32];
-  double s0 = 0.0, s1 = 0.0;
-  unsigned c0 = 0u, c1 = 0u;
-  const int quads = (count + 3) / 4;
-  for (int q = threadIdx.x; q < quads; q += kThreads) {
-    const int e = 4 * q;
-    if (vec && e + 3 < count) {
-      const float4 v = reinterpret_cast<const float4*>(xb)[q];
-      moment_one(v.x, tpos, ntneg, s0, c0, s1, c1);
-      moment_one(v.y, tpos, ntneg, s0, c0, s1, c1);
-      moment_one(v.z, tpos, ntneg, s0, c0, s1, c1);
-      moment_one(v.w, tpos, ntneg, s0, c0, s1, c1);
-    } else {
-      for (int c = 0; c < 4 && e + c < count; ++c)
-        moment_one(xb[e + c], tpos, ntneg, s0, c0, s1, c1);
-    }
-  }
+__device__ __forceinline__ void moment_quad(float4 v, float tpos, float ntneg, double& s0,
+                                            unsigned& c0, double& s1, unsigned& c1) {
+  moment_one(v.x, tpos, ntneg, s0, c0, s1, c1);
+  moment_one(v.y, tpos, ntneg, s0, c0, s1, c1);
+  moment_one(v.z, tpos, ntneg, s0, c0, s1, c1);
+  moment_one(v.w, tpos, ntneg, s0, c0, s1, c1);
+}
+
+// One partial from its threads' sums: the warps fold their 32 threads with
+// warp_sum_d, and thread 0 adds the kWarps warp sums in order and writes
+// f64 [sum+, sum-] to psum[0:2] and [n+, n-] to pcnt[0:2].  ssum / scnt
+// are this partial's shared slots; the caller does not write them again
+// before every thread has passed another __syncthreads.
+__device__ __forceinline__ void partial_store(double s0, unsigned c0, double s1, unsigned c1,
+                                              double (*ssum)[kWarps],
+                                              unsigned (*scnt)[kWarps],
+                                              double* __restrict__ psum,
+                                              unsigned* __restrict__ pcnt) {
   s0 = warp_sum_d(s0);
   s1 = warp_sum_d(s1);
   c0 = warp_sum_u(c0);
@@ -226,7 +376,7 @@ __device__ __forceinline__ void moments_partial(const float* __restrict__ xb, in
   if (threadIdx.x == 0) {
     double t0 = 0.0, t1 = 0.0;
     unsigned n0 = 0u, n1 = 0u;
-    for (int w = 0; w < kThreads / 32; ++w) {
+    for (int w = 0; w < kWarps; ++w) {
       t0 += ssum[0][w]; t1 += ssum[1][w];
       n0 += scnt[0][w]; n1 += scnt[1][w];
     }
@@ -235,78 +385,222 @@ __device__ __forceinline__ void moments_partial(const float* __restrict__ xb, in
   }
 }
 
-__device__ __forceinline__ int warp_min_i(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Fold one segment's partials, by one warp, in a fixed order: counted
-// from the segment's first partial b0 (the least b that member()
-// accepts), lane L adds the segment's partials b0 + L, b0 + L + 32, ... in
-// index order; the warp then folds the 32 lane sums with warp_sum_d.
-// Lane 0 writes f32 [[sum+, n+], [sum-, n-]] to out[0:4].
-//
-// The walk itself is in absolute order: lane l adds the partials
-// b = l (mod 32), which are the partials of lane (l - b0) mod 32 in the
-// order above, with the same additions.  So each lane walks its partials
-// without waiting on any other lane, and one shuffle by b0 at the end
-// hands every sum to its lane.
-template <class Member>
-__device__ __forceinline__ void fold_partials(const double* __restrict__ psum,
-                                              const unsigned* __restrict__ pcnt,
-                                              int nparts, Member member,
-                                              float* __restrict__ out) {
-  const int lane = threadIdx.x;
+// One partial's sums, by one CTA of kThreads: the entries xb[0 .. count).
+// Thread t takes the quads (4 entries) t, t + kThreads, ... in order, each
+// quad's entries in order, then partial_store.  vec: xb is 16-byte
+// aligned, so a whole quad is one float4 load.
+__device__ __forceinline__ void moments_partial(const float* __restrict__ xb, int count,
+                                                bool vec, float tpos, float ntneg,
+                                                double* __restrict__ psum,
+                                                unsigned* __restrict__ pcnt) {
+  __shared__ double ssum[2][kWarps];
+  __shared__ unsigned scnt[2][kWarps];
   double s0 = 0.0, s1 = 0.0;
   unsigned c0 = 0u, c1 = 0u;
-  int first = nparts;
-  for (int b = lane; b < nparts; b += 32) {
-    if (member(b)) {
-      first = min(first, b);
-      s0 += psum[(size_t)b * 2]; s1 += psum[(size_t)b * 2 + 1];
-      c0 += pcnt[(size_t)b * 2]; c1 += pcnt[(size_t)b * 2 + 1];
+  const int quads = (count + 3) / 4;
+  for (int q = threadIdx.x; q < quads; q += kThreads) {
+    const int e = 4 * q;
+    if (vec && e + 3 < count) {
+      moment_quad(reinterpret_cast<const float4*>(xb)[q], tpos, ntneg, s0, c0, s1, c1);
+    } else {
+      for (int c = 0; c < 4 && e + c < count; ++c)
+        moment_one(xb[e + c], tpos, ntneg, s0, c0, s1, c1);
     }
   }
-  const int src = (lane + warp_min_i(first)) & 31;
-  s0 = __shfl_sync(0xffffffffu, s0, src);
-  s1 = __shfl_sync(0xffffffffu, s1, src);
-  c0 = __shfl_sync(0xffffffffu, c0, src);
-  c1 = __shfl_sync(0xffffffffu, c1, src);
+  partial_store(s0, c0, s1, c1, ssum, scnt, psum, pcnt);
+}
+
+// The fold's shared staging: the sums, counts and segment ids of up to
+// kFoldChunk consecutive partials.
+struct FoldStage {
+  double2 sum[kFoldChunk];
+  uint2 cnt[kFoldChunk];
+  int seg[kFoldChunk];
+};
+
+// Fold, by the whole CTA of kThreads, one segment per warp: warp w adds the
+// partials of segment `seg` in [b0, b_last] (b0 > b_last: none; seg_of(b)
+// gives partial b's segment) in a fixed order: lane L adds the partials
+// b0 + L, b0 + L + 32, ... in index order; the warp then folds the 32 lane
+// sums with warp_sum_d, and lane 0 writes f32 [[sum+, n+], [sum-, n-]] to
+// out[0:4] (out: null for a warp without a segment).  The partials of the
+// warps' ranges pass through `st` kFoldChunk at a time, each thread
+// issuing its kBatch loads at once; each lane adds its partials from
+// shared memory, in order.
+template <class SegOf>
+__device__ void fold_warps(const double* __restrict__ psum,
+                           const unsigned* __restrict__ pcnt, SegOf seg_of_b, int seg,
+                           int b0, int b_last, float* __restrict__ out, FoldStage& st) {
+  __shared__ int lo_w[kWarps], hi_w[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    lo_w[warp] = b0;
+    hi_w[warp] = b_last;
+  }
+  __syncthreads();
+  int lo = INT_MAX, hi = -1;
+  for (int w = 0; w < kWarps; ++w) {
+    if (lo_w[w] <= hi_w[w]) {
+      lo = min(lo, lo_w[w]);
+      hi = max(hi, hi_w[w]);
+    }
+  }
+  double s0 = 0.0, s1 = 0.0;
+  unsigned c0 = 0u, c1 = 0u;
+  __syncthreads();  // lo_w and hi_w read by every thread
+  for (int c = lo; c <= hi; c += kFoldChunk) {
+    const int n = min(kFoldChunk, hi + 1 - c);
+    double2 ls[kBatch];
+    uint2 lc[kBatch];
+    int lg[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int b = c + min(u * kThreads + (int)threadIdx.x, n - 1);
+      ls[u] = __ldcg(reinterpret_cast<const double2*>(psum) + b);  // other CTAs': L2
+      lc[u] = __ldcg(reinterpret_cast<const uint2*>(pcnt) + b);
+      lg[u] = seg_of_b(b);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int k = u * kThreads + threadIdx.x;
+      if (k < n) {
+        st.sum[k] = ls[u];
+        st.cnt[k] = lc[u];
+        st.seg[k] = lg[u];
+      }
+    }
+    __syncthreads();
+    int b = b0 + lane;  // this lane's first partial at or after c
+    if (b < c) b += (c - b + 31) / 32 * 32;
+    const int end = min(c + n - 1, b_last);
+    const int steps = b <= end ? (end - b) / 32 + 1 : 0;
+    // kChainStep steps at a time: their operands are loaded first, then
+    // added in order.  A step past the end, or on a partial of another
+    // segment, adds +0.0 and 0: the same bits as skipping it, since no lane
+    // sum is ever -0.0 (each side's sums have one sign).
+    for (int j0 = 0; j0 < steps; j0 += kChainStep) {
+      double2 ps[kChainStep];
+      uint2 pc[kChainStep];
+      bool m[kChainStep];
+#pragma unroll
+      for (int u = 0; u < kChainStep; ++u) {
+        const int k = min(b + 32 * (j0 + u), end) - c;
+        ps[u] = st.sum[k];
+        pc[u] = st.cnt[k];
+        m[u] = j0 + u < steps && st.seg[k] == seg;
+      }
+#pragma unroll
+      for (int u = 0; u < kChainStep; ++u) {
+        s0 += m[u] ? ps[u].x : 0.0; s1 += m[u] ? ps[u].y : 0.0;
+        c0 += m[u] ? pc[u].x : 0u; c1 += m[u] ? pc[u].y : 0u;
+      }
+    }
+    __syncthreads();  // every lane is done with st
+  }
   s0 = warp_sum_d(s0);
   s1 = warp_sum_d(s1);
   c0 = warp_sum_u(c0);
   c1 = warp_sum_u(c1);
-  if (lane == 0) {
+  if (lane == 0 && out != nullptr) {
     out[0] = (float)s0; out[1] = (float)c0; out[2] = (float)s1; out[3] = (float)c1;
   }
 }
 
-// Pass 1: grid = nblocks, block = kThreads.  params rows: (seg, t+, t-).
-// Writes block b's f64 [sum+, sum-] to psum[b, 0:2] and [n+, n-] to pcnt[b, 0:2].
-__global__ void __launch_bounds__(kThreads)
-seg_moments_partial_kernel(const float* __restrict__ x, const float* __restrict__ params,
-                           double* __restrict__ psum, unsigned* __restrict__ pcnt,
-                           int block_elems) {
-  const int b = blockIdx.x;
-  moments_partial(x + (size_t)b * block_elems, block_elems, true,
-                  params[(size_t)b * 3 + 1], -params[(size_t)b * 3 + 2],
-                  psum + (size_t)b * 2, pcnt + (size_t)b * 2);
+__device__ __forceinline__ int seg_of(const float* params, int b) {
+  return (int)params[(size_t)b * 3];
 }
 
-struct InSegment {
+struct SegOfBlock {
   const float* params;
-  int seg;
-  __device__ bool operator()(int b) const { return (int)params[(size_t)b * 3] == seg; }
+  __device__ int operator()(int b) const { return seg_of(params, b); }
 };
 
-// Pass 2: grid = nseg, block = 32 (one warp per segment).
-// out: f32[nseg, 2, 2] = [[sum+, n+], [sum-, n-]].
-__global__ void __launch_bounds__(32)
-seg_moments_final_kernel(const double* __restrict__ psum, const unsigned* __restrict__ pcnt,
-                         const float* __restrict__ params, float* __restrict__ out,
-                         int nblocks) {
-  fold_partials(psum, pcnt, nblocks, InSegment{params, (int)blockIdx.x},
-                out + (size_t)blockIdx.x * 4);
+// grid = G <= nblocks (G >= 1), block = kThreads.  params rows: (seg, t+,
+// t-).  Writes block b's f64 [sum+, sum-] to psum[b, 0:2] and [n+, n-] to
+// pcnt[b, 0:2]; the last CTA folds them into out: f32[nseg, 2, 2] =
+// [[sum+, n+], [sum-, n-]].  *ticket is zero on entry and left zero.
+__global__ void __launch_bounds__(kThreads)
+seg_moments_kernel(const float* __restrict__ x, const float* __restrict__ params,
+                   double* __restrict__ psum, unsigned* __restrict__ pcnt,
+                   unsigned* __restrict__ ticket, float* __restrict__ out, int nblocks,
+                   int block_elems, int nseg) {
+  __shared__ double ssum[2][2][kWarps];  // by block parity
+  __shared__ unsigned scnt[2][2][kWarps];
+  __shared__ int first_b[kThreads], last_b[kThreads];
+  __shared__ FoldStage st;
+  int b_lo, b_hi;
+  cta_blocks(nblocks, b_lo, b_hi);
+  const int quads = block_elems / 4;
+  const bool mine = threadIdx.x < quads;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // block b's partial: thread t takes the quads t, t + kThreads, ... in
+  // order (moments_partial's order); the first quads and thresholds of
+  // kMomentsAhead blocks are loaded at once
+  for (int b0 = b_lo; b0 < b_hi; b0 += kMomentsAhead) {
+    float4 v[kMomentsAhead];
+    float tpos[kMomentsAhead], ntneg[kMomentsAhead];
+#pragma unroll
+    for (int u = 0; u < kMomentsAhead; ++u) {
+      const int b = min(b0 + u, b_hi - 1);
+      v[u] = mine ? x4[(size_t)b * quads + threadIdx.x] : zero4;
+      tpos[u] = params[(size_t)b * 3 + 1];
+      ntneg[u] = -params[(size_t)b * 3 + 2];
+    }
+#pragma unroll
+    for (int u = 0; u < kMomentsAhead; ++u) {
+      const int b = b0 + u;
+      if (b >= b_hi) break;
+      double s0 = 0.0, s1 = 0.0;
+      unsigned c0 = 0u, c1 = 0u;
+      if (mine) moment_quad(v[u], tpos[u], ntneg[u], s0, c0, s1, c1);
+      for (int q = threadIdx.x + kThreads; q < quads; q += kThreads)
+        moment_quad(x4[(size_t)b * quads + q], tpos[u], ntneg[u], s0, c0, s1, c1);
+      partial_store(s0, c0, s1, c1, ssum[b & 1], scnt[b & 1], psum + (size_t)b * 2,
+                    pcnt + (size_t)b * 2);
+    }
+  }
+
+  if (!last_cta(ticket)) return;
+  const int warp = threadIdx.x >> 5;
+  for (int g0 = 0; g0 < nseg; g0 += kThreads) {  // segments g0 .. g0 + ns - 1
+    const int ns = min(kThreads, nseg - g0);
+    if (threadIdx.x < ns) {
+      first_b[threadIdx.x] = nblocks;
+      last_b[threadIdx.x] = -1;
+    }
+    __syncthreads();
+    // their first and last blocks: only a block at a change of segment id
+    // touches the shared slots
+    for (int bb = 0; bb < nblocks; bb += kThreads * kBatch) {
+      int sg[kBatch], before[kBatch], after[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int b = min(bb + u * kThreads + (int)threadIdx.x, nblocks - 1);
+        sg[u] = seg_of(params, b);
+        before[u] = b > 0 ? seg_of(params, b - 1) : -1;
+        after[u] = b + 1 < nblocks ? seg_of(params, b + 1) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int b = bb + u * kThreads + threadIdx.x, i = sg[u] - g0;
+        if (b >= nblocks || i < 0 || i >= ns) continue;
+        if (before[u] != sg[u]) atomicMin(&first_b[i], b);
+        if (after[u] != sg[u]) atomicMax(&last_b[i], b);
+      }
+    }
+    __syncthreads();
+    for (int i0 = 0; i0 < ns; i0 += kWarps) {  // kWarps segments at once
+      const int w = i0 + warp;
+      if (w < ns) {
+        fold_warps(psum, pcnt, SegOfBlock{params}, g0 + w, first_b[w], last_b[w],
+                   out + (size_t)(g0 + w) * 4, st);
+      } else {
+        fold_warps(psum, pcnt, SegOfBlock{params}, -1, nblocks, -1, nullptr, st);
+      }
+    }
+  }
 }
 
 // Per-leaf pass 1: grid = nparts, block = kThreads; partial p covers
@@ -326,16 +620,20 @@ masked_moments_partial_kernel(const float* __restrict__ x, int n, int span,
                   pcnt + (size_t)p * 2);
 }
 
-struct EveryPartial {
-  __device__ bool operator()(int) const { return true; }
+struct OneSegment {
+  __device__ int operator()(int) const { return 0; }
 };
 
-// Per-leaf pass 2: grid = 1, block = 32.  out: f32[2, 2].
-__global__ void __launch_bounds__(32)
+// Per-leaf pass 2: grid = 1, block = kThreads; warp 0 folds the partials.
+// out: f32[2, 2].
+__global__ void __launch_bounds__(kThreads)
 masked_moments_final_kernel(const double* __restrict__ psum,
                             const unsigned* __restrict__ pcnt, int nparts,
                             float* __restrict__ out) {
-  fold_partials(psum, pcnt, nparts, EveryPartial{}, out);
+  __shared__ FoldStage st;
+  const bool folds = threadIdx.x < 32;
+  fold_warps(psum, pcnt, OneSegment{}, 0, folds ? 0 : nparts, folds ? nparts - 1 : -1,
+             folds ? out : nullptr, st);
 }
 
 __device__ __forceinline__ void apply_one(float v, float tpos, float ntneg, float mu,
@@ -412,6 +710,16 @@ int leaf_ctas(int n) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u; }
 
+// CTAs of `kernel` that one SM of the current device holds at once, or
+// minus the CUDA error.
+template <class Kernel>
+int resident(Kernel kernel, size_t smem) {
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------- C API
@@ -419,33 +727,33 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // allocates nothing, does not synchronise, and returns cudaGetLastError()
 // (0 = cudaSuccess) so a refused launch is reported to the wrapper.
 
-extern "C" int seg_hist2side_launch(const void* x, const void* params, void* hist,
-                                    int nblocks, int block_elems, int nbins,
-                                    void* stream) {
-  if (nblocks > 0) {
-    seg_hist2side_kernel<<<nblocks, kThreads, 2 * nbins * sizeof(unsigned),
-                           (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)params, (unsigned*)hist, block_elems, nbins);
-  }
+// Resident CTAs per SM of the persistent-grid kernels (the wrapper's G is
+// SMs times this, at most nblocks).
+extern "C" int seg_hist2side_resident(int nbins) {
+  return resident(seg_hist2side_kernel, hist_smem(nbins));
+}
+
+extern "C" int seg_moments_resident(void) { return resident(seg_moments_kernel, 0); }
+
+// work: uint32[nseg * 2 * nbins] and ticket: one uint32, both zero (and
+// left zero).  grid: G >= 1.
+extern "C" int seg_hist2side_launch(const void* x, const void* params, void* work,
+                                    void* ticket, void* out, int nblocks, int block_elems,
+                                    int nbins, int nseg, int grid, void* stream) {
+  seg_hist2side_kernel<<<grid, kThreads, hist_smem(nbins), (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)params, (unsigned*)work, (unsigned*)ticket,
+      (float*)out, nblocks, block_elems, nbins, nseg);
   return (int)cudaGetLastError();
 }
 
+// psum: f64[nblocks, 2] and pcnt: uint32[nblocks, 2] scratch, written
+// whole; ticket: one uint32, zero (and left zero).  grid: G >= 1.
 extern "C" int seg_moments_launch(const void* x, const void* params, void* psum,
-                                  void* pcnt, void* out, int nblocks, int block_elems,
-                                  int nseg, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nblocks > 0) {
-    seg_moments_partial_kernel<<<nblocks, kThreads, 0, s>>>(
-        (const float*)x, (const float*)params, (double*)psum, (unsigned*)pcnt,
-        block_elems);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  if (nseg > 0) {
-    seg_moments_final_kernel<<<nseg, 32, 0, s>>>(
-        (const double*)psum, (const unsigned*)pcnt, (const float*)params, (float*)out,
-        nblocks);
-  }
+                                  void* pcnt, void* ticket, void* out, int nblocks,
+                                  int block_elems, int nseg, int grid, void* stream) {
+  seg_moments_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)params, (double*)psum, (unsigned*)pcnt,
+      (unsigned*)ticket, (float*)out, nblocks, block_elems, nseg);
   return (int)cudaGetLastError();
 }
 
@@ -462,7 +770,7 @@ extern "C" int seg_binarize_apply_launch(const void* x, const void* params, void
 extern "C" int hist2side_launch(const void* x, int n, const void* lo, int lo_step,
                                 const void* hi, int hi_step, void* hist, int nbins,
                                 void* stream) {
-  const size_t smem = 2 * nbins * sizeof(unsigned);
+  const size_t smem = hist_smem(nbins);
   cudaStream_t s = (cudaStream_t)stream;
   if (aligned16(x)) {
     hist2side_kernel<true><<<leaf_ctas(n), kThreads, smem, s>>>(
@@ -486,7 +794,7 @@ extern "C" int masked_moments_launch(const void* x, int n, int span, const void*
       (unsigned*)pcnt);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  masked_moments_final_kernel<<<1, 32, 0, s>>>(
+  masked_moments_final_kernel<<<1, kThreads, 0, s>>>(
       (const double*)psum, (const unsigned*)pcnt, nparts, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -486,3 +486,129 @@ def test_per_leaf_pipeline_equals_the_flat_hist_engine(cuda):
         for g, w in ((got.delta_star, out[o:o + s]), (got.residual, res[o:o + s]),
                      (got.mean, stats["mu"][i]), (got.count, stats["count"][i])):
             np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
+
+
+# ------------------------- the one-launch seg_hist2side and seg_moments
+
+
+def _one_launch_operands(sob, nseg, seed, cuda, zero_segments=()):
+    """xpad for the blocks' segment ids ``sob`` (any order), with the hist
+    params of random per-side ranges and the moments params of random
+    thresholds."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((len(sob), BM * LANES))
+         * np.exp(2.0 * rng.standard_normal((len(sob), BM * LANES)))).astype(np.float32)
+    for z in zero_segments:
+        x[sob == z] = 0.0
+    absmax = np.float32(np.abs(x).max())
+    lo = (absmax * rng.uniform(2.0 ** -30, 2.0 ** -20, (nseg, 2))).astype(np.float32)
+    hi = (absmax * rng.uniform(0.5, 1.0001, (nseg, 2))).astype(np.float32)
+    tp = rng.uniform(0.2, 2.0, nseg).astype(np.float32)
+    tn = rng.uniform(0.2, 2.0, nseg).astype(np.float32)
+    p5 = hist_params(sob, lo, hi)
+    p3 = np.stack([sob.astype(np.float32), tp[sob], tn[sob]], axis=1)
+    return t(x.reshape(-1, LANES), cuda), t(p5, cuda), t(p3, cuda)
+
+
+def _assert_one_launch_equals_plain(x, p5, p3, nseg, nbins=128):
+    """One launch each; counts equal to the plain versions', moment sums
+    bit-equal."""
+    before = (tflat.seg_hist2side.launches, tflat.seg_moments.launches)
+    hist = tflat.seg_hist2side(x, p5, nseg=nseg, nbins=nbins)
+    mom = tflat.seg_moments(x, p3, nseg=nseg)
+    assert (tflat.seg_hist2side.launches, tflat.seg_moments.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert hist.dtype == torch.float32 and tuple(hist.shape) == (nseg, 2, nbins)
+    np.testing.assert_array_equal(n(hist), n(tflat.seg_hist2side_plain(x, p5, nseg=nseg,
+                                                                       nbins=nbins)))
+    np.testing.assert_array_equal(n(mom).view(np.uint32),
+                                  n(tflat.seg_moments_plain(x, p3, nseg=nseg)).view(np.uint32))
+    return hist, mom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["interleaved", "zero-segment", "empty-segment", "one-block"])
+def test_one_launch_kernels_match_plain(cuda, case):
+    """Segment ids in any order: one id per block at random (interleaved),
+    a segment of zeros, a segment id with no block, a single block."""
+    rng = np.random.default_rng(40)
+    nseg, nblocks = {"interleaved": (7, 613), "zero-segment": (4, 300),
+                     "empty-segment": (5, 200), "one-block": (1, 1)}[case]
+    if case == "interleaved":
+        sob = rng.integers(0, nseg, nblocks).astype(np.int32)
+    else:
+        sob = np.sort(rng.integers(0, nseg, nblocks)).astype(np.int32)
+        if case == "empty-segment":
+            sob[sob == 3] = 2
+    x, p5, p3 = _one_launch_operands(sob, nseg, 41, cuda,
+                                     zero_segments=(1,) if case == "zero-segment" else ())
+    hist, mom = _assert_one_launch_equals_plain(x, p5, p3, nseg)
+    if case == "zero-segment":
+        assert not n(hist)[1].any() and not n(mom)[1].any()
+    if case == "empty-segment":
+        assert not n(hist)[3].any() and not n(mom)[3].any()
+
+
+@pytest.mark.cuda
+def test_one_launch_kernels_leave_no_counts_behind(cuda):
+    """Three calls in a row, then a larger nseg * nbins (the workspace
+    grows), then the smaller one again: every call equals the plain
+    versions, so no count carries over from an earlier call."""
+    sizes, zero = LAYOUTS["lenet5"]
+    segs, xpad, sob = segment_layout(sizes, seed=42, zero_segments=zero)
+    small = _one_launch_operands(sob, len(segs), 43, cuda)
+    for _ in range(3):
+        _assert_one_launch_equals_plain(*small, len(segs))
+    rng = np.random.default_rng(44)
+    big_sob = np.sort(rng.integers(0, 40, 2000)).astype(np.int32)
+    big = _one_launch_operands(big_sob, 40, 45, cuda)
+    _assert_one_launch_equals_plain(*big, 40, nbins=512)
+    _assert_one_launch_equals_plain(*small, len(segs))
+    _assert_one_launch_equals_plain(*big, 40, nbins=512)
+
+
+@pytest.mark.cuda
+def test_one_launch_kernels_on_a_second_stream(cuda):
+    sizes, zero = LAYOUTS["ragged"]
+    segs, xpad, sob = segment_layout(sizes, seed=46, zero_segments=zero)
+    ops = _one_launch_operands(sob, len(segs), 47, cuda)
+    want = _assert_one_launch_equals_plain(*ops, len(segs))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = _assert_one_launch_equals_plain(*ops, len(segs))
+    side.synchronize()
+    assert (cuda.type, torch.cuda.current_device(), side.cuda_stream) in tflat.WORKSPACE.buffers
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_one_launch_kernels_under_cuda_graph_capture(cuda):
+    """Captured once, replayed twice on new values each time: each replay
+    gives the plain versions' results on the values it saw."""
+    sizes, zero = LAYOUTS["lenet5"]
+    segs, xpad, sob = segment_layout(sizes, seed=48, zero_segments=zero)
+    nseg = len(segs)
+    x, p5, p3 = _one_launch_operands(sob, nseg, 49, cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture wants
+        _assert_one_launch_equals_plain(x, p5, p3, nseg)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        hist = tflat.seg_hist2side(x, p5, nseg=nseg)
+        mom = tflat.seg_moments(x, p3, nseg=nseg)
+    for seed in (50, 51):
+        new = _one_launch_operands(sob, nseg, seed, cuda)
+        for dst, src in zip((x, p5, p3), new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(n(hist), n(tflat.seg_hist2side_plain(x, p5, nseg=nseg)))
+        np.testing.assert_array_equal(n(mom).view(np.uint32),
+                                      n(tflat.seg_moments_plain(x, p3, nseg=nseg)).view(np.uint32))
+    with torch.cuda.stream(side):  # the stream's own workspace is still zero
+        _assert_one_launch_equals_plain(x, p5, p3, nseg)
+    side.synchronize()

@@ -179,3 +179,55 @@ def test_cpu_tensors_leave_the_launch_counters_at_zero():
     tflat.seg_binarize_apply(x, p5[:, 1:].contiguous())
     assert tflat.launch_counts() == {
         "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0}
+
+
+# ------------------------------------------- one-launch kernels' geometry
+
+
+@pytest.mark.parametrize("nblocks, sms, resident, grid", [
+    (1230, 132, 8, 1056),  # LeNet5 on an H100: one full wave
+    (1230, 132, 6, 792),
+    (100, 132, 8, 100),    # fewer blocks than a wave: one CTA per block
+    (1, 132, 8, 1),
+    (0, 132, 8, 1),        # no block: one CTA still writes the result
+])
+def test_persistent_grid_fills_one_wave_at_most(nblocks, sms, resident, grid):
+    assert tflat.persistent_grid(nblocks, sms, resident) == grid
+
+
+def test_workspace_is_one_zeroed_buffer_per_device_and_stream():
+    ws = tflat.Workspace()
+    cpu = torch.device("cpu")
+    a = ws.get(cpu, 7, 10)
+    assert a.dtype == torch.int32 and a.numel() == 10 and not a.any()
+    a[3] = 5  # what a kernel leaves is kept: only a new buffer is zeroed
+    assert ws.get(cpu, 7, 10) is a and ws.get(cpu, 7, 4) is a
+    b = ws.get(cpu, 8, 10)  # another stream: another buffer
+    assert b is not a and not b.any()
+    assert set(ws.buffers) == {("cpu", None, 7), ("cpu", None, 8)}
+
+
+def test_workspace_grows_to_at_least_twice_its_size():
+    ws = tflat.Workspace()
+    cpu = torch.device("cpu")
+    a = ws.get(cpu, 0, 100)
+    bigger = ws.get(cpu, 0, 101)
+    assert bigger is not a and bigger.numel() == 200 and not bigger.any()
+    assert ws.get(cpu, 0, 150) is bigger  # a smaller call keeps the larger buffer
+    assert ws.get(cpu, 0, 1000).numel() == 1000
+    assert ws.buffers[("cpu", None, 0)].numel() == 1000
+
+
+def test_workspace_gives_a_captured_call_a_buffer_of_its_own():
+    """A buffer zeroed inside a CUDA graph is zero only as the graph
+    replays, and a graph may replay beside other calls: a captured call
+    neither takes a kept buffer nor keeps its own."""
+    ws = tflat.Workspace()
+    cpu = torch.device("cpu")
+    captured = ws.get(cpu, 3, 10, capturing=True)
+    assert not captured.any() and ws.buffers == {}
+    kept = ws.get(cpu, 3, 10)
+    assert kept is not captured
+    again = ws.get(cpu, 3, 8, capturing=True)
+    assert again is not kept and again.numel() == 8
+    assert ws.buffers == {("cpu", None, 3): kept}
