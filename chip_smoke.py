@@ -30,18 +30,24 @@ beside it.  Phases, each of which fails the run:
   3. the exact path: ``build_run`` for the same model on the exact engine
      with the device-packed Golomb wire and wire metering
      (``flat_engine="exact", device_pack=True, measure_wire=True``), 5
-     rounds.  Every round must launch ``seg_packbits`` once and nothing
-     else; every loss must be finite; on the last round the residual must
-     be ``acc − ΔW*`` bit for bit, and each (segment, row) of ΔW* must
-     hold one value ±μ in exactly k slots; every (segment, row)'s slice of
-     the packed words and its bit count must equal the host Golomb
-     encoder's bytes of the row's positions (``encode_positions_packed``),
-     byte for byte; ``seg_select_pack`` on the same rows' masks must give
-     the same words and bit counts; and the ledger's measured bits must be
-     Σ nbits + 32 · n_mu for every round.  ``seg_packbits`` is held
-     against its plain version on the path's own bit planes and
-     ``seg_select_pack`` on the path's masks (both exactly), and both are
-     timed (``seg_select_pack`` on the largest row, f1);
+     rounds.  Every round must launch ``seg_packbits`` once (its
+     stream-order entry, ``pack_bit_rows``) and nothing else; every loss
+     must be finite; on the last round the residual must be ``acc − ΔW*``
+     bit for bit, and each (segment, row) of ΔW* must hold one value ±μ
+     in exactly k slots; every (segment, row)'s slice of the packed words
+     and its bit count must equal the host Golomb encoder's bytes of the
+     row's positions (``encode_positions_packed``), byte for byte;
+     ``seg_select_pack`` on the same rows' masks must give the same words
+     and bit counts; and the ledger's measured bits must be Σ nbits + 32 ·
+     n_mu for every round.  ``seg_packbits`` is held against its plain
+     version on the path's own stream-order bits (and equal to the path's
+     words) and, through its planes entry, on the same bits as planes;
+     ``seg_select_pack`` on every segment's mask (all exactly).  All three
+     are timed (``seg_select_pack`` on the largest row, f1, whose tiles and
+     persistent grid are printed, and also on every other segment's mask
+     and on seeded masks of the card tests' 1,000-slot rows); each call of
+     ``seg_select_pack`` and of the stream-order ``seg_packbits`` must be
+     one device operation;
   4. the per-leaf path: ``repro_torch.kernels.ops.sbc_compress_hist(leaf,
      p=0.01, bm=8, lanes=128)`` on each of LeNet5's 6 leaves, as views
      into the hist path's last accumulator, with the launch counts set to
@@ -56,8 +62,11 @@ beside it.  Phases, each of which fails the run:
      survivor count of each leaf is printed against k; the reference's
      ±2% band (on k, and on μ against the exact top-k's) is checked on
      seeded Gaussian data of f1's size, the data it is asserted on;
-  5. print one ``{"kernels": [...]}`` line with all eight kernels, then
-     the card line, then the last line ``{"ok": true, "device": {...}}``.
+  5. print one ``{"kernels": [...]}`` line with all eight kernels (the
+     ``seg_packbits`` row times the stream-order entry, which the path
+     launches, and holds the planes entry's times in its ``planes_*``
+     fields), then the card line, then the last line
+     ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
 and the script prints its device-busy share and its costliest device
@@ -105,6 +114,8 @@ def per_call(**counts) -> dict:
 
 HIST_PER_ROUND = per_call(seg_hist2side=2, seg_moments=1, seg_binarize_apply=1)
 EXACT_PER_ROUND = per_call(seg_packbits=1)
+# (rows, n, k, b*) of the card tests' seg_select_pack rows, timed beside f1
+SELECT_PACK_SHAPES = ((5, 1000, 37, 4), (1, 1000, 10, 6))
 LEAF_PER_LEAF = per_call(hist2side=2, masked_moments=1, binarize_apply=1)
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
 SOURCE = {name: SEG_SBC for name in KERNELS}
@@ -164,8 +175,8 @@ def device_ms(fn, operands, iters: int, label: str = "", ops: int | None = None)
 
     Every call launches the same device operations, so each one's count
     must be a whole multiple of ``iters``.  A trace that lost records (seen
-    on the card: a kernel counted 0.70 times a call) is taken again, up to
-    three times in all, and then fails the run."""
+    on the card: a kernel counted 0.70 times a call, or no device record at
+    all) is taken again, up to three times in all, and then fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -176,7 +187,7 @@ def device_ms(fn, operands, iters: int, label: str = "", ops: int | None = None)
             _run(fn, operands, iters)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
-        if all(e.count % iters == 0 for e in events):
+        if events and all(e.count % iters == 0 for e in events):
             break
         print(f"  {label or 'plain'}: the trace lost records "
               f"({[e.count for e in events]} for {iters} calls); timing again")
@@ -199,7 +210,7 @@ def copies_past_l2(nbytes: int) -> int:
     return max(2, -(-60_000_000 // max(nbytes, 1)))
 
 
-def kernel_row(name, launches, err, ms, plain_ms, nbytes, ops) -> dict:
+def kernel_row(name, launches, err, ms, plain_ms, nbytes, ops, label=None) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS_PER_S * 1e3
     row = {
@@ -209,7 +220,7 @@ def kernel_row(name, launches, err, ms, plain_ms, nbytes, ops) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
-    print(f"{name}: {ms * 1e3:.2f} us device per call, plain {plain_ms * 1e3:.2f} us, "
+    print(f"{label or name}: {ms * 1e3:.2f} us device per call, plain {plain_ms * 1e3:.2f} us, "
           f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes} bytes), "
           f"{launches} launches on the path")
     return row
@@ -499,29 +510,57 @@ def exact_path(dev) -> dict:
               f"{(time.perf_counter() - t0) * 100:.3f} ms host clock per call")
 
     rows = {}
-    # seg_packbits on the path's own bit planes
+    # the path's one launch: seg_packbits on its stream-order bits
     calls: list = []
-    with swapped(core_flat, recording(core_flat, ("seg_packbits",), calls)):
+    with swapped(core_flat, recording(core_flat, ("pack_bit_rows",), calls)):
         space.exchange_local(last["bodies"], last["res"], device_pack=True)
-    check(len(calls) == 1, f"one seg_packbits call per exchange, saw {len(calls)}")
-    planes, kw = calls[0][1][0], calls[0][2]
-    got = kpack.seg_packbits(planes, **kw)
-    want = kpack.seg_packbits_plain(planes, **kw)
+    check(len(calls) == 1, f"one pack_bit_rows call per exchange, saw {len(calls)}")
+    allbits = calls[0][1][0]
+    nwords = -(-allbits.numel() // 32)
+    got = kpack.seg_packbits_stream(allbits)
+    want = kpack.seg_packbits_stream_plain(allbits)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "seg_packbits (stream order): kernel words != plain words")
+    check(torch.equal(got.view(torch.int32), words.view(torch.int32)),
+          "seg_packbits (stream order): words != the path's words")
+    print(f"seg_packbits (stream order): {allbits.numel()} bits -> {nwords} words, no pad "
+          f"and no transpose, bit-equal to the plain version and the path")
+    copies = [(allbits.clone(),) for _ in range(copies_past_l2(4 * allbits.numel()))]
+    stream = kernel_row(
+        "seg_packbits", cap["launches"]["seg_packbits"], 0.0,
+        device_ms(kpack.seg_packbits_stream, copies, 240, "seg_packbits (stream order)",
+                  ops=1),
+        device_ms(kpack.seg_packbits_stream_plain, copies, 48),
+        4 * (allbits.numel() + nwords), 64 * nwords, label="seg_packbits (stream order)")
+    del copies
+
+    # the planes entry, the reference's signature, on the same bits as planes
+    pad = -allbits.numel() % (32 * space.lanes)
+    planes = torch.cat([allbits, allbits.new_zeros((pad,))]).reshape(-1, 32).T.contiguous()
+    got = kpack.seg_packbits(planes, lanes=space.lanes)
+    want = kpack.seg_packbits_plain(planes, lanes=space.lanes)
     torch.cuda.synchronize()
     check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
           "seg_packbits: kernel words != plain words")
     check(torch.equal(got[:space.n_pack_words].view(torch.int32), words.view(torch.int32)),
           "seg_packbits: words != the path's words")
-    nwords = planes.shape[1]
-    print(f"seg_packbits: {nwords} words ({nwords // space.lanes} blocks of "
+    pwords = planes.shape[1]
+    print(f"seg_packbits (planes): {pwords} words ({pwords // space.lanes} blocks of "
           f"{space.lanes}) bit-equal to the plain version and the path")
     copies = [(planes.clone(),) for _ in range(copies_past_l2(4 * planes.numel()))]
-    rows["seg_packbits"] = kernel_row(
-        "seg_packbits", cap["launches"]["seg_packbits"], 0.0,
-        device_ms(lambda p: kpack.seg_packbits(p, **kw), copies, 240, "seg_packbits"),
-        device_ms(lambda p: kpack.seg_packbits_plain(p, **kw), copies, 48),
-        4 * (planes.numel() + nwords), 64 * nwords)
+    planes_row = kernel_row(
+        "seg_packbits", 0, 0.0,
+        device_ms(lambda p: kpack.seg_packbits(p, lanes=space.lanes), copies, 240,
+                  "seg_packbits (planes)"),
+        device_ms(lambda p: kpack.seg_packbits_plain(p, lanes=space.lanes), copies, 48),
+        4 * (planes.numel() + pwords), 64 * pwords, label="seg_packbits (planes)")
     del copies
+    # the row is the stream-order entry's, which the path launches; the
+    # planes entry, which no path launches, has fields of its own
+    stream.update({f"planes_{key}": planes_row[key]
+                   for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")})
+    rows["seg_packbits"] = stream
 
     # seg_select_pack on the path's masks: the same words and bit counts
     mu_row = 0
@@ -539,16 +578,46 @@ def exact_path(dev) -> dict:
     print("seg_select_pack: every segment's words and bit counts equal to its plain "
           "version and to seg_packbits'")
     s, b, w, off, mask = max(masks, key=lambda e: e[4].numel())
-    copies = [(mask.clone(),) for _ in range(copies_past_l2(4 * mask.numel()))]
     nrows, n = mask.shape
+    grid, resident, tiles = kpack.select_pack_grid(dev, nrows, n, b)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"seg_select_pack on {s.path}: {tiles} tiles of T = {kpack.TILE_SLOTS} slots over "
+          f"a persistent grid of {grid} CTAs ({resident} resident per SM x {sms} SMs), "
+          f"one launch per call")
+    copies = [(mask.clone(),) for _ in range(copies_past_l2(4 * mask.numel()))]
     rows["seg_select_pack"] = kernel_row(
         "seg_select_pack", cap["launches"]["seg_select_pack"], 0.0,
-        device_ms(lambda m: kpack.seg_select_pack(m, k=s.k, bstar=b), copies, 60,
-                  "seg_select_pack"),
+        device_ms(lambda m: kpack.seg_select_pack(m, k=s.k, bstar=b), copies, 240,
+                  "seg_select_pack", ops=1),
         device_ms(lambda m: kpack.seg_select_pack_plain(m, k=s.k, bstar=b), copies, 12),
         4 * (nrows * n + nrows * w + nrows), 2 * nrows * n + 8 * nrows * s.k)
     print(f"seg_select_pack timed on {s.path}: n {n}, k {s.k}, {w} words")
     del copies
+    # the other rows it is timed on: every other segment's mask, and seeded
+    # masks of the card tests' 1,000-slot rows (one tile a row)
+    rng = np.random.default_rng(0)
+    shapes = [(f"{s.path} mask", mask, s.k, b) for s, b, w, off, mask in masks
+              if mask.numel() < nrows * n]
+    for srows, sn, sk, sb in SELECT_PACK_SHAPES:
+        m = np.zeros((srows, sn), np.int32)
+        for r in range(srows):
+            m[r, rng.choice(sn, sk, replace=False)] = 1
+        shapes.append((f"seeded {srows} x {sn}", torch.from_numpy(m).to(dev), sk, sb))
+    for label, m, sk, sb in shapes:
+        sw, snb = kpack.seg_select_pack(m, k=sk, bstar=sb)
+        pw, pnb = kpack.seg_select_pack_plain(m, k=sk, bstar=sb)
+        torch.cuda.synchronize()
+        check(bit_equal(sw, pw) and torch.equal(snb, pnb),
+              f"seg_select_pack {label}: kernel != plain")
+        # as many copies as calls: small rows stay in the L2 (and a few
+        # bytes' worth of copies past it would be millions of tensors)
+        copies = [(m.clone(),) for _ in range(min(copies_past_l2(4 * m.numel()), 240))]
+        us = 1e3 * device_ms(lambda x: kpack.seg_select_pack(x, k=sk, bstar=sb), copies,
+                             240, f"seg_select_pack on {label}", ops=1)
+        del copies
+        grid, _, tiles = kpack.select_pack_grid(dev, *m.shape, sb)
+        print(f"seg_select_pack on {label}: rows {m.shape[0]}, n {m.shape[1]}, k {sk}, "
+              f"b* {sb}, {tiles} tiles on {grid} CTAs: {us:.2f} us device per call")
     return rows
 
 

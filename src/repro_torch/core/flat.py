@@ -26,7 +26,7 @@ from repro_torch.core.stages import k_for
 from repro_torch.kernels.flat import seg_binarize_apply, seg_hist2side, seg_moments
 from repro_torch.kernels.hist2side import SPAN_OCTAVES, bucket_lower_edges
 from repro_torch.kernels.ops import _side_threshold
-from repro_torch.kernels.pack import bits_from_positions, row_words, seg_packbits
+from repro_torch.kernels.pack import bits_from_positions, pack_bit_rows, row_words
 from repro_torch.kernels.topk import _top_k, _two_sided_topk  # noqa: F401  (_top_k re-exported)
 
 
@@ -343,7 +343,7 @@ class ShardedFlatParamSpace:
 
         ``device_pack=True`` also Golomb-packs every (segment, row)'s
         surviving positions on the device (:meth:`_pack_local`, one
-        :func:`~repro_torch.kernels.pack.seg_packbits` launch) and returns
+        :func:`~repro_torch.kernels.pack.pack_bit_rows` launch) and returns
         two more outputs, ``(words u32[n_pack_words], nbits int32[n_mu])``:
         this shard's packed streams and exact per-row bit counts,
         byte-identical to the host ``encode_positions_packed``.
@@ -386,8 +386,9 @@ class ShardedFlatParamSpace:
 
         Builds every (segment, row)'s Golomb bit stream at its static
         offset in one concatenated bit buffer, then folds the bits into
-        ``uint32`` words with ONE ``seg_packbits`` launch over the whole
-        flat set.
+        ``uint32`` words with ONE launch over the whole flat set
+        (:func:`~repro_torch.kernels.pack.pack_bit_rows`, in stream order:
+        no pad and no transpose).
         """
         if not idx_parts:
             return (torch.zeros((0,), dtype=torch.int32, device=device).view(torch.uint32),
@@ -399,12 +400,7 @@ class ShardedFlatParamSpace:
             chunks.append(bits_s.reshape(-1))
             nb_parts.append(nb_s)
         allbits = torch.cat(chunks)
-        pad = -allbits.shape[0] % (32 * self.lanes)
-        if pad:
-            allbits = torch.cat([allbits, allbits.new_zeros((pad,))])
-        planes = allbits.reshape(-1, 32).T.contiguous()
-        words = seg_packbits(planes, lanes=self.lanes)
-        return words[: self.n_pack_words], torch.cat(nb_parts)
+        return pack_bit_rows(allbits), torch.cat(nb_parts)
 
     # -------------------------------------------------------- hist exchange
 

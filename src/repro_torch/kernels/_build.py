@@ -11,6 +11,11 @@ Nothing is downloaded.
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` and no ``--use_fast_math``,
 so the kernels round like the plain PyTorch versions they are held
 against (IEEE division, full-precision ``log2f``, denormals kept).
+
+Beside the build and :func:`launch`, the machinery that the one-launch
+kernels (``seg_hist2side``, ``seg_moments``, ``seg_select_pack``) share:
+the size of a one-wave persistent grid (:func:`persistent_grid`) and the
+self-cleaning scratch they count in (:class:`Workspace`).
 """
 from __future__ import annotations
 
@@ -54,7 +59,9 @@ _SIGNATURES = {
     },
     "pack.cu": {
         "seg_packbits_launch": (_P, _P, _I, _P),
-        "seg_select_pack_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "seg_packbits_stream_launch": (_P, _P, _I, _P),
+        "seg_select_pack_resident": (_I,),
+        "seg_select_pack_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 
@@ -158,3 +165,63 @@ def launch(entry, name: str, operand: torch.Tensor, *args) -> None:
     with torch.cuda.device(operand.device):
         err = entry(*args, torch.cuda.current_stream(operand.device).cuda_stream)
     check(err, name)
+
+
+# ------------------------------------------------- the one-launch kernels
+
+
+def persistent_grid(nblocks: int, sms: int, resident: int) -> int:
+    """CTAs of a one-wave persistent grid over ``nblocks`` data blocks:
+    every SM holds ``resident`` at once, no CTA is without a block, and
+    there is at least one (its last CTA writes the result even when there
+    is no block)."""
+    return max(1, min(nblocks, sms * resident))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of card ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+class Workspace:
+    """Zeroed int32 scratch of the one-launch kernels: one buffer per
+    (device, stream), so calls on two streams never share counts.
+
+    Every launch leaves the words it used at zero (its last CTA clears
+    them), so a buffer is zeroed once, when it is allocated, and never by
+    the host again.  A call that needs more words than the buffer holds
+    replaces it with a zeroed one of at least twice the size; the old one
+    goes back to the stream-ordered allocator.
+
+    A call captured into a CUDA graph gets a buffer of its own, zeroed in
+    the graph (a memset before the kernel on every replay), and the kept
+    buffers are left alone: a graph may replay on any stream, beside eager
+    calls and other graphs.
+    """
+
+    def __init__(self) -> None:
+        self.buffers: dict = {}
+
+    def get(self, device: torch.device, stream: int, words: int,
+            capturing: bool = False) -> torch.Tensor:
+        if capturing:
+            return torch.zeros(words, dtype=torch.int32, device=device)
+        key = (device.type, device.index, stream)
+        buf = self.buffers.get(key)
+        if buf is None or buf.numel() < words:
+            size = max(words, 0 if buf is None else 2 * buf.numel())
+            buf = torch.zeros(size, dtype=torch.int32, device=device)
+            self.buffers[key] = buf
+        return buf
+
+
+# the wrappers keep the reference's signatures, so they own the workspace
+WORKSPACE = Workspace()
+
+
+def workspace(device: torch.device, words: int) -> torch.Tensor:
+    """The current stream's workspace on ``device``, with ``words`` words."""
+    stream = torch.cuda.current_stream(device)
+    return WORKSPACE.get(device, stream.cuda_stream, words,
+                         capturing=torch.cuda.is_current_stream_capturing())

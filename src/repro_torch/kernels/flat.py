@@ -19,7 +19,8 @@ it, is column 0, stored as f32).
 
 On the card ``seg_hist2side`` and ``seg_moments`` are one launch each, on
 a persistent grid that fits in one wave (:func:`launch_grid`); their last
-CTA writes the result and leaves the :class:`Workspace` it used zeroed.
+CTA writes the result and leaves the workspace it used zeroed
+(:class:`repro_torch.kernels._build.Workspace`).
 """
 from __future__ import annotations
 
@@ -30,14 +31,6 @@ import torch
 from repro_torch.kernels import _build
 
 # -------------------------------------------------------------- geometry
-
-
-def persistent_grid(nblocks: int, sms: int, resident: int) -> int:
-    """CTAs of a one-wave persistent grid over ``nblocks`` data blocks:
-    every SM holds ``resident`` at once, no CTA is without a block, and
-    there is at least one (its last CTA writes the result even when there
-    is no block)."""
-    return max(1, min(nblocks, sms * resident))
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,65 +44,19 @@ def _resident(device_index: int, kernel: str, nbins: int) -> int:
     return n
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def launch_grid(kernel: str, device: torch.device, nblocks: int,
                 nbins: int = 128) -> tuple[int, int]:
     """``(G, resident CTAs per SM)`` of ``kernel`` (``"seg_hist2side"`` or
     ``"seg_moments"``) over ``nblocks`` blocks on the CUDA ``device``."""
     resident = _resident(device.index, kernel, nbins if kernel == "seg_hist2side" else 0)
-    return persistent_grid(nblocks, _sms(device.index), resident), resident
+    return _build.persistent_grid(nblocks, _build.sm_count(device.index),
+                                  resident), resident
 
 
 # word offsets in a workspace: the two kernels' tickets, then the counts of
 # seg_hist2side
 _HIST_TICKET, _MOMENTS_TICKET, _HIST_COUNTS = 0, 1, 2
 
-
-class Workspace:
-    """Zeroed int32 scratch of the one-launch kernels: one buffer per
-    (device, stream), so calls on two streams never share counts.
-
-    Every launch leaves the words it used at zero (its last CTA clears
-    them), so a buffer is zeroed once, when it is allocated, and never by
-    the host again.  A call that needs more words than the buffer holds
-    replaces it with a zeroed one of at least twice the size; the old one
-    goes back to the stream-ordered allocator.
-
-    A call captured into a CUDA graph gets a buffer of its own, zeroed in
-    the graph (a memset before the kernel on every replay), and the kept
-    buffers are left alone: a graph may replay on any stream, beside eager
-    calls and other graphs.
-    """
-
-    def __init__(self) -> None:
-        self.buffers: dict = {}
-
-    def get(self, device: torch.device, stream: int, words: int,
-            capturing: bool = False) -> torch.Tensor:
-        if capturing:
-            return torch.zeros(words, dtype=torch.int32, device=device)
-        key = (device.type, device.index, stream)
-        buf = self.buffers.get(key)
-        if buf is None or buf.numel() < words:
-            size = max(words, 0 if buf is None else 2 * buf.numel())
-            buf = torch.zeros(size, dtype=torch.int32, device=device)
-            self.buffers[key] = buf
-        return buf
-
-
-# the wrappers keep the reference's signatures, so they own the workspace
-WORKSPACE = Workspace()
-
-
-def _workspace(device: torch.device, words: int) -> torch.Tensor:
-    """The current stream's workspace on ``device``, with ``words`` words."""
-    stream = torch.cuda.current_stream(device)
-    return WORKSPACE.get(device, stream.cuda_stream, words,
-                         capturing=torch.cuda.is_current_stream_capturing())
 
 # ------------------------------------------------------------------ checks
 
@@ -196,7 +143,7 @@ def seg_hist2side(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     if not 1 <= nbins <= 4096:
         raise ValueError(f"nbins must be in [1, 4096], got {nbins}")
     dev = xpad.device
-    ws = _workspace(dev, _HIST_COUNTS + nseg * 2 * nbins)
+    ws = _build.workspace(dev, _HIST_COUNTS + nseg * 2 * nbins)
     out = torch.empty((nseg, 2, nbins), dtype=torch.float32, device=dev)
     grid, _ = launch_grid("seg_hist2side", dev, nblocks, nbins)
     _build.launch(_build.library().seg_hist2side_launch, "seg_hist2side", xpad,
@@ -307,7 +254,7 @@ def seg_moments(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     if not xpad.is_cuda:
         return seg_moments_plain(xpad, params, nseg=nseg, bm=bm, lanes=lanes)
     dev = xpad.device
-    ws = _workspace(dev, _HIST_COUNTS)
+    ws = _build.workspace(dev, _HIST_COUNTS)
     psum = torch.empty((nblocks, 2), dtype=torch.float64, device=dev)
     pcnt = torch.empty((nblocks, 2), dtype=torch.int32, device=dev)
     out = torch.empty((nseg, 2, 2), dtype=torch.float32, device=dev)

@@ -5,11 +5,15 @@ Counterpart of ``repro.kernels.pack``.  The host encoder
 numpy; this module builds the same bytes on the device:
 
   * :func:`seg_packbits` folds a 0/1 bit-plane buffer into packed
-    ``uint32`` words, one launch over the whole flat set (the sharded
-    exact engine's wire, :meth:`ShardedFlatParamSpace._pack_local`);
+    ``uint32`` words, one launch over the whole flat set;
+    :func:`seg_packbits_stream` does the same from bits in stream order
+    (no planes), which is what :func:`pack_bit_rows` and the sharded exact
+    engine's wire (:meth:`ShardedFlatParamSpace._pack_local`) call;
   * :func:`seg_select_pack` goes from a selection mask with exactly ``k``
     set slots per row straight to packed words and the exact bit count,
-    so the positions never exist as an index array;
+    so the positions never exist as an index array.  On the card one
+    launch cuts each row into tiles of :data:`TILE_SLOTS` slots spread
+    over a one-wave grid (:func:`select_pack_grid`);
   * :func:`golomb_decode_rows` is the matching decoder (pointer doubling
     over the next-codeword-start map), in torch ops as in the reference.
 
@@ -34,6 +38,8 @@ viewed as int32); packed words come back as ``uint32`` views of int32
 results.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -209,25 +215,80 @@ def seg_packbits(planes: torch.Tensor, *, lanes: int = 128) -> torch.Tensor:
 seg_packbits.launches = 0
 
 
+def seg_packbits_stream_plain(bits: torch.Tensor) -> torch.Tensor:
+    """u32[nbits] bits in stream order → u32[ceil(nbits/32)] words: bit
+    ``b`` at word ``b >> 5``, bit ``31 − (b & 31)``; the ragged last word
+    is zero-filled.  The planes version's arithmetic on the planes view."""
+    flat = bits.view(torch.int32) if bits.dtype == torch.uint32 else bits
+    pad = -flat.shape[0] % 32
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad,))])
+    return seg_packbits_plain(flat.reshape(-1, 32).T)
+
+
+def seg_packbits_stream(bits: torch.Tensor) -> torch.Tensor:
+    """One launch: bits in stream order → packed ``uint32`` words.
+
+    ``bits``: int32 or uint32 ``[nbits]``, any length, each entry placed as
+    a u32 value (as :func:`seg_packbits` places a plane entry).  Returns
+    u32[ceil(nbits/32)]; see :func:`seg_packbits_stream_plain`.  On the
+    card the launch counts as one of ``seg_packbits``, whose Pallas
+    function it replaces on the exact path.
+    """
+    b32 = _check_words_operand("bits", bits, 1)
+    nbits = b32.shape[0]
+    if nbits >= 2 ** 31 - 32:
+        raise ValueError(f"{nbits} bits are past the kernel's 32-bit positions")
+    if not b32.is_cuda:
+        return seg_packbits_stream_plain(b32)
+    words = torch.empty((-(-nbits // 32),), dtype=torch.int32, device=b32.device)
+    _build.launch(_build.library().seg_packbits_stream_launch, "seg_packbits_stream", b32,
+                  b32.data_ptr(), words.data_ptr(), nbits)
+    seg_packbits.launches += 1
+    return words.view(torch.uint32)
+
+
 def pack_bit_rows(bits: torch.Tensor, *, lanes: int = 128) -> torch.Tensor:
-    """u32[..., cap32] bit rows → u32[..., cap32/32] words via ONE
-    :func:`seg_packbits` launch over the concatenation."""
+    """u32[..., cap32] bit rows → u32[..., cap32/32] words in ONE launch
+    over the concatenation (:func:`seg_packbits_stream`: no pad to whole
+    ``(32, lanes)`` blocks and no transpose, which only the reference's
+    Pallas blocks need; ``lanes`` is kept for its signature)."""
+    del lanes
     if bits.dtype == torch.uint32:
         bits = bits.view(torch.int32)
     cap32 = bits.shape[-1]
     if cap32 % 32:
         raise ValueError(f"bit rows of {cap32} bits are not whole words")
-    flat = bits.reshape(-1)
-    pad = -flat.shape[0] % (32 * lanes)
-    if pad:
-        flat = torch.cat([flat, torch.zeros((pad,), dtype=flat.dtype, device=flat.device)])
-    planes = flat.reshape(-1, 32).T.contiguous()
-    words = seg_packbits(planes, lanes=lanes)
-    nw = bits.numel() // 32
-    return words[:nw].reshape(bits.shape[:-1] + (cap32 // 32,))
+    words = seg_packbits_stream(bits.reshape(-1).contiguous())
+    return words.reshape(bits.shape[:-1] + (cap32 // 32,))
 
 
 # ------------------------------------------------- fused select→pack pass
+
+
+TILE_SLOTS = 8192  # slots of one tile of the CUDA seg_select_pack (kTileSlots)
+_WS_HEAD, _TILE_WORDS = 4, 12  # its workspace: counter and ticket, per tile, per row
+
+
+@functools.lru_cache(maxsize=None)
+def _select_resident(device_index: int, bstar: int) -> int:
+    lib = _build.library()
+    with torch.cuda.device(device_index):
+        n = lib.seg_select_pack_resident(bstar)
+    if n < 1:
+        raise RuntimeError(f"seg_select_pack: occupancy query failed (CUDA error {-n})")
+    return n
+
+
+def select_pack_grid(device: torch.device, rows: int, n: int,
+                     bstar: int) -> tuple[int, int, int]:
+    """``(G, resident CTAs per SM, tiles)`` of the CUDA ``seg_select_pack``
+    on ``rows`` rows of ``n`` slots: ``ceil(n / TILE_SLOTS)`` tiles a row,
+    over a persistent grid of one wave."""
+    tiles = rows * -(-n // TILE_SLOTS)
+    resident = _select_resident(device.index, bstar)
+    return (_build.persistent_grid(tiles, _build.sm_count(device.index), resident),
+            resident, tiles)
 
 
 def seg_select_pack_plain(mask: torch.Tensor, *, k: int, bstar: int) -> tuple:
@@ -250,7 +311,9 @@ def seg_select_pack(mask: torch.Tensor, *, k: int, bstar: int) -> tuple:
     card, a row with fewer than ``k`` set slots gets ``nbits = −1`` (the
     reference's result for such a row is undefined).
 
-    Replaces the Pallas ``repro.kernels.pack.seg_select_pack``.
+    Replaces the Pallas ``repro.kernels.pack.seg_select_pack``.  On the
+    card: one launch, tiles of a row scanned across CTAs with a
+    look-back, a last CTA that finishes the words (``csrc/pack.cu``).
     """
     if not isinstance(mask, torch.Tensor):
         raise TypeError(f"mask must be a torch.Tensor, got {type(mask)}")
@@ -274,11 +337,14 @@ def seg_select_pack(mask: torch.Tensor, *, k: int, bstar: int) -> tuple:
                          "32-bit positions")
     if not mask.is_cuda:
         return seg_select_pack_plain(mask, k=k, bstar=bstar)
-    words = torch.empty((rows, nw), dtype=torch.int32, device=mask.device)
-    nbits = torch.empty((rows,), dtype=torch.int32, device=mask.device)
+    dev = mask.device
+    words = torch.empty((rows, nw), dtype=torch.int32, device=dev)
+    nbits = torch.empty((rows,), dtype=torch.int32, device=dev)
+    grid, _, tiles = select_pack_grid(dev, rows, n, bstar)
+    ws = _build.workspace(dev, _WS_HEAD + _TILE_WORDS * tiles + rows)
     _build.launch(_build.library().seg_select_pack_launch, "seg_select_pack", mask,
-                  mask.data_ptr(), words.data_ptr(), nbits.data_ptr(), rows, n, k,
-                  bstar, nw)
+                  mask.data_ptr(), words.data_ptr(), nbits.data_ptr(), ws.data_ptr(), rows,
+                  n, k, bstar, nw, -(-n // TILE_SLOTS), grid)
     seg_select_pack.launches += 1
     return words.view(torch.uint32), nbits
 

@@ -32,6 +32,7 @@ from repro_torch.core.flat import _top_k
 from repro_torch.core.golomb import encode_positions_packed, golomb_bstar, packed_words_to_bytes
 from repro_torch.core.flat import _hist_pipeline
 from repro_torch.kernels import binarize_apply as tbin
+from repro_torch.kernels import _build
 from repro_torch.kernels import flat as tflat
 from repro_torch.kernels import hist2side as thist
 from repro_torch.kernels import moments as tmom
@@ -216,6 +217,22 @@ def _pack_rows():
     m = np.zeros((1, 1_225_000), np.int32)
     m[0, rng.choice(1_225_000, 12_250, replace=False)] = 1
     cases.append(("lenet5-f1", 12_250, 0.01, m))
+    # rows split over tiles of T slots (the kernel's tiles)
+    T = tpack.TILE_SLOTS
+    for p in (0.01, 0.05, 0.5):
+        n_slots = 10 * T + 123
+        m = np.zeros((2, n_slots), np.int32)
+        m[0, [3, 2 * T + 7, 6 * T + 1, 9 * T + 5, n_slots - 1]] = 1  # runs over empty tiles
+        m[1, [T - 1, T, 2 * T - 1, 2 * T, 8 * T]] = 1  # each side of tile edges
+        cases.append((f"tiles-empty-stretch-and-edges-p{p}", 5, p, m))
+        m = np.zeros((4, 5 * T + 17), np.int32)  # several multi-tile rows in one call
+        for r in range(4):
+            m[r, rng.choice(5 * T + 17, 400, replace=False)] = 1
+        cases.append((f"tiles-four-rows-p{p}", 400, p, m))
+    cases.append(("tiles-k-eq-n-b0", 3 * T + 5, 0.5, np.ones((2, 3 * T + 5), np.int32)))
+    m = np.zeros((1, 3 * T), np.int32)
+    m[0, -1] = 1
+    cases.append(("tiles-k1-last-slot", 1, 0.01, m))
     return cases
 
 
@@ -263,6 +280,144 @@ def test_seg_select_pack_kernel_rows_with_other_counts(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [1, 7])
+def test_seg_select_pack_split_rows_with_other_counts(cuda, tiles):
+    """Rows over one and over several tiles, with more and fewer than k
+    set slots spread across the tiles: the first k are packed; fewer than
+    k give nbits −1 and words zero past the slots there are."""
+    rng = np.random.default_rng(25)
+    n_slots = tiles * tpack.TILE_SLOTS - 3
+    masks = (rng.uniform(size=(3, n_slots)) < 0.01).astype(np.int32)
+    counts = masks.sum(1)
+    k = int(counts.min()) - 1
+    m = t(masks, cuda)
+    words, nbits = tpack.seg_select_pack(m, k=k, bstar=6)
+    want_w, want_nb = tpack.seg_select_pack_plain(m, k=k, bstar=6)
+    np.testing.assert_array_equal(n(words), n(want_w))
+    np.testing.assert_array_equal(n(nbits), n(want_nb))
+    masks[1, : n_slots // 2] = 0  # row 1 now holds fewer than k
+    m = t(masks, cuda)
+    words, nbits = tpack.seg_select_pack(m, k=k, bstar=6)
+    short = int(masks[1].sum())
+    assert short < k and int(nbits[1]) == -1
+    assert n(nbits)[[0, 2]].tolist() == n(want_nb)[[0, 2]].tolist()
+    alone, _ = tpack.seg_select_pack_plain(m[1:2], k=short, bstar=6)
+    row = np.zeros(words.shape[1], np.uint32)
+    row[:alone.shape[1]] = n(alone)[0]
+    np.testing.assert_array_equal(n(words)[1], row)
+
+
+def _select_pack_calls():
+    """Masks of several shapes and b*: ``(mask, k, b*)``."""
+    rng = np.random.default_rng(26)
+    out = []
+    for rows, n_slots, k, b in ((1, 1_225_000, 12_250, 6), (3, 1000, 37, 4),
+                                (2, 5 * tpack.TILE_SLOTS + 9, 300, 0), (1, 50, 0, 6)):
+        m = np.zeros((rows, n_slots), np.int32)
+        for r in range(rows):
+            m[r, rng.choice(n_slots, k, replace=False)] = 1
+        out.append((m, k, b))
+    return out
+
+
+def _assert_select_pack_equals_plain(m, k, b):
+    words, nbits = tpack.seg_select_pack(m, k=k, bstar=b)
+    want_w, want_nb = tpack.seg_select_pack_plain(m, k=k, bstar=b)
+    np.testing.assert_array_equal(n(words), n(want_w))
+    np.testing.assert_array_equal(n(nbits), n(want_nb))
+    return words, nbits
+
+
+@pytest.mark.cuda
+def test_seg_select_pack_leaves_nothing_behind(cuda):
+    """Calls of other shapes in a row and again: every call equals the plain
+    version, so no tile state, piece or counter carries over."""
+    calls = [(t(m, cuda), k, b) for m, k, b in _select_pack_calls()]
+    for _ in range(2):
+        for m, k, b in calls:
+            _assert_select_pack_equals_plain(m, k, b)
+    for m, k, b in reversed(calls):
+        _assert_select_pack_equals_plain(m, k, b)
+
+
+@pytest.mark.cuda
+def test_seg_select_pack_on_a_second_stream(cuda):
+    m, k, b = _select_pack_calls()[0]
+    m = t(m, cuda)
+    want = _assert_select_pack_equals_plain(m, k, b)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = _assert_select_pack_equals_plain(m, k, b)
+    side.synchronize()
+    assert (cuda.type, torch.cuda.current_device(), side.cuda_stream) in _build.WORKSPACE.buffers
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), n(w))
+
+
+@pytest.mark.cuda
+def test_seg_select_pack_under_cuda_graph_capture(cuda):
+    """Captured once, replayed on new masks: each replay gives the plain
+    version's words and bit counts on the masks it saw."""
+    rng = np.random.default_rng(27)
+    n_slots, k, b = 3 * tpack.TILE_SLOTS + 11, 250, 4
+
+    def masks():
+        m = np.zeros((2, n_slots), np.int32)
+        for r in range(2):
+            m[r, rng.choice(n_slots, k, replace=False)] = 1
+        return t(m, cuda)
+
+    m = masks()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture wants
+        _assert_select_pack_equals_plain(m, k, b)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        words, nbits = tpack.seg_select_pack(m, k=k, bstar=b)
+    for _ in range(2):
+        m.copy_(masks())
+        graph.replay()
+        torch.cuda.synchronize()
+        want_w, want_nb = tpack.seg_select_pack_plain(m, k=k, bstar=b)
+        np.testing.assert_array_equal(n(words), n(want_w))
+        np.testing.assert_array_equal(n(nbits), n(want_nb))
+    with torch.cuda.stream(side):  # the stream's own workspace is still zero
+        _assert_select_pack_equals_plain(m, k, b)
+    side.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["exact-path-shape", "ragged", "one-bit", "full-words"])
+def test_seg_packbits_stream_kernel_matches_plain(cuda, case):
+    """The stream-order entry: LeNet5's exact path packs 107,456 bits
+    (3,358 words); ragged lengths end inside a word and inside a warp's 32
+    words; any u32 value is placed as the planes entry places it."""
+    rng = np.random.default_rng(28)
+    nbits = {"exact-path-shape": 32 * 3358, "ragged": 32 * 1000 * 3 + 17, "one-bit": 1,
+             "full-words": 32 * 333}[case]
+    if case == "full-words":
+        x = rng.integers(0, 2 ** 32, nbits, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    else:
+        x = rng.integers(0, 2, nbits).astype(np.int32)
+    bits = t(x, cuda)
+    before = tpack.seg_packbits.launches
+    got = tpack.seg_packbits_stream(bits)
+    torch.cuda.synchronize()
+    assert tpack.seg_packbits.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.uint32 and got.shape == (-(-nbits // 32),)
+    np.testing.assert_array_equal(n(got), n(tpack.seg_packbits_stream_plain(bits)))
+    if case != "full-words":
+        want = np.packbits(np.concatenate([x, np.zeros(-nbits % 32, np.int32)]).astype(np.uint8))
+        assert n(got).astype(">u4").tobytes() == want.tobytes()
+    if nbits % 32 == 0:  # pack_bit_rows is the same launch on rows of whole words
+        rows = tpack.pack_bit_rows(bits.reshape(-1, 32))
+        np.testing.assert_array_equal(n(rows).reshape(-1), n(got))
+
+
+@pytest.mark.cuda
 def test_pack_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(TypeError):
         tpack.seg_packbits(torch.zeros((32, 128), device=cuda))
@@ -273,6 +428,10 @@ def test_pack_wrappers_raise_instead_of_falling_back(cuda):
                               bstar=0)
     with pytest.raises(TypeError):
         tpack.seg_select_pack(torch.ones((2, 10), device=cuda), k=1, bstar=0)
+    with pytest.raises(TypeError):
+        tpack.seg_packbits_stream(torch.zeros((64,), device=cuda))
+    with pytest.raises(ValueError):
+        tpack.seg_packbits_stream(torch.zeros((2, 32), dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.cuda
@@ -578,7 +737,7 @@ def test_one_launch_kernels_on_a_second_stream(cuda):
     with torch.cuda.stream(side):
         got = _assert_one_launch_equals_plain(*ops, len(segs))
     side.synchronize()
-    assert (cuda.type, torch.cuda.current_device(), side.cuda_stream) in tflat.WORKSPACE.buffers
+    assert (cuda.type, torch.cuda.current_device(), side.cuda_stream) in _build.WORKSPACE.buffers
     for g, w in zip(got, want):
         np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
 

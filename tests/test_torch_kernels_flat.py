@@ -32,6 +32,7 @@ from repro.kernels import flat as jflat
 from repro.kernels.hist2side import SPAN_OCTAVES as J_SPAN_OCTAVES
 from repro.kernels.hist2side import bucket_lower_edges as j_bucket_lower_edges
 from repro.kernels.ops import _side_threshold as j_side_threshold
+from repro_torch.kernels import _build
 from repro_torch.kernels import flat as tflat
 from repro_torch.kernels.hist2side import SPAN_OCTAVES, bucket_lower_edges
 from repro_torch.kernels.ops import _side_threshold
@@ -192,11 +193,11 @@ def test_cpu_tensors_leave_the_launch_counters_at_zero():
     (0, 132, 8, 1),        # no block: one CTA still writes the result
 ])
 def test_persistent_grid_fills_one_wave_at_most(nblocks, sms, resident, grid):
-    assert tflat.persistent_grid(nblocks, sms, resident) == grid
+    assert _build.persistent_grid(nblocks, sms, resident) == grid
 
 
 def test_workspace_is_one_zeroed_buffer_per_device_and_stream():
-    ws = tflat.Workspace()
+    ws = _build.Workspace()
     cpu = torch.device("cpu")
     a = ws.get(cpu, 7, 10)
     assert a.dtype == torch.int32 and a.numel() == 10 and not a.any()
@@ -208,7 +209,7 @@ def test_workspace_is_one_zeroed_buffer_per_device_and_stream():
 
 
 def test_workspace_grows_to_at_least_twice_its_size():
-    ws = tflat.Workspace()
+    ws = _build.Workspace()
     cpu = torch.device("cpu")
     a = ws.get(cpu, 0, 100)
     bigger = ws.get(cpu, 0, 101)
@@ -222,7 +223,7 @@ def test_workspace_gives_a_captured_call_a_buffer_of_its_own():
     """A buffer zeroed inside a CUDA graph is zero only as the graph
     replays, and a graph may replay beside other calls: a captured call
     neither takes a kept buffer nor keeps its own."""
-    ws = tflat.Workspace()
+    ws = _build.Workspace()
     cpu = torch.device("cpu")
     captured = ws.get(cpu, 3, 10, capturing=True)
     assert not captured.any() and ws.buffers == {}
