@@ -47,7 +47,12 @@ beside it.  Phases, each of which fails the run:
      persistent grid are printed, and also on every other segment's mask
      and on seeded masks of the card tests' 1,000-slot rows); each call of
      ``seg_select_pack`` and of the stream-order ``seg_packbits`` must be
-     one device operation;
+     one device operation.  ``f32_mean_xla`` (XLA's f32 reduce order for
+     μ, one launch per segment a round) is held bit for bit against its
+     plain cascade on the path's own top-k values of every segment, and
+     timed on f1's (2 x 12,250 values); the profiled round's device
+     operations are printed beside the 812 of the round before this
+     kernel (PERF.md §5);
   4. the per-leaf path: ``repro_torch.kernels.ops.sbc_compress_hist(leaf,
      p=0.01, bm=8, lanes=128)`` on each of LeNet5's 6 leaves, as views
      into the hist path's last accumulator, with the launch counts set to
@@ -62,10 +67,30 @@ beside it.  Phases, each of which fails the run:
      survivor count of each leaf is printed against k; the reference's
      ±2% band (on k, and on μ against the exact top-k's) is checked on
      seeded Gaussian data of f1's size, the data it is asserted on;
-  5. print one ``{"kernels": [...]}`` line with all eight kernels (the
+  5. the codec + wire path: LeNet5 at full width under
+     ``policy_from_spec(RunSpec(compressor="sbc", dense_pattern=
+     "^f[12]b$"))`` (four SBC leaves, f1b and f2b dense, per leaf, p =
+     0.01), five rounds, each on the ΔW of one Adam step at batch 128:
+     ``ResolvedPolicy.compress`` with error feedback,
+     ``Wire.pack_with_bits(device_pack=True)`` and ``Wire.unpack``, with
+     the launch counts set to 0 just before and read just after (every
+     round 4 ``seg_select_pack``, one per Golomb leaf, and 8
+     ``f32_mean_xla``).  Every round the device-packed blob must equal the
+     host-packed blob byte for byte, the unpacked ΔW* and the residual
+     ``acc − ΔW*`` must be bit for bit, each SBC leaf must hold exactly k
+     survivors at ±μ, and the measured payload bits must be Σ ``nbits`` +
+     32 per μ + 32 per dense entry (printed beside Eq. 1's total).  It
+     prints the host ms a round of compress, device pack, host pack and
+     unpack, and ``seg_select_pack``'s device µs on each leaf's mask.
+     Then one GSPMD exact round with the same dense pattern through
+     ``build_run`` (1 ``seg_packbits``, 4 ``f32_mean_xla``);
+  6. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
-     fields), then the card line, then the last line
+     fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
+     wire path's launches, the exact path's in ``launches_exact_path``;
+     ``f32_mean_xla`` replaces no Pallas kernel, which its ``reference``
+     field says), then the card line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -102,7 +127,8 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 ROUNDS = 5
 KERNELS = ("seg_hist2side", "seg_moments", "seg_binarize_apply", "seg_packbits",
-           "seg_select_pack", "hist2side", "masked_moments", "binarize_apply")
+           "seg_select_pack", "hist2side", "masked_moments", "binarize_apply",
+           "f32_mean_xla")
 LEAF_KERNELS = ("hist2side", "masked_moments", "binarize_apply")
 ONE_OP = ("seg_hist2side", "seg_moments")  # one device operation per call
 
@@ -113,14 +139,24 @@ def per_call(**counts) -> dict:
 
 
 HIST_PER_ROUND = per_call(seg_hist2side=2, seg_moments=1, seg_binarize_apply=1)
-EXACT_PER_ROUND = per_call(seg_packbits=1)
+EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=6)  # one mean per segment
+# the codec + wire phase: LeNet5 under sbc with f1b and f2b dense (four SBC
+# leaves): a mean for topk_signed and one for binarize per SBC leaf, and
+# one seg_select_pack per Golomb leaf in the device pack
+DENSE_PATTERN = r"^f[12]b$"
+CODEC_PER_ROUND = per_call(seg_select_pack=4, f32_mean_xla=8)
+DENSE_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=4)
+# the profiled exact round's device operations before f32_mean_xla, when
+# each side's mean was three torch operations (PERF.md §5)
+EXACT_DEVICE_OPS_BEFORE = 812
 # (rows, n, k, b*) of the card tests' seg_select_pack rows, timed beside f1
 SELECT_PACK_SHAPES = ((5, 1000, 37, 4), (1, 1000, 10, 6))
 LEAF_PER_LEAF = per_call(hist2side=2, masked_moments=1, binarize_apply=1)
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
 SOURCE = {name: SEG_SBC for name in KERNELS}
 SOURCE.update(seg_packbits="src/repro_torch/kernels/csrc/pack.cu",
-              seg_select_pack="src/repro_torch/kernels/csrc/pack.cu")
+              seg_select_pack="src/repro_torch/kernels/csrc/pack.cu",
+              f32_mean_xla="src/repro_torch/kernels/csrc/reduce.cu")
 REPLACES = {
     "seg_hist2side": "src/repro/kernels/flat.py:71",
     "seg_moments": "src/repro/kernels/flat.py:126",
@@ -130,7 +166,13 @@ REPLACES = {
     "hist2side": "src/repro/kernels/hist2side.py:70",
     "masked_moments": "src/repro/kernels/moments.py:45",
     "binarize_apply": "src/repro/kernels/binarize_apply.py:40",
+    # no Pallas kernel: the jnp.mean of the exact engine's top-k values,
+    # which XLA lowers to its f32 reduce-window cascade
+    "f32_mean_xla": "src/repro/core/flat.py:733",
 }
+REFERENCE = {"f32_mean_xla": "XLA's f32 reduce lowering of jnp.mean (src/repro/core/"
+                             "flat.py:733, core/stages.py:161 and :330, kernels/ops.py:152), "
+                             "not a Pallas kernel"}
 # operations per element of the buffer, counted from each SBC kernel's body
 OPS_PER_ELEMENT = {"seg_hist2side": 12, "seg_moments": 4, "seg_binarize_apply": 3,
                    "hist2side": 12, "masked_moments": 4, "binarize_apply": 3}
@@ -220,6 +262,8 @@ def kernel_row(name, launches, err, ms, plain_ms, nbytes, ops, label=None) -> di
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
+    if name in REFERENCE:
+        row["reference"] = REFERENCE[name]
     print(f"{label or name}: {ms * 1e3:.2f} us device per call, plain {plain_ms * 1e3:.2f} us, "
           f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes} bytes), "
           f"{launches} launches on the path")
@@ -333,6 +377,7 @@ def profiled_round(run, state, label: str) -> None:
           f"operations; top by device time:")
     for e in events[:12]:
         print(f"  {_self_device_us(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:100]}")
+    return on_device
 
 
 # --------------------------------------------------------------- hist path
@@ -494,7 +539,9 @@ def exact_path(dev) -> dict:
     print(f"ledger: up_bits_measured per round {led} (analytic "
           f"{run.ledger.records[0].up_bits_analytic}); up bytes "
           f"{run.ledger.totals()['up_bytes']}")
-    profiled_round(run, cap["state"], "exact")
+    ops = profiled_round(run, cap["state"], "exact")
+    print(f"exact profiled round: {ops} device operations (before f32_mean_xla: "
+          f"{EXACT_DEVICE_OPS_BEFORE}; {ops - EXACT_DEVICE_OPS_BEFORE:+d})")
 
     # where the exchange's time goes: with and without the device pack
     last = cap["last"]
@@ -618,7 +665,45 @@ def exact_path(dev) -> dict:
         grid, _, tiles = kpack.select_pack_grid(dev, *m.shape, sb)
         print(f"seg_select_pack on {label}: rows {m.shape[0]}, n {m.shape[1]}, k {sk}, "
               f"b* {sb}, {tiles} tiles on {grid} CTAs: {us:.2f} us device per call")
+
+    # f32_mean_xla on the path's own top-k values: both sides of every
+    # segment, one call per segment, each bit-equal to the plain cascade
+    from repro_torch.kernels import reduce as kreduce
+    from repro_torch.kernels import topk as ktopk
+
+    calls = []
+    with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), calls)):
+        space.exchange_local(last["bodies"], last["res"], device_pack=True)
+    check(len(calls) == len(space._sparse),
+          f"one f32_mean_xla call per segment, saw {len(calls)}")
+    for (_, args, _), s in zip(calls, space._sparse):
+        vals = args[0]
+        got, want = kreduce.f32_mean_xla(vals), kreduce.f32_mean_xla_plain(vals)
+        torch.cuda.synchronize()
+        check(tuple(vals.shape) == (2 * s.rows, s.k) and bit_equal(got, want),
+              f"f32_mean_xla {s.path}: kernel != plain cascade on {tuple(vals.shape)}")
+    print(f"f32_mean_xla: bit-equal to the plain cascade on the top-k values of every "
+          f"segment ({[tuple(c[1][0].shape) for c in calls]})")
+    vals = max((c[1][0] for c in calls), key=lambda v: v.numel())
+    copies = [(vals.clone(),) for _ in range(copies_past_l2(4 * vals.numel()))]
+    rows["f32_mean_xla"] = kernel_row(
+        "f32_mean_xla", cap["launches"]["f32_mean_xla"], 0.0,
+        device_ms(kreduce.f32_mean_xla, copies, len(copies), "f32_mean_xla", ops=1),
+        device_ms(kreduce.f32_mean_xla_plain, copies, 12),
+        4 * (vals.numel() + vals.shape[0]), cascade_adds(vals.shape[1]) * vals.shape[0],
+        label=f"f32_mean_xla on f1's top-k values {tuple(vals.shape)}")
+    del copies
     return rows
+
+
+def cascade_adds(n: int) -> int:
+    """f32 operations of one row of XLA's reduce cascade over n values:
+    32 adds a window at each level, the last partials, one multiply."""
+    ops = 0
+    while n > 32:
+        n = -(-n // 32)
+        ops += 32 * n
+    return ops + n + 1
 
 
 # ----------------------------------------------------------- per-leaf path
@@ -751,6 +836,156 @@ def leaf_path(dev, hist: dict) -> dict:
     return rows
 
 
+# ------------------------------------------------------- codec + wire path
+
+
+def codec_path(dev) -> dict:
+    """Phase 5: the codec, policy and SBW1 wire at LeNet5's full width, and
+    one GSPMD exact round with the same dense pattern.  Returns the launch
+    counts of its five rounds and the time of each Golomb leaf's
+    ``seg_select_pack``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import wire as core_wire
+    from repro_torch.core.stages import k_for
+    from repro_torch.core.tree import tree_map
+    from repro_torch.core.wire import wire_for
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.run import RunSpec, build_preset, build_run, policy_from_spec
+
+    p = SPEC["sparsity"]
+    cfg, task = build_preset("lenet5", batch=SPEC["batch"], seq_len=0, seed=0, device=dev)
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.to(dev) for k, v in model.init(gen).items()}
+    opt = get_optimizer(cfg.local_opt)
+    opt_state = opt.init(params)
+    policy = policy_from_spec(RunSpec(preset="lenet5", compressor="sbc",
+                                      dense_pattern=DENSE_PATTERN))
+    resolved = policy.resolve(params)
+    state = resolved.init_state(params)
+    wire = wire_for(resolved, params, p)
+    sbc = [s for s in wire.specs if s.encoder == "golomb"]
+    n_dense = sum(s.n for s in wire.specs if s.selector == "dense")
+    print(f"codec: policy {policy.name!r} (fast={policy.fast}), "
+          f"{sum(s.n for s in wire.specs)} params in {len(wire.specs)} leaves: "
+          f"{[(s.path, s.selector, s.n, s.k) for s in wire.specs]}")
+    check(len(sbc) == 4 and n_dense == 510, "codec: LeNet5 under sbc with f1b, f2b dense")
+
+    # the device pack's seg_select_pack calls, their outputs kept
+    packed = []
+
+    def kept_select_pack(mask, **kw):
+        out = kpack.seg_select_pack(mask, **kw)
+        packed.append((mask, kw, out))
+        return out
+
+    def delta_of_one_step(r):
+        nonlocal params, opt_state
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = model.loss_fn(leaves, task.sample(r, 0))
+        keys = sorted(leaves)
+        grads = dict(zip(keys, torch.autograd.grad(loss, [leaves[k] for k in keys])))
+        with torch.no_grad():
+            p2, opt_state = opt.apply(opt_state, grads, params, cfg.base_lr, 0)
+        return {k: p2[k] - params[k] for k in keys}, float(loss.detach())
+
+    times = {"compress": [], "device pack": [], "host pack": [], "unpack": []}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    counts = []
+    with swapped(core_wire, {"seg_select_pack": kept_select_pack}):
+        for r in range(ROUNDS):
+            delta, loss = delta_of_one_step(r)
+            check(math.isfinite(loss), f"codec round {r + 1}: loss {loss}")
+            acc = tree_map(lambda d, res: d.reshape(-1) + res.reshape(-1), delta,
+                           state.residual)
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            comp, dense, state = resolved.compress(delta, state, resolved.rates(p))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            packed.clear()
+            blob, bits = wire.pack_with_bits(comp, device_pack=True)
+            t2 = time.perf_counter()
+            host_blob, host_bits = wire.pack_with_bits(comp)
+            t3 = time.perf_counter()
+            rec = wire.unpack(blob)
+            t4 = time.perf_counter()
+            after = kernels.launch_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+            for key, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                times[key].append(dt * 1e3)
+            check(blob == host_blob and bits == host_bits,
+                  f"codec round {r + 1}: device-packed blob != host-packed blob")
+            for key in dense:
+                check(bit_equal(rec[key].to(dev), dense[key]),
+                      f"codec round {r + 1}: unpack of the blob != dW* on {key}")
+                check(bit_equal(state.residual[key].reshape(-1), acc[key] - dense[key].reshape(-1)),
+                      f"codec round {r + 1}: residual != acc - dW* on {key}")
+            for s in sbc:
+                c, d = comp[s.path], dense[s.path].reshape(-1)
+                k = k_for(s.n, s.p)
+                vals = torch.unique(d[c.idx.long()])
+                check(c.idx.numel() == k and int((d != 0).sum()) == k and vals.numel() == 1
+                      and bit_equal(vals[0], c.mean),
+                      f"codec round {r + 1}: {s.path} holds {int((d != 0).sum())} survivors, "
+                      f"not k={k} at one +-mu")
+            nbits = sum(int(out[1][0]) for _, _, out in packed)
+            want = nbits + 32 * len(sbc) + 32 * n_dense
+            check(len(packed) == len(sbc) and bits == want,
+                  f"codec round {r + 1}: measured {bits} bits != sum(nbits) {nbits} + 32 per mu "
+                  f"+ 32 per dense entry = {want}")
+            analytic = float(resolved.total_bits(comp))
+            print(f"codec round {r + 1}: loss {loss:.6f}; blob {len(blob)} bytes, measured "
+                  f"{bits} payload bits (Golomb {nbits} + {32 * len(sbc)} mu + {32 * n_dense} "
+                  f"dense) against Eq. 1's {analytic:.2f}; launches "
+                  f"{ {k: v for k, v in counts[-1].items() if v} }")
+            with torch.no_grad():  # one client: apply the transmitted update
+                params = {k: params[k] + dense[k] for k in params}
+    launches = kernels.launch_counts()
+    check(all(c == CODEC_PER_ROUND for c in counts), f"codec: launches per round {counts}")
+    print("codec: every round's device-packed blob == host-packed blob byte for byte; "
+          "unpack == dW* and residual == acc - dW* bit for bit; k survivors at +-mu per "
+          "SBC leaf; measured bits == sum(nbits) + 32 per mu + 32 per dense entry")
+    for key, ms in times.items():
+        print(f"codec host ms per round, {key}: {', '.join(f'{t:.3f}' for t in ms)}")
+
+    # seg_select_pack on each Golomb leaf's mask of the last round
+    select_us = {}
+    for (mask, kw, _), s in zip(packed, sbc):
+        copies = [(mask.clone(),) for _ in range(min(copies_past_l2(4 * mask.numel()), 240))]
+        us = 1e3 * device_ms(lambda m, kw=kw: kpack.seg_select_pack(m, **kw), copies, 240,
+                             f"seg_select_pack on the {s.path} leaf", ops=1)
+        del copies
+        select_us[s.path] = us
+        print(f"seg_select_pack on the {s.path} leaf mask: n {s.n}, k {kw['k']}, "
+              f"b* {kw['bstar']}: {us:.2f} us device per call")
+
+    # one GSPMD exact round with the same dense pattern, through build_run
+    run = build_run(RunSpec(**SPEC, flat_engine="exact", device_pack=True, measure_wire=True,
+                            dense_pattern=DENSE_PATTERN), device=dev)
+    space = run.fns.flat_space
+    st = run.init()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    st, m = run.step(st, 0)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    check(math.isfinite(loss) and got == DENSE_EXACT_PER_ROUND,
+          f"exact round with dense pattern: loss {loss}, launches {got}")
+    rec = run.ledger.records[0]
+    print(f"exact round with --dense-pattern {DENSE_PATTERN!r}: loss {loss:.6f}, "
+          f"{space.n_mu} SBC rows and {sum(s.global_size for s in space.segments if s.kind == 'dense')} "
+          f"dense entries; measured {rec.up_bits_measured:.0f} bits against Eq. 1's "
+          f"{rec.up_bits_analytic:.2f}; launches { {k: v for k, v in got.items() if v} }")
+    return {"launches": launches, "select_us": select_us}
+
+
 def main() -> int:
     import torch
 
@@ -775,13 +1010,20 @@ def main() -> int:
     print(f"built {[str(p.relative_to(ROOT)) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- 2., 3. and 4. the three paths
+    # ---- 2. to 5. the four paths
     rows, hist = hist_path(dev)
     rows.update(exact_path(dev))
     rows.update(leaf_path(dev, hist))
+    codec = codec_path(dev)
     check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
+    # the codec + wire path is the one that launches seg_select_pack (4 a
+    # round) and most f32_mean_xla; the exact path's counts stay beside them
+    for name in ("seg_select_pack", "f32_mean_xla"):
+        rows[name]["launches_exact_path"] = rows[name]["launches"]
+        rows[name]["launches"] = codec["launches"][name]
+    rows["seg_select_pack"]["leaf_us"] = codec["select_us"]
 
-    # ---- 5. results
+    # ---- 6. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,14 @@ fast=True, flat_engine="hist"))``, whose three SBC passes run on the
 hand-written CUDA kernels of :mod:`repro_torch.kernels.flat`, and
 ``flat_engine="exact"`` with ``device_pack=True, measure_wire=True``,
 whose Golomb wire is packed by the kernels of
-:mod:`repro_torch.kernels.pack` and metered into the ledger.
+:mod:`repro_torch.kernels.pack` and metered into the ledger; either takes
+``dense_pattern``/``skip_pattern`` rules (the hist engine all-SBC only).
+
+It also carries the codec core as a library, as in the reference:
+:mod:`repro_torch.core.stages`, ``codec``, ``policy``, ``api``, ``sbc``,
+``residual``, ``bits`` and the SBW1 ``wire`` (byte-compatible with the
+reference's), with every scalar a codec sends summed in XLA's f32 order
+(:mod:`repro_torch.kernels.reduce`).
 """
 from repro_torch.device import on_cuda, resolve_device
 

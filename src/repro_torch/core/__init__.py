@@ -1,1 +1,5 @@
-"""Compression core of the port: flat layout, hist engine, channel."""
+"""Compression core of the port: the staged codec pipeline (stages →
+codec → policy → api, with ``sbc`` registered), the SBW1 wire and the
+analytic bits, the flat layout and its engines, the channel and the
+ledger."""
+from repro_torch.core import sbc as _sbc  # noqa: F401  (registers "sbc")

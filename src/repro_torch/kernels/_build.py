@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "seg_sbc.cu", CSRC / "pack.cu")
+SOURCES = (CSRC / "seg_sbc.cu", CSRC / "pack.cu", CSRC / "reduce.cu")
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch"
 
@@ -62,6 +62,10 @@ _SIGNATURES = {
         "seg_packbits_stream_launch": (_P, _P, _I, _P),
         "seg_select_pack_resident": (_I,),
         "seg_select_pack_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "reduce.cu": {
+        "f32_mean_xla_scratch": (_I,),
+        "f32_mean_xla_launch": (_P, _I, _I, _I, _P, _P, _P),
     },
 }
 

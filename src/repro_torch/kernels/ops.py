@@ -134,9 +134,9 @@ def sbc_compress_hist(acc: torch.Tensor, *, p: float, nbins: int = 128,
 def sbc_compress_exact(acc: torch.Tensor, *, p: float) -> SBCCompressed:
     """Faithful Alg. 2 by exact top-k (exactly k survivors).
 
-    μ is the winning side's mean, summed in f64 and rounded to f32 once
-    (the reference sums in f32), so it may differ from the reference's in
-    its last ulp; the positions do not.
+    μ is the winning side's mean in XLA's f32 order
+    (:func:`~repro_torch.kernels.topk._two_sided_topk`), so μ, ΔW*, the
+    residual and the side chosen equal the reference's bit for bit.
     """
     n = acc.shape[0]
     k = k_for(n, p)

@@ -1,0 +1,114 @@
+"""Row sums and means of f32 values in XLA's reduce order.
+
+The JAX package takes ``jnp.mean`` (and ``jnp.sum``) of f32 top-k values
+and puts the result on the wire: SBC's μ (``core/stages.py``
+``topk_signed`` and ``binarize``, the exact engines of ``core/flat.py``
+and ``kernels/ops.py``).  XLA's CPU backend lowers an f32 sum of n > 32
+elements to a cascade of size-32, stride-32 reduce windows:
+
+  * pad to ``m = ceil(n / 32)`` windows, with ``pad // 2`` zeros in front
+    and the rest behind;
+  * sum each window left to right from 0.0;
+  * repeat until 32 or fewer partials are left, then sum those left to
+    right from 0.0;
+  * ``jnp.mean`` is that sum × the f32 reciprocal of n (``1.0f / n``),
+    not sum / n.
+
+:func:`f32_mean_xla` computes exactly that with elementwise f32 adds only,
+so its bits equal ``jnp.mean``'s (``tests/test_torch_f32mean.py`` holds
+it against ``jnp.mean`` and ``jnp.sum`` under ``jit`` and ``vmap``).
+``torch.sum`` and ``.mean()`` leave their order unspecified, so neither
+is used.  One difference stays: XLA's CPU backend flushes denormals to
+zero and the port does not, so sums that pass through a denormal may
+differ.
+
+On a CUDA tensor the whole cascade, for every row, is one launch of the
+hand-written kernel of ``csrc/reduce.cu`` (one CTA per row); on a CPU
+tensor it is :func:`f32_mean_xla_plain`.  It replaces no Pallas kernel:
+it is the port's kernel for an XLA lowering, and no single PyTorch call
+sums in this order.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+WINDOW = 32  # XLA's reduce-window size and stride
+
+
+def _cascade_sum(v: torch.Tensor) -> torch.Tensor:
+    """f32[rows, n] → f32[rows]: the windowed cascade, in torch ops."""
+    while v.shape[-1] > WINDOW:
+        n = v.shape[-1]
+        m = -(-n // WINDOW)
+        pad = m * WINDOW - n
+        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2)).reshape(-1, m, WINDOW)
+        acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+        for j in range(WINDOW):
+            acc = acc + v[..., j]
+        v = acc
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+    for j in range(v.shape[-1]):
+        acc = acc + v[..., j]
+    return acc
+
+
+def _reciprocal(n: int, device) -> torch.Tensor:
+    """``1.0f / n`` as an f32 IEEE division."""
+    one = torch.ones((), dtype=torch.float32, device=device)
+    return one / torch.full((), float(n), dtype=torch.float32, device=device)
+
+
+def f32_mean_xla_plain(vals: torch.Tensor, *, sum_only: bool = False) -> torch.Tensor:
+    """Means (or with ``sum_only`` sums) over the last axis of ``vals``
+    f32[..., n], in XLA's order; the result has shape ``vals.shape[:-1]``."""
+    n = vals.shape[-1]
+    s = _cascade_sum(vals.reshape(-1, n)).reshape(vals.shape[:-1])
+    return s if sum_only else s * _reciprocal(n, vals.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(n: int) -> int:
+    return _build.library().f32_mean_xla_scratch(n)
+
+
+def f32_mean_xla(vals: torch.Tensor, *, sum_only: bool = False) -> torch.Tensor:
+    """Means over the last axis of ``vals`` f32[..., n] (n ≥ 1), equal bit
+    for bit to ``jnp.mean(vals, axis=-1)`` on XLA's CPU backend; with
+    ``sum_only`` the sums (``jnp.sum``).  See the module docstring.
+
+    On a CUDA tensor: one launch of ``csrc/reduce.cu`` for all rows.
+    """
+    if not isinstance(vals, torch.Tensor):
+        raise TypeError(f"vals must be a torch.Tensor, got {type(vals)}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"vals must be float32, got {vals.dtype}")
+    if vals.dim() < 1 or not 1 <= vals.shape[-1] < 2 ** 31 - WINDOW:
+        raise ValueError(f"vals must have 1 to 2**31 - 33 entries on its last axis, got "
+                         f"shape {tuple(vals.shape)}")
+    if vals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {vals.device}")
+    if not vals.is_cuda:
+        return f32_mean_xla_plain(vals, sum_only=sum_only)
+    n = vals.shape[-1]
+    x = vals.reshape(-1, n).contiguous()
+    rows = x.shape[0]
+    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return out.reshape(vals.shape[:-1])
+    per_row = _scratch_floats(n)
+    scratch = (torch.empty((rows * per_row,), dtype=torch.float32, device=x.device)
+               if per_row else None)
+    _build.launch(_build.library().f32_mean_xla_launch, "f32_mean_xla", x,
+                  x.data_ptr(), rows, n, 0 if sum_only else 1,
+                  None if scratch is None else scratch.data_ptr(), out.data_ptr())
+    f32_mean_xla.launches += 1
+    return out.reshape(vals.shape[:-1])
+
+
+f32_mean_xla.launches = 0
+
+WRAPPERS = (f32_mean_xla,)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.reduce import f32_mean_xla_plain
 from repro_torch.kernels.topk import _top_k
 
 
@@ -53,10 +54,10 @@ def binarize_apply_ref(flat: torch.Tensor, t_pos, t_neg, mu, pos_wins
 
 def sbc_exact_ref(flat: torch.Tensor, k: int) -> torch.Tensor:
     """Exact top-k SBC (paper Alg. 2), the oracle the histogram pipeline
-    approximates; means in f32 as the reference takes them.  Returns the
-    dense ΔW*."""
+    approximates; means in XLA's f32 order, as ``jnp.mean`` takes them
+    (the plain cascade).  Returns the dense ΔW*."""
     val_pos, idx_pos = _top_k(flat, k)
     val_neg, idx_neg = _top_k(-flat, k)
-    mu_pos, mu_neg = val_pos.mean(), val_neg.mean()
+    mu_pos, mu_neg = f32_mean_xla_plain(val_pos), f32_mean_xla_plain(val_neg)
     idx, mean = (idx_pos, mu_pos) if mu_pos > mu_neg else (idx_neg, -mu_neg)
     return torch.zeros_like(flat).index_fill_(0, idx, float(mean))

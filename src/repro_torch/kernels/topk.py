@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.reduce import f32_mean_xla
+
 
 def _total_order_key(x: torch.Tensor) -> torch.Tensor:
     """f32 → int32 keys that order as the floats' total order does (−0
@@ -35,13 +37,15 @@ def _two_sided_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     """Per row of ``x[rows, n]``: paper Alg. 2's exact two-sided top-k.
     Returns ``(idx int64[rows, k], mu f32[rows])``: the k largest entries
     or the k most negative, whichever side's mean magnitude is larger, and
-    that side's signed mean.  Means are summed in f64 and rounded to f32
-    once (the reference sums in f32), so μ may differ from the reference's
-    in its last ulp; the selection does not."""
+    that side's signed mean.  Each side's mean is ``jnp.mean``'s, bit for
+    bit: XLA's f32 cascade over the values in top-k order
+    (:func:`~repro_torch.kernels.reduce.f32_mean_xla`, one launch for both
+    sides of every row), so μ, the side chosen and the selection all equal
+    the reference's."""
     val_pos, idx_pos = _top_k(x, k)
     val_neg, idx_neg = _top_k(-x, k)
-    mu_pos = val_pos.to(torch.float64).mean(-1).to(torch.float32)
-    mu_neg = val_neg.to(torch.float64).mean(-1).to(torch.float32)
+    rows = x.shape[0]
+    mu_pos, mu_neg = f32_mean_xla(torch.cat([val_pos, val_neg])).split(rows)
     pos_wins = mu_pos > mu_neg
     idx = torch.where(pos_wins[:, None], idx_pos, idx_neg)
     mu = torch.where(pos_wins, mu_pos, -mu_neg)

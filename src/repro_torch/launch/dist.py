@@ -5,11 +5,14 @@ its step on a mesh; on one device that mesh is
 ``Mesh(devices.reshape(1, 1), ("data", "model"))``, which gives one client
 on the "data" axis and a size-1 "model" axis.  The port carries exactly
 that topology with the §11 flat fast path, the exact engine (optionally
-with the device-packed Golomb wire) or the hist engine, every leaf
-SBC-compressed and an f32 residual.  ``repro_torch.run.build_run``
+with the device-packed Golomb wire) or the hist engine, and an f32
+residual.  A per-leaf policy maps each leaf to one of the exchange's
+three modes (:func:`dist_leaf_mode`: SBC, dense, skip); the hist engine
+takes all-SBC policies only (its flat space raises ``ValueError``
+otherwise, as the reference's does).  ``repro_torch.run.build_run``
 refuses every other combination (more clients over ``torch.distributed``,
-the per-leaf exchange, other codecs and policies) with
-``NotImplementedError`` naming the ROADMAP item that brings it.
+the per-leaf exchange, other codecs) with ``NotImplementedError`` naming
+the ROADMAP item that brings it.
 
 Behaviour of the reference that the step reproduces as it is:
 
@@ -30,9 +33,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.channel import GspmdLeaf, ShardedGspmdChannel, tree_keys
+from repro_torch.core.codec import Codec, make_codec
 from repro_torch.core.flat import ShardedFlatParamSpace
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, build_model
+from repro_torch.core.policy import CompressionPolicy
 from repro_torch.optim.optimizers import AdamState, get_optimizer
 
 
@@ -54,6 +59,23 @@ class DistTrainFns(NamedTuple):
     channel: Any  # the ShardedGspmdChannel driving the exchange
 
 
+def dist_leaf_mode(codec: Codec) -> str:
+    """The exchange mode of a leaf's codec: "sparse" (per-shard SBC, the
+    (positions, μ) exchange), "dense" (the values' mean) or "skip" (no
+    traffic).  Other codecs have no exchange on this backend, in the
+    reference either."""
+    if codec.skip:
+        return "skip"
+    if codec.selector.dense and codec.quantizer.name == "identity":
+        return "dense"
+    if codec.spec == "topk_signed|binarize|golomb":
+        return "sparse"
+    raise NotImplementedError(
+        f"dist backend has no exchange kernel for codec {codec.spec!r}; "
+        "supported: sbc (topk_signed|binarize|golomb), dense32, skip"
+    )
+
+
 def _zip_states(fn, states):
     """Apply ``fn`` to the list of matching leaves of several optimizer
     states (Adam's ``(m, v)``, a momentum dict, or SGD's ``()``)."""
@@ -68,6 +90,7 @@ def build_dist_train(
     cfg: ModelConfig,
     *,
     sparsity: float = 0.001,
+    policy: Optional[CompressionPolicy] = None,
     flat_engine: str = "exact",
     measure: bool = False,
     device_pack: bool = False,
@@ -75,8 +98,14 @@ def build_dist_train(
     device=None,
 ) -> DistTrainFns:
     """Build the DSGD train step for ``cfg`` on one device: the reference's
-    ``compressor='sbc', fast=True`` route with ``flat_engine`` ("exact" or
-    "hist").
+    ``fast=True`` route with ``flat_engine`` ("exact" or "hist").
+
+    ``policy``: an optional per-leaf :class:`CompressionPolicy` (path-regex
+    rules): each leaf takes its plan's exchange mode
+    (:func:`dist_leaf_mode`) and rate (``plan.rate(sparsity, 0)``).
+    Without one, every leaf is SBC-compressed at ``sparsity``.  Rates are
+    fixed when the step is built, so a policy with per-round schedules
+    raises, as the reference's does.
 
     State = ``{'params', 'opt', 'residual'}``; the batch has a leading
     client axis of size ``client_topology(cfg)[0]`` (1 here).  ``measure``
@@ -90,14 +119,25 @@ def build_dist_train(
     n_clients, client_axes = client_topology(cfg)
     opt = get_optimizer(cfg.local_opt)
 
+    if policy is None:
+        policy = CompressionPolicy.single(make_codec("sbc"), name="sbc")
+
     # leaf plan from the parameter shapes (every leaf replicated: one shard)
     shapes = {k: tuple(v.shape) for k, v in model.init(torch.Generator()).items()}
     keys = tree_keys(shapes)
+    plans = [policy.plan_for(k) for k in keys]
+    scheduled = [pl.path for pl in plans if pl.schedule is not None]
+    if scheduled:
+        raise NotImplementedError(
+            "the GSPMD backend fixes per-leaf sparsity rates when the step is "
+            f"built; policy rules attach per-round schedules to {scheduled[:3]}…"
+        )
     leaves = tuple(
         GspmdLeaf(path=k, global_shape=shapes[k], dtype=torch.float32,
-                  scanned="stack/scan" in k, mode="sparse", rate=float(sparsity),
-                  n_shards=1, shard_grid=(1,) * len(shapes[k]))
-        for k in keys
+                  scanned="stack/scan" in k, mode=dist_leaf_mode(pl.codec),
+                  rate=pl.rate(sparsity, 0), n_shards=1,
+                  shard_grid=(1,) * len(shapes[k]))
+        for k, pl in zip(keys, plans)
     )
     space = ShardedFlatParamSpace.build(
         [dict(path=gl.path, shape=gl.global_shape,

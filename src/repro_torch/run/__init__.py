@@ -7,7 +7,7 @@
 
 CLI: ``python -m repro_torch.run`` with the flags of ``python -m repro.run``.
 """
-from repro_torch.run.build import GspmdRun, build_run
+from repro_torch.run.build import GspmdRun, build_run, policy_from_spec
 from repro_torch.run.flags import build_parser, spec_from_args
 from repro_torch.run.presets import build_preset
 from repro_torch.run.spec import BACKENDS, RunSpec
@@ -19,5 +19,6 @@ __all__ = [
     "build_parser",
     "build_preset",
     "build_run",
+    "policy_from_spec",
     "spec_from_args",
 ]

@@ -10,18 +10,24 @@ device-packed Golomb wire and its metering:
                       flat_engine="exact", device_pack=True,
                       measure_wire=True, sparsity=0.01))
 
-Every other combination raises ``NotImplementedError`` naming the ROADMAP
-item that brings it; none runs a different path in silence.  The run is
+Either takes per-leaf policy rules (``dense_pattern``, ``skip_pattern``),
+built by :func:`policy_from_spec` as in the reference; the hist engine
+takes all-SBC policies only and raises ``ValueError`` at its first step
+otherwise, as the reference does.  Every other combination raises
+``NotImplementedError`` naming the ROADMAP item that brings it; none runs
+a different path in silence.  The run is
 on the CUDA card unless ``device="cpu"`` is passed; without a card
 ``build_run`` raises ``RuntimeError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.api import Compressor, make_compressor
+from repro_torch.core.policy import CompressionPolicy, PolicyRule
 from repro_torch.device import resolve_device
 from repro_torch.launch.dist import build_dist_train, client_topology
 from repro_torch.models.model import build_model
@@ -39,21 +45,47 @@ def _check_slice(spec: RunSpec) -> None:
     if spec.preset not in PORTED_PRESETS:
         todo.append(f"preset {spec.preset!r} (ROADMAP A5/A12)")
     if spec.compressor != "sbc":
-        todo.append(f"compressor {spec.compressor!r} (ROADMAP A2/A12)")
+        todo.append(f"compressor {spec.compressor!r} (ROADMAP A12)")
     if not spec.fast:
         todo.append("fast=False, the per-leaf exchange (ROADMAP A9)")
     if spec.telemetry:
         todo.append("telemetry (ROADMAP A11)")
-    if spec.dense_pattern or spec.skip_pattern:
-        todo.append("dense_pattern/skip_pattern, the per-leaf policy rules "
-                    "(ROADMAP A2)")
     if todo:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(todo) + ". This port carries "
             "preset='lenet5', backend='gspmd', fast=True with "
-            "flat_engine='hist' or 'exact' (device_pack and measure_wire "
-            "included)."
+            "flat_engine='hist' or 'exact' (device_pack, measure_wire, "
+            "dense_pattern and skip_pattern included)."
         )
+
+
+def policy_from_spec(spec: RunSpec) -> Union[Compressor, CompressionPolicy]:
+    """The spec's compression policy: the compressor, path-regex rules and
+    the fast flag, composed as the reference composes them (skip rules
+    first, then dense fallbacks, then the compressor's own rules)."""
+    comp = make_compressor(spec.compressor)
+    rules: Tuple[PolicyRule, ...] = ()
+    if spec.skip_pattern:
+        rules += (PolicyRule(spec.skip_pattern, codec="skip"),)
+    if spec.dense_pattern:
+        rules += (PolicyRule(spec.dense_pattern, codec="dense32"),)
+    if rules:
+        return CompressionPolicy(
+            default=comp.codec,
+            rules=rules + comp.policy.rules,
+            name=spec.compressor + "+rules",
+            fast=spec.fast,
+        )
+    # fast=True opts in; False keeps the compressor's own flag
+    if spec.fast and not comp.policy.fast:
+        return Compressor.from_policy(
+            comp.name, dataclasses.replace(comp.policy, fast=True)
+        )
+    return comp
+
+
+def as_policy(thing: Union[Compressor, CompressionPolicy]) -> CompressionPolicy:
+    return thing.policy if isinstance(thing, Compressor) else thing
 
 
 @dataclasses.dataclass(eq=False)
@@ -141,7 +173,10 @@ def build_run(spec: RunSpec, device=None) -> GspmdRun:
     cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
                              seed=spec.seed, device=dev)
     model = build_model(cfg)
-    fns = build_dist_train(cfg, sparsity=spec.sparsity, flat_engine=spec.flat_engine,
+    policy = policy_from_spec(spec)
+    fns = build_dist_train(cfg, sparsity=spec.sparsity,
+                           policy=None if isinstance(policy, Compressor) else policy,
+                           flat_engine=spec.flat_engine,
                            measure=spec.measure_wire, device_pack=spec.device_pack,
                            model=model, device=dev)
     n_clients, _ = client_topology(cfg)

@@ -17,6 +17,11 @@ Tolerances, on the same device and inputs:
     repeat the kernels' order step by step, so they also agree bit for
     bit (``test_moment_kernels_are_bit_equal_to_plain``).
 
+``f32_mean_xla`` (XLA's f32 reduce order) is a chain of f32 adds in a
+fixed order, built with ``-fmad=false``: bit-equal to its plain version,
+and the device-packed SBW1 wire (``Wire.pack_device``, one
+``seg_select_pack`` per Golomb leaf) gives the host pack's bytes.
+
 The per-leaf kernels (``hist2side``, ``masked_moments``,
 ``binarize_apply``) are held the same way, on unpadded leaves of any
 length, at offsets that are not 16-byte aligned, and on all-zero,
@@ -38,6 +43,7 @@ from repro_torch.kernels import hist2side as thist
 from repro_torch.kernels import moments as tmom
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pack as tpack
+from repro_torch.kernels import reduce as treduce
 from repro_torch.run import RunSpec, build_run
 from torch_helpers import (
     BM,
@@ -488,7 +494,7 @@ def test_exact_rounds_run_through_the_packer(cuda):
     assert kernels.launch_counts() == {
         "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0,
         "seg_packbits": 2, "seg_select_pack": 0, "hist2side": 0, "masked_moments": 0,
-        "binarize_apply": 0}
+        "binarize_apply": 0, "f32_mean_xla": 2 * run.fns.flat_space.n_mu}
     n_mu = run.fns.flat_space.n_mu
     assert [r.up_bits_measured for r in run.ledger.records] == [b + 32.0 * n_mu for b in nbits]
 
@@ -771,3 +777,104 @@ def test_one_launch_kernels_under_cuda_graph_capture(cuda):
     with torch.cuda.stream(side):  # the stream's own workspace is still zero
         _assert_one_launch_equals_plain(x, p5, p3, nseg)
     side.synchronize()
+
+
+# ------------------------------------------------------------ f32_mean_xla
+
+MEAN_SIZES = (1, 5, 13, 32, 33, 50, 250, 1_000, 12_250, 12_561, 100_000, 500_000, 4_000_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", MEAN_SIZES)
+def test_f32_mean_xla_kernel_is_bit_equal_to_plain(cuda, size):
+    """Every size of the CPU tests against ``jnp.mean``, plus rows whose
+    partials spill to the global scratch (500,000 and 4,000,000)."""
+    rng = np.random.default_rng(size)
+    rows = 3 if size < 200_000 else 2
+    x = (rng.standard_normal((rows, size)) * np.exp(rng.standard_normal((rows, size)))
+         ).astype(np.float32)
+    xd = t(x, cuda)
+    for sum_only in (False, True):
+        before = treduce.f32_mean_xla.launches
+        got = treduce.f32_mean_xla(xd, sum_only=sum_only)
+        torch.cuda.synchronize()
+        assert treduce.f32_mean_xla.launches == before + 1
+        want = treduce.f32_mean_xla_plain(t(x), sum_only=sum_only)
+        np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 250, 12_250])
+def test_f32_mean_xla_on_stacked_two_sided_top_k(cuda, k):
+    """The exact engine's call: ``[2·rows, k]`` top-k values of both sides,
+    one launch, the same μ and selection as on the CPU."""
+    from repro_torch.kernels.topk import _two_sided_topk
+
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((3, 100 * k)).astype(np.float32)
+    vals = np.concatenate([np.sort(x, -1)[:, ::-1][:, :k], np.sort(-x, -1)[:, ::-1][:, :k]])
+    got = treduce.f32_mean_xla(t(np.ascontiguousarray(vals), cuda))
+    want = treduce.f32_mean_xla_plain(t(np.ascontiguousarray(vals)))
+    np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+    idx_d, mu_d = _two_sided_topk(t(x, cuda), k)
+    idx_h, mu_h = _two_sided_topk(t(x), k)
+    np.testing.assert_array_equal(n(idx_d), n(idx_h))
+    np.testing.assert_array_equal(n(mu_d).view(np.uint32), n(mu_h).view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_f32_mean_xla_raises_instead_of_falling_back(cuda):
+    with pytest.raises(TypeError):
+        treduce.f32_mean_xla(torch.zeros(4, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        treduce.f32_mean_xla(torch.zeros((2, 0), device=cuda))
+
+
+# ------------------------------------------------- the device-packed wire
+
+WIRE_POLICIES = {
+    "sbc": lambda pol, mk: pol.CompressionPolicy.single(mk("sbc")),
+    "dense-small": lambda pol, mk: pol.CompressionPolicy(
+        default=mk("sbc"), rules=(pol.PolicyRule(pol.DENSE_SMALL_PATTERN, codec="dense32"),)),
+    "mixed": lambda pol, mk: pol.CompressionPolicy(
+        default=mk("sbc"), rules=(pol.PolicyRule(r"bias", codec="dense32"),
+                                  pol.PolicyRule(r"skipme", codec="skip"))),
+    "variance": lambda pol, mk: pol.CompressionPolicy.single(mk("variance|identity|golomb")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIRE_POLICIES))
+def test_wire_pack_device_on_the_card_equals_the_host_pack(cuda, name):
+    """``ResolvedPolicy.compress`` on the card, then ``Wire.pack_device``:
+    one ``seg_select_pack`` launch per Golomb leaf, the host pack's bytes,
+    and the same blob as the whole path on the CPU."""
+    from repro_torch.core import policy as tpol
+    from repro_torch.core.codec import make_codec
+    from repro_torch.core.wire import wire_for
+
+    rng = np.random.default_rng(3)
+    tree = {"w": rng.standard_normal(40_960).astype(np.float32),
+            "v": rng.standard_normal((64, 8)).astype(np.float32),
+            "bias": rng.standard_normal(16).astype(np.float32),
+            "skipme": rng.standard_normal(32).astype(np.float32)}
+    blobs = []
+    for dev in (cuda, torch.device("cpu")):
+        delta = {k: t(v, dev) for k, v in tree.items()}
+        resolved = WIRE_POLICIES[name](tpol, make_codec).resolve(delta)
+        comp, dense, _ = resolved.compress(delta, resolved.init_state(delta),
+                                           resolved.rates(0.02))
+        wire = wire_for(resolved, delta, 0.02)
+        golomb = sum(s.encoder == "golomb" and s.selector != "skip" for s in wire.specs)
+        before = tpack.seg_select_pack.launches
+        dev_blob, dev_bits = wire.pack_with_bits(comp, device_pack=True)
+        torch.cuda.synchronize()
+        assert tpack.seg_select_pack.launches == before + (golomb if dev.type == "cuda" else 0)
+        assert (dev_blob, dev_bits) == wire.pack_with_bits(comp)
+        assert wire.pack_device(comp) == dev_blob
+        rec = wire.unpack(dev_blob)
+        for k in tree:
+            np.testing.assert_array_equal(n(rec[k]).view(np.uint32),
+                                          n(dense[k]).view(np.uint32))
+        blobs.append(dev_blob)
+    assert blobs[0] == blobs[1]

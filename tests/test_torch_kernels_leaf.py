@@ -21,8 +21,9 @@ Tolerances:
   * ``sbc_compress_hist``: the same selection and count; μ to ``rtol=1e-5``
     (the thresholds' tolerance does not move a selection here, the sums'
     does move μ); the residual is ``acc − ΔW*`` bit for bit.
-  * ``sbc_compress_exact``: positions, count and bits equal; μ to
-    ``rtol=1e-6`` (f64 against f32 means).
+  * ``sbc_compress_exact``: positions, count, bits, μ, ΔW* and the
+    residual bit-equal (both take each side's mean in XLA's f32 order),
+    and so is the oracle ``sbc_exact_ref``.
   * ``dense_to_sparse``: equal.
   * The per-leaf pipeline against the port's flat hist engine
     (``core.flat._hist_pipeline``) at ``bm=8, lanes=128``: bit for bit
@@ -229,16 +230,19 @@ def test_sbc_compress_exact_matches_jax_and_ref(case):
     got = ops.sbc_compress_exact(t(x), p=p)
     want = jops.sbc_compress_exact(jnp.asarray(x), p=p)
     np.testing.assert_array_equal(n(got.delta_star) != 0, n(want.delta_star) != 0)
-    np.testing.assert_allclose(n(got.delta_star), n(want.delta_star), rtol=1e-6)
-    np.testing.assert_allclose(n(got.mean), n(want.mean), rtol=1e-6)
+    np.testing.assert_array_equal(n(got.delta_star).view(np.uint32),
+                                  n(want.delta_star).view(np.uint32))
+    np.testing.assert_array_equal(n(got.residual).view(np.uint32),
+                                  n(want.residual).view(np.uint32))
+    assert n(got.mean).view(np.uint32) == n(want.mean).view(np.uint32)
     assert float(got.count) == float(want.count) == max(1, round(p * x.size))
     assert float(got.nbits) == float(want.nbits)
     assert torch.equal(got.residual, t(x) - got.delta_star)
     k = int(got.count)
     oracle = n(ref.sbc_exact_ref(t(x), k))
-    np.testing.assert_array_equal(oracle != 0, n(got.delta_star) != 0)
-    np.testing.assert_allclose(oracle, n(got.delta_star), rtol=1e-6)
-    np.testing.assert_allclose(oracle, n(jref.sbc_exact_ref(jnp.asarray(x), k)), rtol=1e-6)
+    np.testing.assert_array_equal(oracle.view(np.uint32), n(got.delta_star).view(np.uint32))
+    np.testing.assert_array_equal(oracle.view(np.uint32),
+                                  n(jref.sbc_exact_ref(jnp.asarray(x), k)).view(np.uint32))
 
 
 @pytest.mark.parametrize("positions,k_cap", [([3, 50, 99], 8), (list(range(0, 100, 9)), 5),
