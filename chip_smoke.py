@@ -2,10 +2,16 @@
 """Smoke test of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare SRC   # the last redesigned kernels only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
-beside it.  Phases, each of which fails the run:
+beside it.  ``--compare SRC`` times only the two kernels redesigned last
+(``f32_mean_xla`` at every shape the paths launch, the per-leaf
+``hist2side`` on both passes over a seeded leaf of f1's size) with the
+package under ``SRC``, such as a parent commit's ``src`` unpacked into
+``build/parent``: run it for both versions in turns, in one chip call.
+Without arguments, phases, each of which fails the run:
 
   1. print the card's name and power limit (``nvidia-smi``); build the
      CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
@@ -50,9 +56,12 @@ beside it.  Phases, each of which fails the run:
      one device operation.  ``f32_mean_xla`` (XLA's f32 reduce order for
      μ, one launch per segment a round) is held bit for bit against its
      plain cascade on the path's own top-k values of every segment, and
-     timed on f1's (2 x 12,250 values); the profiled round's device
-     operations are printed beside the 812 of the round before this
-     kernel (PERF.md §5);
+     timed on f1's (2 x 12,250 values, with its CTAs and
+     ``torch.sum(vals, dim=-1)`` on the same operands as ``library_ms``)
+     and on seeded values of every shape the exact and codec paths launch
+     (``MEAN_SHAPES``: bit-equal, one device operation a call, beside
+     ``torch.sum``); the profiled round's device operations are printed
+     beside the 812 of the round before this kernel (PERF.md §5);
   4. the per-leaf path: ``repro_torch.kernels.ops.sbc_compress_hist(leaf,
      p=0.01, bm=8, lanes=128)`` on each of LeNet5's 6 leaves, as views
      into the hist path's last accumulator, with the launch counts set to
@@ -63,7 +72,9 @@ beside it.  Phases, each of which fails the run:
      six calls run again under ``torch.cuda.set_sync_debug_mode("error")``
      (a host sync fails the run).  Each kernel is held against its plain
      version on every call's operands (counts equal, binarize bit-equal,
-     moment sums to ``rtol=1e-6``) and timed on f1 (n 1,225,000).  The
+     moment sums to ``rtol=1e-6``) and timed on f1 (n 1,225,000),
+     ``hist2side`` on both its passes, coarse and zoomed, each one device
+     operation a call.  The
      survivor count of each leaf is printed against k; the reference's
      ±2% band (on k, and on μ against the exact top-k's) is checked on
      seeded Gaussian data of f1's size, the data it is asserted on;
@@ -82,6 +93,9 @@ beside it.  Phases, each of which fails the run:
      32 per μ + 32 per dense entry (printed beside Eq. 1's total).  It
      prints the host ms a round of compress, device pack, host pack and
      unpack, and ``seg_select_pack``'s device µs on each leaf's mask.
+     Every ``f32_mean_xla`` call of the rounds must have a shape of
+     ``MEAN_SHAPES``, and the last round's 8 are held bit for bit against
+     the plain cascade on their own operands.
      Then one GSPMD exact round with the same dense pattern through
      ``build_run`` (1 ``seg_packbits``, 4 ``f32_mean_xla``);
   6. print one ``{"kernels": [...]}`` line with all nine kernels (the
@@ -149,6 +163,10 @@ DENSE_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=4)
 # the profiled exact round's device operations before f32_mean_xla, when
 # each side's mean was three torch operations (PERF.md §5)
 EXACT_DEVICE_OPS_BEFORE = 812
+# (rows, n) of every f32_mean_xla call of the exact path (2 x k a segment)
+# and of the codec + wire path (2 x k and 1 x k an SBC leaf)
+MEAN_SHAPES = ((2, 1), (2, 5), (1, 5), (2, 50), (1, 50), (2, 250), (1, 250), (2, 12_250),
+               (1, 12_250))
 # (rows, n, k, b*) of the card tests' seg_select_pack rows, timed beside f1
 SELECT_PACK_SHAPES = ((5, 1000, 37, 4), (1, 1000, 10, 6))
 LEAF_PER_LEAF = per_call(hist2side=2, masked_moments=1, binarize_apply=1)
@@ -208,41 +226,53 @@ def _self_device_us(event) -> float:
         event, "self_cuda_time_total", 0.0)
 
 
-def device_ms(fn, operands, iters: int, label: str = "", ops: int | None = None) -> float:
+def device_ms(fn, operands, iters: int, label: str = "", ops: int | None = None,
+              counted: list | None = None) -> float:
     """Mean device ms per call of ``fn(*operands[i % len(operands)])``,
     summed over the kernels, memsets and copies that the call launches,
     from CUPTI (``torch.profiler``).  Fails if the profiler saw no device
-    time, or, with ``ops``, unless each call is ``ops`` device operations.
+    time, or, with ``ops``, unless each call is ``ops`` device operations;
+    appends the device operations a call to ``counted`` where given.
     With a ``label``, prints each device operation's share of a call.
 
     Every call launches the same device operations, so each one's count
-    must be a whole multiple of ``iters``.  A trace that lost records (seen
-    on the card: a kernel counted 0.70 times a call, or no device record at
-    all) is taken again, up to three times in all, and then fails the run."""
+    is a whole multiple of ``iters``, its operations a call.  The trace
+    loses records now and then (seen on the card: one or a few of 240; a
+    kernel counted 0.70 times a call; no device record at all).  A count within ``iters // 50`` records (and one) of a
+    whole multiple is taken as that multiple, and the operation's time a
+    call as its mean time times the multiple, which a lost record does not
+    move; a trace with any other count is taken again, up to three times
+    in all, and then fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     _run(fn, operands, 5)
+    slack = max(1, iters // 50)
     for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _run(fn, operands, iters)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
-        if events and all(e.count % iters == 0 for e in events):
+        mult = [round(e.count / iters) for e in events]
+        if events and all(m >= 1 and abs(e.count - m * iters) <= slack
+                          for e, m in zip(events, mult)):
             break
         print(f"  {label or 'plain'}: the trace lost records "
               f"({[e.count for e in events]} for {iters} calls); timing again")
     else:
         raise SmokeFailure(f"{label or 'plain'}: the profiler lost records three times")
-    total_us = sum(_self_device_us(e) for e in events)
+    total_us = iters * sum(_self_device_us(e) / e.count * m for e, m in zip(events, mult))
     check(total_us > 0, "torch.profiler saw no device time")
-    per_call = sum(e.count for e in events) / iters
+    per_call = sum(mult)
     check(ops is None or per_call == ops,
           f"{label}: {per_call:g} device operations per call, not {ops}")
+    if counted is not None:
+        counted.append(per_call)
     if label:
-        for e in sorted(events, key=_self_device_us, reverse=True):
-            print(f"  {label}: {_self_device_us(e) / iters:.2f} us per call, "
+        for e, m in sorted(zip(events, mult), key=lambda em: _self_device_us(em[0]),
+                           reverse=True):
+            print(f"  {label}: {_self_device_us(e) / e.count * m:.2f} us per call, "
                   f"{e.count / iters:g} per call: {e.key[:80]}")
     return total_us / iters / 1e3
 
@@ -252,7 +282,8 @@ def copies_past_l2(nbytes: int) -> int:
     return max(2, -(-60_000_000 // max(nbytes, 1)))
 
 
-def kernel_row(name, launches, err, ms, plain_ms, nbytes, ops, label=None) -> dict:
+def kernel_row(name, launches, err, ms, plain_ms, nbytes, ops, label=None,
+               library_ms=None) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS_PER_S * 1e3
     row = {
@@ -260,13 +291,14 @@ def kernel_row(name, launches, err, ms, plain_ms, nbytes, ops, label=None) -> di
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "library_ms": library_ms,
     }
     if name in REFERENCE:
         row["reference"] = REFERENCE[name]
-    print(f"{label or name}: {ms * 1e3:.2f} us device per call, plain {plain_ms * 1e3:.2f} us, "
-          f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes} bytes), "
-          f"{launches} launches on the path")
+    library = "" if library_ms is None else f", library {library_ms * 1e3:.2f} us"
+    print(f"{label or name}: {ms * 1e3:.2f} us device per call, plain {plain_ms * 1e3:.2f} us"
+          f"{library}, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes} "
+          f"bytes), {launches} launches on the path")
     return row
 
 
@@ -684,6 +716,8 @@ def exact_path(dev) -> dict:
               f"f32_mean_xla {s.path}: kernel != plain cascade on {tuple(vals.shape)}")
     print(f"f32_mean_xla: bit-equal to the plain cascade on the top-k values of every "
           f"segment ({[tuple(c[1][0].shape) for c in calls]})")
+    shapes = {tuple(c[1][0].shape) for c in calls}
+    check(shapes <= set(MEAN_SHAPES), f"f32_mean_xla shapes {shapes} not all in MEAN_SHAPES")
     vals = max((c[1][0] for c in calls), key=lambda v: v.numel())
     copies = [(vals.clone(),) for _ in range(copies_past_l2(4 * vals.numel()))]
     rows["f32_mean_xla"] = kernel_row(
@@ -691,9 +725,46 @@ def exact_path(dev) -> dict:
         device_ms(kreduce.f32_mean_xla, copies, len(copies), "f32_mean_xla", ops=1),
         device_ms(kreduce.f32_mean_xla_plain, copies, 12),
         4 * (vals.numel() + vals.shape[0]), cascade_adds(vals.shape[1]) * vals.shape[0],
-        label=f"f32_mean_xla on f1's top-k values {tuple(vals.shape)}")
+        label=f"f32_mean_xla on f1's top-k values {tuple(vals.shape)} "
+              f"({kreduce.launch_ctas(*vals.shape, dev)} CTAs)",
+        library_ms=device_ms(lambda v: torch.sum(v, dim=-1), copies, len(copies)))
     del copies
+    rows["f32_mean_xla"]["shapes"] = mean_shapes(dev)
     return rows
+
+
+def mean_shapes(dev) -> list:
+    """``f32_mean_xla`` on seeded values of every shape the exact and
+    codec paths launch (``MEAN_SHAPES``): bit-equal to the plain cascade,
+    one device operation a call where the package has this design, and
+    its device µs beside ``torch.sum(vals, dim=-1)``'s on the same
+    operands.  A package without ``launch_ctas`` (the parent design: one
+    CTA a row) is timed all the same, its operations counted."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import reduce as kreduce
+
+    split = hasattr(kreduce, "launch_ctas")
+    rng = np.random.default_rng(5)
+    out = []
+    for rows, n in MEAN_SHAPES:
+        vals = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(dev)
+        check(bit_equal(kreduce.f32_mean_xla(vals), kreduce.f32_mean_xla_plain(vals)),
+              f"f32_mean_xla {(rows, n)}: kernel != plain cascade")
+        copies = [(vals.clone(),) for _ in range(240)]  # all in the L2, as on the path
+        label = f"f32_mean_xla {(rows, n)}"
+        counted: list = []
+        us = 1e3 * device_ms(kreduce.f32_mean_xla, copies, 240, label, ops=1 if split else None,
+                             counted=counted)
+        ops = counted[0]
+        sum_us = 1e3 * device_ms(lambda v: torch.sum(v, dim=-1), copies, 240)
+        ctas = kreduce.launch_ctas(rows, n, dev) if split else None
+        print(f"{label}: {us:.2f} us device per call, {ops:g} device operations, "
+              f"{ctas if split else rows} CTAs; torch.sum {sum_us:.2f} us")
+        out.append({"rows": rows, "n": n, "ctas": ctas, "us": us, "ops": ops,
+                    "sum_us": sum_us})
+        del copies
+    return out
 
 
 def cascade_adds(n: int) -> int:
@@ -797,24 +868,35 @@ def leaf_path(dev, hist: dict) -> dict:
           f"(counts equal, binarize bit-equal, moment sums to rtol 1e-6); largest "
           f"absolute differences {errs}")
 
-    # timed on the largest leaf (f1), operands rotated past the L2 cache
+    # timed on the largest leaf (f1), operands rotated past the L2 cache:
+    # its calls are hist2side twice (the coarse pass, then the zoomed one),
+    # masked_moments and binarize_apply
     f1 = max(range(len(leaves)), key=lambda i: leaves[i].numel())
     rows, nbins = {}, 128
     for name, args, kwargs in calls:
         x = args[0]
-        if name in rows or x.numel() != leaves[f1].numel():
+        if x.numel() != leaves[f1].numel():
             continue
         nel = x.numel()
         copies = [(x.clone(), *args[1:]) for _ in range(copies_past_l2(4 * nel))]
+        zoomed = name in rows
+        label = "hist2side (zoomed pass)" if zoomed else name
+        ms = device_ms(lambda *a, f=wrap[name], kw=kwargs: f(*a, **kw), copies, 240, label,
+                       ops=1 if name == "hist2side" else None)
+        plain_ms = device_ms(lambda *a, f=plain[name], kw=kwargs: f(*a, **kw), copies, 24)
+        del copies
+        if zoomed:
+            rows[name].update(zoomed_ms=ms, zoomed_plain_ms=plain_ms)
+            print(f"{label}: {ms * 1e3:.2f} us device per call, plain {plain_ms * 1e3:.2f} us")
+            continue
         out_bytes = {"hist2side": 4 * 2 * nbins, "masked_moments": 16,
                      "binarize_apply": 8 * nel}[name]
         scalar_bytes = {"hist2side": 16, "masked_moments": 8, "binarize_apply": 16}[name]
         rows[name] = kernel_row(
-            name, launches[name], errs[name],
-            device_ms(lambda *a, f=wrap[name], kw=kwargs: f(*a, **kw), copies, 240, name),
-            device_ms(lambda *a, f=plain[name], kw=kwargs: f(*a, **kw), copies, 24),
-            4 * nel + scalar_bytes + out_bytes, OPS_PER_ELEMENT[name] * nel)
-        del copies
+            name, launches[name], errs[name], ms, plain_ms,
+            4 * nel + scalar_bytes + out_bytes, OPS_PER_ELEMENT[name] * nel,
+            label="hist2side (coarse pass)" if name == "hist2side" else None)
+    check("zoomed_ms" in rows["hist2side"], "hist2side: the zoomed pass was not timed")
     check(set(rows) == set(LEAF_KERNELS), f"per-leaf kernels timed: {sorted(rows)}")
     print(f"per-leaf kernels timed on {segs[f1][0].path}: n {leaves[f1].numel()}, "
           f"k {segs[f1][0].k}")
@@ -846,11 +928,14 @@ def codec_path(dev) -> dict:
     ``seg_select_pack``."""
     import torch
     from repro_torch import kernels
+    from repro_torch.core import stages as core_stages
     from repro_torch.core import wire as core_wire
     from repro_torch.core.stages import k_for
     from repro_torch.core.tree import tree_map
     from repro_torch.core.wire import wire_for
     from repro_torch.kernels import pack as kpack
+    from repro_torch.kernels import reduce as kreduce
+    from repro_torch.kernels import topk as ktopk
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizers import get_optimizer
     from repro_torch.run import RunSpec, build_preset, build_run, policy_from_spec
@@ -893,10 +978,13 @@ def codec_path(dev) -> dict:
         return {k: p2[k] - params[k] for k in keys}, float(loss.detach())
 
     times = {"compress": [], "device pack": [], "host pack": [], "unpack": []}
+    means: list = []  # every f32_mean_xla call of the rounds
     torch.cuda.synchronize()
     kernels.reset_launches()
     counts = []
-    with swapped(core_wire, {"seg_select_pack": kept_select_pack}):
+    with swapped(core_wire, {"seg_select_pack": kept_select_pack}), \
+            swapped(ktopk, recording(ktopk, ("f32_mean_xla",), means)), \
+            swapped(core_stages, recording(core_stages, ("f32_mean_xla",), means)):
         for r in range(ROUNDS):
             delta, loss = delta_of_one_step(r)
             check(math.isfinite(loss), f"codec round {r + 1}: loss {loss}")
@@ -953,6 +1041,15 @@ def codec_path(dev) -> dict:
           "SBC leaf; measured bits == sum(nbits) + 32 per mu + 32 per dense entry")
     for key, ms in times.items():
         print(f"codec host ms per round, {key}: {', '.join(f'{t:.3f}' for t in ms)}")
+    shapes = sorted({tuple(args[0].shape) for _, args, _ in means})
+    check(set(shapes) <= set(MEAN_SHAPES), f"codec f32_mean_xla shapes {shapes} not all in "
+                                           f"MEAN_SHAPES")
+    for _, args, kwargs in means[-CODEC_PER_ROUND["f32_mean_xla"]:]:
+        check(bit_equal(kreduce.f32_mean_xla(*args, **kwargs),
+                        kreduce.f32_mean_xla_plain(*args, **kwargs)),
+              f"codec f32_mean_xla {tuple(args[0].shape)}: kernel != plain cascade")
+    print(f"codec: f32_mean_xla on shapes {shapes}; the last round's 8 calls bit-equal to the "
+          f"plain cascade on their own operands")
 
     # seg_select_pack on each Golomb leaf's mask of the last round
     select_us = {}
@@ -986,9 +1083,62 @@ def codec_path(dev) -> dict:
     return {"launches": launches, "select_us": select_us}
 
 
-def main() -> int:
+def compare(src: Path) -> int:
+    """``--compare SRC``: the two kernels redesigned last, timed with the
+    package under ``SRC`` (the ``src`` of another checkout, such as the
+    parent commit's) on seeded operands, so that two versions can be
+    compared on one card, in turns: ``f32_mean_xla`` at every shape in
+    ``MEAN_SHAPES``, and the per-leaf ``hist2side`` on both passes of
+    ``sbc_compress_hist`` over a seeded Gaussian leaf of f1's size.  Every
+    call is checked against its plain version; prints one
+    ``{"compare": ...}`` line."""
+    import numpy as np
     import torch
 
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
+    check((src / "repro_torch").is_dir(), f"no repro_torch package under {src}")
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import hist2side as khist
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    print(f"card: {card}; package {src}")
+    _build.build()
+    _build.library()
+    dev = torch.device("cuda", 0)
+    shapes = mean_shapes(dev)
+    leaf = torch.from_numpy(np.random.default_rng(0).standard_normal(1_225_000)
+                            .astype(np.float32)).to(dev)
+    calls: list = []
+    with swapped(ops, recording(ops, ("hist2side",), calls)):
+        ops.sbc_compress_hist(leaf, p=SPEC["sparsity"], bm=8, lanes=128)
+    check(len(calls) == 2, f"sbc_compress_hist called hist2side {len(calls)} times, not 2")
+    passes = {}
+    for name, (_, args, kwargs) in zip(("coarse", "zoomed"), calls):
+        check(torch.equal(khist.hist2side(*args, **kwargs),
+                          khist.hist2side_plain(*args, **kwargs)),
+              f"hist2side ({name} pass): kernel != plain")
+        copies = [(args[0].clone(), *args[1:]) for _ in range(copies_past_l2(4 * leaf.numel()))]
+        label = f"hist2side ({name} pass)"
+        counted: list = []
+        us = 1e3 * device_ms(lambda *a: khist.hist2side(*a, **kwargs), copies, 240, label,
+                             counted=counted)
+        passes[name] = {"us": us, "ops": counted[0]}
+        print(f"{label}: {us:.2f} us device per call, {counted[0]:g} device operations")
+        del copies
+    print(json.dumps({"compare": {"src": str(src), "card": card, "f32_mean_xla": shapes,
+                                  "hist2side": passes}}))
+    return 0
+
+
+def main(argv: list) -> int:
+    import torch
+
+    if argv[:1] == ["--compare"] and len(argv) == 2:
+        return compare(Path(argv[1]))
+    check(not argv, f"usage: {Path(__file__).name} [--compare SRC]; got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
     check((ROOT / "src" / "repro_torch").is_dir(),
@@ -1034,7 +1184,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)

@@ -13,7 +13,8 @@ so the kernels round like the plain PyTorch versions they are held
 against (IEEE division, full-precision ``log2f``, denormals kept).
 
 Beside the build and :func:`launch`, the machinery that the one-launch
-kernels (``seg_hist2side``, ``seg_moments``, ``seg_select_pack``) share:
+kernels (``seg_hist2side`` and the per-leaf ``hist2side``, ``seg_moments``,
+``seg_select_pack``, ``f32_mean_xla``) share:
 the size of a one-wave persistent grid (:func:`persistent_grid`) and the
 self-cleaning scratch they count in (:class:`Workspace`).
 """
@@ -53,7 +54,8 @@ _SIGNATURES = {
         "seg_hist2side_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "seg_moments_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "seg_binarize_apply_launch": (_P, _P, _P, _P, _I, _I, _P),
-        "hist2side_launch": (_P, _I, _P, _I, _P, _I, _P, _I, _P),
+        "hist2side_resident": (_I,),
+        "hist2side_launch": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
         "masked_moments_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P),
         "binarize_apply_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P),
     },
@@ -64,8 +66,8 @@ _SIGNATURES = {
         "seg_select_pack_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "reduce.cu": {
-        "f32_mean_xla_scratch": (_I,),
-        "f32_mean_xla_launch": (_P, _I, _I, _I, _P, _P, _P),
+        "f32_mean_xla_resident": (),
+        "f32_mean_xla_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     },
 }
 

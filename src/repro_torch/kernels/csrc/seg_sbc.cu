@@ -12,9 +12,11 @@
 //   binarize_apply      <- binarize_apply.py binarize_apply (_apply_kernel)
 //
 // The per-leaf passes are the segment passes over a single segment, and
-// share their per-element and per-partial code with them (hist_one,
-// moment_quad, partial_store, fold_warps), so both give the same
-// bits on the same values by construction.
+// share their code with them: the per-leaf hist2side is the same kernel
+// body as seg_hist2side (hist2side_kernel, over SegBlocks or LeafBlocks),
+// and masked_moments and binarize_apply share their per-element and
+// per-partial code (moment_quad, partial_store, fold_warps, apply_one), so
+// both give the same bits on the same values by construction.
 //
 // Segment layout (the flat contract of the JAX package's core/flat.py):
 // the buffer is `nblocks` data blocks of `block_elems` f32 (bm * lanes =
@@ -38,9 +40,10 @@
 // beyond the bytes and the arithmetic a call costs its device operations
 // and the waits that no other work covers.
 //
-// seg_hist2side and seg_moments are one launch each, on a persistent grid
-// of G CTAs that fits in one wave (G = SMs x the CTAs an SM holds at once,
-// from cudaOccupancyMaxActiveBlocksPerMultiprocessor, at most nblocks; the
+// seg_hist2side, the per-leaf hist2side and seg_moments are one launch
+// each, on a persistent grid of G CTAs that fits in one wave (G = SMs x
+// the CTAs an SM holds at once, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, at most nblocks; the
 // wrapper passes it).  CTA c walks the contiguous blocks [c*nblocks/G,
 // (c+1)*nblocks/G), so it meets few segments.
 //
@@ -48,15 +51,25 @@
 //     one block at a time: loads of more blocks in flight would cost
 //     registers, and so resident warps, that the coarse pass's arithmetic
 //     needs more.  A block whose ranges repeat the previous block's keeps
-//     its log2 terms (4 log2f per block, besides one per element).  A warp
-//     does the division and the log2 of a slot (v.x, v.y, ...) if any of
-//     its lanes counts an entry there, so where the counted entries of a
-//     warp are few (the zoomed pass) they are packed into fewer rounds
-//     first (hist_quad_warp).  A CTA adds its shared counts into a
+//     its log2 terms (4 log2f per block, besides one per element).  The
+//     per-leaf hist2side runs the same body over its leaf in blocks of
+//     kThreads quads (1,024 entries, the tail guarded; scalar loads where
+//     the leaf is not 16-byte aligned): one segment, one range pair per
+//     side, so its log2 terms are computed once, before the walk.  Its
+//     grid gives a CTA about two blocks (the wrapper's leaf_grid_blocks;
+//     more where the card holds fewer CTAs), since a CTA's zeroing, flush
+//     and ticket cost the same whatever it walks, and it loads the next
+//     block's quad before it bins the current one.  A warp does the division and the log2 of a
+//     slot (v.x, v.y, ...) if any of its lanes counts an entry there, so
+//     where the counted entries of a warp are few (the zoomed pass) they
+//     are packed into fewer rounds first (hist_quad_warp).  A CTA adds its
+//     shared counts into a
 //     uint32 workspace, one global atomicAdd per non-empty counter, when
-//     its segment changes and once at its end.  The last CTA converts the
-//     workspace to the f32 result and zeroes it: no memset before the
-//     kernel and no int->f32 copy after it.
+//     its segment changes and once at its end; the leaf's counters have a
+//     128-byte line each (LeafBlocks::kStride), since every CTA adds to
+//     the same few hot bins and a line's atomics queue at its L2 slice.
+//     The last CTA converts the workspace to the f32 result and zeroes it:
+//     no memset before the kernel and no int->f32 copy after it.
 //   * seg_moments loads the first quads and thresholds of kMomentsAhead
 //     blocks at once, and writes each block's partial (f64 sums, uint32
 //     counts).  The last CTA finds each segment's first and last block in
@@ -97,7 +110,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLeafElemsPerCta = 8192;  // per-leaf histogram and binarize
+constexpr int kLeafElemsPerCta = 8192;  // per-leaf binarize
 constexpr int kLeafMaxCtas = 2048;
 constexpr int kMomentsAhead = 4;        // blocks whose loads a moments CTA issues at once
 constexpr int kBatch = 5;               // loads a thread of the last CTA issues at once
@@ -187,10 +200,12 @@ __device__ __forceinline__ void hist_quad_warp(float4 v, const HistRanges& r,
   __syncwarp();
 }
 
-__device__ __forceinline__ void hist_flush(const unsigned* sh, unsigned* out, int nbins) {
+// Counter i of a histogram in the workspace is word i * stride of it.
+__device__ __forceinline__ void hist_flush(const unsigned* sh, unsigned* out, int nbins,
+                                           int stride) {
   for (int i = threadIdx.x; i < 2 * nbins; i += blockDim.x) {
     const unsigned c = sh[i];
-    if (c) atomicAdd(&out[i], c);
+    if (c) atomicAdd(&out[i * stride], c);
   }
 }
 
@@ -220,60 +235,117 @@ __device__ __forceinline__ void cta_blocks(int nblocks, int& lo, int& hi) {
   hi = (int)((long long)(blockIdx.x + 1) * nblocks / gridDim.x);
 }
 
-// grid = G <= nblocks (G >= 1), block = kThreads, dynamic smem =
-// hist_smem(nbins).  params rows: (seg, lo+, hi+, lo-, hi-).  work:
-// uint32[nseg, 2, nbins] and *ticket, zero on entry and left zero.  out:
-// f32[nseg, 2, nbins], written whole by the last CTA.
+// The segment layout as the histogram walks it: block b is the quads
+// [b * quads, (b + 1) * quads) of x (quads = block_elems / 4), and its
+// segment id and ranges are params row b: (seg, lo+, hi+, lo-, hi-).
+struct SegBlocks {
+  static constexpr bool kLeaf = false;
+  static constexpr int kStride = 1;  // workspace words a counter
+  const float4* x4;
+  const float* params;
+  int nblocks, quads;
+  __device__ __forceinline__ float4 quad(int b, int q) const {
+    return x4[(size_t)b * quads + q];
+  }
+};
+
+// One unpadded leaf x[0 .. n) as the histogram walks it: blocks of
+// kThreads quads, the tail guarded (zeros are never counted), one segment
+// and one range pair per side, [lo[s * lo_step], hi[s * hi_step]) for
+// side s (a step of 0 gives both sides one scalar).  kVec: x is 16-byte
+// aligned, so a whole quad is one float4 load; else four scalar loads.
+// Each counter has a 128-byte line of the workspace to itself (kStride):
+// the coarse pass's counts crowd into a few bins, and every CTA's atomics
+// on the few lines that hold them queue at those lines' L2 slices.
+template <bool kVec>
+struct LeafBlocks {
+  static constexpr bool kLeaf = true;
+  static constexpr int kStride = 32;
+  static constexpr int quads = kThreads;
+  const float* x;
+  int n, nblocks;
+  const float* lo;
+  int lo_step;
+  const float* hi;
+  int hi_step;
+  __device__ __forceinline__ float4 quad(int b, int q) const {
+    const int e = (b * kThreads + q) * 4;
+    if (kVec && e + 3 < n) return reinterpret_cast<const float4*>(x)[e / 4];
+    return make_float4(e < n ? x[e] : 0.0f, e + 1 < n ? x[e + 1] : 0.0f,
+                       e + 2 < n ? x[e + 2] : 0.0f, e + 3 < n ? x[e + 3] : 0.0f);
+  }
+};
+
+constexpr int kLeafBlockElems = 4 * kThreads;  // a leaf block: one quad a thread
+
+int leaf_blocks(int n) { return (n + kLeafBlockElems - 1) / kLeafBlockElems; }
+
+// The histogram of seg_hist2side (Blocks = SegBlocks) and of the per-leaf
+// hist2side (LeafBlocks): grid = G <= nblocks (G >= 1), block = kThreads,
+// dynamic smem = hist_smem(nbins).  work: uint32[nseg, 2, nbins,
+// Blocks::kStride] and *ticket, zero on entry and left zero.  out:
+// f32[nseg, 2, nbins], written whole by the last CTA (a leaf: nseg = 1).
+template <class Blocks>
 __global__ void __launch_bounds__(kThreads)
-seg_hist2side_kernel(const float* __restrict__ x, const float* __restrict__ params,
-                     unsigned* __restrict__ work, unsigned* __restrict__ ticket,
-                     float* __restrict__ out, int nblocks, int block_elems, int nbins,
-                     int nseg) {
+hist2side_kernel(Blocks src, unsigned* __restrict__ work, unsigned* __restrict__ ticket,
+                 float* __restrict__ out, int nbins, int nseg) {
   extern __shared__ unsigned sh[];
   __shared__ float packed[kWarps][128];
   float* buf = packed[threadIdx.x >> 5];
   for (int i = threadIdx.x; i < 2 * nbins; i += kThreads) sh[i] = 0u;
   int b_lo, b_hi;
-  cta_blocks(nblocks, b_lo, b_hi);
-  const int quads = block_elems / 4;
-  const bool mine = threadIdx.x < quads;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
+  cta_blocks(src.nblocks, b_lo, b_hi);
+  const bool mine = threadIdx.x < src.quads;
   const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float nbins_f = (float)nbins;
 
-  // A block whose ranges repeat the previous block's keeps its log2 terms.
   int cur = -1;
+  HistRanges r;
   bool have = false;
   float rl0 = 0.0f, rh0 = 0.0f, rl1 = 0.0f, rh1 = 0.0f;
-  HistRanges r;
+  float4 next = zero4;  // a leaf's next block's quad, in flight while it bins this one
+  if constexpr (Blocks::kLeaf) {  // one segment and one range pair: log2 terms once
+    r = make_ranges(src.lo[0], src.hi[0], src.lo[src.lo_step], src.hi[src.hi_step]);
+    cur = 0;
+    if (b_lo < b_hi) next = src.quad(b_lo, threadIdx.x);
+    __syncthreads();  // the shared counts are zero
+  }
   for (int b = b_lo; b < b_hi; ++b) {
-    const float4 v = mine ? x4[(size_t)b * quads + threadIdx.x] : zero4;
-    const float* p = params + (size_t)b * 5;
-    const int seg = (int)p[0];
-    const float l0 = p[1], h0 = p[2], l1 = p[3], h1 = p[4];
-    if (seg != cur) {  // uniform: every thread reads the same row
-      __syncthreads();
-      if (cur >= 0) {
-        hist_flush(sh, work + (size_t)cur * 2 * nbins, nbins);
-        for (int i = threadIdx.x; i < 2 * nbins; i += kThreads) sh[i] = 0u;
+    float4 v;
+    if constexpr (Blocks::kLeaf) {
+      v = next;
+      if (b + 1 < b_hi) next = src.quad(b + 1, threadIdx.x);
+    } else {
+      v = mine ? src.quad(b, threadIdx.x) : zero4;
+      const float* p = src.params + (size_t)b * 5;
+      const int seg = (int)p[0];
+      const float l0 = p[1], h0 = p[2], l1 = p[3], h1 = p[4];
+      if (seg != cur) {  // uniform: every thread reads the same row
+        __syncthreads();
+        if (cur >= 0) {
+          hist_flush(sh, work + (size_t)cur * 2 * nbins * Blocks::kStride, nbins,
+                     Blocks::kStride);
+          for (int i = threadIdx.x; i < 2 * nbins; i += kThreads) sh[i] = 0u;
+        }
+        cur = seg;
+        __syncthreads();
       }
-      cur = seg;
-      __syncthreads();
-    }
-    if (!(have && l0 == rl0 && h0 == rh0 && l1 == rl1 && h1 == rh1)) {
-      r = make_ranges(l0, h0, l1, h1);
-      rl0 = l0; rh0 = h0; rl1 = l1; rh1 = h1;
-      have = true;
+      // a block whose ranges repeat the previous block's keeps its log2 terms
+      if (!(have && l0 == rl0 && h0 == rh0 && l1 == rl1 && h1 == rh1)) {
+        r = make_ranges(l0, h0, l1, h1);
+        rl0 = l0; rh0 = h0; rl1 = l1; rh1 = h1;
+        have = true;
+      }
     }
     hist_quad_warp(v, r, nbins_f, nbins, sh, buf);  // zeros are not counted
-    for (int q0 = kThreads; q0 < quads; q0 += kThreads) {
+    for (int q0 = kThreads; q0 < src.quads; q0 += kThreads) {
       const int q = q0 + threadIdx.x;
-      hist_quad_warp(q < quads ? x4[(size_t)b * quads + q] : zero4, r, nbins_f, nbins, sh,
-                     buf);
+      hist_quad_warp(q < src.quads ? src.quad(b, q) : zero4, r, nbins_f, nbins, sh, buf);
     }
   }
   __syncthreads();
-  if (cur >= 0) hist_flush(sh, work + (size_t)cur * 2 * nbins, nbins);
+  if (cur >= 0) hist_flush(sh, work + (size_t)cur * 2 * nbins * Blocks::kStride, nbins,
+                          Blocks::kStride);
 
   if (!last_cta(ticket)) return;
   const int words = nseg * 2 * nbins;
@@ -282,51 +354,17 @@ seg_hist2side_kernel(const float* __restrict__ x, const float* __restrict__ para
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int i = min(i0 + u * kThreads + (int)threadIdx.x, words - 1);
-      c[u] = __ldcg(work + i);  // other CTAs' atomics: from L2
+      c[u] = __ldcg(work + (size_t)i * Blocks::kStride);  // other CTAs' atomics: from L2
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int i = i0 + u * kThreads + threadIdx.x;
       if (i < words) {
         out[i] = (float)c[u];
-        work[i] = 0u;
+        work[(size_t)i * Blocks::kStride] = 0u;
       }
     }
   }
-}
-
-// grid <= kLeafMaxCtas, block = kThreads, dynamic smem = hist_smem(nbins).
-// Side s's range is [lo[s * lo_step], hi[s * hi_step]): a step of 0 gives
-// both sides one scalar.  hist: uint32[2, nbins], zeroed by the caller.
-// kVec: x is 16-byte aligned (float4 body, scalar tail).
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-hist2side_kernel(const float* __restrict__ x, int n, const float* __restrict__ lo,
-                 int lo_step, const float* __restrict__ hi, int hi_step,
-                 unsigned* __restrict__ hist, int nbins) {
-  extern __shared__ unsigned sh[];
-  for (int i = threadIdx.x; i < 2 * nbins; i += blockDim.x) sh[i] = 0u;
-  const HistRanges r = make_ranges(lo[0], hi[0], lo[lo_step], hi[hi_step]);
-  const float nbins_f = (float)nbins;
-  __syncthreads();
-
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-  int head = 0;
-  if (kVec) {
-    head = n / 4 * 4;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (int i = tid; i < n / 4; i += stride) {
-      const float4 v = x4[i];
-      hist_one(v.x, r, nbins_f, nbins, sh);
-      hist_one(v.y, r, nbins_f, nbins, sh);
-      hist_one(v.z, r, nbins_f, nbins, sh);
-      hist_one(v.w, r, nbins_f, nbins, sh);
-    }
-  }
-  for (int i = head + tid; i < n; i += stride) hist_one(x[i], r, nbins_f, nbins, sh);
-  __syncthreads();
-  hist_flush(sh, hist, nbins);
 }
 
 __device__ __forceinline__ double warp_sum_d(double v) {
@@ -730,7 +768,13 @@ int resident(Kernel kernel, size_t smem) {
 // Resident CTAs per SM of the persistent-grid kernels (the wrapper's G is
 // SMs times this, at most nblocks).
 extern "C" int seg_hist2side_resident(int nbins) {
-  return resident(seg_hist2side_kernel, hist_smem(nbins));
+  return resident(hist2side_kernel<SegBlocks>, hist_smem(nbins));
+}
+
+// Resident CTAs per SM of the per-leaf histogram (its G is SMs times this,
+// at most leaf_blocks(n)).
+extern "C" int hist2side_resident(int nbins) {
+  return resident(hist2side_kernel<LeafBlocks<true>>, hist_smem(nbins));
 }
 
 extern "C" int seg_moments_resident(void) { return resident(seg_moments_kernel, 0); }
@@ -740,9 +784,9 @@ extern "C" int seg_moments_resident(void) { return resident(seg_moments_kernel, 
 extern "C" int seg_hist2side_launch(const void* x, const void* params, void* work,
                                     void* ticket, void* out, int nblocks, int block_elems,
                                     int nbins, int nseg, int grid, void* stream) {
-  seg_hist2side_kernel<<<grid, kThreads, hist_smem(nbins), (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)params, (unsigned*)work, (unsigned*)ticket,
-      (float*)out, nblocks, block_elems, nbins, nseg);
+  const SegBlocks src{(const float4*)x, (const float*)params, nblocks, block_elems / 4};
+  hist2side_kernel<SegBlocks><<<grid, kThreads, hist_smem(nbins), (cudaStream_t)stream>>>(
+      src, (unsigned*)work, (unsigned*)ticket, (float*)out, nbins, nseg);
   return (int)cudaGetLastError();
 }
 
@@ -767,19 +811,22 @@ extern "C" int seg_binarize_apply_launch(const void* x, const void* params, void
   return (int)cudaGetLastError();
 }
 
+// work: uint32[2 * nbins * 32] (a line a counter) and ticket: one uint32,
+// both zero (and left zero).  grid: G >= 1, at most leaf_blocks(n).
 extern "C" int hist2side_launch(const void* x, int n, const void* lo, int lo_step,
-                                const void* hi, int hi_step, void* hist, int nbins,
-                                void* stream) {
+                                const void* hi, int hi_step, void* work, void* ticket,
+                                void* out, int nbins, int grid, void* stream) {
   const size_t smem = hist_smem(nbins);
   cudaStream_t s = (cudaStream_t)stream;
+  const float *xf = (const float*)x, *lof = (const float*)lo, *hif = (const float*)hi;
   if (aligned16(x)) {
-    hist2side_kernel<true><<<leaf_ctas(n), kThreads, smem, s>>>(
-        (const float*)x, n, (const float*)lo, lo_step, (const float*)hi, hi_step,
-        (unsigned*)hist, nbins);
+    const LeafBlocks<true> src{xf, n, leaf_blocks(n), lof, lo_step, hif, hi_step};
+    hist2side_kernel<LeafBlocks<true>><<<grid, kThreads, smem, s>>>(
+        src, (unsigned*)work, (unsigned*)ticket, (float*)out, nbins, 1);
   } else {
-    hist2side_kernel<false><<<leaf_ctas(n), kThreads, smem, s>>>(
-        (const float*)x, n, (const float*)lo, lo_step, (const float*)hi, hi_step,
-        (unsigned*)hist, nbins);
+    const LeafBlocks<false> src{xf, n, leaf_blocks(n), lof, lo_step, hif, hi_step};
+    hist2side_kernel<LeafBlocks<false>><<<grid, kThreads, smem, s>>>(
+        src, (unsigned*)work, (unsigned*)ticket, (float*)out, nbins, 1);
   }
   return (int)cudaGetLastError();
 }

@@ -33,11 +33,14 @@ from repro_torch.kernels import _build
 # -------------------------------------------------------------- geometry
 
 
+_HISTOGRAMS = ("seg_hist2side", "hist2side")  # the kernels that take nbins
+
+
 @functools.lru_cache(maxsize=None)
 def _resident(device_index: int, kernel: str, nbins: int) -> int:
     lib = _build.library()
     with torch.cuda.device(device_index):
-        n = (lib.seg_hist2side_resident(nbins) if kernel == "seg_hist2side"
+        n = (getattr(lib, f"{kernel}_resident")(nbins) if kernel in _HISTOGRAMS
              else lib.seg_moments_resident())
     if n < 1:
         raise RuntimeError(f"{kernel}: occupancy query failed (CUDA error {-n})")
@@ -46,9 +49,10 @@ def _resident(device_index: int, kernel: str, nbins: int) -> int:
 
 def launch_grid(kernel: str, device: torch.device, nblocks: int,
                 nbins: int = 128) -> tuple[int, int]:
-    """``(G, resident CTAs per SM)`` of ``kernel`` (``"seg_hist2side"`` or
-    ``"seg_moments"``) over ``nblocks`` blocks on the CUDA ``device``."""
-    resident = _resident(device.index, kernel, nbins if kernel == "seg_hist2side" else 0)
+    """``(G, resident CTAs per SM)`` of ``kernel`` (``"seg_hist2side"``,
+    the per-leaf ``"hist2side"`` or ``"seg_moments"``) over ``nblocks``
+    blocks on the CUDA ``device``."""
+    resident = _resident(device.index, kernel, nbins if kernel in _HISTOGRAMS else 0)
     return _build.persistent_grid(nblocks, _build.sm_count(device.index),
                                   resident), resident
 

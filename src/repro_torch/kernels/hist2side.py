@@ -11,7 +11,12 @@ As in :mod:`repro_torch.kernels.flat`, the kernel has three pieces:
 :func:`hist2side_plain`, the plain PyTorch version that a CPU tensor runs
 and the CUDA kernel is held against; the wrapper :func:`hist2side`, which
 launches the hand-written kernel of ``csrc/seg_sbc.cu`` for a CUDA tensor
-(there is no fall back); and ``hist2side.launches``.
+(there is no fall back); and ``hist2side.launches``.  On the card it is
+``seg_hist2side``'s one-launch kernel body over a single segment: a
+one-wave persistent grid over the leaf's blocks of :data:`LEAF_BLOCK`
+entries (:func:`leaf_grid_blocks`), whose last CTA writes the f32 result
+and leaves the workspace zero: one device operation a call, where the
+ranges are device tensors, as the pipeline passes them.
 
 The per-leaf wrappers of this module, :mod:`.moments` and
 :mod:`.binarize_apply` take any contiguous 1-D float tensor of length
@@ -30,12 +35,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flat import launch_grid
 
 SPAN_OCTAVES = 30.0  # dynamic range of the coarse pass: [absmax·2⁻³⁰, absmax)
 
 DEFAULT_BM = 256
 DEFAULT_LANES = 1024
 MAX_NBINS = 4096  # the CUDA kernel's shared-memory bins: 2 · nbins · 4 bytes
+LEAF_BLOCK = 1024  # entries of a block of the CUDA histogram's walk: a quad a thread
+LINE_WORDS = 32  # words of a 128-byte line: the CUDA histogram's workspace per counter
 MAX_N = 2 ** 31 - 2 ** 20  # int32 indexing in the CUDA kernels, grid stride included
 
 
@@ -78,6 +86,16 @@ def _side_pair(value, device: torch.device, name: str) -> tuple[torch.Tensor, in
     return scalar_operand(v, device, (2,), name), 1
 
 
+def leaf_grid_blocks(n: int) -> int:
+    """The block count that sizes the CUDA histogram's persistent grid over
+    a leaf of ``n`` entries: half its :data:`LEAF_BLOCK` blocks, so that
+    a CTA walks about two of them where the card has the room.  A CTA
+    zeroes, flushes and hands in its 2 · nbins counters once, whatever it
+    walks, and on the card one block a CTA was the slower grid (PERF.md
+    §6)."""
+    return -(-n // (2 * LEAF_BLOCK))
+
+
 def check_tile(bm: int, lanes: int) -> int:
     """Validate the tile; return its entries ``bm · lanes``."""
     if not (isinstance(bm, int) and isinstance(lanes, int) and bm >= 1 and lanes >= 1
@@ -117,7 +135,8 @@ def hist2side(flat: torch.Tensor, lo, hi, *, nbins: int = 128, bm: int = DEFAULT
     """(2, nbins) f32 histogram; see :func:`hist2side_plain`.
 
     Replaces the Pallas ``repro.kernels.hist2side.hist2side``.  Counts are
-    exact up to 2²⁴ per bin (f32).
+    exact up to 2²⁴ per bin (f32).  On the card: one launch, which writes
+    the f32 result itself.
     """
     x = leaf_operand(flat)
     check_tile(bm, lanes)
@@ -128,12 +147,15 @@ def hist2side(flat: torch.Tensor, lo, hi, *, nbins: int = 128, bm: int = DEFAULT
     # one value serves both sides with a step of 0: no copy to broadcast it
     (lo, lo_step), (hi, hi_step) = (_side_pair(v, x.device, nm)
                                     for v, nm in ((lo, "lo"), (hi, "hi")))
-    hist = torch.zeros((2, nbins), dtype=torch.int32, device=x.device)
+    grid, _ = launch_grid("hist2side", x.device, leaf_grid_blocks(x.numel()), nbins)
+    # the ticket, then the counts, each on a 128-byte line of its own
+    ws = _build.workspace(x.device, LINE_WORDS * (1 + 2 * nbins))
+    out = torch.empty((2, nbins), dtype=torch.float32, device=x.device)
     _build.launch(_build.library().hist2side_launch, "hist2side", x,
                   x.data_ptr(), x.numel(), lo.data_ptr(), lo_step, hi.data_ptr(), hi_step,
-                  hist.data_ptr(), nbins)
+                  ws.data_ptr() + 4 * LINE_WORDS, ws.data_ptr(), out.data_ptr(), nbins, grid)
     hist2side.launches += 1
-    return hist.to(torch.float32)
+    return out
 
 
 hist2side.launches = 0

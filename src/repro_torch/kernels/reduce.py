@@ -23,10 +23,18 @@ zero and the port does not, so sums that pass through a denormal may
 differ.
 
 On a CUDA tensor the whole cascade, for every row, is one launch of the
-hand-written kernel of ``csrc/reduce.cu`` (one CTA per row); on a CPU
-tensor it is :func:`f32_mean_xla_plain`.  It replaces no Pallas kernel:
-it is the port's kernel for an XLA lowering, and no single PyTorch call
-sums in this order.
+hand-written kernel of ``csrc/reduce.cu``; on a CPU tensor it is
+:func:`f32_mean_xla_plain`.  It replaces no Pallas kernel: it is the
+port's kernel for an XLA lowering, and no single PyTorch call sums in this
+order.
+
+The kernel's unit of work is a level-1 window (32 level-0 windows, 1,024
+padded slots, one warp).  A row whose level-1 windows fit in one CTA of
+:data:`CTA_WARPS` warps takes one CTA (:func:`one_cta`); a longer row is
+split over :func:`ctas_per_row` CTAs of a grid that fits in one wave: the
+warps of CTA c take the level-1 windows ``c · CTA_WARPS + w``, then every
+``cpr · CTA_WARPS``-th after it, and the row's last CTA finishes the
+upper levels.
 """
 from __future__ import annotations
 
@@ -70,9 +78,51 @@ def f32_mean_xla_plain(vals: torch.Tensor, *, sum_only: bool = False) -> torch.T
     return s if sum_only else s * _reciprocal(n, vals.device)
 
 
+# ------------------------------------------------ the CUDA kernel's split
+
+CTA_WARPS = 4  # warps of a CTA of csrc/reduce.cu (its kWarps)
+
+
+def _windows(n: int) -> int:
+    return -(-n // WINDOW)
+
+
+def level1_windows(n: int) -> int:
+    """Level-1 windows of a row of ``n`` values: ``ceil(ceil(n / 32) /
+    32)``, and 1 for a row of 32 or fewer level-0 windows (the kernel sums
+    those as one level-1 window; zeros of the pad change no bit)."""
+    return _windows(_windows(n))
+
+
+def one_cta(n: int) -> bool:
+    """Whether a row of ``n`` values takes the one-CTA route: its level-0
+    windows fit in one CTA (32 per warp), so nothing leaves shared memory."""
+    return _windows(n) <= WINDOW * CTA_WARPS
+
+
+def ctas_per_row(rows: int, n: int, budget: int) -> int:
+    """CTAs that each row of a call is split over: enough that every warp
+    has a level-1 window, and no more than ``budget`` CTAs (one wave) for
+    all rows together, but at least one.  1 on the one-CTA route."""
+    if one_cta(n):
+        return 1
+    return max(1, min(-(-level1_windows(n) // CTA_WARPS), budget // max(rows, 1)))
+
+
 @functools.lru_cache(maxsize=None)
-def _scratch_floats(n: int) -> int:
-    return _build.library().f32_mean_xla_scratch(n)
+def _budget(device_index: int) -> int:
+    """CTAs of the split route that one wave of card ``device_index`` holds."""
+    with torch.cuda.device(device_index):
+        resident = _build.library().f32_mean_xla_resident()
+    if resident < 1:
+        raise RuntimeError(f"f32_mean_xla: occupancy query failed (CUDA error {-resident})")
+    return _build.sm_count(device_index) * resident
+
+
+def launch_ctas(rows: int, n: int, device: torch.device) -> int:
+    """CTAs of the one launch for ``rows`` rows of ``n`` values on the CUDA
+    ``device``."""
+    return rows * ctas_per_row(rows, n, _budget(device.index))
 
 
 def f32_mean_xla(vals: torch.Tensor, *, sum_only: bool = False) -> torch.Tensor:
@@ -80,7 +130,8 @@ def f32_mean_xla(vals: torch.Tensor, *, sum_only: bool = False) -> torch.Tensor:
     for bit to ``jnp.mean(vals, axis=-1)`` on XLA's CPU backend; with
     ``sum_only`` the sums (``jnp.sum``).  See the module docstring.
 
-    On a CUDA tensor: one launch of ``csrc/reduce.cu`` for all rows.
+    On a CUDA tensor: one launch of ``csrc/reduce.cu`` for all rows, and
+    no other device operation.
     """
     if not isinstance(vals, torch.Tensor):
         raise TypeError(f"vals must be a torch.Tensor, got {type(vals)}")
@@ -99,12 +150,17 @@ def f32_mean_xla(vals: torch.Tensor, *, sum_only: bool = False) -> torch.Tensor:
     out = torch.empty((rows,), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out.reshape(vals.shape[:-1])
-    per_row = _scratch_floats(n)
-    scratch = (torch.empty((rows * per_row,), dtype=torch.float32, device=x.device)
-               if per_row else None)
+    cpr, scratch, tickets = 1, None, None
+    if not one_cta(n):
+        cpr = ctas_per_row(rows, n, _budget(x.device.index))
+        m1 = level1_windows(n)
+        scratch = torch.empty((rows, m1 + _windows(m1)), dtype=torch.float32,
+                              device=x.device)
+        tickets = _build.workspace(x.device, rows)
     _build.launch(_build.library().f32_mean_xla_launch, "f32_mean_xla", x,
-                  x.data_ptr(), rows, n, 0 if sum_only else 1,
-                  None if scratch is None else scratch.data_ptr(), out.data_ptr())
+                  x.data_ptr(), rows, n, 0 if sum_only else 1, cpr,
+                  None if scratch is None else scratch.data_ptr(),
+                  None if tickets is None else tickets.data_ptr(), out.data_ptr())
     f32_mean_xla.launches += 1
     return out.reshape(vals.shape[:-1])
 

@@ -653,6 +653,118 @@ def test_per_leaf_pipeline_equals_the_flat_hist_engine(cuda):
             np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
 
 
+def _device_ops_per_call(fn, calls=20):
+    """Device operations (kernels, memsets, copies) per call of ``fn()``,
+    from the profiler's trace after a warm-up: each operation's count over
+    the calls, rounded (the trace loses a record now and then)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0)) > 0]
+    assert events, "the profiler saw no device time"
+    return sum(round(e.count / calls) for e in events)
+
+
+def _hist2side_calls(cuda):
+    """``(leaf, lo, hi, nbins)``: both passes on an aligned leaf and on a
+    view that is not 16-byte aligned, and a wider histogram; the ranges
+    are device tensors, as the pipeline passes them."""
+    out = []
+    for case in ("262145", "offset"):
+        x = _leaf(case, cuda)
+        for lo, hi in _leaf_ranges(x):
+            out.append((x, lo, hi, 128))
+    x = _leaf("100000", cuda)
+    lo, hi = _leaf_ranges(x)[0]
+    out.append((x, lo, hi, 1000))
+    return out
+
+
+def _assert_hist2side_equals_plain(x, lo, hi, nbins):
+    got = thist.hist2side(x, lo, hi, nbins=nbins)
+    np.testing.assert_array_equal(n(got), n(thist.hist2side_plain(x, lo, hi, nbins=nbins)))
+    return got
+
+
+def _workspace_is_zero(cuda, stream=None):
+    stream = torch.cuda.current_stream(cuda) if stream is None else stream
+    buf = _build.WORKSPACE.buffers[(cuda.type, torch.cuda.current_device(), stream.cuda_stream)]
+    return not bool(buf.any())
+
+
+@pytest.mark.cuda
+def test_hist2side_leaves_nothing_behind(cuda):
+    """Both passes, aligned and not, and a larger nbins (the workspace
+    grows), in a row and again: every call equals the plain version and
+    the workspace is zero after each."""
+    calls = _hist2side_calls(cuda)
+    for _ in range(2):
+        for x, lo, hi, nbins in calls + calls[::-1]:
+            _assert_hist2side_equals_plain(x, lo, hi, nbins)
+            torch.cuda.synchronize()
+            assert _workspace_is_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_hist2side_on_a_second_stream(cuda):
+    calls = _hist2side_calls(cuda)
+    want = [_assert_hist2side_equals_plain(*c) for c in calls]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = [_assert_hist2side_equals_plain(*c) for c in calls]
+    side.synchronize()
+    assert _workspace_is_zero(cuda, side)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), n(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["262145", "offset"])
+def test_hist2side_under_cuda_graph_capture(cuda, case):
+    """Both passes captured once, replayed on new values: each replay gives
+    the plain version's counts on the values it saw."""
+    rng = np.random.default_rng(61)
+    x = _leaf(case, cuda)
+    (lo0, hi0), (lo1, hi1) = _leaf_ranges(x)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture wants
+        _assert_hist2side_equals_plain(x, lo0, hi0, 128)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        coarse = thist.hist2side(x, lo0, hi0)
+        zoomed = thist.hist2side(x, lo1, hi1)
+    for _ in range(2):
+        x.copy_(t((rng.standard_normal(x.numel()) * 2.0).astype(np.float32), cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(n(coarse), n(thist.hist2side_plain(x, lo0, hi0)))
+        np.testing.assert_array_equal(n(zoomed), n(thist.hist2side_plain(x, lo1, hi1)))
+    with torch.cuda.stream(side):  # the stream's own workspace is still zero
+        _assert_hist2side_equals_plain(x, lo0, hi0, 128)
+    side.synchronize()
+    assert _workspace_is_zero(cuda, side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["262145", "offset"])
+def test_hist2side_is_one_device_operation(cuda, case):
+    """No fill before the kernel and no int→f32 copy after it."""
+    x = _leaf(case, cuda)
+    for lo, hi in _leaf_ranges(x):
+        assert _device_ops_per_call(lambda: thist.hist2side(x, lo, hi)) == 1
+
+
 # ------------------------- the one-launch seg_hist2side and seg_moments
 
 
@@ -782,13 +894,17 @@ def test_one_launch_kernels_under_cuda_graph_capture(cuda):
 # ------------------------------------------------------------ f32_mean_xla
 
 MEAN_SIZES = (1, 5, 13, 32, 33, 50, 250, 1_000, 12_250, 12_561, 100_000, 500_000, 4_000_000)
+# the one-CTA route ends at 4 warps x 32 windows x 32 values
+ONE_CTA_MAX = 32 * 32 * treduce.CTA_WARPS
+SPLIT_SIZES = (1, 31, 32, 33, 1_023, 1_024, 1_025, ONE_CTA_MAX - 1, ONE_CTA_MAX,
+               ONE_CTA_MAX + 1, 12_250, 100_000, 4_000_000)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", MEAN_SIZES)
 def test_f32_mean_xla_kernel_is_bit_equal_to_plain(cuda, size):
-    """Every size of the CPU tests against ``jnp.mean``, plus rows whose
-    partials spill to the global scratch (500,000 and 4,000,000)."""
+    """Every size of the CPU tests against ``jnp.mean``, plus rows split
+    over many CTAs with several upper levels (500,000 and 4,000,000)."""
     rng = np.random.default_rng(size)
     rows = 3 if size < 200_000 else 2
     x = (rng.standard_normal((rows, size)) * np.exp(rng.standard_normal((rows, size)))
@@ -801,6 +917,97 @@ def test_f32_mean_xla_kernel_is_bit_equal_to_plain(cuda, size):
         assert treduce.f32_mean_xla.launches == before + 1
         want = treduce.f32_mean_xla_plain(t(x), sum_only=sum_only)
         np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+
+
+def _mean_rows(rows, size, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((rows, size)) * np.exp(rng.standard_normal((rows, size)))
+            ).astype(np.float32)
+
+
+def _assert_mean_equals_plain(xd, sum_only=False):
+    got = treduce.f32_mean_xla(xd, sum_only=sum_only)
+    want = treduce.f32_mean_xla_plain(xd, sum_only=sum_only)
+    np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 8])
+@pytest.mark.parametrize("size", SPLIT_SIZES)
+def test_f32_mean_xla_routes_are_bit_equal_to_plain(cuda, size, rows):
+    """Both routes and their boundary, window edges, and rows of up to 4
+    upper levels, with 1, 2 and 8 rows a call: bit-equal to the plain
+    cascade, means and sums, one launch each."""
+    xd = t(_mean_rows(rows, size, size + rows), cuda)
+    assert treduce.one_cta(size) == (size <= ONE_CTA_MAX)
+    for sum_only in (False, True):
+        before = treduce.f32_mean_xla.launches
+        _assert_mean_equals_plain(xd, sum_only)
+        assert treduce.f32_mean_xla.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_f32_mean_xla_leaves_no_ticket_behind(cuda):
+    """Split rows of other shapes in a row: every call equals the plain
+    cascade and leaves the workspace zero, so no ticket carries over."""
+    shapes = ((2, 12_250), (8, 100_000), (1, ONE_CTA_MAX + 1), (3, 4_000_000), (2, 12_250))
+    for i, (rows, size) in enumerate(shapes):
+        _assert_mean_equals_plain(t(_mean_rows(rows, size, 70 + i), cuda))
+        torch.cuda.synchronize()
+        assert _workspace_is_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_f32_mean_xla_on_a_second_stream(cuda):
+    calls = [t(_mean_rows(rows, size, 80 + rows), cuda)
+             for rows, size in ((2, 12_250), (1, 250), (8, 100_000))]
+    want = [_assert_mean_equals_plain(x) for x in calls]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = [_assert_mean_equals_plain(x) for x in calls]
+    side.synchronize()
+    assert _workspace_is_zero(cuda, side)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_f32_mean_xla_under_cuda_graph_capture(cuda):
+    """A split call and a one-CTA call captured once, replayed on new
+    values: each replay gives the plain cascade's bits on what it saw."""
+    rng = np.random.default_rng(90)
+    big, small = t(_mean_rows(2, 12_250, 91), cuda), t(_mean_rows(2, 250, 92), cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture wants
+        _assert_mean_equals_plain(big)
+        _assert_mean_equals_plain(small)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        mean_big = treduce.f32_mean_xla(big)
+        sum_small = treduce.f32_mean_xla(small, sum_only=True)
+    for _ in range(2):
+        big.copy_(t(rng.standard_normal(big.shape).astype(np.float32), cuda))
+        small.copy_(t(rng.standard_normal(small.shape).astype(np.float32), cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in ((mean_big, treduce.f32_mean_xla_plain(big)),
+                          (sum_small, treduce.f32_mean_xla_plain(small, sum_only=True))):
+            np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+    with torch.cuda.stream(side):  # the stream's own workspace is still zero
+        _assert_mean_equals_plain(big)
+    side.synchronize()
+    assert _workspace_is_zero(cuda, side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, size", [(2, 5), (1, 250), (2, 12_250), (8, 100_000)])
+def test_f32_mean_xla_is_one_device_operation(cuda, rows, size):
+    xd = t(_mean_rows(rows, size, 95), cuda)
+    assert _device_ops_per_call(lambda: treduce.f32_mean_xla(xd)) == 1
 
 
 @pytest.mark.cuda

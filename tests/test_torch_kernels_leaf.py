@@ -46,7 +46,14 @@ from repro_torch import kernels
 from repro_torch.core.flat import _hist_pipeline
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.binarize_apply import binarize_apply, binarize_apply_plain
-from repro_torch.kernels.hist2side import DEFAULT_BM, DEFAULT_LANES, hist2side, hist2side_plain
+from repro_torch.kernels.hist2side import (
+    DEFAULT_BM,
+    DEFAULT_LANES,
+    LEAF_BLOCK,
+    hist2side,
+    hist2side_plain,
+    leaf_grid_blocks,
+)
 from repro_torch.kernels.moments import masked_moments, masked_moments_plain
 from torch_helpers import BM, LANES, assert_hist_close, n, segment_layout, t
 
@@ -308,3 +315,16 @@ def test_wrappers_reject_bad_operands(bad):
         masked_moments(*args)
     with pytest.raises(error):
         binarize_apply(*args, 0.5, 1.0)
+
+
+@pytest.mark.parametrize("size, blocks", [(1, 1), (1024, 1), (2048, 1), (2049, 2),
+                                          (1_225_000, 599), (2 ** 31 - 2 ** 20, 1_048_064)])
+def test_leaf_grid_gives_each_cta_about_two_blocks(size, blocks):
+    """The CUDA histogram's grid over a leaf is sized for half its blocks of
+    LEAF_BLOCK entries (f1: 1,197 blocks, 599 CTAs where the card holds
+    them): no CTA is without a block, and none has more than two."""
+    nblocks = -(-size // LEAF_BLOCK)
+    grid = leaf_grid_blocks(size)
+    assert grid == blocks
+    per_cta = [(c + 1) * nblocks // grid - c * nblocks // grid for c in range(min(grid, 5000))]
+    assert 1 <= min(per_cta) and max(per_cta) <= 2
