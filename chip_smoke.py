@@ -6,10 +6,11 @@
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
-beside it.  ``--compare SRC`` times only the two kernels redesigned last
+beside it.  ``--compare SRC`` times only the kernels redesigned last
 (``f32_mean_xla`` at every shape the paths launch, the per-leaf
-``hist2side`` on both passes over a seeded leaf of f1's size) with the
-package under ``SRC``, such as a parent commit's ``src`` unpacked into
+``hist2side`` on both passes over a seeded leaf of f1's size, and
+``masked_moments`` on that leaf at ``bm=8, lanes=128`` and at the default
+tile) with the package under ``SRC``, such as a parent commit's ``src`` unpacked into
 ``build/parent``: run it for both versions in turns, in one chip call.
 Without arguments, phases, each of which fails the run:
 
@@ -58,7 +59,8 @@ Without arguments, phases, each of which fails the run:
      plain cascade on the path's own top-k values of every segment, and
      timed on f1's (2 x 12,250 values, with its CTAs and
      ``torch.sum(vals, dim=-1)`` on the same operands as ``library_ms``)
-     and on seeded values of every shape the exact and codec paths launch
+     and on seeded values of every shape the exact, codec and local paths
+     launch
      (``MEAN_SHAPES``: bit-equal, one device operation a call, beside
      ``torch.sum``); the profiled round's device operations are printed
      beside the 812 of the round before this kernel (PERF.md §5);
@@ -71,10 +73,11 @@ Without arguments, phases, each of which fails the run:
      on the same buffer bit for bit, and its residual ``acc − ΔW*``; the
      six calls run again under ``torch.cuda.set_sync_debug_mode("error")``
      (a host sync fails the run).  Each kernel is held against its plain
-     version on every call's operands (counts equal, binarize bit-equal,
-     moment sums to ``rtol=1e-6``) and timed on f1 (n 1,225,000),
-     ``hist2side`` on both its passes, coarse and zoomed, each one device
-     operation a call.  The
+     version on every call's operands (counts equal; binarize bit-equal;
+     ``masked_moments`` bit-equal at ``bm=8, lanes=128`` and at the
+     default tile) and timed on f1 (n 1,225,000), ``hist2side`` on both
+     its passes, coarse and zoomed, and ``masked_moments`` at both tiles,
+     each one device operation a call.  The
      survivor count of each leaf is printed against k; the reference's
      ±2% band (on k, and on μ against the exact top-k's) is checked on
      seeded Gaussian data of f1's size, the data it is asserted on;
@@ -98,11 +101,26 @@ Without arguments, phases, each of which fails the run:
      the plain cascade on their own operands.
      Then one GSPMD exact round with the same dense pattern through
      ``build_run`` (1 ``seg_packbits``, 4 ``f32_mean_xla``);
-  6. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  6. the local path: five full-width LeNet5 rounds of ``build_run(RunSpec(
+     preset="lenet5", backend="local", clients=4, batch=128, sparsity=0.01,
+     measure_wire=True))`` with ``fast=False`` (per leaf, client by client:
+     48 ``f32_mean_xla`` a round) and with ``fast=True`` (the flat space,
+     the four clients as rows: 6 ``f32_mean_xla`` a round), nothing else
+     launched, each with the counts set to 0 just before and read just
+     after; per round the loss, step ms, launches and the ledger's measured
+     bits against Eq. 1's, and one profiled round each.  Every
+     ``f32_mean_xla`` call of the rounds must have a shape of
+     ``MEAN_SHAPES`` (the flat path's 8 x k rows, the per-leaf path's
+     2 x k and 1 x k) and is held bit for bit against the plain cascade on
+     its own operands.  The two paths must give bit-identical params,
+     residuals, Adam states and ledger rows;
+  7. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
-     wire path's launches, the exact path's in ``launches_exact_path``;
+     wire path's launches, the exact path's in ``launches_exact_path``
+     and the local paths' in ``launches_local_*_path``; ``masked_moments``
+     holds its default tile's times in ``default_tile_*`` fields;
      ``f32_mean_xla`` replaces no Pallas kernel, which its ``reference``
      field says), then the card line, then the last line
      ``{"ok": true, "device": {...}}``.
@@ -163,13 +181,24 @@ DENSE_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=4)
 # the profiled exact round's device operations before f32_mean_xla, when
 # each side's mean was three torch operations (PERF.md §5)
 EXACT_DEVICE_OPS_BEFORE = 812
-# (rows, n) of every f32_mean_xla call of the exact path (2 x k a segment)
-# and of the codec + wire path (2 x k and 1 x k an SBC leaf)
-MEAN_SHAPES = ((2, 1), (2, 5), (1, 5), (2, 50), (1, 50), (2, 250), (1, 250), (2, 12_250),
-               (1, 12_250))
+# (rows, n) of every f32_mean_xla call of the exact path (2 x k a segment),
+# of the codec + wire and the local per-leaf paths (2 x k and 1 x k an SBC
+# leaf) and of the local flat path (2 sides x 4 clients x k a segment)
+MEAN_SHAPES = ((2, 1), (1, 1), (2, 5), (1, 5), (2, 50), (1, 50), (2, 250), (1, 250),
+               (2, 12_250), (1, 12_250), (8, 1), (8, 5), (8, 50), (8, 250), (8, 12_250))
 # (rows, n, k, b*) of the card tests' seg_select_pack rows, timed beside f1
 SELECT_PACK_SHAPES = ((5, 1000, 37, 4), (1, 1000, 10, 6))
 LEAF_PER_LEAF = per_call(hist2side=2, masked_moments=1, binarize_apply=1)
+# masked_moments' tiles: the per-leaf path's (the flat engine's blocks), and
+# the reference's default (DEFAULT_BM, DEFAULT_LANES)
+MOMENT_TILES = ((8, 128), (256, 1024))
+# the local phase: the reference's default run (RunSpec's lenet5, local,
+# four clients) at the paper's batch and p; f32_mean_xla a round: one per
+# segment on the flat path (the clients' rows at once), two per SBC leaf
+# and client on the per-leaf path
+LOCAL_SPEC = dict(preset="lenet5", backend="local", clients=4, batch=128, sparsity=0.01,
+                  measure_wire=True, rounds=ROUNDS)
+LOCAL_PER_ROUND = {True: per_call(f32_mean_xla=6), False: per_call(f32_mean_xla=2 * 6 * 4)}
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
 SOURCE = {name: SEG_SBC for name in KERNELS}
 SOURCE.update(seg_packbits="src/repro_torch/kernels/csrc/pack.cu",
@@ -734,8 +763,8 @@ def exact_path(dev) -> dict:
 
 
 def mean_shapes(dev) -> list:
-    """``f32_mean_xla`` on seeded values of every shape the exact and
-    codec paths launch (``MEAN_SHAPES``): bit-equal to the plain cascade,
+    """``f32_mean_xla`` on seeded values of every shape the exact, codec
+    and local paths launch (``MEAN_SHAPES``): bit-equal to the plain cascade,
     one device operation a call where the package has this design, and
     its device µs beside ``torch.sum(vals, dim=-1)``'s on the same
     operands.  A package without ``launch_ctas`` (the parent design: one
@@ -857,16 +886,17 @@ def leaf_path(dev, hist: dict) -> dict:
         if name == "hist2side":
             check(torch.equal(got, want_), f"{name}: counts differ")
         elif name == "masked_moments":
-            check(torch.equal(got[:, 1], want_[:, 1]), f"{name}: counts differ")
-            check(torch.allclose(got[:, 0], want_[:, 0], rtol=1e-6, atol=0),
-                  f"{name}: sums beyond rtol 1e-6")
+            for bm, lanes in MOMENT_TILES:  # the path's tile and the default one
+                tile = dict(kwargs, bm=bm, lanes=lanes)
+                check(bit_equal(wrap[name](*args, **tile), plain[name](*args, **tile)),
+                      f"{name} at bm={bm}, lanes={lanes}: not bit-equal to plain")
         else:
             check(all(bit_equal(g, w) for g, w in zip(got, want_)), f"{name}: not bit-equal")
         err = 0.0 if name == "binarize_apply" else float((got - want_).abs().max())
         errs[name] = max(errs[name], err)
     print(f"per-leaf kernels == plain versions on all {len(calls)} calls of the path "
-          f"(counts equal, binarize bit-equal, moment sums to rtol 1e-6); largest "
-          f"absolute differences {errs}")
+          f"(counts equal; binarize and masked_moments bit-equal, the latter at "
+          f"bm x lanes {MOMENT_TILES}); largest absolute differences {errs}")
 
     # timed on the largest leaf (f1), operands rotated past the L2 cache:
     # its calls are hist2side twice (the coarse pass, then the zoomed one),
@@ -882,8 +912,13 @@ def leaf_path(dev, hist: dict) -> dict:
         zoomed = name in rows
         label = "hist2side (zoomed pass)" if zoomed else name
         ms = device_ms(lambda *a, f=wrap[name], kw=kwargs: f(*a, **kw), copies, 240, label,
-                       ops=1 if name == "hist2side" else None)
+                       ops=1 if name in ("hist2side", "masked_moments") else None)
         plain_ms = device_ms(lambda *a, f=plain[name], kw=kwargs: f(*a, **kw), copies, 24)
+        if name == "masked_moments":  # the reference's default tile too
+            kw = dict(kwargs, bm=MOMENT_TILES[1][0], lanes=MOMENT_TILES[1][1])
+            default_ms = device_ms(lambda *a: wrap[name](*a, **kw), copies, 240,
+                                   "masked_moments (default tile)", ops=1)
+            default_plain_ms = device_ms(lambda *a: plain[name](*a, **kw), copies, 24)
         del copies
         if zoomed:
             rows[name].update(zoomed_ms=ms, zoomed_plain_ms=plain_ms)
@@ -896,6 +931,10 @@ def leaf_path(dev, hist: dict) -> dict:
             name, launches[name], errs[name], ms, plain_ms,
             4 * nel + scalar_bytes + out_bytes, OPS_PER_ELEMENT[name] * nel,
             label="hist2side (coarse pass)" if name == "hist2side" else None)
+    rows["masked_moments"].update(default_tile_ms=default_ms,
+                                  default_tile_plain_ms=default_plain_ms)
+    print(f"masked_moments at the default tile {MOMENT_TILES[1]}: {default_ms * 1e3:.2f} us "
+          f"device per call, plain {default_plain_ms * 1e3:.2f} us")
     check("zoomed_ms" in rows["hist2side"], "hist2side: the zoomed pass was not timed")
     check(set(rows) == set(LEAF_KERNELS), f"per-leaf kernels timed: {sorted(rows)}")
     print(f"per-leaf kernels timed on {segs[f1][0].path}: n {leaves[f1].numel()}, "
@@ -1083,12 +1122,93 @@ def codec_path(dev) -> dict:
     return {"launches": launches, "select_us": select_us}
 
 
+# ------------------------------------------------------------ local path
+
+
+def local_path(dev) -> dict:
+    """Phase 6: the local backend's Alg. 1 round (``LocalRun``), five
+    full-width LeNet5 rounds on the per-leaf path (``fast=False``, the
+    reference's default) and on the flat path (``fast=True``), each with
+    the launch counts set to 0 just before and read just after, and one
+    profiled round each.  The two must give bit-identical params,
+    residuals, Adam states and ledger rows.  Returns each path's launches
+    of its five rounds."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import stages as core_stages
+    from repro_torch.kernels import reduce as kreduce
+    from repro_torch.kernels import topk as ktopk
+    from repro_torch.run import RunSpec, build_run
+
+    runs, states, launches = {}, {}, {}
+    for fast in (False, True):
+        run = build_run(RunSpec(**LOCAL_SPEC, fast=fast), device=dev)
+        label = f"local ({'flat' if fast else 'per-leaf'} path)"
+        state = run.init()
+        means: list = []  # every f32_mean_xla call of the five rounds
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        counts = []
+        with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), means)), \
+                swapped(core_stages, recording(core_stages, ("f32_mean_xla",), means)):
+            for r in range(ROUNDS):
+                before = kernels.launch_counts()
+                t0 = time.perf_counter()
+                state, m = run.step(state, r)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                after = kernels.launch_counts()
+                counts.append({k: after[k] - before[k] for k in after})
+                rec = run.ledger.records[-1]
+                check(math.isfinite(loss), f"{label} round {r + 1}: loss {loss}")
+                print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms:.3f} ms  "
+                      f"launches { {k: v for k, v in counts[-1].items() if v} }  measured "
+                      f"{rec.up_bits_measured:.0f} bits against Eq. 1's "
+                      f"{rec.up_bits_analytic:.2f} ({len(rec.cohort)} clients)")
+        launches[fast] = kernels.launch_counts()
+        check(all(c == LOCAL_PER_ROUND[fast] for c in counts),
+              f"{label}: launches per round {counts}")
+        # every f32_mean_xla call of the rounds has a shape that mean_shapes
+        # times, and is held bit for bit against the plain cascade on its
+        # own operands (these launches come after the counts were read)
+        shapes = sorted({tuple(args[0].shape) for _, args, _ in means})
+        check(set(shapes) <= set(MEAN_SHAPES),
+              f"{label}: f32_mean_xla shapes {shapes} not all in MEAN_SHAPES")
+        for _, args, kwargs in means:
+            got = kreduce.f32_mean_xla(*args, **kwargs)
+            check(bit_equal(got, kreduce.f32_mean_xla_plain(*args, **kwargs)),
+                  f"{label}: f32_mean_xla on {tuple(args[0].shape)}: kernel != plain cascade")
+        print(f"{label}: all {len(means)} f32_mean_xla calls of the {ROUNDS} rounds bit-equal "
+              f"to the plain cascade on their operands, shapes {shapes}")
+        runs[fast], states[fast] = run, state
+        profiled_round(run, state, label)
+
+    slow, fast = states[False], states[True]
+    space = runs[True].trainer.resolved(fast.params).flat_space(fast.params)
+    residual = space.unflatten(fast.comp_state.residual)
+    for k in slow.params:
+        for what, a, b in (("params", fast.params, slow.params),
+                           ("residual", residual, slow.comp_state.residual),
+                           ("Adam m", fast.opt_states.m, slow.opt_states.m),
+                           ("Adam v", fast.opt_states.v, slow.opt_states.v)):
+            check(bit_equal(a[k], b[k]),
+                  f"local: {what} of {k} differs between the flat and the per-leaf path")
+    check(runs[True].ledger.history() == runs[False].ledger.history(),
+          "local: the two paths' ledger rows differ")
+    runs[True].ledger.reconcile(rel=0.25)
+    print(f"local: after {ROUNDS} rounds (and one profiled) the flat and the per-leaf path "
+          f"give bit-identical params, residuals, Adam states and ledger rows")
+    return launches
+
+
 def compare(src: Path) -> int:
-    """``--compare SRC``: the two kernels redesigned last, timed with the
+    """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
     parent commit's) on seeded operands, so that two versions can be
     compared on one card, in turns: ``f32_mean_xla`` at every shape in
-    ``MEAN_SHAPES``, and the per-leaf ``hist2side`` on both passes of
+    ``MEAN_SHAPES``, and the per-leaf ``hist2side`` (both passes) and
+    ``masked_moments`` (at each of ``MOMENT_TILES``) of
     ``sbc_compress_hist`` over a seeded Gaussian leaf of f1's size.  Every
     call is checked against its plain version; prints one
     ``{"compare": ...}`` line."""
@@ -1101,6 +1221,7 @@ def compare(src: Path) -> int:
     sys.path.insert(0, str(src.resolve()))
     from repro_torch.kernels import _build
     from repro_torch.kernels import hist2side as khist
+    from repro_torch.kernels import moments as kmom
     from repro_torch.kernels import ops
 
     card = card_line()
@@ -1112,11 +1233,12 @@ def compare(src: Path) -> int:
     leaf = torch.from_numpy(np.random.default_rng(0).standard_normal(1_225_000)
                             .astype(np.float32)).to(dev)
     calls: list = []
-    with swapped(ops, recording(ops, ("hist2side",), calls)):
+    with swapped(ops, recording(ops, ("hist2side", "masked_moments"), calls)):
         ops.sbc_compress_hist(leaf, p=SPEC["sparsity"], bm=8, lanes=128)
-    check(len(calls) == 2, f"sbc_compress_hist called hist2side {len(calls)} times, not 2")
+    check([c[0] for c in calls] == ["hist2side", "hist2side", "masked_moments"],
+          f"sbc_compress_hist called {[c[0] for c in calls]}")
     passes = {}
-    for name, (_, args, kwargs) in zip(("coarse", "zoomed"), calls):
+    for name, (_, args, kwargs) in zip(("coarse", "zoomed"), calls[:2]):
         check(torch.equal(khist.hist2side(*args, **kwargs),
                           khist.hist2side_plain(*args, **kwargs)),
               f"hist2side ({name} pass): kernel != plain")
@@ -1128,8 +1250,22 @@ def compare(src: Path) -> int:
         passes[name] = {"us": us, "ops": counted[0]}
         print(f"{label}: {us:.2f} us device per call, {counted[0]:g} device operations")
         del copies
+    moments = {}
+    _, args, _ = calls[2]
+    for bm, lanes in MOMENT_TILES:
+        kw = dict(bm=bm, lanes=lanes)
+        check(bit_equal(kmom.masked_moments(*args, **kw), kmom.masked_moments_plain(*args, **kw)),
+              f"masked_moments at bm={bm}, lanes={lanes}: kernel != plain")
+        copies = [(args[0].clone(), *args[1:]) for _ in range(copies_past_l2(4 * leaf.numel()))]
+        label = f"masked_moments (bm={bm}, lanes={lanes})"
+        counted = []
+        us = 1e3 * device_ms(lambda *a, kw=kw: kmom.masked_moments(*a, **kw), copies, 240,
+                             label, counted=counted)
+        moments[f"{bm}x{lanes}"] = {"us": us, "ops": counted[0]}
+        print(f"{label}: {us:.2f} us device per call, {counted[0]:g} device operations")
+        del copies
     print(json.dumps({"compare": {"src": str(src), "card": card, "f32_mean_xla": shapes,
-                                  "hist2side": passes}}))
+                                  "hist2side": passes, "masked_moments": moments}}))
     return 0
 
 
@@ -1160,12 +1296,15 @@ def main(argv: list) -> int:
     print(f"built {[str(p.relative_to(ROOT)) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- 2. to 5. the four paths
+    # ---- 2. to 6. the five paths
     rows, hist = hist_path(dev)
     rows.update(exact_path(dev))
     rows.update(leaf_path(dev, hist))
     codec = codec_path(dev)
+    local = local_path(dev)
     check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
+    rows["f32_mean_xla"]["launches_local_per_leaf_path"] = local[False]["f32_mean_xla"]
+    rows["f32_mean_xla"]["launches_local_flat_path"] = local[True]["f32_mean_xla"]
     # the codec + wire path is the one that launches seg_select_pack (4 a
     # round) and most f32_mean_xla; the exact path's counts stay beside them
     for name in ("seg_select_pack", "f32_mean_xla"):
@@ -1173,7 +1312,7 @@ def main(argv: list) -> int:
         rows[name]["launches"] = codec["launches"][name]
     rows["seg_select_pack"]["leaf_us"] = codec["select_us"]
 
-    # ---- 6. results
+    # ---- 7. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

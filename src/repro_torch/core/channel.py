@@ -1,29 +1,46 @@
-"""The GSPMD backend's communication channel, on one card.
+"""The communication channels of the local and GSPMD backends.
 
 Counterpart of ``repro.core.channel`` (DESIGN.md §12).  The port carries
-:class:`ShardedGspmdChannel` on its flat routes: every round, residual add
-+ compression (the hist engine's three SBC passes, or the exact engine's
-two-sided top-k with its optional device-packed Golomb wire) + the
-exchange run on ONE flat buffer per device, and the round's uploads are
-metered into a :class:`~repro_torch.core.ledger.BandwidthLedger`.  With
-one client the exchange is the identity; clients across cards come with
-``torch.distributed`` (ROADMAP A9).
 
-Pytrees are dicts of tensors whose leaves are taken in sorted-key order —
-JAX's tree-flatten order — so segments, the flat buffer and the residual
-follow the reference's layout.
+  :class:`LocalVmapChannel`    per-client compression with the clients as
+                               a leading axis; the exchange is the mean
+                               over that axis (the paper's Alg. 1 round
+                               on one card);
+  :class:`ShardedGspmdChannel` the GSPMD backend on its flat routes:
+                               residual add + compression (the hist
+                               engine's three SBC passes, or the exact
+                               engine's two-sided top-k with its optional
+                               device-packed Golomb wire) + the exchange
+                               on ONE flat buffer per device.  With one
+                               client the exchange is the identity;
+                               clients across cards come with
+                               ``torch.distributed`` (ROADMAP A9).
+
+Both meter a round's uploads into a
+:class:`~repro_torch.core.ledger.BandwidthLedger`.  Pytrees are dicts of
+tensors whose leaves are taken in sorted-key order — JAX's tree-flatten
+order — so segments, the flat buffer and the residual follow the
+reference's layout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
-from typing import Any, Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core.api import Compressor
 from repro_torch.core.golomb import encode_positions
 from repro_torch.core.ledger import BandwidthLedger
+from repro_torch.core.policy import CompressionPolicy, CompressorState, ResolvedPolicy
+from repro_torch.core.stages import LeafCompressed, k_for
+from repro_torch.core.tree import tree_flatten, tree_map
+from repro_torch.core.wire import Wire, wire_for
+
+PyTree = Any
 
 
 class ChannelBits(NamedTuple):
@@ -31,6 +48,239 @@ class ChannelBits(NamedTuple):
 
     per_client: float  # upstream bits one client sends per round
     dense: float  # the 32-bit dense equivalent
+
+
+class NullTelemetry:
+    """The disabled telemetry of the reference's ``NULL_TELEMETRY``: spans
+    that record nothing.  Telemetry itself comes with ROADMAP A11."""
+
+    enabled = False
+
+    def span(self, name: str, **attrs):
+        return contextlib.nullcontext()
+
+    def fence(self, tree) -> None:
+        return None
+
+
+NULL_TELEMETRY = NullTelemetry()
+
+
+# ------------------------------------------------------- policy resolution
+
+# bounded: policies holding fresh closures hash by identity, so unbounded
+# growth would pin every ResolvedPolicy (and its flat spaces) for the life
+# of the process
+_RESOLVE_CACHE: Dict[Any, ResolvedPolicy] = {}
+_RESOLVE_CACHE_MAX = 64
+
+
+def _layout_key(params: PyTree) -> Optional[tuple]:
+    try:
+        flat, treedef = tree_flatten(params)
+        return (treedef, tuple((tuple(x.shape), str(x.dtype)) for x in flat))
+    except (TypeError, AttributeError):
+        return None
+
+
+def resolve_cached(policy: CompressionPolicy, params: PyTree) -> ResolvedPolicy:
+    """Resolve ``policy`` against ``params``' layout ONCE per topology, so
+    every caller shares the bound :class:`ResolvedPolicy` and its flat
+    spaces."""
+    layout = _layout_key(params)
+    try:
+        key = (policy, layout) if layout is not None else None
+        hash(key)
+    except TypeError:
+        key = None
+    if key is None:
+        return policy.resolve(params)
+    got = _RESOLVE_CACHE.get(key)
+    if got is None:
+        got = policy.resolve(params)
+        while len(_RESOLVE_CACHE) >= _RESOLVE_CACHE_MAX:  # FIFO eviction
+            _RESOLVE_CACHE.pop(next(iter(_RESOLVE_CACHE)))
+        _RESOLVE_CACHE[key] = got
+    return got
+
+
+def analytic_bits(resolved: ResolvedPolicy, leaves: Sequence,
+                  rates: Sequence[float]) -> ChannelBits:
+    """Static Eq. 1 accounting for ONE client's upload at ``rates``: per
+    sparse leaf ``position_bits(n, k, p) + value_bits(k)``, dense leaves
+    the quantizer's value bits for the whole leaf, skipped leaves
+    nothing."""
+    per_client = dense = 0.0
+    for plan, leaf, p in zip(resolved.plans, leaves, rates):
+        n = int(np.prod(tuple(leaf.shape)) or 1)
+        dense += 32.0 * n
+        codec = plan.codec
+        if codec.skip:
+            continue
+        if codec.selector.dense:
+            per_client += float(codec.quantizer.value_bits(n))
+            continue
+        k = k_for(n, p)
+        per_client += float(codec.encoder.position_bits(n, k, p)
+                            + codec.quantizer.value_bits(k))
+    return ChannelBits(per_client=per_client, dense=dense)
+
+
+def mean_over_clients(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean(x, axis=0)`` over the leading client axis, bit for bit:
+    XLA's CPU reduce adds the C rows in order from +0.0 and multiplies by
+    the f32 reciprocal of C; with C = 1 it returns the row itself (−0.0
+    kept).  Checked against ``jnp.mean`` under ``jit`` for C = 1 to 8
+    (``tests/test_torch_local_run.py``)."""
+    if x.shape[0] == 1:
+        return x[0]
+    acc = torch.zeros_like(x[0])
+    for row in x:
+        acc = acc + row
+    return acc * torch.tensor(1.0 / x.shape[0], dtype=x.dtype, device=x.device)
+
+
+# ============================================================ local backend
+
+
+class LocalExchange(NamedTuple):
+    """One round's exchange outputs."""
+
+    mean_delta: PyTree  # ΔW = mean_i ΔW*_i (Alg. 1 l.17)
+    transmitted: PyTree  # per-client dense ΔW*_i (leading C axis)
+    state: CompressorState  # advanced per-client compressor state
+    bits_per_client: torch.Tensor  # analytic Eq. 1 bits, mean over clients
+    compressed0: Optional[PyTree]  # client 0's LeafCompressed tree, or None
+
+
+def _stack_comp(comps: Sequence[LeafCompressed]) -> LeafCompressed:
+    return LeafCompressed(*(torch.stack(fs) for fs in zip(*comps)))
+
+
+def _row_comp(comp: LeafCompressed, c: int) -> LeafCompressed:
+    return LeafCompressed(*(f[c] for f in comp))
+
+
+def client_seeds(seed: int, n_clients: int) -> torch.Tensor:
+    """Per-client compressor seeds (int64[C], on the CPU) from one seed:
+    the port's stand-in for ``jax.random.split(rng, C)`` (only stochastic
+    codecs read them; ``sbc`` does not)."""
+    ss = np.random.SeedSequence(int(seed) % 2 ** 64).spawn(n_clients)
+    return torch.tensor([int(s.generate_state(1, np.uint64)[0]) >> 1 for s in ss],
+                        dtype=torch.int64)
+
+
+@dataclasses.dataclass(eq=False)
+class LocalVmapChannel:
+    """Per-client compression with the clients as a leading axis; the
+    exchange is the mean over that axis (Alg. 1 l.11-17).
+
+    Where the policy takes the flat fast path (``fast=True``), all clients
+    are compressed in one :meth:`FlatParamSpace.compress_rows` call (each
+    SBC segment's C rows in one top-k and one ``f32_mean_xla`` launch);
+    otherwise the per-leaf path runs client by client.  Both give the
+    same bits."""
+
+    compressor: Compressor
+    n_clients: int
+
+    def __post_init__(self) -> None:
+        self.ledger = BandwidthLedger()
+        self.telemetry = NULL_TELEMETRY
+        self._resolved: Optional[ResolvedPolicy] = None
+        self._wires: Dict[tuple, Wire] = {}
+
+    # ------------------------------------------------------------- protocol
+
+    def resolved(self, params: PyTree) -> ResolvedPolicy:
+        if self._resolved is None:
+            self._resolved = resolve_cached(self.compressor.policy, params)
+        return self._resolved
+
+    def init_state(self, params: PyTree, seed: int = 0) -> CompressorState:
+        """Per-client state with a leading C axis; the residual is in the
+        §10 flat layout ``(C, n_pad)`` when the fast path is taken."""
+        comp = self.resolved(params).init_state(params)
+        C = self.n_clients
+        residual = tree_map(lambda x: x.expand((C,) + tuple(x.shape)).clone(), comp.residual)
+        return CompressorState(residual=residual, rng=client_seeds(seed, C),
+                               step=torch.zeros((C,), dtype=torch.int64))
+
+    def round_exchange(self, deltas: PyTree, state: CompressorState,
+                       rates: Union[float, Tuple[float, ...]], *,
+                       return_compressed: bool = False) -> LocalExchange:
+        """Compress every client's update with error feedback and average."""
+        one = tree_map(lambda x: x[0], deltas)
+        resolved = self.resolved(one)
+        if not isinstance(rates, tuple):  # the rules' rates, as Compressor.compress takes them
+            rates = resolved.rates(float(rates))
+        space = resolved.flat_space(one) if resolved.policy.fast else None
+        if space is not None:
+            ctrees, dense, new_state = space.compress_rows(deltas, state, rates)
+            bits = resolved.total_bits(ctrees)
+        else:
+            outs = []
+            for c in range(self.n_clients):
+                st = CompressorState(
+                    residual=(tree_map(lambda x: x[c], state.residual)
+                              if resolved.any_residual else state.residual),
+                    rng=state.rng[c], step=state.step[c])
+                outs.append(resolved.compress(tree_map(lambda x: x[c], deltas), st, rates))
+            leaves = [resolved._leaves_of(o[0]) for o in outs]
+            ctrees = resolved.treedef.unflatten([_stack_comp(ls) for ls in zip(*leaves)])
+            dense = tree_map(lambda *xs: torch.stack(xs), *[o[1] for o in outs])
+            new_state = CompressorState(
+                residual=(tree_map(lambda *xs: torch.stack(xs), *[o[2].residual for o in outs])
+                          if resolved.any_residual else state.residual),
+                rng=state.rng, step=state.step + 1)
+            bits = resolved.total_bits(ctrees)
+        mean_delta = tree_map(mean_over_clients, dense)
+        comp0 = None
+        if return_compressed:
+            comp0 = resolved.treedef.unflatten(
+                [_row_comp(c, 0) for c in resolved._leaves_of(ctrees)])
+        return LocalExchange(mean_delta=mean_delta, transmitted=dense, state=new_state,
+                             bits_per_client=mean_over_clients(bits), compressed0=comp0)
+
+    def bits(self, params: PyTree, rates: Tuple[float, ...],
+             n_delay: int = 1) -> ChannelBits:
+        """Static Eq. 1 accounting at ``rates`` (host-side floats)."""
+        resolved = self.resolved(params)
+        b = analytic_bits(resolved, resolved._leaves_of(params), rates)
+        return ChannelBits(per_client=b.per_client, dense=b.dense * n_delay)
+
+    # ------------------------------------------------------------ metering
+
+    def wire(self, params: PyTree, rate: float, round_idx: int) -> Wire:
+        resolved = self.resolved(params)
+        key = resolved.rates(rate, round_idx)
+        if key not in self._wires:
+            self._wires[key] = wire_for(resolved, params, rate, round_idx)
+        return self._wires[key]
+
+    def record_round(self, round_idx: int, *, params: PyTree, compressed0: PyTree,
+                     rate: float, bits_analytic_per_client: float,
+                     device_pack: bool = False) -> float:
+        """Meter client 0's real packed upload and extrapolate ×C into the
+        ledger (every client's analytic size is the same; measured sizes
+        are one geometric draw each).  Returns client 0's measured bits.
+        Packing reads the positions on the host, which waits for the
+        device."""
+        with self.telemetry.span("encode", round=round_idx, client=0):
+            blob, bits = self.wire(params, rate, round_idx).pack_with_bits(
+                compressed0, device_pack=device_pack)
+        measured = float(bits)
+        self.ledger.record_up(
+            round_idx,
+            clients=tuple(range(self.n_clients)),
+            up_bytes=len(blob) * self.n_clients,
+            up_bits_measured=measured * self.n_clients,
+            up_bits_analytic=float(bits_analytic_per_client) * self.n_clients,
+        )
+        return measured
+
+
+# ============================================================ gspmd backend
 
 
 class GspmdLeaf(NamedTuple):

@@ -1,28 +1,34 @@
-"""Flat-buffer compression for the sharded backend: layout and hist engine.
+"""Flat-buffer compression: the layout, the exact and hist engines.
 
 Counterpart of ``repro.core.flat`` (DESIGN.md §10/§11).  The port carries
-the block-padded layout helpers, the three-pass hist pipeline, and the
-parts of :class:`ShardedFlatParamSpace` that the GSPMD backend runs on one
-card: the hist engine and the exact engine with its device-packed wire.
+the block-padded layout helpers, the three-pass hist pipeline,
+:class:`FlatParamSpace` (the ``fast=True`` path of ``ResolvedPolicy``:
+its exact engine ``compress``, which the local backend runs, and its hist
+engine ``compress_hist``), and the parts of :class:`ShardedFlatParamSpace`
+that the GSPMD backend runs on one card: the hist engine and the exact
+engine with its device-packed wire.
 
 Layout contract (identical to the reference):
 
   * segment i lives at ``[offset_i, offset_i + size_i)`` where
     ``offset_i`` is block-aligned (blocks of ``bm·lanes`` elements) and
     the tail up to the next block boundary is zero;
-  * the error-feedback residual is one f32 array in this layout, of shape
-    ``(n_clients, shards_per_client, n_pad)``.
+  * the error-feedback residual is one f32 array in this layout: of shape
+    ``(n_pad,)`` per client for :class:`FlatParamSpace` (``(C, n_pad)``
+    for C clients as rows), ``(n_clients, shards_per_client, n_pad)`` for
+    the sharded space.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.golomb import expected_position_bits, golomb_bstar
-from repro_torch.core.stages import k_for
+from repro_torch.core.stages import LeafCompressed, k_for
+from repro_torch.core.tree import tree_map
 from repro_torch.kernels.flat import seg_binarize_apply, seg_hist2side, seg_moments
 from repro_torch.kernels.hist2side import SPAN_OCTAVES, bucket_lower_edges
 from repro_torch.kernels.ops import _side_threshold
@@ -131,6 +137,265 @@ def _hist_pipeline(
                          dtype=torch.float32, device=dev)
     stats = {"mu": mu, "count": count, "nbits": count * ebits + 32.0}
     return out_pad.reshape(-1), res_pad.reshape(-1), stats
+
+
+class Segment(NamedTuple):
+    """Static per-leaf slot in the flat buffer."""
+
+    path: str
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    size: int
+    offset: int  # block-aligned start in the padded flat buffer
+    kind: str  # "sbc" | "dense" | "skip"
+    use_residual: bool
+
+
+@dataclasses.dataclass(eq=False)
+class FlatParamSpace:
+    """One resolved policy bound to one tree layout, flattened to a single
+    block-padded f32 buffer (the ``fast=True`` path of DESIGN.md §10).
+
+    :meth:`compress` is the exact engine: bit-identical to the per-leaf
+    ``ResolvedPolicy.compress`` (indices, μ down to the sign of zero,
+    ΔW*, residuals, and so SBW1 bytes), with the residual kept in the
+    flat layout.  :meth:`compress_rows` runs it on C clients at once:
+    each SBC segment's C rows go through one two-sided top-k and one
+    ``f32_mean_xla`` launch, so the launches of a round do not grow with
+    C, and each client's result is the one compressing it alone gives.
+    :meth:`compress_hist` is the hist engine (the three segment-aware
+    passes of :mod:`repro_torch.kernels.flat`).  ``bm``/``lanes`` fix the
+    block size; the two engines share the residual, so they must match.
+    """
+
+    resolved: Any  # ResolvedPolicy (duck-typed; no import cycle)
+    segments: Tuple[Segment, ...]
+    bm: int = 8
+    lanes: int = 128
+
+    def __post_init__(self) -> None:
+        per_block = self.bm * self.lanes
+        self.n_blocks = sum(max(1, -(-s.size // per_block)) for s in self.segments)
+        self.n_pad = self.n_blocks * per_block
+        self.n_total = sum(s.size for s in self.segments)
+        seg_of_block = np.zeros((self.n_blocks,), np.int32)
+        res_mask = np.zeros((self.n_pad,), bool)
+        dense_mask = np.zeros((self.n_pad,), bool)
+        for i, s in enumerate(self.segments):
+            blk0 = s.offset // per_block
+            seg_of_block[blk0:blk0 + max(1, -(-s.size // per_block))] = i
+            if s.use_residual:
+                res_mask[s.offset:s.offset + s.size] = True
+            if s.kind == "dense":
+                dense_mask[s.offset:s.offset + s.size] = True
+        self.seg_of_block = seg_of_block
+        self._res_mask = res_mask
+        self._dense_mask = dense_mask
+        self._pad_to_raw, self._pad_valid = _pad_maps(
+            [s.offset for s in self.segments], [s.size for s in self.segments], self.n_pad)
+        # pad slots keep their zeros under the acc/dense/residual updates,
+        # so the mask-free branch needs only every LEAF to use the residual
+        self._all_residual = all(s.use_residual for s in self.segments)
+        self._any_dense = any(s.kind == "dense" for s in self.segments)
+        self._maps: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+    @classmethod
+    def for_resolved(cls, resolved, like, *, bm: int = 8,
+                     lanes: int = 128) -> "FlatParamSpace":
+        """Bind ``resolved`` to the leaf shapes of ``like``."""
+        per_block = bm * lanes
+        segs: List[Segment] = []
+        off = 0
+        for plan, leaf in zip(resolved.plans, resolved._leaves_of(like)):
+            kind = plan.codec.flat_kind
+            if kind is None:
+                raise ValueError(
+                    f"leaf {plan.path!r} codec {plan.codec.spec!r} has no flat fast "
+                    "path; guard with repro_torch.core.policy.supports()")
+            shape = tuple(leaf.shape)
+            size = int(np.prod(shape)) if shape else 1
+            segs.append(Segment(path=plan.path, shape=shape, dtype=leaf.dtype, size=size,
+                                offset=off, kind=kind,
+                                use_residual=plan.codec.use_residual))
+            off += max(1, -(-size // per_block)) * per_block
+        return cls(resolved=resolved, segments=tuple(segs), bm=bm, lanes=lanes)
+
+    def _device_maps(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """``(pad_to_raw, pad_valid, res_mask, dense_mask, seg_of_block)``
+        on ``device``, copied there once."""
+        maps = self._maps.get(device)
+        if maps is None:
+            maps = tuple(torch.from_numpy(a).to(device) for a in (
+                self._pad_to_raw, self._pad_valid, self._res_mask, self._dense_mask,
+                self.seg_of_block.astype(np.int64)))
+            self._maps[device] = maps
+        return maps
+
+    # --------------------------------------------------------- flat plumbing
+
+    def flatten(self, tree) -> torch.Tensor:
+        """Tree → one block-padded f32 buffer (the §10 layout); leaves with
+        a leading client axis give ``(C, n_pad)``."""
+        return self._flatten_leaves(self.resolved._leaves_of(tree))
+
+    def _flatten_leaves(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+        rows = leaves[0].dim() > len(self.segments[0].shape)
+        if not rows:
+            return self._flatten_leaves([leaf[None] for leaf in leaves])[0]
+        pad_to_raw, pad_valid = self._device_maps(leaves[0].device)[:2]
+        raw = torch.cat([leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+                         for leaf in leaves], dim=1)
+        if self.n_pad == self.n_total:
+            return raw
+        return torch.where(pad_valid, raw[:, pad_to_raw],
+                           torch.zeros((), dtype=torch.float32, device=raw.device))
+
+    def unflatten(self, flat: torch.Tensor, cast: bool = True):
+        """Flat buffer → tree (inverse of :meth:`flatten`); a leading
+        client axis is kept."""
+        lead = tuple(flat.shape[:-1])
+        out = []
+        for seg in self.segments:
+            piece = flat[..., seg.offset:seg.offset + seg.size].reshape(lead + seg.shape)
+            out.append(piece.to(seg.dtype) if cast else piece)
+        return self.resolved.treedef.unflatten(out)
+
+    def zeros_residual(self, device=None) -> torch.Tensor:
+        return torch.zeros((self.n_pad,), dtype=torch.float32, device=device)
+
+    def _check_rates(self, rates) -> Tuple[float, ...]:
+        if not isinstance(rates, tuple):
+            rates = (float(rates),) * len(self.segments)
+        if len(rates) != len(self.segments):
+            raise ValueError(f"got {len(rates)} rates for {len(self.segments)} leaves")
+        return tuple(float(r) for r in rates)
+
+    def _ks(self, rates: Tuple[float, ...]) -> Tuple[int, ...]:
+        return tuple(
+            0 if s.kind == "skip" else s.size if s.kind == "dense" else k_for(s.size, p)
+            for s, p in zip(self.segments, rates)
+        )
+
+    # ------------------------------------------------------------ exact path
+
+    def compress(self, delta, state, rates) -> tuple:
+        """Drop-in, bit-identical replacement for the per-leaf
+        ``ResolvedPolicy.compress``: the same ``(ctree, dense_tree,
+        new_state)``, with ``new_state.residual`` in the flat layout."""
+        rows = tree_map(lambda x: x[None], delta)
+        st = state._replace(residual=state.residual[None]
+                            if self.resolved.any_residual else state.residual)
+        ctree, dense, new = self.compress_rows(rows, st, rates)
+        one = lambda tree: self.resolved.treedef.unflatten(
+            [_map_fields(lambda v: v[0], x) if isinstance(x, LeafCompressed) else x[0]
+             for x in self.resolved._leaves_of(tree)])
+        res = new.residual[0] if self.resolved.any_residual else new.residual
+        return one(ctree), one(dense), new._replace(residual=res)
+
+    def compress_rows(self, deltas, state, rates) -> tuple:
+        """:meth:`compress` of C clients at once: every leaf of ``deltas``
+        and the flat residual ``(C, n_pad)`` carry a leading client axis,
+        as do the outputs (each LeafCompressed field too)."""
+        rates = self._check_rates(rates)
+        residual = state.residual if self.resolved.any_residual else None
+        comp, dense, new_res = self._compress_exact(
+            self.resolved._leaves_of(deltas), residual, rates)
+        treedef = self.resolved.treedef
+        new_state = state._replace(residual=new_res if new_res is not None
+                                   else state.residual, step=state.step + 1)
+        return treedef.unflatten(comp), treedef.unflatten(dense), new_state
+
+    def _compress_exact(self, leaves, residual, rates):
+        segs, ks = self.segments, self._ks(rates)
+        delta = self._flatten_leaves(leaves)  # (C, n_pad)
+        dev, C = delta.device, delta.shape[0]
+        _, _, res_mask, dense_mask, _ = self._device_maps(dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        if residual is None:
+            acc = delta
+        elif self._all_residual:
+            acc = delta + residual
+        else:
+            acc = delta + torch.where(res_mask, residual, zero)
+
+        def empty(dtype=torch.float32):
+            return torch.zeros((C, 0), dtype=dtype, device=dev)
+
+        comp: List[Optional[LeafCompressed]] = [None] * len(segs)
+        gidx, gmu = [], []
+        for i, (seg, k, p) in enumerate(zip(segs, ks, rates)):
+            x = acc[:, seg.offset:seg.offset + seg.size]
+            codec = self.resolved.plans[i].codec
+            if seg.kind == "skip":
+                comp[i] = LeafCompressed(idx=empty(torch.int32), vals=empty(),
+                                         mean=zero.expand(C), dense=empty(),
+                                         nbits=zero.expand(C))
+                continue
+            if seg.kind == "dense":
+                comp[i] = LeafCompressed(
+                    idx=empty(torch.int32), vals=empty(), mean=zero.expand(C), dense=x,
+                    nbits=torch.full((C,), codec.quantizer.value_bits(k),
+                                     dtype=torch.float32, device=dev))
+                continue
+            idx, mu = _two_sided_topk(x, k)
+            # the reference re-gathers the winning side's values and takes
+            # their mean, which is never −0.0 (XLA's cascade starts every
+            # sum at +0.0); −mean(−v) equals it bit for bit but for the
+            # sign of a zero, so a zero μ is +0.0 here too
+            mu = torch.where(mu == 0, zero, mu)
+            nbits = codec.encoder.position_bits(seg.size, k, p) + codec.quantizer.value_bits(k)
+            comp[i] = LeafCompressed(
+                idx=idx.to(torch.int32), vals=empty(), mean=mu, dense=empty(),
+                nbits=torch.full((C,), nbits, dtype=torch.float32, device=dev))
+            gidx.append(idx + seg.offset)
+            gmu.append(mu[:, None].expand(C, k))
+
+        # ΔW* of every sparse leaf in one scatter; dense segments pass acc
+        # through one static-mask select; skip segments stay zero
+        dense_flat = torch.zeros((C, self.n_pad), dtype=torch.float32, device=dev)
+        if gidx:
+            dense_flat.scatter_(1, torch.cat(gidx, 1), torch.cat(gmu, 1))
+        if self._any_dense:
+            dense_flat = torch.where(dense_mask, acc, dense_flat)
+        new_res = None
+        if residual is not None:
+            new_res = (acc - dense_flat if self._all_residual
+                       else torch.where(res_mask, acc - dense_flat, residual))
+        dense_leaves = [
+            dense_flat[:, s.offset:s.offset + s.size].reshape((C,) + s.shape).to(s.dtype)
+            for s in segs
+        ]
+        return comp, dense_leaves, new_res
+
+    # ----------------------------------------------------------- hist engine
+
+    def compress_hist(self, delta, state, rates, *, nbins: int = 128) -> tuple:
+        """Histogram-threshold SBC over the flat buffer: the three
+        segment-aware passes, one launch each over the whole parameter set.
+
+        Per-segment semantics match :func:`repro_torch.kernels.ops.
+        sbc_compress_hist` (approximate survivor counts; acc = ΔW* + R
+        exactly).  Requires an all-SBC policy.  Returns ``(dense_tree,
+        new_state, stats)`` with per-segment ``stats = {mu, count, nbits}``.
+        """
+        if any(s.kind != "sbc" for s in self.segments):
+            raise ValueError("compress_hist needs an all-SBC policy; dense/skip leaves "
+                             "belong to the exact engine")
+        rates = self._check_rates(rates)
+        residual = state.residual if self.resolved.any_residual else None
+        delta_flat = self.flatten(delta)
+        acc = delta_flat if residual is None else delta_flat + residual
+        dense_flat, res_flat, stats = _hist_pipeline(
+            acc, bounds=[(s.offset, s.size) for s in self.segments], ks=self._ks(rates),
+            rates=rates, seg_of_block=self._device_maps(acc.device)[4],
+            n_blocks=self.n_blocks, bm=self.bm, lanes=self.lanes, nbins=nbins)
+        new_state = state._replace(residual=res_flat if residual is not None
+                                   else state.residual, step=state.step + 1)
+        return self.unflatten(dense_flat), new_state, stats
+
+
+def _map_fields(fn, comp: LeafCompressed) -> LeafCompressed:
+    return LeafCompressed(*(fn(v) for v in comp))
 
 
 # ===================================================================== sharded

@@ -130,10 +130,8 @@ class CompressionPolicy:
     """Ordered regex rules over a default codec.
 
     ``fast=True`` asks for the flat-buffer fast path of DESIGN.md §10
-    (``FlatParamSpace``), which the port does not carry yet (ROADMAP A4):
-    where the reference would take it, the port raises
-    ``NotImplementedError`` instead of running the per-leaf path in its
-    place.
+    (:class:`~repro_torch.core.flat.FlatParamSpace`), taken wherever the
+    reference takes it: every codec has a flat form and every leaf is f32.
     """
 
     default: Codec
@@ -209,19 +207,28 @@ class ResolvedPolicy:
         return supports(self)
 
     def flat_space(self, like: PyTree):
-        """The flat space of a ``fast=True`` policy over ``like``: None where
-        the reference runs the per-leaf path too (a codec with no flat
-        form, or a leaf that is not f32); elsewhere ``NotImplementedError``,
-        since ``FlatParamSpace`` is not ported yet (ROADMAP A4)."""
+        """The :class:`~repro_torch.core.flat.FlatParamSpace` binding this
+        policy to ``like``'s leaf layout (cached per layout), or None where
+        the reference runs the per-leaf path: a codec with no flat form, or
+        a leaf that is not f32 (the flat residual is f32, while the
+        per-leaf path keeps it in the leaf's dtype)."""
+        from repro_torch.core.flat import FlatParamSpace
+
         if not supports(self):
             return None
-        if any(x.dtype != torch.float32 for x in self._leaves_of(like)):
+        leaves = self._leaves_of(like)
+        if any(x.dtype != torch.float32 for x in leaves):
             return None
-        raise NotImplementedError(
-            "fast=True takes the flat-buffer fast path (FlatParamSpace, "
-            "DESIGN.md §10), which is not ported yet (ROADMAP A4); use a "
-            "policy with fast=False for the per-leaf path"
-        )
+        key = tuple((tuple(x.shape), x.dtype) for x in leaves)
+        cache = getattr(self, "_flat_cache", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_flat_cache", cache)
+        space = cache.get(key)
+        if space is None:
+            space = FlatParamSpace.for_resolved(self, like)
+            cache[key] = space
+        return space
 
     def rates(self, global_rate: float, round_idx: int = 0) -> Tuple[float, ...]:
         """Per-leaf sparsity rates for this round (memoized when no plan
@@ -243,10 +250,14 @@ class ResolvedPolicy:
     def init_state(self, params: PyTree,
                    rng: Union[int, torch.Tensor, None] = None) -> CompressorState:
         """Zero residuals like ``params`` (when a codec uses error
-        feedback), the seed ``rng`` (default 0) and step 0."""
-        if self.policy.fast:
-            self.flat_space(params)
-        residual = tree_map(torch.zeros_like, params) if self.any_residual else ()
+        feedback; in the flat §10 layout when the fast path is taken), the
+        seed ``rng`` (default 0) and step 0."""
+        residual = ()
+        if self.any_residual:
+            space = self.flat_space(params) if self.policy.fast else None
+            device = self._leaves_of(params)[0].device
+            residual = (space.zeros_residual(device) if space is not None
+                        else tree_map(torch.zeros_like, params))
         seed = torch.as_tensor(0 if rng is None else rng, dtype=torch.int64)
         return CompressorState(residual=residual, rng=seed,
                                step=torch.zeros((), dtype=torch.int64))
@@ -272,7 +283,10 @@ class ResolvedPolicy:
         if len(rates) != len(self.plans):
             raise ValueError(f"got {len(rates)} rates for {len(self.plans)} leaves")
         if self.policy.fast:
-            self.flat_space(delta)
+            space = self.flat_space(delta)
+            if space is not None:
+                # the flat-buffer fast path (§10): bit-identical output
+                return space.compress(delta, state, rates)
         res_leaves = (self._leaves_of(state.residual) if self.any_residual
                       else [None] * len(leaves))
         seed, step = (int(state.rng), int(state.step)) if self.any_stochastic else (0, 0)

@@ -1,4 +1,4 @@
 """Synthetic data of the port."""
-from repro_torch.data.synthetic import Task, make_classification_task
+from repro_torch.data.synthetic import Task, client_batches, make_classification_task
 
-__all__ = ["Task", "make_classification_task"]
+__all__ = ["Task", "client_batches", "make_classification_task"]

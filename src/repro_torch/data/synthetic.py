@@ -1,6 +1,7 @@
 """Deterministic synthetic data with per-client streams.
 
-Counterpart of the classification half of ``repro.data.synthetic``: the
+Counterpart of the classification half of ``repro.data.synthetic`` and of
+its :func:`client_batches`: the
 paper's MNIST stand-in, Gaussian class blobs in pixel space ("blob-MNIST")
 with fixed class means and additive noise.  Batches are drawn on the fly
 from a ``torch.Generator`` seeded by ``(seed, client, step)``, so the
@@ -70,3 +71,18 @@ def make_classification_task(
         return {"images": imgs, "labels": labels}
 
     return Task(name="blobs", sample=sample, n_classes=n_classes)
+
+
+def client_batches(task: Task, n_clients: int, n_delay: int) -> Callable[[int], dict]:
+    """``batch_fn(round) -> dict`` of ``(clients, n_delay, batch, ...)``
+    tensors on the task's device: client c's local step d of round r
+    draws ``task.sample(r * n_delay + d, c)``, the reference's stream
+    layout (each client a disjoint stream)."""
+
+    def batch_fn(round_idx: int) -> dict:
+        grid = [[task.sample(round_idx * n_delay + d, c) for d in range(n_delay)]
+                for c in range(n_clients)]
+        return {k: torch.stack([torch.stack([b[k] for b in row]) for row in grid])
+                for k in grid[0][0]}
+
+    return batch_fn

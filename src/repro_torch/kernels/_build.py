@@ -13,8 +13,9 @@ so the kernels round like the plain PyTorch versions they are held
 against (IEEE division, full-precision ``log2f``, denormals kept).
 
 Beside the build and :func:`launch`, the machinery that the one-launch
-kernels (``seg_hist2side`` and the per-leaf ``hist2side``, ``seg_moments``,
-``seg_select_pack``, ``f32_mean_xla``) share:
+kernels (``seg_hist2side`` and the per-leaf ``hist2side``, ``seg_moments``
+and the per-leaf ``masked_moments``, ``seg_select_pack``, ``f32_mean_xla``)
+share:
 the size of a one-wave persistent grid (:func:`persistent_grid`) and the
 self-cleaning scratch they count in (:class:`Workspace`).
 """
@@ -56,7 +57,8 @@ _SIGNATURES = {
         "seg_binarize_apply_launch": (_P, _P, _P, _P, _I, _I, _P),
         "hist2side_resident": (_I,),
         "hist2side_launch": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
-        "masked_moments_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _P),
+        "masked_moments_gpw": (_I,),
+        "masked_moments_launch": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _P),
         "binarize_apply_launch": (_P, _I, _P, _P, _P, _P, _P, _P, _P),
     },
     "pack.cu": {

@@ -78,6 +78,14 @@
 //     in shared memory, every thread with its kBatch loads in flight, and
 //     its 8 warps fold 8 segments at a time, each lane loading kChainStep
 //     steps of its chain before adding them.
+//   * masked_moments is one launch too (masked_moments_kernel), but not on
+//     seg_moments' persistent grid: that design, a CTA a block, took 9 us
+//     on 1.26 M values, and the per-leaf pass's two launches 7 us.  A warp
+//     sums a whole partial of 1,024 entries, its 8 quads a lane all loaded
+//     before the first add, with shuffles only; at larger spans a warp
+//     takes fewer of the partial's 8 groups, so their chains run side by
+//     side, and the partial's ticket adds the group sums in order.  The
+//     last CTA folds the partials with seg_moments' fold.
 //
 // The last CTA is found with a ticket: after a barrier, thread 0 fences
 // the CTA's writes and takes atomicInc(ticket, G - 1); the CTA that draws
@@ -641,36 +649,135 @@ seg_moments_kernel(const float* __restrict__ x, const float* __restrict__ params
   }
 }
 
-// Per-leaf pass 1: grid = nparts, block = kThreads; partial p covers
-// x[p * span, min(n, (p + 1) * span)).
-__global__ void __launch_bounds__(kThreads)
-masked_moments_partial_kernel(const float* __restrict__ x, int n, int span,
-                              const float* __restrict__ t_pos,
-                              const float* __restrict__ t_neg,
-                              double* __restrict__ psum, unsigned* __restrict__ pcnt) {
-  const int p = blockIdx.x;
-  const size_t start = (size_t)p * span;
-  const float* xb = x + start;
-  const size_t rest = (size_t)n - start;
-  const int count = rest < (size_t)span ? (int)rest : span;
-  const bool vec = (reinterpret_cast<uintptr_t>(xb) & 15u) == 0u;
-  moments_partial(xb, count, vec, *t_pos, -*t_neg, psum + (size_t)p * 2,
-                  pcnt + (size_t)p * 2);
-}
-
 struct OneSegment {
   __device__ int operator()(int) const { return 0; }
 };
 
-// Per-leaf pass 2: grid = 1, block = kThreads; warp 0 folds the partials.
-// out: f32[2, 2].
+// Warps of the contract's CTA of kThreads threads: a partial's "groups".
+constexpr int kGroups = kWarps;
+
+// One entry of a quad as moment_one adds it, or nothing when it lies past
+// the partial (e >= count): its quads are the contract's, whatever loads.
+__device__ __forceinline__ void moment_quad_n(float4 v, int valid, float tpos, float ntneg,
+                                              double& s0, unsigned& c0, double& s1,
+                                              unsigned& c1) {
+  if (valid >= 4) {
+    moment_quad(v, tpos, ntneg, s0, c0, s1, c1);
+    return;
+  }
+  if (valid > 0) moment_one(v.x, tpos, ntneg, s0, c0, s1, c1);
+  if (valid > 1) moment_one(v.y, tpos, ntneg, s0, c0, s1, c1);
+  if (valid > 2) moment_one(v.z, tpos, ntneg, s0, c0, s1, c1);
+}
+
+// masked_moments, one launch: grid = any G >= 1, block = kThreads, one
+// warp per "unit".  The sums are the two-kernel contract's (moments_partial
+// then the fold) bit for bit: partial p covers x[p * span, min(n, (p + 1) *
+// span)), "thread" t = 32 g + l of group g takes the partial's quads t,
+// t + kThreads, ... in order, each group is folded by warp_sum_d and the
+// kGroups group sums are added in order; then the partials' fold.
+//
+// A unit is kGpw groups of one partial (kGpw in {8, 4, 2, 1}: the wrapper
+// takes the most with kGpw * steps <= 8, steps = the quads a contract
+// thread takes): lane l carries the contract's threads 32 g + l of its
+// groups, each with its own f64 sums, and issues its loads kLoads at a time
+// (at bm * lanes = 1,024: the 8 coalesced quads of one partial, all in
+// flight before the first add).  Units are dealt warp-major over the grid
+// (unit = warp * G + blockIdx.x), so a few units (large spans) still spread
+// over SMs.  The group folds are shuffles; no shared memory and no barrier
+// until the end.
+//
+// A whole partial (kGpw = 8): lane 0 adds the group sums and writes psum[p],
+// pcnt[p].  A split partial: lane 0 writes its groups' sums to gsum[p, g]
+// and its counts to gcnt[unit], fences, and takes the partial's ticket
+// (pticket[p], atomicInc wrapping to 0); the unit that draws the last adds
+// the partial's kGroups group sums in order.  Then the last CTA (ticket)
+// stages every partial and warp 0 folds them (fold_warps, as seg_moments'
+// fold).  kVec: x is 16-byte aligned and span % 4 == 0, so every whole
+// quad is one float4 load; else four scalar loads.
+template <int kGpw, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-masked_moments_final_kernel(const double* __restrict__ psum,
-                            const unsigned* __restrict__ pcnt, int nparts,
-                            float* __restrict__ out) {
+masked_moments_kernel(const float* __restrict__ x, int n, int span, int nparts, int steps,
+                      const float* __restrict__ t_pos, const float* __restrict__ t_neg,
+                      double2* __restrict__ psum, uint2* __restrict__ pcnt,
+                      double2* __restrict__ gsum, uint2* __restrict__ gcnt,
+                      unsigned* __restrict__ pticket, unsigned* __restrict__ ticket,
+                      float* __restrict__ out) {
+  constexpr int kSplit = kGroups / kGpw;          // units a partial
+  constexpr int kLoads = kGpw == 1 ? 16 : 8;      // loads a lane issues at once
+  constexpr int kStepsAt = kLoads / kGpw;         // steps they cover
   __shared__ FoldStage st;
-  const bool folds = threadIdx.x < 32;
-  fold_warps(psum, pcnt, OneSegment{}, 0, folds ? 0 : nparts, folds ? nparts - 1 : -1,
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int unit = warp * gridDim.x + blockIdx.x;
+  if (unit < nparts * kSplit) {
+    const float tpos = *t_pos, ntneg = -*t_neg;
+    const int p = unit / kSplit, g0 = (unit % kSplit) * kGpw;
+    const float* xb = x + (size_t)p * span;
+    const int count = min(span, n - p * span);
+    double s0[kGpw], s1[kGpw];
+    unsigned c0 = 0u, c1 = 0u;
+#pragma unroll
+    for (int g = 0; g < kGpw; ++g) s0[g] = s1[g] = 0.0;
+    for (int r0 = 0; r0 < steps; r0 += kStepsAt) {
+      float4 v[kLoads];
+      int valid[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {  // load step r0 + j / kGpw of group g0 + j % kGpw
+        const int r = r0 + j / kGpw;
+        const int e = 4 * (r * kThreads + (g0 + j % kGpw) * 32 + lane);
+        valid[j] = r < steps ? min(4, max(0, count - e)) : 0;
+        if (kVec && valid[j] == 4) {
+          v[j] = reinterpret_cast<const float4*>(xb)[e / 4];
+        } else {
+          v[j] = make_float4(valid[j] > 0 ? xb[e] : 0.0f, valid[j] > 1 ? xb[e + 1] : 0.0f,
+                             valid[j] > 2 ? xb[e + 2] : 0.0f, valid[j] > 3 ? xb[e + 3] : 0.0f);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j)
+        moment_quad_n(v[j], valid[j], tpos, ntneg, s0[j % kGpw], c0, s1[j % kGpw], c1);
+    }
+#pragma unroll
+    for (int g = 0; g < kGpw; ++g) {
+      s0[g] = warp_sum_d(s0[g]);
+      s1[g] = warp_sum_d(s1[g]);
+    }
+    c0 = warp_sum_u(c0);
+    c1 = warp_sum_u(c1);
+    if (lane == 0) {
+      if (kSplit == 1) {
+        double t0 = 0.0, t1 = 0.0;
+#pragma unroll
+        for (int g = 0; g < kGpw; ++g) { t0 += s0[g]; t1 += s1[g]; }
+        psum[p] = make_double2(t0, t1);
+        pcnt[p] = make_uint2(c0, c1);
+      } else {
+#pragma unroll
+        for (int g = 0; g < kGpw; ++g) gsum[(size_t)p * kGroups + g0 + g] = make_double2(s0[g], s1[g]);
+        gcnt[unit] = make_uint2(c0, c1);
+        __threadfence();
+        if (atomicInc(&pticket[p], kSplit - 1) == kSplit - 1) {
+          __threadfence();
+          double t0 = 0.0, t1 = 0.0;
+          unsigned n0 = 0u, n1 = 0u;
+          for (int g = 0; g < kGroups; ++g) {
+            const double2 gs = __ldcg(gsum + (size_t)p * kGroups + g);  // other warps': L2
+            t0 += gs.x; t1 += gs.y;
+          }
+          for (int u = 0; u < kSplit; ++u) {
+            const uint2 gc = __ldcg(gcnt + (size_t)p * kSplit + u);
+            n0 += gc.x; n1 += gc.y;
+          }
+          psum[p] = make_double2(t0, t1);
+          pcnt[p] = make_uint2(n0, n1);
+        }
+      }
+    }
+  }
+  if (!last_cta(ticket)) return;
+  const bool folds = warp == 0;
+  fold_warps(reinterpret_cast<const double*>(psum), reinterpret_cast<const unsigned*>(pcnt),
+             OneSegment{}, 0, folds ? 0 : nparts, folds ? nparts - 1 : -1,
              folds ? out : nullptr, st);
 }
 
@@ -831,18 +938,52 @@ extern "C" int hist2side_launch(const void* x, int n, const void* lo, int lo_ste
   return (int)cudaGetLastError();
 }
 
+// Groups a unit of masked_moments_kernel carries at this span (see there).
+extern "C" int masked_moments_gpw(int span) {
+  const int steps = (span + kLeafBlockElems - 1) / kLeafBlockElems;
+  int gpw = kGroups;
+  while (gpw > 1 && gpw * steps > kGroups) gpw /= 2;
+  return gpw;
+}
+
+// scratch: f64 words, written whole before they are read: psum double2[nparts],
+// then (split partials) gsum double2[nparts * 8], then pcnt uint2[nparts] and
+// (split) gcnt uint2[nparts * 8 / gpw]: the double2s first, 16-byte aligned.  work: the ticket, then (split) nparts tickets, all
+// zero (and left zero).  grid: G >= 1.
 extern "C" int masked_moments_launch(const void* x, int n, int span, const void* t_pos,
-                                     const void* t_neg, void* psum, void* pcnt, void* out,
-                                     void* stream) {
+                                     const void* t_neg, void* scratch, void* work,
+                                     void* out, int grid, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nparts = (int)(((long long)n + span - 1) / span);
-  masked_moments_partial_kernel<<<nparts, kThreads, 0, s>>>(
-      (const float*)x, n, span, (const float*)t_pos, (const float*)t_neg, (double*)psum,
-      (unsigned*)pcnt);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  masked_moments_final_kernel<<<1, kThreads, 0, s>>>(
-      (const double*)psum, (const unsigned*)pcnt, nparts, (float*)out);
+  const int steps = (span + kLeafBlockElems - 1) / kLeafBlockElems;
+  const int gpw = masked_moments_gpw(span);
+  const bool vec = aligned16(x) && span % 4 == 0;
+  double* sc = (double*)scratch;
+  const size_t gwords = gpw < kGroups ? 2 * (size_t)nparts * kGroups : 0;
+  double2* psum = (double2*)sc;
+  double2* gsum = (double2*)(sc + 2 * (size_t)nparts);
+  uint2* pcnt = (uint2*)(sc + 2 * (size_t)nparts + gwords);
+  uint2* gcnt = (uint2*)(sc + 3 * (size_t)nparts + gwords);
+  unsigned* ticket = (unsigned*)work;
+  unsigned* pticket = ticket + 1;
+  const float* xf = (const float*)x;
+  const float *tp = (const float*)t_pos, *tn = (const float*)t_neg;
+  float* o = (float*)out;
+#define MM_LAUNCH(G, V)                                                                   \
+  masked_moments_kernel<G, V><<<grid, kThreads, 0, s>>>(xf, n, span, nparts, steps, tp, tn, \
+                                                         psum, pcnt, gsum, gcnt, pticket,  \
+                                                         ticket, o)
+  switch (gpw * 2 + (vec ? 1 : 0)) {
+    case 17: MM_LAUNCH(8, true); break;
+    case 16: MM_LAUNCH(8, false); break;
+    case 9: MM_LAUNCH(4, true); break;
+    case 8: MM_LAUNCH(4, false); break;
+    case 5: MM_LAUNCH(2, true); break;
+    case 4: MM_LAUNCH(2, false); break;
+    case 3: MM_LAUNCH(1, true); break;
+    default: MM_LAUNCH(1, false); break;
+  }
+#undef MM_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -50,13 +50,24 @@ def masked_moments_plain(flat: torch.Tensor, t_pos, t_neg, *, bm: int = DEFAULT_
     return fold_moments(sums, counts, seg, 1)[0]
 
 
+def moments_grid(nparts: int, gpw: int, sms: int) -> int:
+    """CTAs of the CUDA ``masked_moments`` launch: one warp a unit of
+    ``gpw`` groups of a partial (8 groups a partial), 8 warps a CTA, and
+    at least one CTA an SM while there are units (a few units of a large
+    span then run on SMs of their own)."""
+    units = nparts * (8 // gpw)
+    return max(-(-units // 8), min(units, sms))
+
+
 def masked_moments(flat: torch.Tensor, t_pos, t_neg, *, bm: int = DEFAULT_BM,
                    lanes: int = DEFAULT_LANES) -> torch.Tensor:
     """(2, 2) f32 masked moments; see :func:`masked_moments_plain`.
 
     Replaces the Pallas ``repro.kernels.moments.masked_moments``.  On the
-    card: two launches (per-partial f64 sums, then the fixed-order fold),
-    counted as one call of this wrapper.
+    card: one launch and one device operation.  A warp sums a partial (or,
+    for spans of more than 1,024 entries, a share of its 8 groups of 32
+    "threads", added in order by the share that finishes last), and the
+    last CTA folds the partials.
     """
     x = leaf_operand(flat)
     span = check_tile(bm, lanes)
@@ -65,13 +76,20 @@ def masked_moments(flat: torch.Tensor, t_pos, t_neg, *, bm: int = DEFAULT_BM,
     if not x.is_cuda:
         return masked_moments_plain(x, tp, tn, bm=bm, lanes=lanes)
     dev = x.device
+    lib = _build.library()
     nparts = -(-x.numel() // span)
-    psum = torch.empty((nparts, 2), dtype=torch.float64, device=dev)
-    pcnt = torch.empty((nparts, 2), dtype=torch.int32, device=dev)
+    gpw = lib.masked_moments_gpw(span)
+    split = 8 // gpw
+    # f64 words: psum double2, a split partial's group sums double2[8], then
+    # pcnt uint2 and a split partial's counts uint2 a unit
+    words = 3 * nparts + (0 if split == 1 else 16 * nparts + split * nparts)
+    scratch = torch.empty((words,), dtype=torch.float64, device=dev)
+    ws = _build.workspace(dev, 1 + (nparts if split > 1 else 0))
     out = torch.empty((2, 2), dtype=torch.float32, device=dev)
-    _build.launch(_build.library().masked_moments_launch, "masked_moments", x,
+    grid = moments_grid(nparts, gpw, _build.sm_count(dev.index))
+    _build.launch(lib.masked_moments_launch, "masked_moments", x,
                   x.data_ptr(), x.numel(), span, tp.data_ptr(), tn.data_ptr(),
-                  psum.data_ptr(), pcnt.data_ptr(), out.data_ptr())
+                  scratch.data_ptr(), ws.data_ptr(), out.data_ptr(), grid)
     masked_moments.launches += 1
     return out
 

@@ -38,7 +38,7 @@ from repro_torch.core.flat import ShardedFlatParamSpace
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, build_model
 from repro_torch.core.policy import CompressionPolicy
-from repro_torch.optim.optimizers import AdamState, get_optimizer
+from repro_torch.optim.optimizers import get_optimizer, map_states
 
 
 def client_topology(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
@@ -74,16 +74,6 @@ def dist_leaf_mode(codec: Codec) -> str:
         f"dist backend has no exchange kernel for codec {codec.spec!r}; "
         "supported: sbc (topk_signed|binarize|golomb), dense32, skip"
     )
-
-
-def _zip_states(fn, states):
-    """Apply ``fn`` to the list of matching leaves of several optimizer
-    states (Adam's ``(m, v)``, a momentum dict, or SGD's ``()``)."""
-    s0 = states[0]
-    if isinstance(s0, AdamState):
-        return AdamState(_zip_states(fn, [s.m for s in states]),
-                         _zip_states(fn, [s.v for s in states]))
-    return {k: fn([s[k] for s in states]) for k in s0} if s0 else s0
 
 
 def build_dist_train(
@@ -158,7 +148,7 @@ def build_dist_train(
         params = {k: v.to(device) for k, v in model.init(gen).items()}
         return {
             "params": params,
-            "opt": _zip_states(lambda v: v[0].expand((n_clients,) + v[0].shape).clone(),
+            "opt": map_states(lambda v: v[0].expand((n_clients,) + v[0].shape).clone(),
                                [opt.init(params)]),
             "residual": channel.init_state(params),
         }
@@ -174,7 +164,7 @@ def build_dist_train(
             loss = model.loss_fn(leaves_c, {k: v[c] for k, v in batch.items()})
             grads = dict(zip(keys, torch.autograd.grad(loss, [leaves_c[k] for k in keys])))
             with torch.no_grad():
-                p2, os2 = opt.apply(_zip_states(lambda v: v[0][c], [state["opt"]]),
+                p2, os2 = opt.apply(map_states(lambda v: v[0][c], [state["opt"]]),
                                     grads, params, cfg.base_lr, 0)
                 deltas.append({
                     k: p2[k].to(torch.float32) - params[k].to(torch.float32)
@@ -194,7 +184,7 @@ def build_dist_train(
                     ).to(params[k].dtype)
                 for k in keys
             }
-            opt_state = _zip_states(torch.stack, opt_states)
+            opt_state = map_states(torch.stack, opt_states)
             if need_mask:
                 transmitted = {k: (o != 0).to(torch.float32) for k, o in own_tree.items()}
                 opt_state = opt.mask(opt_state, transmitted)

@@ -107,5 +107,15 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer("adam", init, apply, mask)
 
 
+def map_states(fn, states):
+    """Apply ``fn`` to the list of matching tensors of several optimizer
+    states (Adam's ``(m, v)``, a momentum dict, or SGD's ``()``)."""
+    s0 = states[0]
+    if isinstance(s0, AdamState):
+        return AdamState(map_states(fn, [s.m for s in states]),
+                         map_states(fn, [s.v for s in states]))
+    return {k: fn([s[k] for s in states]) for k in s0} if s0 else s0
+
+
 def get_optimizer(name: str, **kw) -> Optimizer:
     return {"sgd": sgd, "momentum": momentum, "adam": adam}[name](**kw)

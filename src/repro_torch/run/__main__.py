@@ -2,6 +2,8 @@
 
 Same flags as ``python -m repro.run``; the port runs
 
+  PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend local \\
+      --sparsity 0.01 --rounds 5 --measure-wire [--fast]
   PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend gspmd \\
       --fast --flat-engine hist --sparsity 0.01 --batch 128 --rounds 5
   PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend gspmd \\
@@ -15,6 +17,8 @@ import json
 import os
 import time
 
+import torch
+
 from repro_torch.run.build import build_run
 from repro_torch.run.flags import build_parser, spec_from_args
 
@@ -27,14 +31,15 @@ def main(argv=None):
     spec = spec_from_args(args)
     run = build_run(spec, device=args.device)
 
-    n_params = sum(s.global_size for s in run.fns.flat_space.segments)
+    n_params = sum(v.numel() for v in run.model.init(torch.Generator()).values())
+    engine = (f"engine={spec.flat_engine} device_pack={spec.device_pack} "
+              if spec.backend == "gspmd" else "")
     print(
         f"run: backend={spec.backend} preset={spec.preset} "
         f"arch={run.cfg.name} params={n_params/1e6:.2f}M "
         f"compressor={spec.compressor} clients={run.n_clients} "
         f"delay={spec.delay} p={spec.sparsity} fast={spec.fast} "
-        f"engine={spec.flat_engine} device_pack={spec.device_pack} "
-        f"device={run.device}"
+        f"{engine}device={run.device}"
     )
     t0 = time.time()
     state, hist = run.run(log_every=args.log_every)
@@ -56,7 +61,7 @@ def main(argv=None):
     if args.history:
         os.makedirs(os.path.dirname(os.path.abspath(args.history)), exist_ok=True)
         with open(args.history, "w") as f:
-            json.dump(hist, f, default=float)
+            json.dump({k: v for k, v in hist.items() if k != "eval"}, f, default=float)
         print(f"wrote {args.history}")
     return hist
 

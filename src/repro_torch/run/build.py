@@ -1,28 +1,35 @@
-"""``build_run(spec) -> GspmdRun``: a declarative spec drives the port.
+"""``build_run(spec) -> Run``: a declarative spec drives the port.
 
-Counterpart of ``repro.run.build``.  The port carries the GSPMD backend
-on one card with either flat engine, the exact one optionally with the
-device-packed Golomb wire and its metering:
+Counterpart of ``repro.run.build``.  The port carries two backends:
 
-    build_run(RunSpec(preset="lenet5", backend="gspmd", fast=True,
-                      flat_engine="hist", sparsity=0.01))
-    build_run(RunSpec(preset="lenet5", backend="gspmd", fast=True,
-                      flat_engine="exact", device_pack=True,
-                      measure_wire=True, sparsity=0.01))
+  local   :class:`~repro_torch.train.trainer.DSGDTrainer` over a
+          :class:`~repro_torch.core.channel.LocalVmapChannel` (the paper's
+          Alg. 1 round, clients as a leading axis), with ``fast`` either
+          way and ``measure_wire``:
 
-Either takes per-leaf policy rules (``dense_pattern``, ``skip_pattern``),
-built by :func:`policy_from_spec` as in the reference; the hist engine
-takes all-SBC policies only and raises ``ValueError`` at its first step
-otherwise, as the reference does.  Every other combination raises
+              build_run(RunSpec(preset="lenet5", backend="local",
+                                sparsity=0.01, measure_wire=True))
+
+  gspmd   one card, either flat engine, the exact one optionally with the
+          device-packed Golomb wire and its metering:
+
+              build_run(RunSpec(preset="lenet5", backend="gspmd", fast=True,
+                                flat_engine="exact", device_pack=True,
+                                measure_wire=True, sparsity=0.01))
+
+Both take per-leaf policy rules (``dense_pattern``, ``skip_pattern``),
+built by :func:`policy_from_spec` as in the reference; the GSPMD hist
+engine takes all-SBC policies only and raises ``ValueError`` at its first
+step otherwise, as the reference does.  Every other combination raises
 ``NotImplementedError`` naming the ROADMAP item that brings it; none runs
-a different path in silence.  The run is
-on the CUDA card unless ``device="cpu"`` is passed; without a card
-``build_run`` raises ``RuntimeError``.
+a different path in silence.  The run is on the CUDA card unless
+``device="cpu"`` is passed; without a card ``build_run`` raises
+``RuntimeError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
@@ -38,24 +45,23 @@ from repro_torch.run.spec import RunSpec
 def _check_slice(spec: RunSpec) -> None:
     """Refuse every spec field this port does not carry yet."""
     todo = []
-    if spec.backend == "local":
-        todo.append("backend='local' (ROADMAP A6)")
-    elif spec.backend == "fed":
+    if spec.backend == "fed":
         todo.append("backend='fed' (ROADMAP A8)")
     if spec.preset not in PORTED_PRESETS:
         todo.append(f"preset {spec.preset!r} (ROADMAP A5/A12)")
     if spec.compressor != "sbc":
         todo.append(f"compressor {spec.compressor!r} (ROADMAP A12)")
-    if not spec.fast:
-        todo.append("fast=False, the per-leaf exchange (ROADMAP A9)")
+    if spec.backend == "gspmd" and not spec.fast:
+        todo.append("fast=False on gspmd, the per-leaf exchange (ROADMAP A9)")
     if spec.telemetry:
         todo.append("telemetry (ROADMAP A11)")
     if todo:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(todo) + ". This port carries "
-            "preset='lenet5', backend='gspmd', fast=True with "
-            "flat_engine='hist' or 'exact' (device_pack, measure_wire, "
-            "dense_pattern and skip_pattern included)."
+            "preset='lenet5' on backend='local' (fast either way, measure_wire) "
+            "and on backend='gspmd' with fast=True and flat_engine='hist' or "
+            "'exact' (device_pack, measure_wire), with dense_pattern and "
+            "skip_pattern on both."
         )
 
 
@@ -86,6 +92,90 @@ def policy_from_spec(spec: RunSpec) -> Union[Compressor, CompressionPolicy]:
 
 def as_policy(thing: Union[Compressor, CompressionPolicy]) -> CompressionPolicy:
     return thing.policy if isinstance(thing, Compressor) else thing
+
+
+def lr_schedule(base_lr: float) -> Callable[[int], float]:
+    """``lr(iteration)``: the constant ``base_lr`` (a host float: the port's
+    rounds run on the host)."""
+    return lambda it: base_lr
+
+
+# ------------------------------------------------------------ local backend
+
+
+@dataclasses.dataclass(eq=False)
+class LocalRun:
+    """A built local backend: the init/step/evaluate/checkpoint/run surface
+    over a :class:`~repro_torch.train.trainer.DSGDTrainer`."""
+
+    spec: RunSpec
+    cfg: Any
+    model: Any
+    task: Any
+    channel: Any
+    trainer: Any
+    batch_fn: Callable
+    device: torch.device
+
+    @property
+    def n_clients(self) -> int:
+        return self.spec.clients
+
+    @property
+    def ledger(self):
+        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`."""
+        return self.channel.ledger
+
+    def init(self, gen: Optional[torch.Generator] = None):
+        return self.trainer.init(gen, self.spec.seed)
+
+    def step(self, state, round_idx: int) -> tuple:
+        """One communication round; returns ``(state, metrics)``.  With
+        ``measure_wire`` client 0's upload is packed to SBW1 bytes and
+        metered ×C into the ledger, which waits for the device; without
+        it the round never waits."""
+        return self.trainer.step(state, self.batch_fn(round_idx), round_idx,
+                                 n_delay=self.spec.delay, sparsity=self.spec.sparsity,
+                                 measure_wire=self.spec.measure_wire)
+
+    def evaluate(self, state) -> dict:
+        """Held-out loss: a batch stream no training client draws."""
+        batch = self.task.sample(0, self.spec.clients + 1)
+        with torch.no_grad():
+            return {"loss": float(self.model.loss_fn(state.params, batch))}
+
+    def checkpoint(self, state, path: str) -> None:
+        from repro_torch.checkpoint.io import save_train_state
+
+        save_train_state(path, state)
+
+    def run(self, n_rounds: Optional[int] = None, log_every: int = 0) -> tuple:
+        """init + :meth:`step` loop; returns ``(state, history)``."""
+        from repro_torch.train.trainer import run_rounds
+
+        return run_rounds(self.init(), self.step, log_every=log_every,
+                          n_rounds=self.spec.rounds if n_rounds is None else n_rounds)
+
+
+def _build_local(spec: RunSpec, dev: torch.device) -> LocalRun:
+    from repro_torch.data import client_batches
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train import DSGDTrainer
+
+    cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
+                             seed=spec.seed, device=dev)
+    model = build_model(cfg)
+    trainer = DSGDTrainer(
+        model=model, compressor=policy_from_spec(spec),
+        optimizer=get_optimizer(cfg.local_opt), n_clients=spec.clients,
+        lr=lr_schedule(spec.lr if spec.lr is not None else cfg.base_lr),
+        device=dev, _from_run=True)
+    return LocalRun(spec=spec, cfg=cfg, model=model, task=task, channel=trainer.channel,
+                    trainer=trainer, batch_fn=client_batches(task, spec.clients, spec.delay),
+                    device=dev)
+
+
+# ------------------------------------------------------------ gspmd backend
 
 
 @dataclasses.dataclass(eq=False)
@@ -154,11 +244,11 @@ class GspmdRun:
         return state, hist
 
 
-def build_run(spec: RunSpec, device=None) -> GspmdRun:
+def build_run(spec: RunSpec, device=None) -> Union[LocalRun, GspmdRun]:
     """Construct the backend a spec names, on ``device`` (default: the CUDA
     card; an explicit ``"cuda:N"`` picks one of several cards)."""
     _check_slice(spec)
-    if device is None and torch.cuda.device_count() > 1:
+    if spec.backend == "gspmd" and device is None and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "the reference puts one client on every local device; several "
             "cards need torch.distributed (ROADMAP A9). Pass device='cuda:0' "
@@ -170,6 +260,8 @@ def build_run(spec: RunSpec, device=None) -> GspmdRun:
     # TF32, which keeps about three decimal digits).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if spec.backend == "local":
+        return _build_local(spec, dev)
     cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
                              seed=spec.seed, device=dev)
     model = build_model(cfg)

@@ -9,7 +9,7 @@ does not carry yet parse as they do there; ``build_run`` then raises
 from __future__ import annotations
 
 import argparse
-from typing import Tuple
+from typing import Optional, Tuple
 
 from repro_torch.run.spec import BACKENDS, RunSpec
 
@@ -120,7 +120,7 @@ def add_run_flags(ap: argparse.ArgumentParser, **defaults) -> argparse.ArgumentP
 def build_parser(**defaults) -> argparse.ArgumentParser:
     """The parser of ``python -m repro_torch.run``."""
     ap = argparse.ArgumentParser(
-        description="One declarative RunSpec (PyTorch port: gspmd, hist or exact engine)"
+        description="One declarative RunSpec (PyTorch port: the local and gspmd backends)"
     )
     add_run_flags(ap, **defaults)
     return ap
@@ -142,18 +142,22 @@ def parse_profiles(spec_str: str) -> Tuple[Tuple[int, float, float], ...]:
     return tuple(out)
 
 
-def spec_from_args(args: argparse.Namespace) -> RunSpec:
-    """argparse namespace → frozen RunSpec; ``--spec-json`` wins over every
-    other flag."""
+def spec_from_args(args: argparse.Namespace,
+                   backend: Optional[str] = None) -> RunSpec:
+    """argparse namespace → frozen RunSpec.  ``backend`` pins the launcher's
+    backend whatever the flag says; ``--spec-json`` wins over every other
+    flag."""
     if getattr(args, "spec_json", None):
         with open(args.spec_json) as f:
             spec = RunSpec.from_json(f.read())
+        if backend:
+            spec = spec.replace(backend=backend)
         if telemetry_requested(args):
             spec = spec.replace(telemetry=True)
         return spec
     return RunSpec(
         preset=args.preset,
-        backend=args.backend,
+        backend=backend or args.backend,
         rounds=args.rounds,
         batch=args.batch,
         seq_len=args.seq_len,

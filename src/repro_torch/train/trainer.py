@@ -1,0 +1,229 @@
+"""DSGD trainer: paper Alg. 1 with SBC (Alg. 2), the local backend.
+
+Counterpart of ``repro.train.trainer``.  One *communication round*:
+
+  1. every client starts from the master weights W                  (l.7-9)
+  2. and runs ``n_delay`` local optimizer steps on its own microbatches
+     (l.10), at the real iteration ``it = round · n_delay + d`` with
+     ``lr(it)`` (unlike the GSPMD step, which pins Adam at step 0);
+  3. ΔW_i = R_i + (W_i' − W);  ΔW*_i = compress(ΔW_i);  R_i ← ΔW_i − ΔW*_i
+     (l.10-12, in the policy engine);
+  4. exchange: ΔW ← mean_i ΔW*_i;  W ← W + ΔW                        (l.17-19)
+  5. momentum masking (supplement A): each client's momentum is zeroed
+     where its own ΔW*_i is non-zero.
+
+Steps 3-4 and the bit accounting are one
+:class:`~repro_torch.core.channel.LocalVmapChannel` call.  The reference
+``vmap``s the clients; here the local steps loop over the clients (one
+forward and backward each), and the channel compresses all clients at
+once on the flat fast path (``fast=True``) or client by client on the
+per-leaf path.  Nothing in a round waits for the device.
+
+``DSGDTrainer`` is the legacy entry point of this backend, as in the
+reference: ``repro_torch.run.build_run(RunSpec(backend="local", ...))``
+builds the same trainer, and direct construction warns with a
+``DeprecationWarning``.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import warnings
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.api import Compressor
+from repro_torch.core.channel import LocalVmapChannel, mean_over_clients
+from repro_torch.core.policy import CompressionPolicy, CompressorState, ResolvedPolicy
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model
+from repro_torch.optim.optimizers import Optimizer, map_states
+
+PyTree = Any
+
+
+class TrainState(NamedTuple):
+    params: dict  # master weights W (shared by all clients)
+    opt_states: Any  # per-client local optimizer state (leading C axis)
+    comp_state: CompressorState  # per-client compressor state (leading C axis)
+    round: torch.Tensor  # communication-round counter, int32[] on the CPU
+
+
+@dataclasses.dataclass(eq=False)
+class DSGDTrainer:
+    model: Model
+    compressor: Union[Compressor, CompressionPolicy]
+    optimizer: Optimizer
+    n_clients: int
+    lr: Callable[[int], float]  # lr(iteration) schedule
+    device: Any = None  # the card unless "cpu" is asked for
+    # repro_torch.run builds the trainer itself and suppresses the warning
+    _from_run: dataclasses.InitVar[bool] = False
+
+    def __post_init__(self, _from_run: bool = False) -> None:
+        if not _from_run:
+            warnings.warn(
+                "constructing DSGDTrainer directly is the legacy local-backend "
+                "surface; build it declaratively via repro_torch.run.build_run("
+                "RunSpec(backend='local', ...)) (the same trainer and states)",
+                DeprecationWarning, stacklevel=2)
+        self.device = resolve_device(self.device)
+        if isinstance(self.compressor, CompressionPolicy):
+            self.compressor = Compressor.from_policy(self.compressor.name, self.compressor)
+        self.channel = LocalVmapChannel(compressor=self.compressor, n_clients=self.n_clients)
+
+    @property
+    def ledger(self):
+        """The channel's bandwidth ledger (one row a round with
+        ``measure_wire``)."""
+        return self.channel.ledger
+
+    def resolved(self, params: PyTree) -> ResolvedPolicy:
+        """The compressor's policy bound to this model's parameters."""
+        return self.channel.resolved(params)
+
+    # ------------------------------------------------------------------ init
+
+    def init(self, gen: Optional[torch.Generator] = None, seed: int = 0) -> TrainState:
+        """Initial state: parameters drawn from ``gen`` (default: seeded
+        ``seed``), zero optimizer and compressor states for every client."""
+        if gen is None:
+            gen = torch.Generator().manual_seed(seed)
+        params = {k: v.to(self.device) for k, v in self.model.init(gen).items()}
+        C = self.n_clients
+        opt_states = map_states(lambda v: v[0].expand((C,) + tuple(v[0].shape)).clone(),
+                                [self.optimizer.init(params)])
+        comp_state = self.channel.init_state(params, seed)
+        return TrainState(params, opt_states, comp_state, torch.zeros((), dtype=torch.int32))
+
+    # ------------------------------------------------------------- one round
+
+    def round_step(self, state: TrainState, batch: dict, *, n_delay: int,
+                   sparsity: Union[float, Tuple[float, ...]],
+                   return_compressed: bool = False) -> tuple:
+        """One communication round; ``batch`` is ``(clients, n_delay,
+        per_client_batch, ...)``.  Returns ``(state, metrics)``, and client
+        0's compressed tree with ``return_compressed``."""
+        params = state.params
+        keys = sorted(params)
+        iteration = int(state.round) * n_delay  # forward-backward passes so far
+        deltas, opt_states, losses = [], [], []
+        with _deterministic_convolutions():
+            for c in range(self.n_clients):
+                p = params
+                os = map_states(lambda v: v[0][c], [state.opt_states])
+                client_losses = []
+                for d in range(n_delay):
+                    it = iteration + d
+                    leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+                    loss = self.model.loss_fn(leaves, {k: v[c, d] for k, v in batch.items()})
+                    grads = dict(zip(keys, torch.autograd.grad(loss, [leaves[k] for k in keys])))
+                    with torch.no_grad():
+                        p, os = self.optimizer.apply(os, grads, p, self.lr(it), it)
+                    client_losses.append(loss.detach())
+                deltas.append({k: p[k].to(torch.float32) - params[k].to(torch.float32)
+                               for k in keys})
+                opt_states.append(os)
+                losses.append(mean_over_clients(torch.stack(client_losses)))
+
+        with torch.no_grad():
+            stacked = {k: torch.stack([d[k] for d in deltas]) for k in keys}
+            ex = self.channel.round_exchange(stacked, state.comp_state, sparsity,
+                                             return_compressed=return_compressed)
+            new_params = {k: (params[k].to(torch.float32)
+                              + ex.mean_delta[k].to(torch.float32)).to(params[k].dtype)
+                          for k in keys}
+            # momentum masking at each client's transmitted coordinates
+            transmitted = {k: (v != 0).to(torch.float32) for k, v in ex.transmitted.items()}
+            opt_state = self.optimizer.mask(map_states(torch.stack, opt_states), transmitted)
+            n_params = sum(v.numel() for v in params.values())
+            metrics = {
+                "loss": mean_over_clients(torch.stack(losses)),
+                "bits_per_client": ex.bits_per_client,
+                "bits_dense": 32.0 * n_params * n_delay,
+                "update_norm": _tree_norm(ex.mean_delta),
+            }
+        new_state = TrainState(new_params, opt_state, ex.state, state.round + 1)
+        if return_compressed:
+            return new_state, metrics, ex.compressed0
+        return new_state, metrics
+
+    def step(self, state: TrainState, batch: dict, round_idx: int, *, n_delay: int,
+             sparsity: float, measure_wire: bool = False) -> tuple:
+        """One metered round: :meth:`round_step` at the policy's rates for
+        ``round_idx``; with ``measure_wire`` client 0's upload is packed to
+        SBW1 bytes and metered ×C into the ledger, which waits for the
+        device (without it the round never waits).  Returns ``(state,
+        metrics)``."""
+        rates = self.resolved(state.params).rates(sparsity, round_idx)
+        out = self.round_step(state, batch, n_delay=n_delay, sparsity=rates,
+                              return_compressed=measure_wire)
+        if not measure_wire:
+            return out
+        state, m, comp0 = out
+        m = dict(m)
+        m["measured_bits_per_client"] = self.channel.record_round(
+            round_idx, params=state.params, compressed0=comp0, rate=sparsity,
+            bits_analytic_per_client=float(m["bits_per_client"]))
+        return state, m
+
+    def fit(self, gen: Optional[torch.Generator], batch_fn: Callable[[int], dict], *,
+            n_rounds: int, n_delay: int, sparsity: float, seed: int = 0,
+            log_every: int = 0, measure_wire: bool = False) -> tuple:
+        """Run ``n_rounds`` communication rounds of :meth:`step` from
+        :meth:`init`; returns ``(state, history)``."""
+        return run_rounds(
+            self.init(gen, seed),
+            lambda state, r: self.step(state, batch_fn(r), r, n_delay=n_delay,
+                                       sparsity=sparsity, measure_wire=measure_wire),
+            n_rounds=n_rounds, log_every=log_every)
+
+
+def run_rounds(state: TrainState, step: Callable[[TrainState, int], tuple], *,
+               n_rounds: int, log_every: int = 0) -> tuple:
+    """The local backend's round loop: ``step(state, r)`` for each round,
+    its metrics gathered into the reference's history (with
+    ``measured_bits_per_client`` and ``measured_total_bits`` where the
+    step meters the wire).  Returns ``(state, history)``."""
+    hist: dict = {"round": [], "loss": [], "bits_per_client": []}
+    dense_total = 0.0
+    for r in range(n_rounds):
+        state, m = step(state, r)
+        hist["round"].append(r)
+        hist["loss"].append(float(m["loss"]))
+        hist["bits_per_client"].append(float(m["bits_per_client"]))
+        dense_total += float(m["bits_dense"])
+        if "measured_bits_per_client" in m:
+            hist.setdefault("measured_bits_per_client", []).append(
+                m["measured_bits_per_client"])
+        if log_every and (r + 1) % log_every == 0:
+            print(f"round {r + 1:5d}  loss {float(m['loss']):.4f}  "
+                  f"bits/client {float(m['bits_per_client']):.3e}")
+    total_bits = sum(hist["bits_per_client"], 0.0)
+    hist["total_upload_bits"] = total_bits
+    hist["dense_total_bits"] = dense_total
+    hist["compression_rate"] = dense_total / max(total_bits, 1.0)
+    if hist.get("measured_bits_per_client"):
+        hist["measured_total_bits"] = sum(hist["measured_bits_per_client"])
+    return state, hist
+
+
+@contextlib.contextmanager
+def _deterministic_convolutions():
+    """Take cuDNN's deterministic convolution algorithms for the local
+    steps, so that a round repeats bit for bit (on the card, the weight
+    gradients of a convolution may otherwise add in another order each
+    call), as the reference's does."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _tree_norm(tree: dict) -> torch.Tensor:
+    """√Σ x² over the tree's leaves, summed leaf by leaf in leaf order."""
+    return torch.sqrt(sum(torch.sum(torch.square(tree[k].to(torch.float32)))
+                          for k in sorted(tree)))

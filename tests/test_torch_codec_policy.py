@@ -185,10 +185,16 @@ def test_moe_rules_match_jax():
 
 
 def test_fast_policy_raises_naming_a4():
+    """A4 is ported: a fast policy no longer raises naming it, but takes
+    the flat path, with its residual in the flat layout (the parity of that
+    path is tests/test_torch_flat_space.py)."""
     tree = to_torch(channel_tree())
     fast = tpol.CompressionPolicy(default=t_make_codec("sbc"), fast=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        fast.resolve(tree).init_state(tree)
+    resolved = fast.resolve(tree)
+    state = resolved.init_state(tree)
+    assert tuple(state.residual.shape) == (resolved.flat_space(tree).n_pad,)
+    _, _, state = resolved.compress(tree, state, 0.02)
+    assert tuple(state.residual.shape) == (resolved.flat_space(tree).n_pad,)
     # the reference runs such a policy per leaf too when a codec has no
     # flat form: so does the port
     per_leaf = tpol.CompressionPolicy(

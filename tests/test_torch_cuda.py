@@ -765,6 +765,147 @@ def test_hist2side_is_one_device_operation(cuda, case):
         assert _device_ops_per_call(lambda: thist.hist2side(x, lo, hi)) == 1
 
 
+# -------------------------------------------- the one-launch masked_moments
+
+MOMENT_SIZES = (1, 1023, 1025, 1_225_000)
+# the two tiles the callers use, and spans whose units take 4, 2 and 1 of a
+# partial's 8 groups, and one that is not a whole number of quads
+MOMENT_TILES = ((8, 128), (256, 1024), (8, 256), (16, 256), (64, 128), (1, 3))
+
+
+def _moments_leaf(size, aligned, cuda, seed=62):
+    """A Gaussian leaf of ``size`` entries, 16-byte aligned or a view one
+    entry into its buffer."""
+    rng = np.random.default_rng(seed + size)
+    base = t((rng.standard_normal(size + 1) * 2.0).astype(np.float32), cuda)
+    x = base[:size] if aligned else base[1:]
+    assert (x.data_ptr() % 16 == 0) == aligned
+    return x
+
+
+def _assert_moments_equal_plain(x, tp, tn, bm, lanes):
+    before = tmom.masked_moments.launches
+    got = tmom.masked_moments(x, tp, tn, bm=bm, lanes=lanes)
+    assert tmom.masked_moments.launches == before + 1
+    want = tmom.masked_moments_plain(x, tp, tn, bm=bm, lanes=lanes)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 2)
+    np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", MOMENT_SIZES)
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_masked_moments_one_launch_is_bit_equal_to_plain(cuda, size, aligned):
+    """Every tile, and thresholds as numbers and as device tensors (a
+    threshold of 0 counts zeros, never an entry past the leaf)."""
+    x = _moments_leaf(size, aligned, cuda)
+    for bm, lanes in MOMENT_TILES:
+        _assert_moments_equal_plain(x, 0.7, 0.5, bm, lanes)
+        tp, tn = torch.tensor(0.0, device=cuda), torch.tensor(1e-3, device=cuda)
+        got = _assert_moments_equal_plain(x, tp, tn, bm, lanes)
+        assert n(got)[0, 1] == int((x >= 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm, lanes", [(8, 128), (256, 1024)])
+def test_masked_moments_leaves_nothing_behind(cuda, bm, lanes):
+    """In a row and again, on leaves whose partials take more and fewer
+    tickets: the workspace (ticket and per-partial tickets) is zero after
+    each call."""
+    leaves = [_moments_leaf(s, a, cuda) for s in MOMENT_SIZES for a in (True, False)]
+    for _ in range(2):
+        for x in leaves + leaves[::-1]:
+            _assert_moments_equal_plain(x, 0.7, 0.5, bm, lanes)
+            torch.cuda.synchronize()
+            assert _workspace_is_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_masked_moments_on_a_second_stream(cuda):
+    calls = [(_moments_leaf(s, a, cuda), bm, lanes) for s in (1025, 1_225_000)
+             for a in (True, False) for bm, lanes in ((8, 128), (256, 1024))]
+    want = [_assert_moments_equal_plain(x, 0.7, 0.5, bm, lanes) for x, bm, lanes in calls]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = [_assert_moments_equal_plain(x, 0.7, 0.5, bm, lanes) for x, bm, lanes in calls]
+    side.synchronize()
+    assert _workspace_is_zero(cuda, side)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_masked_moments_under_cuda_graph_capture(cuda, aligned):
+    """Both tiles captured once, replayed on new values and thresholds:
+    each replay gives the plain version's bits on the values it saw."""
+    rng = np.random.default_rng(63)
+    x = _moments_leaf(1_225_000, aligned, cuda)
+    tp, tn = torch.tensor(0.7, device=cuda), torch.tensor(0.5, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture wants
+        _assert_moments_equal_plain(x, tp, tn, 8, 128)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        small = tmom.masked_moments(x, tp, tn, bm=8, lanes=128)
+        large = tmom.masked_moments(x, tp, tn, bm=256, lanes=1024)
+    for r in range(2):
+        x.copy_(t((rng.standard_normal(x.numel()) * 2.0).astype(np.float32), cuda))
+        tp.fill_(0.6 + 0.1 * r)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, (bm, lanes) in ((small, (8, 128)), (large, (256, 1024))):
+            want = tmom.masked_moments_plain(x, tp, tn, bm=bm, lanes=lanes)
+            np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+    with torch.cuda.stream(side):  # the stream's own workspace is still zero
+        _assert_moments_equal_plain(x, tp, tn, 256, 1024)
+    side.synchronize()
+    assert _workspace_is_zero(cuda, side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm, lanes", [(8, 128), (256, 1024)])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_masked_moments_is_one_device_operation(cuda, bm, lanes, aligned):
+    x = _moments_leaf(1_225_000, aligned, cuda)
+    tp, tn = torch.tensor(0.7, device=cuda), torch.tensor(0.5, device=cuda)
+    assert _device_ops_per_call(
+        lambda: tmom.masked_moments(x, tp, tn, bm=bm, lanes=lanes)) == 1
+
+
+@pytest.mark.cuda
+def test_local_run_flat_path_equals_per_leaf_path_on_the_card(cuda):
+    """The local backend (four clients) on the card: three rounds with
+    fast=True (one f32_mean_xla a segment a round) and with fast=False (two
+    per SBC leaf and client) give bit-identical params, residuals, Adam
+    states and ledger rows; no other kernel is launched."""
+    runs, states, counts = {}, {}, {}
+    for fast in (False, True):
+        run = build_run(RunSpec(preset="lenet5", backend="local", clients=4, batch=32,
+                                sparsity=0.01, measure_wire=True, fast=fast), device=cuda)
+        state = run.init()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        for r in range(3):
+            state, m = run.step(state, r)
+            assert np.isfinite(float(m["loss"]))
+        runs[fast], states[fast], counts[fast] = run, state, kernels.launch_counts()
+    for fast, per_round in ((True, 6), (False, 48)):
+        assert counts[fast] == {**{k: 0 for k in counts[fast]}, "f32_mean_xla": 3 * per_round}
+    slow, quick = states[False], states[True]
+    space = runs[True].trainer.resolved(quick.params).flat_space(quick.params)
+    residual = space.unflatten(quick.comp_state.residual)
+    for k in slow.params:
+        for a, b in ((quick.params[k], slow.params[k]), (residual[k], slow.comp_state.residual[k]),
+                     (quick.opt_states.m[k], slow.opt_states.m[k])):
+            np.testing.assert_array_equal(n(a).view(np.uint32), n(b).view(np.uint32))
+    assert runs[True].ledger.history() == runs[False].ledger.history()
+
+
 # ------------------------- the one-launch seg_hist2side and seg_moments
 
 

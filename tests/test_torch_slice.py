@@ -253,11 +253,12 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("change", [
-    dict(backend="local"), dict(backend="fed"),
+    dict(backend="local", telemetry=True), dict(backend="fed"),
     dict(flat_engine="exact", compressor="signsgd"),
     dict(fast=False), dict(preset="charlstm"), dict(compressor="topk"),
     dict(flat_engine="exact", skip_pattern="f2", fast=False), dict(telemetry=True),
-    dict(dense_pattern="b$", backend="local"), dict(skip_pattern="f2", preset="charlstm"),
+    dict(dense_pattern="b$", backend="local", compressor="topk"),
+    dict(skip_pattern="f2", preset="charlstm"),
     dict(flat_engine="exact", fast=False),
 ])
 def test_specs_outside_the_slice_raise(change):
