@@ -112,18 +112,36 @@ Without arguments, phases, each of which fails the run:
      ``f32_mean_xla`` call of the rounds must have a shape of
      ``MEAN_SHAPES`` (the flat path's 8 x k rows, the per-leaf path's
      2 x k and 1 x k) and is held bit for bit against the plain cascade on
-     its own operands.  The two paths must give bit-identical params,
-     residuals, Adam states and ledger rows;
-  7. print one ``{"kernels": [...]}`` line with all nine kernels (the
+     its own operands.  The last round's residual must be ``acc − ΔW*``
+     bit for bit for every client, and the two paths must give
+     bit-identical params, residuals, Adam states and ledger rows;
+  7. the CharLSTM phase: the paper's second preset at full width (2 x 200,
+     vocab 98, 680,800 parameters in 8 leaves, batch 8 x 64 tokens, p =
+     0.01), five rounds on every run path with the counts set to 0 just
+     before each and read just after: the local backend per leaf (4
+     clients, 64 ``f32_mean_xla`` a round) and flat (8), with phase 6's
+     checks; the GSPMD hist engine (2 ``seg_hist2side``, 1 ``seg_moments``,
+     1 ``seg_binarize_apply`` a round), with phase 2's checks and each
+     hist kernel held against its plain version on the path's operands;
+     and the GSPMD exact engine with the device-packed wire (1
+     ``seg_packbits``, 8 ``f32_mean_xla`` a round), with phase 3's word,
+     ledger and ``f32_mean_xla`` checks; each with a profiled round.  Then
+     the local flat path once more with telemetry on (``repro_torch.obs``):
+     5 ``round``, ``exchange`` and ``encode`` spans, the port's validators
+     clean, the ``repro-obs-v1`` files written to a temporary directory,
+     params bit-identical to the run without telemetry, and the step ms
+     with telemetry on and off;
+  8. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
      wire path's launches, the exact path's in ``launches_exact_path``
-     and the local paths' in ``launches_local_*_path``; ``masked_moments``
-     holds its default tile's times in ``default_tile_*`` fields;
-     ``f32_mean_xla`` replaces no Pallas kernel, which its ``reference``
-     field says), then the card line, then the last line
-     ``{"ok": true, "device": {...}}``.
+     and the local paths' in ``launches_local_*_path``; every row holds
+     its launches on each CharLSTM path in ``launches_charlstm``;
+     ``masked_moments`` holds its default tile's times in
+     ``default_tile_*`` fields; ``f32_mean_xla`` replaces no Pallas
+     kernel, which its ``reference`` field says), then the card line,
+     then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
 and the script prints its device-busy share and its costliest device
@@ -147,6 +165,7 @@ operations too).
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import subprocess
@@ -183,9 +202,12 @@ DENSE_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=4)
 EXACT_DEVICE_OPS_BEFORE = 812
 # (rows, n) of every f32_mean_xla call of the exact path (2 x k a segment),
 # of the codec + wire and the local per-leaf paths (2 x k and 1 x k an SBC
-# leaf) and of the local flat path (2 sides x 4 clients x k a segment)
+# leaf) and of the local flat path (2 sides x 4 clients x k a segment), for
+# LeNet5 (k 1, 5, 50, 250, 12,250) and CharLSTM (k 8, 196, 1,600)
 MEAN_SHAPES = ((2, 1), (1, 1), (2, 5), (1, 5), (2, 50), (1, 50), (2, 250), (1, 250),
-               (2, 12_250), (1, 12_250), (8, 1), (8, 5), (8, 50), (8, 250), (8, 12_250))
+               (2, 12_250), (1, 12_250), (8, 1), (8, 5), (8, 50), (8, 250), (8, 12_250),
+               (2, 8), (1, 8), (8, 8), (2, 196), (1, 196), (8, 196),
+               (2, 1_600), (1, 1_600), (8, 1_600))
 # (rows, n, k, b*) of the card tests' seg_select_pack rows, timed beside f1
 SELECT_PACK_SHAPES = ((5, 1000, 37, 4), (1, 1000, 10, 6))
 LEAF_PER_LEAF = per_call(hist2side=2, masked_moments=1, binarize_apply=1)
@@ -199,6 +221,16 @@ MOMENT_TILES = ((8, 128), (256, 1024))
 LOCAL_SPEC = dict(preset="lenet5", backend="local", clients=4, batch=128, sparsity=0.01,
                   measure_wire=True, rounds=ROUNDS)
 LOCAL_PER_ROUND = {True: per_call(f32_mean_xla=6), False: per_call(f32_mean_xla=2 * 6 * 4)}
+# the CharLSTM phase: the paper's second preset at full width (2 x 200,
+# vocab 98, 680,800 parameters in 8 leaves) at the reference's run
+# defaults (batch 8 x 64 tokens, 4 clients on the local backend), p = 0.01
+CHARLSTM = dict(preset="charlstm", sparsity=0.01, batch=8, seq_len=64, rounds=ROUNDS)
+CHARLSTM_LOCAL = dict(CHARLSTM, backend="local", clients=4, measure_wire=True)
+CHARLSTM_GSPMD = dict(CHARLSTM, backend="gspmd", fast=True)
+CHARLSTM_LEAVES = 8
+CHARLSTM_LOCAL_PER_ROUND = {True: per_call(f32_mean_xla=CHARLSTM_LEAVES),
+                            False: per_call(f32_mean_xla=2 * CHARLSTM_LEAVES * 4)}
+CHARLSTM_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=CHARLSTM_LEAVES)
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
 SOURCE = {name: SEG_SBC for name in KERNELS}
 SOURCE.update(seg_packbits="src/repro_torch/kernels/csrc/pack.cu",
@@ -438,6 +470,16 @@ def profiled_round(run, state, label: str) -> None:
           f"operations; top by device time:")
     for e in events[:12]:
         print(f"  {_self_device_us(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:100]}")
+    # the data draw's share: the same round's batches drawn once more alone
+    draw = getattr(run, "batch_fn", None) or run._batch
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        draw(ROUNDS)
+        torch.cuda.synchronize()
+        draw_ms = (time.perf_counter() - t0) * 1e3
+    draw_ops = sum(e.count for e in prof.key_averages() if _self_device_us(e) > 0)
+    print(f"{label}: the round's data draw alone {draw_ms:.3f} ms ({100 * draw_ms / step_ms:.1f}% "
+          f"of the profiled step), {draw_ops} device operations")
     return on_device
 
 
@@ -449,7 +491,6 @@ def hist_path(dev) -> tuple:
     and the last round's accumulator with the flat engine's results on it
     (``acc``, ``space``, ``out``, ``res``, ``stats``) for phase 4."""
     import torch
-    from repro_torch.core import flat as core_flat
     from repro_torch.kernels import flat as kflat
     from repro_torch.run import RunSpec, build_run
 
@@ -467,16 +508,39 @@ def hist_path(dev) -> tuple:
               f"{sms} SMs, {space.n_blocks} blocks), one launch per call")
 
     cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, "hist")
-    acc, own = cap["acc"], cap["last"]["out"][1]
+    one_mu_per_segment(space, cap, "hist")
+    profiled_round(run, cap["state"], "hist")
+    rows, pipe = hist_kernels_vs_plain(cap["acc"], space, dev, "hist",
+                                       launches=cap["launches"])
+    return rows, {"acc": cap["acc"], "space": space, **pipe}
+
+
+def one_mu_per_segment(space, cap: dict, label: str) -> None:
+    """The last round's ΔW* holds, per segment, 0 and that segment's μ."""
+    import torch
+
+    own = cap["last"]["out"][1]
     for s in space.segments:
         vals = torch.unique(own[s.offset:s.offset + s.rows * s.n_loc])
         nonzero = vals[vals != 0]
-        check(nonzero.numel() <= 1, f"segment {s.path}: dW* holds {nonzero.numel()} values")
-    print(f"hist last round: residual == acc - dW* bit for bit; dW* per segment is 0 or "
+        check(nonzero.numel() <= 1, f"{label} segment {s.path}: dW* holds {nonzero.numel()} "
+                                    f"values")
+    print(f"{label} last round: residual == acc - dW* bit for bit; dW* per segment is 0 or "
           f"its mu; {int((own != 0).sum())} entries sent")
-    profiled_round(run, cap["state"], "hist")
 
-    # each kernel against its plain version, on the path's operands
+
+def hist_kernels_vs_plain(acc, space, dev, label: str, launches: dict | None = None) -> tuple:
+    """The hist pipeline once more on the last round's accumulator ``acc``
+    with each kernel's operands captured: the kernel pipeline against the
+    plain one, and each kernel against its plain version on the same
+    operands (counts equal, binarize bit-equal, moment sums to
+    ``rtol=1e-6``).  With ``launches`` (the path's counts), each kernel is
+    also timed and its row of the kernels line returned.  Returns
+    ``(rows, {"out", "res", "stats"})`` of the kernel pipeline."""
+    import torch
+    from repro_torch.core import flat as core_flat
+    from repro_torch.kernels import flat as kflat
+
     bounds = [(s.offset, s.rows * s.n_loc) for s in space.segments]
     ks = [s.k for s in space.segments]
     rates = [s.rate for s in space.segments]
@@ -496,10 +560,12 @@ def hist_path(dev) -> tuple:
     with swapped(core_flat, plain):
         p_out, p_res, p_stats = pipeline()
     torch.cuda.synchronize()
-    check(torch.equal(k_out != 0, p_out != 0), "kernel and plain pipelines select differently")
-    check(torch.equal(k_res, acc - k_out), "kernel pipeline residual")
-    check(torch.allclose(k_stats["mu"], p_stats["mu"], rtol=1e-6, atol=0), "pipeline mu")
-    print("kernel pipeline == plain pipeline on the last round's accumulator "
+    check(torch.equal(k_out != 0, p_out != 0),
+          f"{label}: kernel and plain pipelines select differently")
+    check(torch.equal(k_res, acc - k_out), f"{label}: kernel pipeline residual")
+    check(torch.allclose(k_stats["mu"], p_stats["mu"], rtol=1e-6, atol=0),
+          f"{label}: pipeline mu")
+    print(f"{label}: kernel pipeline == plain pipeline on the last round's accumulator "
           "(same selection, mu to rtol 1e-6)")
 
     rows, moments_rel = {}, 0.0
@@ -509,21 +575,21 @@ def hist_path(dev) -> tuple:
         want = plain[name](xpad, params, **kwargs)
         torch.cuda.synchronize()
         if name == "seg_hist2side":
-            check(torch.equal(got, want), f"{name}: counts differ")
+            check(torch.equal(got, want), f"{label} {name}: counts differ")
             err = float((got - want).abs().max())
         elif name == "seg_moments":
-            check(torch.equal(got[:, :, 1], want[:, :, 1]), f"{name}: counts differ")
+            check(torch.equal(got[:, :, 1], want[:, :, 1]), f"{label} {name}: counts differ")
             check(torch.allclose(got[:, :, 0], want[:, :, 0], rtol=1e-6, atol=0),
-                  f"{name}: sums beyond rtol 1e-6")
+                  f"{label} {name}: sums beyond rtol 1e-6")
             err = float((got - want).abs().max())
             sums = want[:, :, 0] != 0
             rel = (got[:, :, 0] - want[:, :, 0]).abs()[sums] / want[:, :, 0].abs()[sums]
             moments_rel = max(moments_rel, float(rel.max()) if rel.numel() else 0.0)
         else:
             check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
-                      for g, w in zip(got, want)), f"{name}: not bit-equal")
+                      for g, w in zip(got, want)), f"{label} {name}: not bit-equal")
             err = 0.0
-        if name in rows:  # time the first call of each kernel on the path
+        if launches is None or name in rows:  # time the first call of each kernel
             continue
         copies = [(xpad.clone(), params.clone()) for _ in range(12)]  # > 50 MB
         fn_k = lambda x, p, f=getattr(kflat, name), kw=kwargs: f(x, p, **kw)
@@ -532,16 +598,17 @@ def hist_path(dev) -> tuple:
                      "seg_moments": 4 * kwargs.get("nseg", 0) * 4,
                      "seg_binarize_apply": 2 * 4 * xpad.numel()}[name]
         rows[name] = kernel_row(
-            name, cap["launches"][name], err,
+            name, launches[name], err,
             device_ms(fn_k, copies, 240, name, ops=1 if name in ONE_OP else None),
             device_ms(fn_p, copies, 48), 4 * (xpad.numel() + params.numel()) + out_bytes,
             OPS_PER_ELEMENT[name] * xpad.numel())
         del copies
-    check(set(rows) == set(names), f"kernels compared: {sorted(rows)}")
-    print(f"seg_moments: sums' largest relative error {moments_rel:.3e} over "
-          f"{sum(1 for c in calls if c[0] == 'seg_moments')} calls (limit 1e-6)")
-    return rows, {"acc": acc, "space": space, "out": k_out, "res": k_res,
-                  "stats": k_stats}
+    check(sorted({c[0] for c in calls}) == sorted(names), f"{label}: kernels compared "
+                                                           f"{sorted({c[0] for c in calls})}")
+    check(launches is None or set(rows) == set(names), f"{label}: kernels timed {sorted(rows)}")
+    print(f"{label}: {len(calls)} kernel calls == their plain versions on the path's "
+          f"operands; seg_moments' sums' largest relative error {moments_rel:.3e} (limit 1e-6)")
+    return rows, {"out": k_out, "res": k_res, "stats": k_stats}
 
 
 # -------------------------------------------------------------- exact path
@@ -552,7 +619,6 @@ def exact_path(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import flat as core_flat
-    from repro_torch.core.golomb import encode_positions_packed, packed_words_to_bytes
     from repro_torch.kernels import pack as kpack
     from repro_torch.run import RunSpec, build_run
 
@@ -565,41 +631,7 @@ def exact_path(dev) -> dict:
     check((space.n_mu, space.n_pos, space.n_pack_words) == (6, 12_561, 3_358),
           "LeNet5 exact layout")
     cap = drive(run, "exchange_local", EXACT_PER_ROUND, "exact")
-
-    # the last round: ΔW* per (segment, row) is ±μ in exactly k slots, and
-    # its packed stream is the host encoder's bytes
-    _, own, _, words, nbits = cap["last"]["out"]
-    m_last = cap["metrics"][-1]
-    check(torch.equal(m_last["packed_words_client0"][0].view(torch.int32),
-                      words.view(torch.int32)), "packed_words_client0 != the exchange's words")
-    own_np, words_np, nbits_np = own.cpu().numpy(), words.cpu().numpy(), nbits.cpu().numpy()
-    masks, mu_row = [], 0
-    for s, (b, w, off) in zip(space._sparse, space._pack_info):
-        x = own_np[s.offset:s.offset + s.rows * s.n_loc].reshape(s.rows, s.n_loc)
-        for r in range(s.rows):
-            pos = np.flatnonzero(x[r])
-            vals = np.unique(x[r][pos])
-            check(pos.size == s.k and vals.size == 1,
-                  f"{s.path} row {r}: dW* holds {vals.size} values in {pos.size} slots, "
-                  f"not one in k={s.k}")
-            host, host_nb = encode_positions_packed(pos, s.rate)
-            nb = int(nbits_np[mu_row])
-            check(nb == host_nb and packed_words_to_bytes(
-                words_np[off + r * w:off + (r + 1) * w], nb) == host,
-                f"{s.path} row {r}: packed words are not the host encoder's bytes")
-            mu_row += 1
-        masks.append((s, b, w, off, torch.from_numpy((x != 0).astype(np.int32)).to(dev)))
-    print(f"exact last round: residual == acc - dW* bit for bit; each of {space.n_mu} "
-          f"rows holds one +-mu in exactly k slots; its packed words are the host "
-          f"encoder's bytes ({int(nbits_np.sum())} bits)")
-
-    # the ledger meters Σ nbits + 32 bits per μ every round
-    led = run.ledger.history()["up_bits_measured"]
-    want = [float(m["packed_nbits"].sum()) + 32.0 * space.n_mu for m in cap["metrics"]]
-    check(led == want, f"ledger measured bits {led} != sum(nbits) + 32 n_mu {want}")
-    print(f"ledger: up_bits_measured per round {led} (analytic "
-          f"{run.ledger.records[0].up_bits_analytic}); up bytes "
-          f"{run.ledger.totals()['up_bytes']}")
+    masks, words, nbits = exact_wire_checks(run, cap, dev, "exact")
     ops = profiled_round(run, cap["state"], "exact")
     print(f"exact profiled round: {ops} device operations (before f32_mean_xla: "
           f"{EXACT_DEVICE_OPS_BEFORE}; {ops - EXACT_DEVICE_OPS_BEFORE:+d})")
@@ -727,26 +759,9 @@ def exact_path(dev) -> dict:
         print(f"seg_select_pack on {label}: rows {m.shape[0]}, n {m.shape[1]}, k {sk}, "
               f"b* {sb}, {tiles} tiles on {grid} CTAs: {us:.2f} us device per call")
 
-    # f32_mean_xla on the path's own top-k values: both sides of every
-    # segment, one call per segment, each bit-equal to the plain cascade
     from repro_torch.kernels import reduce as kreduce
-    from repro_torch.kernels import topk as ktopk
 
-    calls = []
-    with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), calls)):
-        space.exchange_local(last["bodies"], last["res"], device_pack=True)
-    check(len(calls) == len(space._sparse),
-          f"one f32_mean_xla call per segment, saw {len(calls)}")
-    for (_, args, _), s in zip(calls, space._sparse):
-        vals = args[0]
-        got, want = kreduce.f32_mean_xla(vals), kreduce.f32_mean_xla_plain(vals)
-        torch.cuda.synchronize()
-        check(tuple(vals.shape) == (2 * s.rows, s.k) and bit_equal(got, want),
-              f"f32_mean_xla {s.path}: kernel != plain cascade on {tuple(vals.shape)}")
-    print(f"f32_mean_xla: bit-equal to the plain cascade on the top-k values of every "
-          f"segment ({[tuple(c[1][0].shape) for c in calls]})")
-    shapes = {tuple(c[1][0].shape) for c in calls}
-    check(shapes <= set(MEAN_SHAPES), f"f32_mean_xla shapes {shapes} not all in MEAN_SHAPES")
+    calls = exact_means_vs_plain(space, last, "exact")
     vals = max((c[1][0] for c in calls), key=lambda v: v.numel())
     copies = [(vals.clone(),) for _ in range(copies_past_l2(4 * vals.numel()))]
     rows["f32_mean_xla"] = kernel_row(
@@ -760,6 +775,81 @@ def exact_path(dev) -> dict:
     del copies
     rows["f32_mean_xla"]["shapes"] = mean_shapes(dev)
     return rows
+
+
+def exact_wire_checks(run, cap: dict, dev, label: str) -> tuple:
+    """The exact path's last round: ΔW* per (segment, row) is one ±μ in
+    exactly k slots and its packed stream is the host encoder's bytes, bit
+    count and word for word; and every round's ledger meters Σ nbits + 32
+    bits per μ.  Returns each segment's ``(segment, b*, words a row, word
+    offset, int32 mask)``, the words and the bit counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.golomb import encode_positions_packed, packed_words_to_bytes
+
+    space = run.fns.flat_space
+    _, own, _, words, nbits = cap["last"]["out"]
+    m_last = cap["metrics"][-1]
+    check(torch.equal(m_last["packed_words_client0"][0].view(torch.int32),
+                      words.view(torch.int32)),
+          f"{label}: packed_words_client0 != the exchange's words")
+    own_np, words_np, nbits_np = own.cpu().numpy(), words.cpu().numpy(), nbits.cpu().numpy()
+    masks, mu_row = [], 0
+    for s, (b, w, off) in zip(space._sparse, space._pack_info):
+        x = own_np[s.offset:s.offset + s.rows * s.n_loc].reshape(s.rows, s.n_loc)
+        for r in range(s.rows):
+            pos = np.flatnonzero(x[r])
+            vals = np.unique(x[r][pos])
+            check(pos.size == s.k and vals.size == 1,
+                  f"{label} {s.path} row {r}: dW* holds {vals.size} values in {pos.size} "
+                  f"slots, not one in k={s.k}")
+            host, host_nb = encode_positions_packed(pos, s.rate)
+            nb = int(nbits_np[mu_row])
+            check(nb == host_nb and packed_words_to_bytes(
+                words_np[off + r * w:off + (r + 1) * w], nb) == host,
+                f"{label} {s.path} row {r}: packed words are not the host encoder's bytes")
+            mu_row += 1
+        masks.append((s, b, w, off, torch.from_numpy((x != 0).astype(np.int32)).to(dev)))
+    print(f"{label} last round: residual == acc - dW* bit for bit; each of {space.n_mu} "
+          f"rows holds one +-mu in exactly k slots; its packed words are the host "
+          f"encoder's bytes ({int(nbits_np.sum())} bits)")
+
+    # the ledger meters Σ nbits + 32 bits per μ every round
+    led = run.ledger.history()["up_bits_measured"]
+    want = [float(m["packed_nbits"].sum()) + 32.0 * space.n_mu for m in cap["metrics"]]
+    check(led == want, f"{label}: ledger measured bits {led} != sum(nbits) + 32 n_mu {want}")
+    print(f"{label} ledger: up_bits_measured per round {led} (analytic "
+          f"{run.ledger.records[0].up_bits_analytic}); up bytes "
+          f"{run.ledger.totals()['up_bytes']}")
+    return masks, words, nbits
+
+
+def exact_means_vs_plain(space, last: dict, label: str) -> list:
+    """``f32_mean_xla`` on the exact path's own top-k values: the last
+    round's exchange once more, both sides of every segment, one call per
+    segment, each bit-equal to the plain cascade and of a shape in
+    ``MEAN_SHAPES``.  Returns the recorded calls."""
+    import torch
+    from repro_torch.kernels import reduce as kreduce
+    from repro_torch.kernels import topk as ktopk
+
+    calls: list = []
+    with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), calls)):
+        space.exchange_local(last["bodies"], last["res"], device_pack=True)
+    check(len(calls) == len(space._sparse),
+          f"{label}: one f32_mean_xla call per segment, saw {len(calls)}")
+    for (_, args, _), s in zip(calls, space._sparse):
+        vals = args[0]
+        got, want = kreduce.f32_mean_xla(vals), kreduce.f32_mean_xla_plain(vals)
+        torch.cuda.synchronize()
+        check(tuple(vals.shape) == (2 * s.rows, s.k) and bit_equal(got, want),
+              f"{label} f32_mean_xla {s.path}: kernel != plain cascade on {tuple(vals.shape)}")
+    shapes = {tuple(c[1][0].shape) for c in calls}
+    check(shapes <= set(MEAN_SHAPES), f"{label}: f32_mean_xla shapes {shapes} not all in "
+                                      f"MEAN_SHAPES")
+    print(f"{label} f32_mean_xla: bit-equal to the plain cascade on the top-k values of every "
+          f"segment ({[tuple(c[1][0].shape) for c in calls]})")
+    return calls
 
 
 def mean_shapes(dev) -> list:
@@ -1125,30 +1215,47 @@ def codec_path(dev) -> dict:
 # ------------------------------------------------------------ local path
 
 
-def local_path(dev) -> dict:
-    """Phase 6: the local backend's Alg. 1 round (``LocalRun``), five
-    full-width LeNet5 rounds on the per-leaf path (``fast=False``, the
-    reference's default) and on the flat path (``fast=True``), each with
-    the launch counts set to 0 just before and read just after, and one
-    profiled round each.  The two must give bit-identical params,
-    residuals, Adam states and ledger rows.  Returns each path's launches
-    of its five rounds."""
+def local_path(dev, spec: dict = LOCAL_SPEC, per_round: dict = LOCAL_PER_ROUND,
+               name: str = "local") -> dict:
+    """Phase 6 (and the CharLSTM phase's local half): the local backend's
+    Alg. 1 round (``LocalRun``), five full-width rounds of ``spec`` on the
+    per-leaf path (``fast=False``, the reference's default) and on the
+    flat path (``fast=True``), each with the launch counts set to 0 just
+    before and read just after (``per_round`` a round, nothing else), and
+    one profiled round each.  Every loss must be finite; the last round's
+    residual must be ``acc − ΔW*`` bit for bit for every client; every
+    ``f32_mean_xla`` call must have a shape of ``MEAN_SHAPES`` and equal
+    its plain cascade on its operands; and the two paths must give
+    bit-identical params, residuals, optimizer states and ledger rows.
+    Returns each path's launches of its five rounds, its step ms and its
+    state after them."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import stages as core_stages
+    from repro_torch.core.tree import tree_flatten
     from repro_torch.kernels import reduce as kreduce
     from repro_torch.kernels import topk as ktopk
+    from repro_torch.optim import AdamState
     from repro_torch.run import RunSpec, build_run
 
-    runs, states, launches = {}, {}, {}
+    runs, states, launches, step_ms = {}, {}, {}, {}
     for fast in (False, True):
-        run = build_run(RunSpec(**LOCAL_SPEC, fast=fast), device=dev)
-        label = f"local ({'flat' if fast else 'per-leaf'} path)"
+        run = build_run(RunSpec(**spec, fast=fast), device=dev)
+        label = f"{name} ({'flat' if fast else 'per-leaf'} path)"
         state = run.init()
         means: list = []  # every f32_mean_xla call of the five rounds
+        last: dict = {}  # the last exchange's operands and outputs
+        exchange = run.channel.round_exchange
+
+        def observed(deltas, comp_state, *a, exchange=exchange, last=last, **kw):
+            ex = exchange(deltas, comp_state, *a, **kw)
+            last.update(deltas=deltas, residual=comp_state.residual, ex=ex)
+            return ex
+
+        run.channel.round_exchange = observed
         torch.cuda.synchronize()
         kernels.reset_launches()
-        counts = []
+        counts, step_ms[fast] = [], []
         with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), means)), \
                 swapped(core_stages, recording(core_stages, ("f32_mean_xla",), means)):
             for r in range(ROUNDS):
@@ -1157,18 +1264,31 @@ def local_path(dev) -> dict:
                 state, m = run.step(state, r)
                 loss = float(m["loss"])
                 torch.cuda.synchronize()
-                step_ms = (time.perf_counter() - t0) * 1e3
+                step_ms[fast].append((time.perf_counter() - t0) * 1e3)
                 after = kernels.launch_counts()
                 counts.append({k: after[k] - before[k] for k in after})
                 rec = run.ledger.records[-1]
                 check(math.isfinite(loss), f"{label} round {r + 1}: loss {loss}")
-                print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms:.3f} ms  "
-                      f"launches { {k: v for k, v in counts[-1].items() if v} }  measured "
+                print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms[fast][-1]:.3f} ms"
+                      f"  launches { {k: v for k, v in counts[-1].items() if v} }  measured "
                       f"{rec.up_bits_measured:.0f} bits against Eq. 1's "
                       f"{rec.up_bits_analytic:.2f} ({len(rec.cohort)} clients)")
         launches[fast] = kernels.launch_counts()
-        check(all(c == LOCAL_PER_ROUND[fast] for c in counts),
+        del run.channel.round_exchange
+        check(all(c == per_round[fast] for c in counts),
               f"{label}: launches per round {counts}")
+        # every client's residual is acc - dW* bit for bit (the flat path's
+        # rows unflattened to the tree)
+        ex, res = last["ex"], last["residual"]
+        new_res = ex.state.residual
+        if fast:
+            space = run.trainer.resolved(state.params).flat_space(state.params)
+            res, new_res = space.unflatten(res), space.unflatten(new_res)
+        for old, delta, sent, new in zip(*(tree_flatten(x)[0] for x in (
+                res, last["deltas"], ex.transmitted, new_res))):
+            check(bit_equal(new, (old + delta) - sent),
+                  f"{label}: the last round's residual != acc - dW* bit for bit")
+        print(f"{label}: last round's residual == acc - dW* bit for bit, every client")
         # every f32_mean_xla call of the rounds has a shape that mean_shapes
         # times, and is held bit for bit against the plain cascade on its
         # own operands (these launches come after the counts were read)
@@ -1184,22 +1304,120 @@ def local_path(dev) -> dict:
         runs[fast], states[fast] = run, state
         profiled_round(run, state, label)
 
-    slow, fast = states[False], states[True]
-    space = runs[True].trainer.resolved(fast.params).flat_space(fast.params)
-    residual = space.unflatten(fast.comp_state.residual)
-    for k in slow.params:
-        for what, a, b in (("params", fast.params, slow.params),
-                           ("residual", residual, slow.comp_state.residual),
-                           ("Adam m", fast.opt_states.m, slow.opt_states.m),
-                           ("Adam v", fast.opt_states.v, slow.opt_states.v)):
-            check(bit_equal(a[k], b[k]),
-                  f"local: {what} of {k} differs between the flat and the per-leaf path")
+    slow, quick = states[False], states[True]
+    space = runs[True].trainer.resolved(quick.params).flat_space(quick.params)
+    # Adam's (m, v) as a plain pair: the tree walk takes a NamedTuple for a leaf
+    opt = [tuple(s.opt_states) if isinstance(s.opt_states, AdamState) else s.opt_states
+           for s in (quick, slow)]
+    for what, a, b in (("params", quick.params, slow.params),
+                       ("residual", space.unflatten(quick.comp_state.residual),
+                        slow.comp_state.residual),
+                       ("optimizer state", *opt)):
+        fa, fb = tree_flatten(a)[0], tree_flatten(b)[0]
+        check(len(fa) == len(fb) and all(bit_equal(x, y) for x, y in zip(fa, fb)),
+              f"{name}: the {what} differs between the flat and the per-leaf path")
     check(runs[True].ledger.history() == runs[False].ledger.history(),
-          "local: the two paths' ledger rows differ")
+          f"{name}: the two paths' ledger rows differ")
     runs[True].ledger.reconcile(rel=0.25)
-    print(f"local: after {ROUNDS} rounds (and one profiled) the flat and the per-leaf path "
-          f"give bit-identical params, residuals, Adam states and ledger rows")
-    return launches
+    print(f"{name}: after {ROUNDS} rounds (and one profiled) the flat and the per-leaf path "
+          f"give bit-identical params, residuals, optimizer states and ledger rows")
+    return {"launches": launches, "step_ms": step_ms, "states": states}
+
+
+# ------------------------------------------------------------ CharLSTM
+
+
+def charlstm_phase(dev) -> dict:
+    """Phase 7: the paper's second preset, CharLSTM at full width (2 x
+    200, vocab 98, 680,800 parameters in 8 leaves), on every run path:
+    the local backend per leaf and flat (:func:`local_path`: 4 clients,
+    64 and 8 ``f32_mean_xla`` a round), the GSPMD hist engine (2
+    ``seg_hist2side``, 1 ``seg_moments``, 1 ``seg_binarize_apply`` a
+    round over 8 segments) and the GSPMD exact engine with the
+    device-packed wire (1 ``seg_packbits``, 8 ``f32_mean_xla``), five
+    rounds each with the same checks as LeNet5's, and the hist kernels
+    held against their plain versions on the path's operands.  Then the
+    local flat path once more with telemetry on.  Returns every path's
+    launches of its five rounds."""
+    from repro_torch.run import RunSpec, build_run
+
+    local = local_path(dev, CHARLSTM_LOCAL, CHARLSTM_LOCAL_PER_ROUND, "charlstm local")
+    out = {"local_per_leaf": local["launches"][False], "local_flat": local["launches"][True]}
+
+    run = build_run(RunSpec(**CHARLSTM_GSPMD, flat_engine="hist"), device=dev)
+    space = run.fns.flat_space
+    n_params = sum(s.global_size for s in space.segments)
+    print(f"charlstm: {n_params} params in {len(space.segments)} segments "
+          f"{[(s.path, s.global_size, s.k) for s in space.segments]}, n_pad {space.n_pad}; "
+          f"bits_per_client {run.fns.bits_per_client:.2f}")
+    check(n_params == 680_800 and len(space.segments) == CHARLSTM_LEAVES, "CharLSTM layout")
+    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, "charlstm hist")
+    one_mu_per_segment(space, cap, "charlstm hist")
+    profiled_round(run, cap["state"], "charlstm hist")
+    hist_kernels_vs_plain(cap["acc"], space, dev, "charlstm hist")
+    out["hist"] = cap["launches"]
+
+    run = build_run(RunSpec(**CHARLSTM_GSPMD, flat_engine="exact", device_pack=True,
+                            measure_wire=True), device=dev)
+    cap = drive(run, "exchange_local", CHARLSTM_EXACT_PER_ROUND, "charlstm exact")
+    exact_wire_checks(run, cap, dev, "charlstm exact")
+    exact_means_vs_plain(run.fns.flat_space, cap["last"], "charlstm exact")
+    profiled_round(run, cap["state"], "charlstm exact")
+    out["exact"] = cap["launches"]
+
+    telemetry_check(dev, local)
+    return out
+
+
+def telemetry_check(dev, local: dict) -> None:
+    """The CharLSTM local flat run once more with telemetry on, its files
+    written into a temporary directory: 5 ``round``, ``exchange`` and
+    ``encode`` spans, no error from the port's validators, the
+    ``repro-obs-v1`` header, and the same params as the run without
+    telemetry, bit for bit (the same seed and data).  Prints the step ms
+    with telemetry on beside the run without it; no gate on the
+    difference."""
+    import tempfile
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.obs.export import read_metrics_jsonl, read_trace_json
+    from repro_torch.run import RunSpec, build_run
+
+    run = build_run(RunSpec(**CHARLSTM_LOCAL, fast=True, telemetry=True), device=dev)
+    check(run.telemetry.enabled and run.channel.telemetry is run.telemetry,
+          "telemetry: the run and its channel do not share one enabled handle")
+    state, hist = run.run()
+    torch.cuda.synchronize()
+    events = run.telemetry.tracer.events
+    names = [e["name"] for e in events]
+    counts = {n: names.count(n) for n in ("round", "exchange", "encode")}
+    check(counts == {"round": ROUNDS, "exchange": ROUNDS, "encode": ROUNDS},
+          f"telemetry: spans {counts}")
+    errs = obs.validate_span_events(events) + obs.validate_metric_events(
+        run.telemetry.metrics.events())
+    check(not errs, f"telemetry: validators: {errs[:3]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = obs.finish_run(run.telemetry, trace=f"{tmp}/trace.json",
+                                   metrics_out=f"{tmp}/metrics.jsonl",
+                                   meta={"backend": "local", "preset": "charlstm",
+                                         "rounds": ROUNDS})
+        header, metric_events = read_metrics_jsonl(paths["metrics"])
+        trace_events = read_trace_json(paths["trace"])
+    check(header["schema"] == "repro-obs-v1" and len(metric_events) == len(
+        run.telemetry.metrics.samples) and len(trace_events) == len(events),
+          f"telemetry: files {header}, {len(metric_events)} metrics, {len(trace_events)} "
+          f"trace events")
+    off = tree_flatten(local["states"][True].params)[0]
+    check(all(bit_equal(a, b) for a, b in zip(tree_flatten(state.params)[0], off)),
+          "telemetry: params differ from the run without telemetry")
+    on_ms = [s["value"] for s in run.telemetry.metrics.series("train/step_ms")]
+    print(f"telemetry: {counts} spans, {len(metric_events)} metric events, validators "
+          f"clean, repro-obs-v1 header; params bit-identical to the run without it")
+    print(f"telemetry: step ms rounds 2-{ROUNDS} on {', '.join(f'{t:.3f}' for t in on_ms[1:])}"
+          f"; off {', '.join(f'{t:.3f}' for t in local['step_ms'][True][1:])}")
 
 
 def compare(src: Path) -> int:
@@ -1296,15 +1514,20 @@ def main(argv: list) -> int:
     print(f"built {[str(p.relative_to(ROOT)) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- 2. to 6. the five paths
+    # ---- 2. to 7. the paths
     rows, hist = hist_path(dev)
     rows.update(exact_path(dev))
     rows.update(leaf_path(dev, hist))
     codec = codec_path(dev)
-    local = local_path(dev)
+    local = local_path(dev)["launches"]
+    charlstm = charlstm_phase(dev)
     check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
     rows["f32_mean_xla"]["launches_local_per_leaf_path"] = local[False]["f32_mean_xla"]
     rows["f32_mean_xla"]["launches_local_flat_path"] = local[True]["f32_mean_xla"]
+    # each kernel's launches in the five rounds of each CharLSTM path
+    for name in KERNELS:
+        rows[name]["launches_charlstm"] = {path: counts[name]
+                                           for path, counts in charlstm.items()}
     # the codec + wire path is the one that launches seg_select_pack (4 a
     # round) and most f32_mean_xla; the exact path's counts stay beside them
     for name in ("seg_select_pack", "f32_mean_xla"):
@@ -1312,7 +1535,7 @@ def main(argv: list) -> int:
         rows[name]["launches"] = codec["launches"][name]
     rows["seg_select_pack"]["leaf_us"] = codec["select_us"]
 
-    # ---- 7. results
+    # ---- 8. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

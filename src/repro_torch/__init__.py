@@ -5,7 +5,10 @@ The port mirrors ``repro``'s module layout.  It imports ``torch`` and
 numpy only — never ``jax`` and never ``repro`` — and its entry points run
 on the CUDA card unless the caller passes ``device="cpu"``.
 
-The port carries the GSPMD backend on one card with both flat engines:
+The port runs the paper's two presets, LeNet5 and CharLSTM
+(``preset="lenet5"`` or ``"charlstm"``), on the local backend (the
+paper's Alg. 1 round, per leaf or on the flat space) and on the GSPMD
+backend on one card with both flat engines:
 ``repro_torch.run.build_run(RunSpec(preset="lenet5", backend="gspmd",
 fast=True, flat_engine="hist"))``, whose three SBC passes run on the
 hand-written CUDA kernels of :mod:`repro_torch.kernels.flat`, and
@@ -13,6 +16,8 @@ hand-written CUDA kernels of :mod:`repro_torch.kernels.flat`, and
 whose Golomb wire is packed by the kernels of
 :mod:`repro_torch.kernels.pack` and metered into the ledger; either takes
 ``dense_pattern``/``skip_pattern`` rules (the hist engine all-SBC only).
+``telemetry=True`` traces a run into the reference's ``repro-obs-v1``
+files (:mod:`repro_torch.obs`).
 
 It also carries the codec core as a library, as in the reference:
 :mod:`repro_torch.core.stages`, ``codec``, ``policy``, ``api``, ``sbc``,

@@ -1,8 +1,9 @@
 """Model / training configuration.
 
-Counterpart of ``repro.configs.base``.  This slice carries the
-:class:`ModelConfig` fields that the paper's LeNet5 reads; the transformer,
-MoE, SSM and LSTM fields come with the model zoo (ROADMAP A5, A12).
+Counterpart of ``repro.configs.base``.  The port carries the
+:class:`ModelConfig` fields that the paper's two presets read, LeNet5 and
+CharLSTM; the transformer, MoE and SSM fields come with the model zoo
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One architecture (the CNN fields of the reference's config).
+    """One architecture (the CNN and LSTM fields of the reference's config).
 
     The reference's ``residual_dtype`` is not carried: the flat hist route
     keeps an f32 residual, and the bf16 residual of its largest
@@ -21,13 +22,16 @@ class ModelConfig:
     """
 
     name: str
-    family: str  # 'cnn' in this slice
+    family: str  # 'cnn' | 'lstm' in the port
+    n_layers: int = 0
+    vocab_size: int = 0
     source: str = ""  # paper / model-card citation
 
-    # --- cnn (paper's own models)
+    # --- cnn / lstm (paper's own models)
     img_size: int = 0
     img_channels: int = 3
     n_classes: int = 10
+    lstm_hidden: int = 0
 
     # --- distribution / local training
     client_mode: str = "data"  # one client per data coordinate (DESIGN.md §4)
@@ -35,7 +39,7 @@ class ModelConfig:
     base_lr: float = 0.01
 
 
-PORTED_CONFIGS = ("lenet5",)
+PORTED_CONFIGS = ("lenet5", "charlstm")
 
 
 def get_config(name: str, **overrides: Any) -> ModelConfig:
@@ -43,7 +47,7 @@ def get_config(name: str, **overrides: Any) -> ModelConfig:
     if name not in PORTED_CONFIGS:
         raise NotImplementedError(
             f"config {name!r} is not ported yet; have {PORTED_CONFIGS} "
-            "(the paper presets come with ROADMAP A5, the zoo with A12)"
+            "(the zoo comes with ROADMAP A12)"
         )
     cfg = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
     if overrides:

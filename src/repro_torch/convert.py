@@ -3,8 +3,9 @@
 torch cannot reproduce JAX's threefry draws, so anything the reference
 draws at random — initial parameters above all — is handed across as
 numpy.  Both packages store parameters in the same layouts (conv kernels
-HWIO, dense ``(in, out)``), so a leaf crosses as it is.  This module takes
-numpy only; it never imports ``jax``.
+HWIO, dense ``(in, out)``) and the same nested trees (CharLSTM's
+``{"cell0": {"b", "wh", "wx"}, …}``), so a tree crosses as it is, leaf by
+leaf.  This module takes numpy only; it never imports ``jax``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.optim.optimizers import AdamState
 
@@ -21,11 +23,12 @@ def _tensor(a: Any, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_jax(np_tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
-    """A JAX parameter dict (leaves as numpy arrays) → the port's dict on
-    ``device`` (default: the CUDA card; raises ``RuntimeError`` without one)."""
+def params_from_jax(np_tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """A JAX parameter tree (nested dicts, leaves as numpy arrays) → the
+    port's tree of tensors, the same structure, on ``device`` (default:
+    the CUDA card; raises ``RuntimeError`` without one)."""
     device = resolve_device(device)
-    return {k: _tensor(v, device) for k, v in np_tree.items()}
+    return tree_map(lambda v: _tensor(v, device), np_tree)
 
 
 def state_from_jax(np_state: Dict[str, Any], device=None) -> dict:
@@ -34,7 +37,7 @@ def state_from_jax(np_state: Dict[str, Any], device=None) -> dict:
     card; raises ``RuntimeError`` without one).
 
     ``opt`` is Adam's ``(m, v)`` pair (anything with ``.m`` and ``.v``),
-    a momentum dict, or ``()`` for SGD; every optimizer leaf keeps its
+    a momentum tree, or ``()`` for SGD; every optimizer leaf keeps its
     leading client axis.  ``residual`` is the flat ``(n_clients, shards,
     n_pad)`` buffer.
     """

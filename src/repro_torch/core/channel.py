@@ -17,14 +17,13 @@ Counterpart of ``repro.core.channel`` (DESIGN.md §12).  The port carries
                                ``torch.distributed`` (ROADMAP A9).
 
 Both meter a round's uploads into a
-:class:`~repro_torch.core.ledger.BandwidthLedger`.  Pytrees are dicts of
-tensors whose leaves are taken in sorted-key order — JAX's tree-flatten
-order — so segments, the flat buffer and the residual follow the
-reference's layout.
+:class:`~repro_torch.core.ledger.BandwidthLedger`.  Pytrees are nested
+dicts of tensors whose leaves are taken in JAX's tree-flatten order
+(sorted keys, :mod:`repro_torch.core.tree`), so segments, the flat
+buffer and the residual follow the reference's layout.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import itertools
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
@@ -39,6 +38,7 @@ from repro_torch.core.policy import CompressionPolicy, CompressorState, Resolved
 from repro_torch.core.stages import LeafCompressed, k_for
 from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.core.wire import Wire, wire_for
+from repro_torch.obs import NULL_TELEMETRY
 
 PyTree = Any
 
@@ -48,22 +48,6 @@ class ChannelBits(NamedTuple):
 
     per_client: float  # upstream bits one client sends per round
     dense: float  # the 32-bit dense equivalent
-
-
-class NullTelemetry:
-    """The disabled telemetry of the reference's ``NULL_TELEMETRY``: spans
-    that record nothing.  Telemetry itself comes with ROADMAP A11."""
-
-    enabled = False
-
-    def span(self, name: str, **attrs):
-        return contextlib.nullcontext()
-
-    def fence(self, tree) -> None:
-        return None
-
-
-NULL_TELEMETRY = NullTelemetry()
 
 
 # ------------------------------------------------------- policy resolution
@@ -186,7 +170,7 @@ class LocalVmapChannel:
 
     def __post_init__(self) -> None:
         self.ledger = BandwidthLedger()
-        self.telemetry = NULL_TELEMETRY
+        self.telemetry = NULL_TELEMETRY  # build_run swaps in an enabled one
         self._resolved: Optional[ResolvedPolicy] = None
         self._wires: Dict[tuple, Wire] = {}
 
@@ -296,11 +280,6 @@ class GspmdLeaf(NamedTuple):
     shard_grid: Tuple[int, ...]  # per-dim shard counts
 
 
-def tree_keys(tree: Dict[str, Any]) -> Tuple[str, ...]:
-    """Leaf order of a flat dict pytree: sorted keys, as JAX flattens."""
-    return tuple(sorted(tree))
-
-
 def _iter_shard_blocks(arr: np.ndarray, grid: Tuple[int, ...]):
     """Yield the GSPMD equal-block shards of a global array, in grid order."""
     grid = tuple(grid) + (1,) * (arr.ndim - len(grid))
@@ -351,21 +330,21 @@ class ShardedGspmdChannel:
                 "(ROADMAP A9)"
             )
         self.ledger = BandwidthLedger()
+        self.telemetry = NULL_TELEMETRY  # build_run swaps in an enabled one
 
     # ------------------------------------------------------------- protocol
 
-    def init_state(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def init_state(self, params: PyTree) -> torch.Tensor:
         """The per-client error-feedback residual: ONE flat f32 buffer of
         shape ``(n_clients, shards_per_client, n_pad)``."""
-        device = next(iter(params.values())).device
+        device = tree_flatten(params)[0][0].device
         return self.flat_space.zeros_residual(device)
 
-    def round_exchange(self, residual: torch.Tensor,
-                       deltas: Dict[str, torch.Tensor], *,
+    def round_exchange(self, residual: torch.Tensor, deltas: PyTree, *,
                        need_own: bool) -> tuple:
         """One round's compress + exchange.
 
-        ``deltas`` is the per-client ΔW dict (leading client axis) and
+        ``deltas`` is the per-client ΔW tree (leading client axis) and
         ``residual`` this channel's state from :meth:`init_state`; returns
         ``(mean_tree, new_residual, own_tree_or_None)``, and with
         ``device_pack`` a fourth item ``(words, nbits)``: this round's
@@ -374,11 +353,11 @@ class ShardedGspmdChannel:
         ``need_own`` materializes each client's ΔW*_i (momentum masking,
         metering).
         """
-        keys = tree_keys(deltas)
-        out = self.exchange_flat(residual, [deltas[k] for k in keys], need_own)
+        leaves, treedef = tree_flatten(deltas)
+        out = self.exchange_flat(residual, leaves, need_own)
         means, new_residual, owns = out[:3]
-        mean_tree = dict(zip(keys, means))
-        own_tree = dict(zip(keys, owns)) if need_own else None
+        mean_tree = treedef.unflatten(means)
+        own_tree = treedef.unflatten(owns) if need_own else None
         if self.device_pack:
             return mean_tree, new_residual, own_tree, out[3]
         return mean_tree, new_residual, own_tree
@@ -429,15 +408,15 @@ class ShardedGspmdChannel:
 
     # ------------------------------------------------------------ metering
 
-    def measured_bits(self, own_tree: Dict[str, torch.Tensor]) -> float:
+    def measured_bits(self, own_tree: PyTree) -> float:
         """Real wire bits of ONE client's transmitted update: per (leaf,
         shard, row), Golomb-encode the ACTUAL surviving positions (paper
         Alg. 3's bitstream, one geometric draw vs Eq. 5) plus one 32-bit μ;
         dense leaves pay 32 bits/entry, skip leaves nothing.  Host-side
         numpy over the client's dense ΔW*."""
         total = 0.0
-        for gl, key in zip(self.leaves, tree_keys(own_tree)):
-            arr = own_tree[key].detach().cpu().numpy()
+        for gl, leaf in zip(self.leaves, tree_flatten(own_tree)[0]):
+            arr = leaf.detach().cpu().numpy()
             if gl.mode == "dense":
                 total += 32.0 * arr.size
                 continue
@@ -484,7 +463,7 @@ class ShardedGspmdChannel:
         self,
         round_idx: int,
         *,
-        own_client0: Dict[str, torch.Tensor] = None,
+        own_client0: PyTree = None,
         packed_nbits: torch.Tensor = None,
     ) -> float:
         """Meter the round's uploads into the ledger; returns bits/client.
@@ -497,7 +476,11 @@ class ShardedGspmdChannel:
         """
         analytic = self.bits().per_client
         if packed_nbits is not None:
-            per_client = self.measured_bits_per_client(packed_nbits)
+            with self.telemetry.span("encode", round=round_idx):
+                per_client = self.measured_bits_per_client(packed_nbits)
+            for ci, b in enumerate(per_client):
+                self.telemetry.metrics.gauge("wire/client_bits_measured", b,
+                                             round=round_idx, client=ci)
             total = float(sum(per_client))
             self.ledger.record_up(
                 round_idx,
@@ -507,7 +490,10 @@ class ShardedGspmdChannel:
                 up_bits_analytic=analytic * self.n_clients,
             )
             return total / self.n_clients
-        measured = self.measured_bits(own_client0)
+        with self.telemetry.span("encode", round=round_idx, client=0):
+            measured = self.measured_bits(own_client0)
+        self.telemetry.metrics.gauge("wire/own_client0_bits_measured", measured,
+                                     round=round_idx, client=0)
         self.ledger.record_up(
             round_idx,
             clients=tuple(range(self.n_clients)),

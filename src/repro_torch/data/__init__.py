@@ -1,4 +1,9 @@
 """Synthetic data of the port."""
-from repro_torch.data.synthetic import Task, client_batches, make_classification_task
+from repro_torch.data.synthetic import (
+    Task,
+    client_batches,
+    make_classification_task,
+    make_lm_task,
+)
 
-__all__ = ["Task", "client_batches", "make_classification_task"]
+__all__ = ["Task", "client_batches", "make_classification_task", "make_lm_task"]

@@ -1,19 +1,26 @@
 """Deterministic synthetic data with per-client streams.
 
-Counterpart of the classification half of ``repro.data.synthetic`` and of
-its :func:`client_batches`: the
-paper's MNIST stand-in, Gaussian class blobs in pixel space ("blob-MNIST")
-with fixed class means and additive noise.  Batches are drawn on the fly
-from a ``torch.Generator`` seeded by ``(seed, client, step)``, so the
-stream is stateless, reproducible and infinite.  torch cannot reproduce
-JAX's threefry draws: the numbers differ from the reference's, the
-distribution is the same, and parity tests hand both packages the same
-numpy batches instead.
+Counterpart of ``repro.data.synthetic``'s two IID tasks and of its
+:func:`client_batches`:
+
+  * classification ("blobs"): the paper's MNIST stand-in, Gaussian class
+    blobs in pixel space ("blob-MNIST") with fixed class means and
+    additive noise;
+  * LM ("markov"): a fixed random first-order Markov chain over the
+    vocabulary with temperature-controlled entropy, the CharLSTM preset's
+    stand-in for Shakespeare; ("affine"): ``x_{t+1} = (3·x_t + 7) mod V``,
+    near-zero achievable loss, for smoke tests.
+
+Batches are drawn on the fly from a ``torch.Generator`` seeded by
+``(seed, client, step)``, so the stream is stateless, reproducible and
+infinite.  torch cannot reproduce JAX's threefry draws: the numbers
+differ from the reference's, the distribution is the same, and parity
+tests hand both packages the same numpy batches instead.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -39,7 +46,9 @@ class Task:
 
     name: str
     sample: Callable[[int, int], dict]  # (step, client) -> batch dict
+    vocab_size: int = 0
     n_classes: int = 0
+    entropy_floor: float = 0.0  # achievable loss (nats/token) for LM tasks
 
 
 def make_classification_task(
@@ -71,6 +80,85 @@ def make_classification_task(
         return {"images": imgs, "labels": labels}
 
     return Task(name="blobs", sample=sample, n_classes=n_classes)
+
+
+def markov_transition(vocab: int, temperature: float = 1.0, seed: int = 0,
+                      device=None) -> torch.Tensor:
+    """The LM task's transition matrix ``(vocab, vocab)``: row ``a`` is
+    the distribution of the token after ``a``, a softmax of standard
+    normal logits over ``max(temperature, 1e-3)``, drawn on ``device``
+    (default: the CUDA card; raises ``RuntimeError`` without one)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(_seed_of(seed, 17))
+    logits = torch.randn((vocab, vocab), generator=gen, device=dev)
+    return torch.softmax(logits / max(temperature, 1e-3), dim=-1)
+
+
+def make_lm_task(
+    *,
+    vocab: int,
+    batch: int,
+    seq_len: int,
+    kind: str = "markov",
+    temperature: float = 1.0,
+    seed: int = 0,
+    extra_fields: Optional[Callable] = None,
+    device=None,
+) -> Task:
+    """Next-token prediction, ``labels[t] = tokens[t+1]`` at every
+    position: int64 ``tokens`` and ``labels`` of shape ``(batch,
+    seq_len)`` on ``device`` (default: the CUDA card; raises
+    ``RuntimeError`` without one).  The walk is sequential in ``t``, a
+    few tiny operations a token, so each sample is walked on the host
+    and reaches the device in one copy.
+
+    ``kind="markov"`` walks :func:`markov_transition` from a uniform start
+    token (``entropy_floor`` is the mean row entropy, about what a model
+    that learned the table reaches; an untrained one sits at ln V);
+    ``kind="affine"`` iterates ``(3x + 7) mod vocab``.  ``extra_fields``
+    serves the zoo's encoder-decoder and vision presets only.
+    """
+    if extra_fields is not None:
+        raise NotImplementedError(
+            "make_lm_task(extra_fields=...) serves the zoo presets, which come "
+            "with ROADMAP A12")
+    dev = resolve_device(device)
+    floor = 0.0
+    if kind == "markov":
+        probs = markov_transition(vocab, temperature, seed, dev)
+        row_ent = -torch.sum(probs * torch.log(probs + 1e-12), dim=-1)
+        floor = float(torch.mean(row_ent))
+        # inverse-CDF sampling: token t+1 is the first entry of row
+        # tokens[t]'s running sum that reaches a uniform draw
+        cdf = torch.cumsum(probs, dim=-1).cpu()
+
+        def walk(start: torch.Tensor, g: torch.Generator) -> list:
+            u = torch.rand((seq_len, batch, 1), generator=g)
+            toks, tok = [start], start
+            for t in range(seq_len):
+                tok = torch.searchsorted(cdf[tok], u[t]).squeeze(1).clamp_(max=vocab - 1)
+                toks.append(tok)
+            return toks
+    elif kind == "affine":
+        a, b = 3, 7
+
+        def walk(start: torch.Tensor, g: torch.Generator) -> list:
+            toks = [start]
+            for _ in range(seq_len):
+                toks.append((a * toks[-1] + b) % vocab)
+            return toks
+    else:
+        raise ValueError(f"unknown LM task kind {kind!r}")
+
+    def sample(step: int, client: int) -> dict:
+        g = torch.Generator()
+        g.manual_seed(_seed_of(seed, 1000 + client, step))
+        start = torch.randint(0, vocab, (batch,), generator=g)
+        toks = torch.stack(walk(start, g), dim=1).to(dev)  # (B, S+1)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    return Task(name=f"lm_{kind}", sample=sample, vocab_size=vocab, entropy_floor=floor)
 
 
 def client_batches(task: Task, n_clients: int, n_delay: int) -> Callable[[int], dict]:

@@ -32,12 +32,13 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.channel import GspmdLeaf, ShardedGspmdChannel, tree_keys
+from repro_torch.core.channel import GspmdLeaf, ShardedGspmdChannel
 from repro_torch.core.codec import Codec, make_codec
 from repro_torch.core.flat import ShardedFlatParamSpace
+from repro_torch.core.policy import CompressionPolicy, path_str
+from repro_torch.core.tree import tree_flatten, tree_flatten_with_path, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, build_model
-from repro_torch.core.policy import CompressionPolicy
 from repro_torch.optim.optimizers import get_optimizer, map_states
 
 
@@ -55,7 +56,7 @@ class DistTrainFns(NamedTuple):
     bits_per_client: float  # static Eq. 1 wire bits per round
     bits_dense: float
     flat_space: Any  # ShardedFlatParamSpace of the flat fast path
-    residual_to_tree: Callable  # flat residual → {leaf: (1,)+shape}
+    residual_to_tree: Callable  # flat residual → the params' tree of (1,)+shape
     channel: Any  # the ShardedGspmdChannel driving the exchange
 
 
@@ -112,9 +113,11 @@ def build_dist_train(
     if policy is None:
         policy = CompressionPolicy.single(make_codec("sbc"), name="sbc")
 
-    # leaf plan from the parameter shapes (every leaf replicated: one shard)
-    shapes = {k: tuple(v.shape) for k, v in model.init(torch.Generator()).items()}
-    keys = tree_keys(shapes)
+    # leaf plan from the parameter shapes (every leaf replicated: one
+    # shard), in JAX's leaf order with its "a/b" paths
+    flat_p, treedef = tree_flatten_with_path(model.init(torch.Generator()))
+    keys = [path_str(path) for path, _ in flat_p]
+    shapes = {k: tuple(v.shape) for k, (_, v) in zip(keys, flat_p)}
     plans = [policy.plan_for(k) for k in keys]
     scheduled = [pl.path for pl in plans if pl.schedule is not None]
     if scheduled:
@@ -145,7 +148,7 @@ def build_dist_train(
     bits = channel.bits()
 
     def init_state(gen: torch.Generator) -> dict:
-        params = {k: v.to(device) for k, v in model.init(gen).items()}
+        params = tree_map(lambda v: v.to(device), model.init(gen))
         return {
             "params": params,
             "opt": map_states(lambda v: v[0].expand((n_clients,) + v[0].shape).clone(),
@@ -160,38 +163,35 @@ def build_dist_train(
         params = state["params"]
         deltas, opt_states, losses = [], [], []
         for c in range(n_clients):
-            leaves_c = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-            loss = model.loss_fn(leaves_c, {k: v[c] for k, v in batch.items()})
-            grads = dict(zip(keys, torch.autograd.grad(loss, [leaves_c[k] for k in keys])))
+            leaves_c = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
+            loss = model.loss_fn(treedef.unflatten(leaves_c),
+                                 tree_map(lambda v: v[c], batch))
+            grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves_c)))
             with torch.no_grad():
                 p2, os2 = opt.apply(map_states(lambda v: v[0][c], [state["opt"]]),
                                     grads, params, cfg.base_lr, 0)
-                deltas.append({
-                    k: p2[k].to(torch.float32) - params[k].to(torch.float32)
-                    for k in keys
-                })
+                deltas.append(tree_map(
+                    lambda a, b: a.to(torch.float32) - b.to(torch.float32), p2, params))
             opt_states.append(os2)
             losses.append(loss.detach())
 
         with torch.no_grad():
-            stacked = {k: torch.stack([d[k] for d in deltas]) for k in keys}
+            stacked = tree_map(lambda *xs: torch.stack(xs), *deltas)
             out = channel.round_exchange(state["residual"], stacked,
                                          need_own=need_own)
             mean_tree, new_residual, own_tree = out[:3]
             # every client reconstructs the identical mean; take client 0
-            new_params = {
-                k: (params[k].to(torch.float32) + mean_tree[k][0].to(torch.float32)
-                    ).to(params[k].dtype)
-                for k in keys
-            }
+            new_params = tree_map(
+                lambda p, m: (p.to(torch.float32) + m[0].to(torch.float32)).to(p.dtype),
+                params, mean_tree)
             opt_state = map_states(torch.stack, opt_states)
             if need_mask:
-                transmitted = {k: (o != 0).to(torch.float32) for k, o in own_tree.items()}
+                transmitted = tree_map(lambda o: (o != 0).to(torch.float32), own_tree)
                 opt_state = opt.mask(opt_state, transmitted)
             metrics = {"loss": torch.stack(losses).mean()}
             if measure:
                 # client 0's transmitted ΔW*, for host-side wire metering
-                metrics["own_client0"] = {k: o[0] for k, o in own_tree.items()}
+                metrics["own_client0"] = tree_map(lambda o: o[0], own_tree)
                 if device_pack:
                     # exact per-(client, shard, row) packed wire bits +
                     # client 0's packed word buffer
@@ -201,9 +201,9 @@ def build_dist_train(
         return {"params": new_params, "opt": opt_state, "residual": new_residual}, metrics
 
     def residual_to_tree(flat_res: torch.Tensor) -> dict:
-        """The flat residual as the per-leaf stacked dict the per-leaf
+        """The flat residual as the per-leaf stacked tree the per-leaf
         path stores (views, no copy)."""
-        return {k: b[None] for k, b in zip(keys, space.unflatten_local(flat_res[0, 0]))}
+        return treedef.unflatten([b[None] for b in space.unflatten_local(flat_res[0, 0])])
 
     return DistTrainFns(
         train_step=train_step, init_state=init_state,

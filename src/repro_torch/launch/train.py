@@ -5,12 +5,16 @@ clients, communication delay n, sparsity p, SBC) on a synthetic task
 sized by ``--preset``, with the backend pinned to "local".  The flags are
 the shared run flags (:func:`repro_torch.run.flags.add_run_flags`) plus
 ``--save``, ``--print-policy`` and ``--device``.  The port carries the
-``lenet5``/``paper-lenet`` presets (the default here); the reference's
-default ``lm-100m`` comes with ROADMAP A12.
+paper's presets, ``lenet5``/``paper-lenet`` (the default here) and
+``charlstm``/``paper-lstm``; the reference's default ``lm-100m`` comes
+with ROADMAP A12.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --preset lenet5 \\
       --sparsity 0.01 --rounds 5 --clients 4 --batch 128 --measure-wire
+  PYTHONPATH=src python -m repro_torch.launch.train --preset paper-lstm \\
+      --compressor sbc --sparsity 0.01 --rounds 3 --clients 2 --batch 4 \\
+      --seq-len 32 --log-every 1
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import save_pytree
+from repro_torch.core.tree import tree_flatten
 from repro_torch.run.build import build_run, lr_schedule  # noqa: F401 (re-export)
 from repro_torch.run.flags import add_run_flags, spec_from_args
 
@@ -48,7 +53,7 @@ def main(argv=None):
         print(run.trainer.resolved(params).describe())
         return {}
 
-    n_params = sum(v.numel() for v in params.values())
+    n_params = sum(v.numel() for v in tree_flatten(params)[0])
     print(
         f"preset={spec.preset} arch={run.cfg.name} params={n_params/1e6:.1f}M "
         f"compressor={spec.compressor} clients={spec.clients} "
@@ -67,6 +72,11 @@ def main(argv=None):
             f"measured wire: {hist['measured_total_bits']/8e6:.2f} MB/client "
             f"(analytic {hist['total_upload_bits']/8e6:.2f} MB)"
         )
+    if spec.telemetry:
+        from repro_torch.obs import finish_run
+
+        finish_run(run.telemetry, trace=args.trace, metrics_out=args.metrics_out,
+                   meta={"backend": "local", "preset": spec.preset, "rounds": spec.rounds})
     if args.save:
         save_pytree(args.save, state.params)
         print(f"saved params to {args.save}")

@@ -1,7 +1,8 @@
 """``build_model(cfg) → Model``: init and loss of one architecture.
 
-Counterpart of ``repro.models.model``; this slice builds the CNN family's
-LeNet5.  The other families come with ROADMAP A5 and A12.
+Counterpart of ``repro.models.model``; the port builds the paper's two
+models, the CNN family's LeNet5 and the LSTM family's CharLSTM.  The
+other families come with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import cnn
+from repro_torch.models import cnn, lstm
 from repro_torch.models.losses import softmax_xent
 
 
@@ -21,10 +22,12 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "lstm":
+        return _build_lstm(cfg)
     if cfg.family != "cnn" or cfg.name != "lenet5":
         raise NotImplementedError(
-            f"model {cfg.name!r} ({cfg.family}) is not ported yet; this slice "
-            "has lenet5 (the paper presets come with ROADMAP A5, the zoo with A12)"
+            f"model {cfg.name!r} ({cfg.family}) is not ported yet; the port "
+            "has lenet5 and the lstm family (the zoo comes with ROADMAP A12)"
         )
 
     def init(gen: torch.Generator) -> dict:
@@ -32,6 +35,17 @@ def build_model(cfg: ModelConfig) -> Model:
 
     def loss_fn(params: dict, batch: dict) -> torch.Tensor:
         logits = cnn.lenet5_apply(params, batch["images"], cfg)
+        return softmax_xent(logits, batch["labels"])
+
+    return Model(cfg, init, loss_fn)
+
+
+def _build_lstm(cfg: ModelConfig) -> Model:
+    def init(gen: torch.Generator) -> dict:
+        return lstm.init_lstm_lm(gen, cfg)
+
+    def loss_fn(params: dict, batch: dict) -> torch.Tensor:
+        logits = lstm.lstm_lm_apply(params, batch["tokens"], cfg)
         return softmax_xent(logits, batch["labels"])
 
     return Model(cfg, init, loss_fn)

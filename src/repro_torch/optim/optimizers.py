@@ -1,11 +1,12 @@
 """Client-side optimizers of paper Alg. 1 (``SGD_n(W_i, D_i)``).
 
-Counterpart of ``repro.optim.optimizers``.  Pytrees are dicts of tensors;
-every function is pure (returns new dicts, never updates in place), as in
+Counterpart of ``repro.optim.optimizers``.  Pytrees are nested dicts of
+tensors, mapped leaf by leaf in JAX's order (``core.tree.tree_map``);
+every function is pure (returns new trees, never updates in place), as in
 the reference, so a test can hand both packages the same state.
 
 Momentum masking (paper supplement A / DGC): after a round the trainer
-calls :meth:`Optimizer.mask` with a 0/1 dict marking the coordinates just
+calls :meth:`Optimizer.mask` with a 0/1 tree marking the coordinates just
 transmitted; momentum there is zeroed.
 """
 from __future__ import annotations
@@ -15,11 +16,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.tree import tree_flatten, tree_map as _map
+
 Tree = dict
-
-
-def _map(fn, *trees: Tree) -> Tree:
-    return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +77,7 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return AdamState(_map(z, params), _map(z, params))
 
     def apply(state, grads, params, lr, step):
-        dev = next(iter(params.values())).device
+        dev = tree_flatten(params)[0][0].device
         # bias corrections in f32, as the reference computes b**t on arrays
         t = torch.as_tensor(step, dtype=torch.float32, device=dev) + 1.0
         bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=dev), t)
@@ -109,12 +108,12 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def map_states(fn, states):
     """Apply ``fn`` to the list of matching tensors of several optimizer
-    states (Adam's ``(m, v)``, a momentum dict, or SGD's ``()``)."""
+    states (Adam's ``(m, v)``, a momentum tree, or SGD's ``()``)."""
     s0 = states[0]
     if isinstance(s0, AdamState):
         return AdamState(map_states(fn, [s.m for s in states]),
                          map_states(fn, [s.v for s in states]))
-    return {k: fn([s[k] for s in states]) for k in s0} if s0 else s0
+    return _map(lambda *xs: fn(list(xs)), *states) if s0 else s0
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

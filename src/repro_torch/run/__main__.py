@@ -4,6 +4,8 @@ Same flags as ``python -m repro.run``; the port runs
 
   PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend local \\
       --sparsity 0.01 --rounds 5 --measure-wire [--fast]
+  PYTHONPATH=src python -m repro_torch.run --preset charlstm --backend local \\
+      --sparsity 0.01 --rounds 5 --measure-wire --trace t.json --metrics-out m.jsonl
   PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend gspmd \\
       --fast --flat-engine hist --sparsity 0.01 --batch 128 --rounds 5
   PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend gspmd \\
@@ -19,6 +21,7 @@ import time
 
 import torch
 
+from repro_torch.core.tree import tree_flatten
 from repro_torch.run.build import build_run
 from repro_torch.run.flags import build_parser, spec_from_args
 
@@ -31,7 +34,7 @@ def main(argv=None):
     spec = spec_from_args(args)
     run = build_run(spec, device=args.device)
 
-    n_params = sum(v.numel() for v in run.model.init(torch.Generator()).values())
+    n_params = sum(v.numel() for v in tree_flatten(run.model.init(torch.Generator()))[0])
     engine = (f"engine={spec.flat_engine} device_pack={spec.device_pack} "
               if spec.backend == "gspmd" else "")
     print(
@@ -58,6 +61,12 @@ def main(argv=None):
             f"(measured/analytic up "
             f"×{t['up_bits_measured']/max(t['up_bits_analytic'],1):.3f})"
         )
+    if spec.telemetry:
+        from repro_torch.obs import finish_run
+
+        finish_run(run.telemetry, trace=args.trace, metrics_out=args.metrics_out,
+                   meta={"backend": spec.backend, "preset": spec.preset,
+                         "rounds": spec.rounds})
     if args.history:
         os.makedirs(os.path.dirname(os.path.abspath(args.history)), exist_ok=True)
         with open(args.history, "w") as f:

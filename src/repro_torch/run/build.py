@@ -1,13 +1,14 @@
 """``build_run(spec) -> Run``: a declarative spec drives the port.
 
-Counterpart of ``repro.run.build``.  The port carries two backends:
+Counterpart of ``repro.run.build``.  The port carries the paper's two
+presets (``lenet5``, ``charlstm``) on two backends:
 
   local   :class:`~repro_torch.train.trainer.DSGDTrainer` over a
           :class:`~repro_torch.core.channel.LocalVmapChannel` (the paper's
           Alg. 1 round, clients as a leading axis), with ``fast`` either
           way and ``measure_wire``:
 
-              build_run(RunSpec(preset="lenet5", backend="local",
+              build_run(RunSpec(preset="charlstm", backend="local",
                                 sparsity=0.01, measure_wire=True))
 
   gspmd   one card, either flat engine, the exact one optionally with the
@@ -20,11 +21,15 @@ Counterpart of ``repro.run.build``.  The port carries two backends:
 Both take per-leaf policy rules (``dense_pattern``, ``skip_pattern``),
 built by :func:`policy_from_spec` as in the reference; the GSPMD hist
 engine takes all-SBC policies only and raises ``ValueError`` at its first
-step otherwise, as the reference does.  Every other combination raises
-``NotImplementedError`` naming the ROADMAP item that brings it; none runs
-a different path in silence.  The run is on the CUDA card unless
-``device="cpu"`` is passed; without a card ``build_run`` raises
-``RuntimeError``.
+step otherwise, as the reference does.  ``telemetry=True`` attaches one
+enabled :class:`~repro_torch.obs.Telemetry` to the run and its channel,
+and ``run()`` records what the reference's traced loop records (one
+``round`` span a round, the ``train/*`` and ``leaf/*`` gauges, the
+ledger's ``wire/*``).
+Every other combination raises ``NotImplementedError`` naming the
+ROADMAP item that brings it; none runs a different path in silence.  The
+run is on the CUDA card unless ``device="cpu"`` is passed; without a card
+``build_run`` raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from repro_torch.core.policy import CompressionPolicy, PolicyRule
 from repro_torch.device import resolve_device
 from repro_torch.launch.dist import build_dist_train, client_topology
 from repro_torch.models.model import build_model
+from repro_torch.obs import NULL_TELEMETRY, make_telemetry
 from repro_torch.run.presets import PORTED_PRESETS, build_preset
 from repro_torch.run.spec import RunSpec
 
@@ -48,20 +54,18 @@ def _check_slice(spec: RunSpec) -> None:
     if spec.backend == "fed":
         todo.append("backend='fed' (ROADMAP A8)")
     if spec.preset not in PORTED_PRESETS:
-        todo.append(f"preset {spec.preset!r} (ROADMAP A5/A12)")
+        todo.append(f"preset {spec.preset!r} (ROADMAP A12)")
     if spec.compressor != "sbc":
         todo.append(f"compressor {spec.compressor!r} (ROADMAP A12)")
     if spec.backend == "gspmd" and not spec.fast:
         todo.append("fast=False on gspmd, the per-leaf exchange (ROADMAP A9)")
-    if spec.telemetry:
-        todo.append("telemetry (ROADMAP A11)")
     if todo:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(todo) + ". This port carries "
-            "preset='lenet5' on backend='local' (fast either way, measure_wire) "
-            "and on backend='gspmd' with fast=True and flat_engine='hist' or "
-            "'exact' (device_pack, measure_wire), with dense_pattern and "
-            "skip_pattern on both."
+            "preset='lenet5' and 'charlstm' on backend='local' (fast either way, "
+            "measure_wire) and on backend='gspmd' with fast=True and "
+            "flat_engine='hist' or 'exact' (device_pack, measure_wire), with "
+            "dense_pattern, skip_pattern and telemetry on both."
         )
 
 
@@ -100,11 +104,62 @@ def lr_schedule(base_lr: float) -> Callable[[int], float]:
     return lambda it: base_lr
 
 
+# ---------------------------------------------------------------- Run base
+
+
+class Run:
+    """The run surface both backends share: :meth:`run`, one round loop
+    that records the reference's telemetry when it is on (``build_run``
+    sets an enabled :attr:`telemetry`; the class default is the no-op
+    ``NULL_TELEMETRY``)."""
+
+    telemetry = NULL_TELEMETRY
+
+    def _leaf_table(self, state) -> list:
+        """Per-leaf static compression plan rows ``(path, n, k, rate)``
+        for the ``leaf/*`` gauges (``k`` None for dense and skip leaves)."""
+        raise NotImplementedError
+
+    def _record_static_gauges(self, state) -> None:
+        from repro_torch.core.golomb import expected_position_bits
+
+        metrics = self.telemetry.metrics
+        for path, n, k, rate in self._leaf_table(state):
+            metrics.gauge("leaf/n", n, leaf=path)
+            metrics.gauge("leaf/rate", rate, leaf=path)
+            if k is not None:
+                metrics.gauge("leaf/k", k, leaf=path)
+                if 0.0 < rate < 1.0:
+                    metrics.gauge("leaf/golomb_bits_pos", expected_position_bits(rate),
+                                  leaf=path)
+
+    def _finalize_hist(self, hist: dict, n_rounds: int) -> dict:
+        """Backend-specific derived history fields (compression totals)."""
+        return hist
+
+    def run(self, n_rounds: Optional[int] = None, log_every: int = 0) -> tuple:
+        """init + :meth:`step` loop; returns ``(state, history)``.  With
+        telemetry on: the static ``leaf/*`` gauges, one fenced ``round``
+        span a round with the ``train/*`` gauges, and at the end the
+        ledger's rows as ``wire/*`` gauges."""
+        from repro_torch.train.trainer import run_rounds
+
+        n_rounds = self.spec.rounds if n_rounds is None else n_rounds
+        state = self.init()
+        if self.telemetry.enabled:
+            self._record_static_gauges(state)
+        state, hist = run_rounds(state, self.step, n_rounds=n_rounds, log_every=log_every,
+                                 telemetry=self.telemetry, params_of=self.params_of,
+                                 residual_of=self._residual_of)
+        self.telemetry.metrics.ingest_ledger(self.ledger)
+        return state, self._finalize_hist(hist, n_rounds)
+
+
 # ------------------------------------------------------------ local backend
 
 
 @dataclasses.dataclass(eq=False)
-class LocalRun:
+class LocalRun(Run):
     """A built local backend: the init/step/evaluate/checkpoint/run surface
     over a :class:`~repro_torch.train.trainer.DSGDTrainer`."""
 
@@ -149,12 +204,23 @@ class LocalRun:
 
         save_train_state(path, state)
 
-    def run(self, n_rounds: Optional[int] = None, log_every: int = 0) -> tuple:
-        """init + :meth:`step` loop; returns ``(state, history)``."""
-        from repro_torch.train.trainer import run_rounds
+    def params_of(self, state):
+        return state.params
 
-        return run_rounds(self.init(), self.step, log_every=log_every,
-                          n_rounds=self.spec.rounds if n_rounds is None else n_rounds)
+    def _residual_of(self, state):
+        return state.comp_state.residual
+
+    def _leaf_table(self, state) -> list:
+        from repro_torch.core.stages import k_for
+
+        resolved = self.trainer.resolved(state.params)
+        rates = resolved.rates(self.spec.sparsity, 0)
+        rows = []
+        for plan, leaf, p in zip(resolved.plans, resolved._leaves_of(state.params), rates):
+            n = leaf.numel()
+            sparse = not (plan.codec.skip or plan.codec.selector.dense)
+            rows.append((plan.path, n, k_for(n, p) if sparse else None, float(p)))
+        return rows
 
 
 def _build_local(spec: RunSpec, dev: torch.device) -> LocalRun:
@@ -179,7 +245,7 @@ def _build_local(spec: RunSpec, dev: torch.device) -> LocalRun:
 
 
 @dataclasses.dataclass(eq=False)
-class GspmdRun:
+class GspmdRun(Run):
     """A built GSPMD backend: the init/step/run surface."""
 
     spec: RunSpec
@@ -211,7 +277,11 @@ class GspmdRun:
         ``measure_wire`` the round's uploads are metered into the ledger
         (every client's packed bits with ``device_pack``, else client 0's
         host-encoded ΔW*), which waits for the device."""
-        state, m = self.fns.train_step(state, self._batch(round_idx))
+        # the round (local step, compress, exchange, apply) traced as one
+        # exchange span, as the reference traces its one jitted call
+        with self.telemetry.span("exchange", round=round_idx, fused=True):
+            state, m = self.fns.train_step(state, self._batch(round_idx))
+            self.telemetry.fence(state["params"])
         m = dict(m)
         if self.spec.measure_wire:
             own_client0 = m.pop("own_client0")
@@ -224,29 +294,41 @@ class GspmdRun:
         m["bits_dense"] = self.fns.bits_dense
         return state, m
 
-    def run(self, n_rounds: Optional[int] = None, log_every: int = 0) -> tuple:
-        """init + step loop; returns ``(state, history)``."""
-        n_rounds = self.spec.rounds if n_rounds is None else n_rounds
-        state = self.init()
-        hist: dict = {"round": [], "loss": [], "bits_per_client": []}
-        for r in range(n_rounds):
-            state, m = self.step(state, r)
-            hist["round"].append(r)
-            hist["loss"].append(float(m["loss"]))
-            hist["bits_per_client"].append(float(m["bits_per_client"]))
-            if log_every and (r + 1) % log_every == 0:
-                print(f"round {r+1:5d}  loss {float(m['loss']):.4f}")
+    def params_of(self, state: dict):
+        return state["params"]
+
+    def _residual_of(self, state: dict):
+        return state["residual"]
+
+    def _leaf_table(self, state) -> list:
+        """The rows of the flat space's segments: a sparse leaf's ``k`` is
+        the survivors its kernels select, ``k`` a row of each shard."""
+        return [(s.path, s.global_size, s.rows * s.n_shards * s.k if s.kind == "sparse" else None,
+                 s.rate) for s in self.fns.flat_space.segments]
+
+    def _finalize_hist(self, hist: dict, n_rounds: int) -> dict:
         hist["total_upload_bits"] = float(self.fns.bits_per_client) * n_rounds
         hist["dense_total_bits"] = float(self.fns.bits_dense) * n_rounds
         hist["compression_rate"] = hist["dense_total_bits"] / max(
             hist["total_upload_bits"], 1.0
         )
-        return state, hist
+        return hist
 
 
 def build_run(spec: RunSpec, device=None) -> Union[LocalRun, GspmdRun]:
     """Construct the backend a spec names, on ``device`` (default: the CUDA
-    card; an explicit ``"cuda:N"`` picks one of several cards)."""
+    card; an explicit ``"cuda:N"`` picks one of several cards).
+    ``spec.telemetry`` attaches one enabled :class:`~repro_torch.obs.Telemetry`
+    to the run and its channel; a disabled run keeps the shared no-op
+    ``NULL_TELEMETRY``."""
+    run = _build(spec, device)
+    if spec.telemetry:
+        run.telemetry = make_telemetry()
+        run.channel.telemetry = run.telemetry
+    return run
+
+
+def _build(spec: RunSpec, device) -> Union[LocalRun, GspmdRun]:
     _check_slice(spec)
     if spec.backend == "gspmd" and device is None and torch.cuda.device_count() > 1:
         raise NotImplementedError(

@@ -39,7 +39,7 @@ def add_compression_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParse
 
 def add_telemetry_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The telemetry export knobs (either flag enables telemetry)."""
-    g = ap.add_argument_group("telemetry (not ported yet: ROADMAP A11)")
+    g = ap.add_argument_group("telemetry (repro_torch.obs; repro-obs-v1 files)")
     g.add_argument("--trace", default=None, metavar="PATH",
                    help="write a Perfetto-loadable trace.json of the run")
     g.add_argument("--metrics-out", default=None, metavar="PATH",

@@ -1,18 +1,19 @@
 """Named presets: one string → (ModelConfig, synthetic Task).
 
-Counterpart of ``repro.run.presets``; this slice carries
+Counterpart of ``repro.run.presets``; the port carries the paper's two
 
   lenet5 / paper-lenet   LeNet5 on blob-MNIST (Adam, the paper's smallest)
+  charlstm / paper-lstm  CharLSTM on a markov stream (SGD @ 1.0)
 
-The other presets come with ROADMAP A5 (charlstm) and A12 (the zoo).
+The zoo's presets come with ROADMAP A12.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import get_config
-from repro_torch.data import make_classification_task
+from repro_torch.data import make_classification_task, make_lm_task
 from repro_torch.device import resolve_device
 
-PORTED_PRESETS = ("lenet5", "paper-lenet")
+PORTED_PRESETS = ("lenet5", "paper-lenet", "charlstm", "paper-lstm")
 
 
 def build_preset(name: str, *, batch: int, seq_len: int, seed: int = 0,
@@ -22,9 +23,14 @@ def build_preset(name: str, *, batch: int, seq_len: int, seed: int = 0,
     if name not in PORTED_PRESETS:
         raise NotImplementedError(
             f"preset {name!r} is not ported yet; have {PORTED_PRESETS} "
-            "(charlstm comes with ROADMAP A5, the zoo with A12)"
+            "(the zoo comes with ROADMAP A12)"
         )
     device = resolve_device(device)
+    if name in ("charlstm", "paper-lstm"):
+        cfg = get_config("charlstm")
+        task = make_lm_task(vocab=98, batch=batch, seq_len=seq_len, temperature=0.5,
+                            seed=seed, device=device)
+        return cfg, task
     cfg = get_config("lenet5")
     # as in the reference, the blob task keeps its own default seed
     task = make_classification_task(n_classes=10, img_size=28, channels=1,

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 import warnings
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
@@ -36,7 +37,9 @@ import torch
 from repro_torch.core.api import Compressor
 from repro_torch.core.channel import LocalVmapChannel, mean_over_clients
 from repro_torch.core.policy import CompressionPolicy, CompressorState, ResolvedPolicy
+from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.obs import NULL_TELEMETRY, Telemetry
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer, map_states
 
@@ -90,7 +93,7 @@ class DSGDTrainer:
         ``seed``), zero optimizer and compressor states for every client."""
         if gen is None:
             gen = torch.Generator().manual_seed(seed)
-        params = {k: v.to(self.device) for k, v in self.model.init(gen).items()}
+        params = tree_map(lambda v: v.to(self.device), self.model.init(gen))
         C = self.n_clients
         opt_states = map_states(lambda v: v[0].expand((C,) + tuple(v[0].shape)).clone(),
                                 [self.optimizer.init(params)])
@@ -106,7 +109,7 @@ class DSGDTrainer:
         per_client_batch, ...)``.  Returns ``(state, metrics)``, and client
         0's compressed tree with ``return_compressed``."""
         params = state.params
-        keys = sorted(params)
+        treedef = tree_flatten(params)[1]
         iteration = int(state.round) * n_delay  # forward-backward passes so far
         deltas, opt_states, losses = [], [], []
         with _deterministic_convolutions():
@@ -116,28 +119,28 @@ class DSGDTrainer:
                 client_losses = []
                 for d in range(n_delay):
                     it = iteration + d
-                    leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-                    loss = self.model.loss_fn(leaves, {k: v[c, d] for k, v in batch.items()})
-                    grads = dict(zip(keys, torch.autograd.grad(loss, [leaves[k] for k in keys])))
+                    leaves = [v.detach().requires_grad_(True) for v in tree_flatten(p)[0]]
+                    loss = self.model.loss_fn(treedef.unflatten(leaves),
+                                              tree_map(lambda v: v[c, d], batch))
+                    grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
                     with torch.no_grad():
                         p, os = self.optimizer.apply(os, grads, p, self.lr(it), it)
                     client_losses.append(loss.detach())
-                deltas.append({k: p[k].to(torch.float32) - params[k].to(torch.float32)
-                               for k in keys})
+                deltas.append(tree_map(lambda a, b: a.to(torch.float32) - b.to(torch.float32),
+                                       p, params))
                 opt_states.append(os)
                 losses.append(mean_over_clients(torch.stack(client_losses)))
 
         with torch.no_grad():
-            stacked = {k: torch.stack([d[k] for d in deltas]) for k in keys}
+            stacked = tree_map(lambda *xs: torch.stack(xs), *deltas)
             ex = self.channel.round_exchange(stacked, state.comp_state, sparsity,
                                              return_compressed=return_compressed)
-            new_params = {k: (params[k].to(torch.float32)
-                              + ex.mean_delta[k].to(torch.float32)).to(params[k].dtype)
-                          for k in keys}
+            new_params = tree_map(lambda p, d: (p.to(torch.float32) + d.to(torch.float32)
+                                                ).to(p.dtype), params, ex.mean_delta)
             # momentum masking at each client's transmitted coordinates
-            transmitted = {k: (v != 0).to(torch.float32) for k, v in ex.transmitted.items()}
+            transmitted = tree_map(lambda v: (v != 0).to(torch.float32), ex.transmitted)
             opt_state = self.optimizer.mask(map_states(torch.stack, opt_states), transmitted)
-            n_params = sum(v.numel() for v in params.values())
+            n_params = sum(v.numel() for v in tree_flatten(params)[0])
             metrics = {
                 "loss": mean_over_clients(torch.stack(losses)),
                 "bits_per_client": ex.bits_per_client,
@@ -152,13 +155,19 @@ class DSGDTrainer:
     def step(self, state: TrainState, batch: dict, round_idx: int, *, n_delay: int,
              sparsity: float, measure_wire: bool = False) -> tuple:
         """One metered round: :meth:`round_step` at the policy's rates for
-        ``round_idx``; with ``measure_wire`` client 0's upload is packed to
-        SBW1 bytes and metered ×C into the ledger, which waits for the
-        device (without it the round never waits).  Returns ``(state,
-        metrics)``."""
+        ``round_idx`` (the channel's ``exchange`` span); with
+        ``measure_wire`` client 0's upload is packed to SBW1 bytes and
+        metered ×C into the ledger (its ``encode`` span), which waits for
+        the device (without it, and with telemetry off, the round never
+        waits).  Returns ``(state, metrics)``."""
         rates = self.resolved(state.params).rates(sparsity, round_idx)
-        out = self.round_step(state, batch, n_delay=n_delay, sparsity=rates,
-                              return_compressed=measure_wire)
+        tel = self.channel.telemetry
+        # the local steps, the exchange and the update, traced as one
+        # exchange span, as the reference traces its one jitted round
+        with tel.span("exchange", round=round_idx, fused=True):
+            out = self.round_step(state, batch, n_delay=n_delay, sparsity=rates,
+                                  return_compressed=measure_wire)
+            tel.fence(out[0].params)
         if not measure_wire:
             return out
         state, m, comp0 = out
@@ -180,33 +189,60 @@ class DSGDTrainer:
             n_rounds=n_rounds, log_every=log_every)
 
 
-def run_rounds(state: TrainState, step: Callable[[TrainState, int], tuple], *,
-               n_rounds: int, log_every: int = 0) -> tuple:
-    """The local backend's round loop: ``step(state, r)`` for each round,
+def run_rounds(state: Any, step: Callable[[Any, int], tuple], *, n_rounds: int,
+               log_every: int = 0, telemetry: Telemetry = NULL_TELEMETRY,
+               params_of: Callable = lambda s: s.params,
+               residual_of: Callable = lambda s: s.comp_state.residual) -> tuple:
+    """The round loop of both backends: ``step(state, r)`` for each round,
     its metrics gathered into the reference's history (with
     ``measured_bits_per_client`` and ``measured_total_bits`` where the
-    step meters the wire).  Returns ``(state, history)``."""
+    step meters the wire).  With an enabled ``telemetry`` each round is a
+    ``round`` span fenced on ``params_of(state)``, with the ``train/*``
+    gauges (``phase="compile"`` on round 0) and the residual's norm; with
+    the default no-op one nothing waits for the device.  Returns
+    ``(state, history)``."""
+    tel = telemetry
     hist: dict = {"round": [], "loss": [], "bits_per_client": []}
     dense_total = 0.0
     for r in range(n_rounds):
-        state, m = step(state, r)
+        t0 = time.perf_counter()
+        with tel.span("round", round=r):
+            state, m = step(state, r)
+            tel.fence(params_of(state))
+        step_ms = (time.perf_counter() - t0) * 1e3
+        loss, bits = float(m["loss"]), float(m["bits_per_client"])
+        if tel.enabled:
+            tel.metrics.gauge("train/step_ms", step_ms, round=r,
+                              phase="compile" if r == 0 else "steady")
+            tel.metrics.gauge("train/loss", loss, round=r)
+            tel.metrics.gauge("train/bits_per_client", bits, round=r)
+            norm = torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                                  for x in tree_flatten(residual_of(state))[0]))
+            tel.metrics.gauge("train/residual_norm", float(norm), round=r)
         hist["round"].append(r)
-        hist["loss"].append(float(m["loss"]))
-        hist["bits_per_client"].append(float(m["bits_per_client"]))
+        hist["loss"].append(loss)
+        hist["bits_per_client"].append(bits)
         dense_total += float(m["bits_dense"])
         if "measured_bits_per_client" in m:
             hist.setdefault("measured_bits_per_client", []).append(
-                m["measured_bits_per_client"])
+                float(m["measured_bits_per_client"]))
         if log_every and (r + 1) % log_every == 0:
-            print(f"round {r + 1:5d}  loss {float(m['loss']):.4f}  "
-                  f"bits/client {float(m['bits_per_client']):.3e}")
+            print(f"round {r + 1:5d}  loss {loss:.4f}  bits/client {bits:.3e}  "
+                  f"step {step_ms:.1f} ms")
+    return state, finish_history(hist, dense_total)
+
+
+def finish_history(hist: dict, dense_total: float) -> dict:
+    """The history's totals: upload bits (the sum of the rounds' Eq. 1
+    bits), ``dense_total`` and their ratio, and the measured total where
+    the rounds metered the wire."""
     total_bits = sum(hist["bits_per_client"], 0.0)
     hist["total_upload_bits"] = total_bits
     hist["dense_total_bits"] = dense_total
     hist["compression_rate"] = dense_total / max(total_bits, 1.0)
     if hist.get("measured_bits_per_client"):
         hist["measured_total_bits"] = sum(hist["measured_bits_per_client"])
-    return state, hist
+    return hist
 
 
 @contextlib.contextmanager
@@ -223,7 +259,7 @@ def _deterministic_convolutions():
         torch.backends.cudnn.deterministic = before
 
 
-def _tree_norm(tree: dict) -> torch.Tensor:
+def _tree_norm(tree) -> torch.Tensor:
     """√Σ x² over the tree's leaves, summed leaf by leaf in leaf order."""
-    return torch.sqrt(sum(torch.sum(torch.square(tree[k].to(torch.float32)))
-                          for k in sorted(tree)))
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_flatten(tree)[0]))

@@ -1226,3 +1226,52 @@ def test_wire_pack_device_on_the_card_equals_the_host_pack(cuda, name):
                                           n(dense[k]).view(np.uint32))
         blobs.append(dev_blob)
     assert blobs[0] == blobs[1]
+
+
+# ------------------------------------------- CharLSTM and telemetry on the card
+
+
+@pytest.mark.cuda
+def test_charlstm_local_paths_are_bit_identical_and_repeat_on_the_card(cuda):
+    """CharLSTM on the card: the flat and the per-leaf local paths give
+    bit-identical params, residuals and ledger rows, and a second run of
+    the flat path repeats the first bit for bit (the embedding's backward
+    adds repeated tokens' rows in a fixed order)."""
+    from repro_torch.core.tree import tree_flatten
+
+    spec = dict(preset="charlstm", backend="local", clients=2, batch=4, seq_len=16,
+                sparsity=0.01, measure_wire=True)
+    finals = []
+    for fast in (False, True, True):
+        run = build_run(RunSpec(**spec, fast=fast), device=cuda)
+        state = run.init()
+        for r in range(2):
+            state, m = run.step(state, r)
+            assert np.isfinite(float(m["loss"]))
+        res = state.comp_state.residual
+        if fast:
+            res = run.trainer.resolved(state.params).flat_space(state.params).unflatten(res)
+        finals.append((tree_flatten(state.params)[0] + tree_flatten(res)[0],
+                       run.ledger.history()))
+    for leaves, hist in finals[1:]:
+        for a, b in zip(leaves, finals[0][0]):
+            np.testing.assert_array_equal(n(a).view(np.uint32), n(b).view(np.uint32))
+        assert hist == finals[0][1]
+
+
+@pytest.mark.cuda
+def test_tracer_fence_synchronizes_the_card(cuda, monkeypatch):
+    from repro_torch import obs
+
+    real, calls = torch.cuda.synchronize, []
+
+    def counted(device=None):
+        calls.append(device)
+        return real(device)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    x = torch.randn((4096, 4096), device=cuda)
+    y = {"w": x @ x, "b": torch.zeros(3)}
+    assert obs.Tracer().fence(y) is y
+    assert calls == [y["w"].device] and torch.cuda.current_stream(cuda).query()
+    assert obs.NULL_TELEMETRY.fence(y) is y and len(calls) == 1

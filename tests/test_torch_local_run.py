@@ -247,13 +247,12 @@ def test_fast_and_per_leaf_local_runs_are_bit_identical():
     assert runs[True].ledger.history() == runs[False].ledger.history()
 
 
-@pytest.mark.parametrize("change", [
-    dict(preset="charlstm"), dict(telemetry=True), dict(backend="fed"),
-], ids=["A5", "A11", "A8"])
-def test_local_fields_not_carried_raise(change):
+@pytest.mark.parametrize("change, item", [
+    (dict(preset="tiny"), "A12"), (dict(compressor="topk"), "A12"),
+    (dict(backend="fed"), "A8"),
+], ids=["A12", "A12-compressor", "A8"])
+def test_local_fields_not_carried_raise(change, item):
     spec = RunSpec(**{**dict(preset="lenet5", backend="local"), **change})
-    item = {"charlstm": "A5", True: "A11", "fed": "A8"}[
-        change.get("preset") or change.get("telemetry") or change.get("backend")]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         build_run(spec, device="cpu")
 

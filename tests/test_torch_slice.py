@@ -253,12 +253,12 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("change", [
-    dict(backend="local", telemetry=True), dict(backend="fed"),
+    dict(backend="fed", telemetry=True), dict(backend="fed"),
     dict(flat_engine="exact", compressor="signsgd"),
-    dict(fast=False), dict(preset="charlstm"), dict(compressor="topk"),
-    dict(flat_engine="exact", skip_pattern="f2", fast=False), dict(telemetry=True),
+    dict(fast=False), dict(preset="tiny"), dict(compressor="topk"),
+    dict(flat_engine="exact", skip_pattern="f2", fast=False), dict(preset="lm-100m"),
     dict(dense_pattern="b$", backend="local", compressor="topk"),
-    dict(skip_pattern="f2", preset="charlstm"),
+    dict(skip_pattern="f2", preset="tiny"),
     dict(flat_engine="exact", fast=False),
 ])
 def test_specs_outside_the_slice_raise(change):
