@@ -23,7 +23,8 @@ Without arguments, phases, each of which fails the run:
      engine, 5 rounds.  Every kernel's launch count is set to 0 just
      before and read just after; every round must launch
      ``seg_hist2side`` twice, ``seg_moments`` and ``seg_binarize_apply``
-     once and no packer, every loss must be finite, and the last round's
+     once, ``f32_mean_xla`` once (the mean of the clients' losses every
+     GSPMD round takes) and no packer, every loss must be finite, and the last round's
      residual must be ``acc − ΔW*`` bit for bit with each segment's ΔW*
      holding only 0 and that segment's μ.  The last round's accumulator
      goes through the hist pipeline once more with each kernel's operands
@@ -38,7 +39,8 @@ Without arguments, phases, each of which fails the run:
      with the device-packed Golomb wire and wire metering
      (``flat_engine="exact", device_pack=True, measure_wire=True``), 5
      rounds.  Every round must launch ``seg_packbits`` once (its
-     stream-order entry, ``pack_bit_rows``) and nothing else; every loss
+     stream-order entry, ``pack_bit_rows``), ``f32_mean_xla`` seven times
+     (one a segment, one for the loss) and nothing else; every loss
      must be finite; on the last round the residual must be ``acc − ΔW*``
      bit for bit, and each (segment, row) of ΔW* must hold one value ±μ
      in exactly k slots; every (segment, row)'s slice of the packed words
@@ -121,23 +123,44 @@ Without arguments, phases, each of which fails the run:
      before each and read just after: the local backend per leaf (4
      clients, 64 ``f32_mean_xla`` a round) and flat (8), with phase 6's
      checks; the GSPMD hist engine (2 ``seg_hist2side``, 1 ``seg_moments``,
-     1 ``seg_binarize_apply`` a round), with phase 2's checks and each
+     1 ``seg_binarize_apply`` a round, 1 ``f32_mean_xla``), with phase 2's
+     checks and each
      hist kernel held against its plain version on the path's operands;
      and the GSPMD exact engine with the device-packed wire (1
-     ``seg_packbits``, 8 ``f32_mean_xla`` a round), with phase 3's word,
+     ``seg_packbits``, 8 + 1 ``f32_mean_xla`` a round), with phase 3's word,
      ledger and ``f32_mean_xla`` checks; each with a profiled round.  Then
      the local flat path once more with telemetry on (``repro_torch.obs``):
      5 ``round``, ``exchange`` and ``encode`` spans, the port's validators
      clean, the ``repro-obs-v1`` files written to a temporary directory,
      params bit-identical to the run without telemetry, and the step ms
      with telemetry on and off;
-  8. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  8. clients across ranks: (a) a real NCCL process group of one rank:
+     its ``all_gather_rows`` and ``pmean`` return their input bit for bit,
+     and five LeNet5 rounds of the hist engine and of the exact engine with
+     the device pack and the ledger through the group equal the same
+     rounds without one (params, optimizer state, residual, losses, ledger
+     rows), under deterministic cuDNN; (b) two ranks on the one card, one
+     process and one client each, over gloo (NCCL refuses two ranks on one
+     card; gloo's ``all_gather`` takes the CUDA tensors), five rounds of
+     each of ``MULTI_PATHS`` (LeNet5 hist; LeNet5 exact with the device
+     pack and the ledger; LeNet5 per leaf with f1b and f2b dense; CharLSTM
+     exact with the device pack) with the counts set to 0 just before and
+     read just after: each rank's launches a round as the one-client
+     path's, the params identical on both ranks, the last round's mean
+     equal to the one recomputed from both clients' gathered ΔW*, every
+     kernel call of the last round equal to its plain version on its own
+     operands (all bit for bit, but ``seg_moments``' sums, to
+     ``rtol=1e-6``), one profiled round, and ``golomb_decode_rows`` on the
+     gathered words of the device pack, checked against both clients'
+     survivors and timed;
+  9. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
      wire path's launches, the exact path's in ``launches_exact_path``
      and the local paths' in ``launches_local_*_path``; every row holds
-     its launches on each CharLSTM path in ``launches_charlstm``;
+     its launches on each CharLSTM path in ``launches_charlstm`` and on
+     each multi-rank path (rank 0) in ``launches_multi_rank``;
      ``masked_moments`` holds its default tile's times in
      ``default_tile_*`` fields; ``f32_mean_xla`` replaces no Pallas
      kernel, which its ``reference`` field says), then the card line,
@@ -189,14 +212,16 @@ def per_call(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
-HIST_PER_ROUND = per_call(seg_hist2side=2, seg_moments=1, seg_binarize_apply=1)
-EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=6)  # one mean per segment
+# every GSPMD round also takes one f32_mean_xla of the clients' losses
+HIST_PER_ROUND = per_call(seg_hist2side=2, seg_moments=1, seg_binarize_apply=1,
+                          f32_mean_xla=1)
+EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=6 + 1)  # one mean per segment
 # the codec + wire phase: LeNet5 under sbc with f1b and f2b dense (four SBC
 # leaves): a mean for topk_signed and one for binarize per SBC leaf, and
 # one seg_select_pack per Golomb leaf in the device pack
 DENSE_PATTERN = r"^f[12]b$"
 CODEC_PER_ROUND = per_call(seg_select_pack=4, f32_mean_xla=8)
-DENSE_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=4)
+DENSE_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=4 + 1)
 # the profiled exact round's device operations before f32_mean_xla, when
 # each side's mean was three torch operations (PERF.md §5)
 EXACT_DEVICE_OPS_BEFORE = 812
@@ -230,7 +255,7 @@ CHARLSTM_GSPMD = dict(CHARLSTM, backend="gspmd", fast=True)
 CHARLSTM_LEAVES = 8
 CHARLSTM_LOCAL_PER_ROUND = {True: per_call(f32_mean_xla=CHARLSTM_LEAVES),
                             False: per_call(f32_mean_xla=2 * CHARLSTM_LEAVES * 4)}
-CHARLSTM_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=CHARLSTM_LEAVES)
+CHARLSTM_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=CHARLSTM_LEAVES + 1)
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
 SOURCE = {name: SEG_SBC for name in KERNELS}
 SOURCE.update(seg_packbits="src/repro_torch/kernels/csrc/pack.cu",
@@ -1420,6 +1445,346 @@ def telemetry_check(dev, local: dict) -> None:
           f"; off {', '.join(f'{t:.3f}' for t in local['step_ms'][True][1:])}")
 
 
+# ----------------------------------------------------- clients across ranks
+
+
+# the multi-rank phase: two ranks (one client each) on the one card, over
+# gloo (NCCL refuses two ranks on one card); per rank and round: the path's
+# launches of one client, plus the loss mean
+MULTI_WORLD = 2
+LEAF_PER_ROUND = per_call(f32_mean_xla=4 + 1)  # one a SBC leaf: c1, c2, f1, f2
+MULTI_PATHS = (
+    ("lenet5 hist", dict(SPEC, flat_engine="hist"), HIST_PER_ROUND),
+    ("lenet5 exact", dict(SPEC, flat_engine="exact", device_pack=True, measure_wire=True),
+     EXACT_PER_ROUND),
+    ("lenet5 per-leaf", dict(SPEC, fast=False, flat_engine="exact", measure_wire=True,
+                             dense_pattern=DENSE_PATTERN), LEAF_PER_ROUND),
+    ("charlstm exact", dict(CHARLSTM_GSPMD, flat_engine="exact", device_pack=True,
+                            measure_wire=True), CHARLSTM_EXACT_PER_ROUND),
+)
+MULTI_TIMEOUT_S = 420
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block: without them the
+    card's convolution weight gradients may change bits from run to run
+    (ROADMAP C), and two runs could not be compared bit for bit."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def five_rounds(run) -> tuple:
+    """``(state, losses)`` of ROUNDS rounds of ``run`` from its seed."""
+    import torch
+
+    state, losses = run.init(), []
+    for r in range(ROUNDS):
+        state, m = run.step(state, r)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return state, losses
+
+
+def flat_bits(tree):
+    """Every leaf of ``tree`` (Adam's ``(m, v)`` opened), as int32 bits, in
+    one vector."""
+    import torch
+    from repro_torch.core.tree import tree_flatten
+
+    if hasattr(tree, "_fields"):
+        return torch.cat([flat_bits(part) for part in tree])
+    return torch.cat([v.detach().reshape(-1).view(torch.int32)
+                      for v in tree_flatten(tree)[0]])
+
+
+def nccl_world_one(dev) -> None:
+    """Phase 8a: a real NCCL process group of one rank.  Its collectives
+    return their input bit for bit, and five LeNet5 rounds of the hist
+    engine and of the exact engine with the device pack and the ledger
+    through the group equal the same rounds without a group (params,
+    residual, optimizer state, losses, ledger rows), both under
+    deterministic cuDNN."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import ClientGroup
+    from repro_torch.run import RunSpec, build_run
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(1000).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.integers(0, 2 ** 32, 77, dtype=np.uint64).astype(np.uint32)
+                         .view(np.int32)).to(dev).view(torch.uint32)
+    with tempfile.TemporaryDirectory() as tmp:
+        group = ClientGroup.connect(rank=0, world=1, device=dev, backend="nccl",
+                                    init_method=f"file://{tmp}/store")
+        try:
+            rows, words, mean = group.all_gather_rows(x), group.all_gather_rows(w), group.pmean(x)
+            torch.cuda.synchronize()
+            check(tuple(rows.shape) == (1, 1000) and bit_equal(rows[0], x)
+                  and words.dtype == torch.uint32 and bit_equal(words[0], w)
+                  and bit_equal(mean, x), "NCCL world 1: the collectives change their input")
+            print(f"nccl world 1: all_gather_rows (f32, uint32 words) and pmean return their "
+                  f"input bit for bit (backend {group.backend})")
+            with deterministic_cudnn():
+                for engine, extra in (("hist", {}), ("exact", dict(device_pack=True,
+                                                                   measure_wire=True))):
+                    spec = RunSpec(**SPEC, flat_engine=engine, **extra)
+                    alone = build_run(spec, device=dev)
+                    grouped = build_run(spec, group=group)
+                    check(grouped.group is group and grouped.n_clients == 1,
+                          "nccl world 1: the run did not take the group")
+                    (s0, l0), (s1, l1) = five_rounds(alone), five_rounds(grouped)
+                    for key in ("params", "opt", "residual"):
+                        check(torch.equal(flat_bits(s0[key]), flat_bits(s1[key])),
+                              f"nccl world 1 {engine}: {key} differ from the no-group run")
+                    check(l0 == l1 and alone.ledger.history() == grouped.ledger.history(),
+                          f"nccl world 1 {engine}: losses or ledger rows differ")
+                    print(f"nccl world 1 {engine}: {ROUNDS} rounds through the group == without "
+                          f"it, bit for bit (params, opt, residual, losses {l1[-1]:.6f}, "
+                          f"{len(grouped.ledger.records)} ledger rows)")
+        finally:
+            group.close()
+
+
+def multi_rank_phase(dev) -> dict:
+    """Phase 8b: MULTI_WORLD ranks on the one card (one process a rank, a
+    client each, over gloo), every path of ``MULTI_PATHS``; each rank's
+    checks are in :func:`multi_rank_path`.  Prints rank 0's report and
+    returns its launch counts of every path."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-worker", str(r),
+             str(MULTI_WORLD), f"{tmp}/store", f"{tmp}/rank{r}.json"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MULTI_WORLD)]
+        deadline = time.monotonic() + MULTI_TIMEOUT_S
+        failed = None
+        try:
+            while failed is None and any(p.poll() is None for p in procs):
+                failed = next((p for p in procs if p.poll() not in (None, 0)), None)
+                check(time.monotonic() < deadline,
+                      f"multi-rank: the ranks outlived {MULTI_TIMEOUT_S} s")
+                time.sleep(0.2)
+            failed = failed or next((p for p in procs if p.returncode != 0), None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        logs = [p.stdout.read() for p in procs]
+        for p in procs:
+            p.stdout.close()
+        if failed is not None:
+            raise SmokeFailure(f"multi-rank: rank {procs.index(failed)} exited "
+                               f"{failed.returncode}:\n{logs[procs.index(failed)][-3000:]}")
+        results = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+                   for r in range(MULTI_WORLD)]
+    print(logs[0].rstrip())
+    print("\n".join(f"[rank {r}] {line}" for r in range(1, MULTI_WORLD)
+                    for line in logs[r].splitlines() if "round" in line and "loss" in line))
+    for label, _, per_round in MULTI_PATHS:
+        for r, res in enumerate(results):
+            check(res[label]["launches"] == {k: ROUNDS * v for k, v in per_round.items()},
+                  f"multi-rank {label} rank {r}: launches {res[label]['launches']}")
+    return {label: results[0][label]["launches"] for label, _, _ in MULTI_PATHS}
+
+
+def rank_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of phase 8b (``--rank-worker``): one client on the card,
+    every path of ``MULTI_PATHS`` through ``build_run``; writes its
+    results as JSON to ``out``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import ClientGroup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    group = ClientGroup.connect(rank=rank, world=world, device=dev, backend="gloo",
+                                init_method=f"file://{store}")
+    print(f"multi-rank: rank {rank} of {world} on {torch.cuda.get_device_name(dev)}, "
+          f"transport {group.backend} (CUDA tensors into gloo's all_gather; NCCL refuses "
+          f"two ranks on one card); compute on the card")
+    results = {}
+    try:
+        for label, spec, per_round in MULTI_PATHS:
+            results[label] = multi_rank_path(group, label, spec, per_round)
+    finally:
+        group.close()
+    Path(out).write_text(json.dumps(results))
+    return 0
+
+
+def kernels_vs_plain_calls(calls: list, label: str) -> dict:
+    """Each recorded kernel call of a round against its plain version on
+    its own operands: bit-equal, but ``seg_moments``' sums, which are held
+    to ``rtol=1e-6`` with equal counts, as phase 2 holds them.  Returns
+    ``{kernel: calls compared}``."""
+    import torch
+    from repro_torch.kernels import flat as kflat
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.kernels import reduce as kreduce
+
+    pairs = {"seg_hist2side": (kflat.seg_hist2side, kflat.seg_hist2side_plain),
+             "seg_moments": (kflat.seg_moments, kflat.seg_moments_plain),
+             "seg_binarize_apply": (kflat.seg_binarize_apply, kflat.seg_binarize_apply_plain),
+             "pack_bit_rows": (kpack.seg_packbits_stream, kpack.seg_packbits_stream_plain),
+             "f32_mean_xla": (kreduce.f32_mean_xla, kreduce.f32_mean_xla_plain)}
+    seen: dict = {}
+    moments_bitwise = True
+    for name, args, kwargs in calls:
+        kernel, plain = pairs[name]
+        got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        if name == "seg_moments":
+            check(torch.equal(got[:, :, 1], want[:, :, 1])
+                  and torch.allclose(got[:, :, 0], want[:, :, 0], rtol=1e-6, atol=0),
+                  f"{label} seg_moments: counts differ or sums beyond rtol 1e-6")
+            moments_bitwise &= bit_equal(got, want)
+        else:
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            check(all(bit_equal(g, w) for g, w in zip(got, want)),
+                  f"{label} {name}: kernel != plain version on its operands")
+        seen[name] = seen.get(name, 0) + 1
+    note = "" if "seg_moments" not in seen else (
+        f"; seg_moments {'bit-equal' if moments_bitwise else 'sums within rtol 1e-6'}")
+    print(f"{label}: every kernel call of the last round == its plain version on its own "
+          f"operands {seen}{note}")
+    return seen
+
+
+def multi_rank_path(group, label: str, spec: dict, per_round: dict) -> dict:
+    """Five rounds of one path on this rank, the launch counts set to 0
+    just before and read just after; then: every round's launches are
+    ``per_round``; the params are the same on every rank bit for bit;
+    the last round's mean equals the one recomputed from every client's
+    gathered ΔW* bit for bit (μ / C added in client order; dense and hist
+    leaves: the pmean); each kernel call of the last round equals its
+    plain version; one profiled round; the device pack's gathered words
+    decoded (``golomb_decode_rows``), timed."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import flat as core_flat
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import reduce as kreduce
+    from repro_torch.kernels import topk as ktopk
+    from repro_torch.launch import dist as ldist
+    from repro_torch.run import RunSpec, build_run
+
+    tag = f"{label} [rank {group.rank}]"
+    run = build_run(RunSpec(**spec), group=group)
+    ch = run.channel
+    check(run.n_clients == group.world and ch.n_clients == group.world,
+          f"{tag}: {run.n_clients} clients, not the group's {group.world}")
+    last: dict = {}
+    exchange = ch.round_exchange
+
+    def observed(residual, deltas, *, need_own):
+        last["out"] = exchange(residual, deltas, need_own=need_own)
+        return last["out"]
+
+    ch.round_exchange = observed
+    calls: list = []
+    flat_names = ("seg_hist2side", "seg_moments", "seg_binarize_apply", "pack_bit_rows")
+    try:
+        state = run.init()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        counts, step_ms, losses = [], [], []
+        for r in range(ROUNDS):
+            before = kernels.launch_counts()
+            with contextlib.ExitStack() as stack:
+                if r == ROUNDS - 1:
+                    for module, names in ((core_flat, flat_names), (ktopk, ("f32_mean_xla",)),
+                                          (ldist, ("f32_mean_xla",))):
+                        stack.enter_context(swapped(module, recording(module, names, calls)))
+                t0 = time.perf_counter()
+                state, m = run.step(state, r)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = kernels.launch_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+            print(f"{tag} round {r + 1}: loss {losses[-1]:.6f}  step {step_ms[-1]:.3f} ms  "
+                  f"launches {counts[-1]}")
+        launches = kernels.launch_counts()
+    finally:
+        del ch.round_exchange
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
+    check(all(c == per_round for c in counts), f"{tag}: launches per round {counts}")
+
+    # the same params on every rank, bit for bit
+    rows = group.all_gather_rows(flat_bits(state["params"]))
+    check(all(torch.equal(rows[0], row) for row in rows[1:]),
+          f"{tag}: params differ across ranks")
+    # the mean recomputed from every client's ΔW*
+    mean_tree, _, own_tree = last["out"][:3]
+    inv = kreduce._reciprocal(group.world, group.device)
+    engine = ch.flat_engine if ch.flat_space is not None else "per-leaf"
+    for gl, mean, own in zip(ch.leaves, tree_flatten(mean_tree)[0], tree_flatten(own_tree)[0]):
+        owns = group.all_gather_rows(own[0].to(torch.float32))
+        if gl.mode == "skip":
+            want = torch.zeros_like(owns[0])
+        elif gl.mode == "dense" or engine == "hist":  # the pmean
+            want = owns[0]
+            for o in owns[1:]:
+                want = want + o
+            want = want * inv
+        else:  # μ / C of each client added in client order
+            want = torch.zeros_like(owns[0])
+            for o in owns:
+                want = want + o * inv
+        check(bit_equal(mean[0].to(torch.float32), want),
+              f"{tag} {gl.path}: the mean != the one recomputed from the gathered dW*")
+    print(f"{tag}: params identical on all {group.world} ranks; the mean == the one "
+          f"recomputed from the gathered dW* ({engine}), bit for bit")
+    compared = kernels_vs_plain_calls(calls, tag)
+    ops = profiled_round(run, state, tag)
+
+    decode_us = decode_host_ms = None
+    if ch.device_pack:
+        space = ch.flat_space
+        words = last["out"][3][0][0, 0]
+        gw = group.all_gather_rows(words)
+        gpos = space._decode_gathered(gw)
+        own_all = group.all_gather_rows(
+            space.flatten_local([o[0] for o in tree_flatten(own_tree)[0]]))
+        sel = torch.zeros_like(own_all, dtype=torch.bool)
+        sel.scatter_(1, gpos, True)
+        sparse = torch.zeros(space.n_pad, dtype=torch.bool, device=group.device)
+        for s in space._sparse:
+            sparse[s.offset:s.offset + s.rows * s.n_loc] = True
+        check(torch.equal(sel, (own_all != 0) & sparse),
+              f"{tag}: decoded positions != every client's survivors")
+        copies = [(gw.clone(),) for _ in range(20)]
+        counted: list = []
+        decode_us = 1e3 * device_ms(space._decode_gathered, copies, 40, counted=counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            space._decode_gathered(gw)
+        torch.cuda.synchronize()
+        decode_host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        print(f"{tag}: golomb_decode_rows on the gathered words u32{tuple(gw.shape)} "
+              f"({len(space._sparse)} segments, {gpos.shape[1]} positions a client): "
+              f"{decode_us:.2f} us device in {counted[0]:g} device operations, "
+              f"{decode_host_ms:.3f} ms host clock per exchange; positions == every "
+              f"client's survivors")
+    return {"launches": launches, "step_ms": step_ms, "losses": losses, "device_ops": ops,
+            "compared": compared, "decode_us": decode_us, "decode_host_ms": decode_host_ms}
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -1492,6 +1857,8 @@ def main(argv: list) -> int:
 
     if argv[:1] == ["--compare"] and len(argv) == 2:
         return compare(Path(argv[1]))
+    if argv[:1] == ["--rank-worker"] and len(argv) == 5:
+        return rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     check(not argv, f"usage: {Path(__file__).name} [--compare SRC]; got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
@@ -1514,13 +1881,17 @@ def main(argv: list) -> int:
     print(f"built {[str(p.relative_to(ROOT)) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- 2. to 7. the paths
+    # ---- 2. to 7. the paths, one client
     rows, hist = hist_path(dev)
     rows.update(exact_path(dev))
     rows.update(leaf_path(dev, hist))
     codec = codec_path(dev)
     local = local_path(dev)["launches"]
     charlstm = charlstm_phase(dev)
+
+    # ---- 8. clients across ranks
+    nccl_world_one(dev)
+    multi = multi_rank_phase(dev)
     check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
     rows["f32_mean_xla"]["launches_local_per_leaf_path"] = local[False]["f32_mean_xla"]
     rows["f32_mean_xla"]["launches_local_flat_path"] = local[True]["f32_mean_xla"]
@@ -1528,6 +1899,9 @@ def main(argv: list) -> int:
     for name in KERNELS:
         rows[name]["launches_charlstm"] = {path: counts[name]
                                            for path, counts in charlstm.items()}
+        # and in the five rounds of each multi-rank path, on rank 0
+        rows[name]["launches_multi_rank"] = {path: counts[name]
+                                             for path, counts in multi.items()}
     # the codec + wire path is the one that launches seg_select_pack (4 a
     # round) and most f32_mean_xla; the exact path's counts stay beside them
     for name in ("seg_select_pack", "f32_mean_xla"):
@@ -1535,7 +1909,7 @@ def main(argv: list) -> int:
         rows[name]["launches"] = codec["launches"][name]
     rows["seg_select_pack"]["leaf_us"] = codec["select_us"]
 
-    # ---- 8. results
+    # ---- 9. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

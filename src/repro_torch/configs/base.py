@@ -11,14 +11,17 @@ import dataclasses
 import importlib
 from typing import Any
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One architecture (the CNN and LSTM fields of the reference's config).
 
-    The reference's ``residual_dtype`` is not carried: the flat hist route
-    keeps an f32 residual, and the bf16 residual of its largest
-    architectures takes the per-leaf exchange (ROADMAP A9).
+    ``residual_dtype`` is the dtype of the GSPMD backend's error-feedback
+    residual, its ΔW and its optimizer state (bf16 for the reference's
+    largest architectures).  The flat fast path keeps f32; any other dtype
+    takes the per-leaf exchange, as in the reference.
     """
 
     name: str
@@ -37,6 +40,7 @@ class ModelConfig:
     client_mode: str = "data"  # one client per data coordinate (DESIGN.md §4)
     local_opt: str = "momentum"  # client-side optimizer for this arch
     base_lr: float = 0.01
+    residual_dtype: Any = torch.float32
 
 
 PORTED_CONFIGS = ("lenet5", "charlstm")

@@ -31,7 +31,7 @@ def params_from_jax(np_tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     return tree_map(lambda v: _tensor(v, device), np_tree)
 
 
-def state_from_jax(np_state: Dict[str, Any], device=None) -> dict:
+def state_from_jax(np_state: Dict[str, Any], device=None, client=None) -> dict:
     """A GSPMD train state ``{'params', 'opt', 'residual'}`` (leaves as
     numpy arrays) → the port's state on ``device`` (default: the CUDA
     card; raises ``RuntimeError`` without one).
@@ -39,18 +39,26 @@ def state_from_jax(np_state: Dict[str, Any], device=None) -> dict:
     ``opt`` is Adam's ``(m, v)`` pair (anything with ``.m`` and ``.v``),
     a momentum tree, or ``()`` for SGD; every optimizer leaf keeps its
     leading client axis.  ``residual`` is the flat ``(n_clients, shards,
-    n_pad)`` buffer.
+    n_pad)`` buffer, or the per-leaf exchange's tree of ``(n_clients,) +
+    shape`` leaves.  With ``client=r`` the optimizer state and the residual
+    keep only client r's row (a leading axis of 1): the state of rank r of
+    a :class:`~repro_torch.launch.mesh.ClientGroup`, which holds its own
+    client's row of the reference's state.
     """
     device = resolve_device(device)
+    row = (lambda v: v) if client is None else (lambda v: np.asarray(v)[client:client + 1])
     opt = np_state["opt"]
     if hasattr(opt, "m") and hasattr(opt, "v"):
-        opt_t = AdamState(params_from_jax(opt.m, device), params_from_jax(opt.v, device))
+        opt_t = AdamState(params_from_jax(tree_map(row, opt.m), device),
+                          params_from_jax(tree_map(row, opt.v), device))
     elif isinstance(opt, dict):
-        opt_t = params_from_jax(opt, device)
+        opt_t = params_from_jax(tree_map(row, opt), device)
     else:
         opt_t = ()
+    residual = np_state["residual"]
     return {
         "params": params_from_jax(np_state["params"], device),
         "opt": opt_t,
-        "residual": _tensor(np_state["residual"], device),
+        "residual": (params_from_jax(tree_map(row, residual), device)
+                     if isinstance(residual, dict) else _tensor(row(residual), device)),
     }

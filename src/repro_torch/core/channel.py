@@ -6,15 +6,14 @@ Counterpart of ``repro.core.channel`` (DESIGN.md §12).  The port carries
                                a leading axis; the exchange is the mean
                                over that axis (the paper's Alg. 1 round
                                on one card);
-  :class:`ShardedGspmdChannel` the GSPMD backend on its flat routes:
-                               residual add + compression (the hist
-                               engine's three SBC passes, or the exact
-                               engine's two-sided top-k with its optional
-                               device-packed Golomb wire) + the exchange
-                               on ONE flat buffer per device.  With one
-                               client the exchange is the identity;
-                               clients across cards come with
-                               ``torch.distributed`` (ROADMAP A9).
+  :class:`ShardedGspmdChannel` the GSPMD backend, one client per
+                               process: residual add + compression (the
+                               hist engine's three SBC passes, or the
+                               exact engine's two-sided top-k with its
+                               optional device-packed Golomb wire) on ONE
+                               flat buffer, or leaf by leaf (``fast=False``),
+                               + the exchange across the clients'
+                               ``ClientGroup`` (``torch.distributed``).
 
 Both meter a round's uploads into a
 :class:`~repro_torch.core.ledger.BandwidthLedger`.  Pytrees are nested
@@ -32,12 +31,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import Compressor
-from repro_torch.core.golomb import encode_positions
+from repro_torch.core.golomb import encode_positions, expected_position_bits
 from repro_torch.core.ledger import BandwidthLedger
 from repro_torch.core.policy import CompressionPolicy, CompressorState, ResolvedPolicy
 from repro_torch.core.stages import LeafCompressed, k_for
 from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.core.wire import Wire, wire_for
+from repro_torch.kernels.reduce import _reciprocal
+from repro_torch.kernels.topk import _two_sided_topk
 from repro_torch.obs import NULL_TELEMETRY
 
 PyTree = Any
@@ -280,6 +281,15 @@ class GspmdLeaf(NamedTuple):
     shard_grid: Tuple[int, ...]  # per-dim shard counts
 
 
+def leaf_rows(gl: GspmdLeaf) -> Tuple[int, int, int]:
+    """``(L, n_loc, k_loc)`` of a leaf: its rows a shard, each row's length
+    and survivors (:func:`~repro_torch.core.stages.k_for`)."""
+    size = int(np.prod(gl.global_shape) or 1)
+    L = gl.global_shape[0] if gl.scanned and len(gl.global_shape) > 1 else 1
+    n_loc = max(1, size // (L * gl.n_shards))
+    return L, n_loc, k_for(n_loc, gl.rate)
+
+
 def _iter_shard_blocks(arr: np.ndarray, grid: Tuple[int, ...]):
     """Yield the GSPMD equal-block shards of a global array, in grid order."""
     grid = tuple(grid) + (1,) * (arr.ndim - len(grid))
@@ -288,22 +298,64 @@ def _iter_shard_blocks(arr: np.ndarray, grid: Tuple[int, ...]):
         yield arr[tuple(slice(i * s, (i + 1) * s) for i, s in zip(idx, sizes))]
 
 
+def _sbc_local(acc_flat: torch.Tensor, k: int, group, out_dtype=torch.float32) -> tuple:
+    """Exact per-shard SBC (paper Alg. 2) and the sparse exchange of one
+    leaf.
+
+    ``acc_flat`` (L, n_loc) is this client's residual-accumulated ΔW (any
+    float dtype; the math runs in f32), ``k`` the survivors a row
+    (:func:`leaf_rows`).  Each row's two-sided top-k and μ
+    (:func:`~repro_torch.kernels.topk._two_sided_topk`: one
+    ``f32_mean_xla`` launch for both sides of every row), then the gather
+    of (idx, μ) over the group's C clients and, per row, every client's
+    ``μ / C`` (``μ · (1/C)``, as XLA computes it under ``jit``) added at
+    its positions one client after the other in client order.  Returns
+    ``(mean (L, n_loc), own ΔW* (L, n_loc))`` in ``out_dtype``."""
+    L, n_loc = acc_flat.shape
+    idx, mu = _two_sided_topk(acc_flat.to(torch.float32), k)
+    own = torch.zeros((L, n_loc), dtype=out_dtype, device=acc_flat.device)
+    own.scatter_(1, idx, mu.to(out_dtype)[:, None].expand(L, k))
+    C = group.world
+    if C == 1:
+        return own, own
+    gidx, gmu = group.all_gather_rows(idx), group.all_gather_rows(mu)
+    share = gmu * _reciprocal(C, gmu.device)  # μ / C as the jitted reference takes it
+    dense = torch.zeros((L, n_loc), dtype=torch.float32, device=acc_flat.device)
+    for c in range(C):
+        dense.scatter_add_(1, gidx[c], share[c][:, None].expand(L, k))
+    return dense.to(out_dtype), own
+
+
+def _dense_local(acc_flat: torch.Tensor, group) -> tuple:
+    """Dense baseline: the clients' mean of the full ΔW (the group's
+    ``pmean``; ΔW itself with one client)."""
+    return (group.pmean(acc_flat) if group.world > 1 else acc_flat), acc_flat
+
+
 @dataclasses.dataclass(eq=False)
 class ShardedGspmdChannel:
-    """Compression + exchange of the GSPMD backend on the §11 flat path
-    with an f32 residual.
+    """Compression + exchange of the GSPMD backend, one client per
+    process: the exchange crosses the clients of ``group`` (a
+    :class:`~repro_torch.launch.mesh.ClientGroup` of ``n_clients`` ranks;
+    one client is :func:`~repro_torch.launch.mesh.make_host_group`) as
+    (positions, μ) all-gathers (sparse), a ``pmean`` (dense) or nothing
+    (skip).
 
-    ``flat_space`` is the :class:`~repro_torch.core.flat.ShardedFlatParamSpace`
-    the channel compresses in; ``flat_engine`` picks its exact or hist
-    engine, and ``device_pack`` (exact engine only) packs the Golomb wire
-    streams on the device.  The per-leaf exchange (``flat_space=None``)
-    is not ported yet.
+    ``flat_space`` is the §11
+    :class:`~repro_torch.core.flat.ShardedFlatParamSpace` when the flat
+    fast path applies: ``flat_engine`` picks its exact or hist engine, and
+    ``device_pack`` (exact engine only) packs the Golomb wire streams on
+    the device.  Without one (``fast=False``, or a non-f32 residual) the
+    per-leaf exchange runs, with the residual stored per leaf in
+    ``residual_dtype``.
     """
 
     leaves: Tuple[GspmdLeaf, ...]
     client_axes: Tuple[str, ...]
     n_clients: int
-    flat_space: Any = None  # ShardedFlatParamSpace
+    group: Any  # ClientGroup of n_clients ranks
+    residual_dtype: Any = torch.float32
+    flat_space: Any = None  # ShardedFlatParamSpace | None
     flat_engine: str = "exact"  # "exact" | "hist"
     device_pack: bool = False  # pack Golomb wire streams on the device (§11)
 
@@ -324,48 +376,82 @@ class ShardedGspmdChannel:
                 "leaves) — the hist engine and the per-leaf exchange have "
                 "no packed position stream to produce on-device"
             )
-        if self.flat_space is None:
-            raise NotImplementedError(
-                "the per-leaf exchange (no flat space) is not ported yet "
-                "(ROADMAP A9)"
-            )
+        if self.group.world != self.n_clients:
+            raise ValueError(f"{self.n_clients} clients need a ClientGroup of "
+                             f"{self.n_clients} ranks; got world {self.group.world}")
         self.ledger = BandwidthLedger()
         self.telemetry = NULL_TELEMETRY  # build_run swaps in an enabled one
 
     # ------------------------------------------------------------- protocol
 
-    def init_state(self, params: PyTree) -> torch.Tensor:
-        """The per-client error-feedback residual: ONE flat f32 buffer of
-        shape ``(n_clients, shards_per_client, n_pad)``."""
+    def init_state(self, params: PyTree):
+        """This client's error-feedback residual: ONE flat f32 buffer of
+        shape ``(1, shards_per_client, n_pad)`` on the fast path (§11), else
+        the params' tree of ``(1,) + shape`` zeros in ``residual_dtype``
+        (this client's row of the reference's stacked residual)."""
         device = tree_flatten(params)[0][0].device
-        return self.flat_space.zeros_residual(device)
+        if self.flat_space is not None:
+            return self.flat_space.zeros_residual(device)
+        return tree_map(lambda x: torch.zeros((1,) + tuple(x.shape), dtype=self.residual_dtype,
+                                              device=device), params)
 
-    def round_exchange(self, residual: torch.Tensor, deltas: PyTree, *,
-                       need_own: bool) -> tuple:
+    def round_exchange(self, residual, deltas: PyTree, *, need_own: bool) -> tuple:
         """One round's compress + exchange.
 
-        ``deltas`` is the per-client ΔW tree (leading client axis) and
-        ``residual`` this channel's state from :meth:`init_state`; returns
-        ``(mean_tree, new_residual, own_tree_or_None)``, and with
+        ``deltas`` is this client's ΔW tree (a leading client axis of 1)
+        and ``residual`` this channel's state from :meth:`init_state`;
+        returns ``(mean_tree, new_residual, own_tree_or_None)``, and with
         ``device_pack`` a fourth item ``(words, nbits)``: this round's
-        packed Golomb word buffers u32[n_clients, shards, n_pack_words] and
-        exact per-row bit counts int32[n_clients, shards, n_mu].
-        ``need_own`` materializes each client's ΔW*_i (momentum masking,
+        packed Golomb word buffers u32[1, shards, n_pack_words] and exact
+        per-row bit counts int32[1, shards, n_mu] of this client.
+        ``need_own`` materializes the client's ΔW* (momentum masking,
         metering).
         """
         leaves, treedef = tree_flatten(deltas)
-        out = self.exchange_flat(residual, leaves, need_own)
-        means, new_residual, owns = out[:3]
+        if self.flat_space is None:
+            # residual add (Alg. 1 l.10): acc = R + ΔW, stored in residual_dtype
+            acc = [(r.to(torch.float32) + d.to(torch.float32)).to(self.residual_dtype)
+                   for r, d in zip(tree_flatten(residual)[0], leaves)]
+            means, residuals, owns = self.exchange_per_leaf(acc, need_own)
+            new_residual = treedef.unflatten(residuals)
+        else:
+            out = self.exchange_flat(residual, leaves, need_own)
+            means, new_residual, owns = out[:3]
         mean_tree = treedef.unflatten(means)
         own_tree = treedef.unflatten(owns) if need_own else None
         if self.device_pack:
             return mean_tree, new_residual, own_tree, out[3]
         return mean_tree, new_residual, own_tree
 
+    def exchange_per_leaf(self, leaves: Sequence[torch.Tensor], need_own: bool) -> tuple:
+        """Per-leaf exchange: compress this client's shard of each leaf
+        with the leaf's mode, exchange, and emit (mean ΔW, NEW residual =
+        acc − own, own); every output in the leaf's dtype, with the
+        leading client axis of 1."""
+        means, residuals, owns = [], [], []
+        for leaf, gl in zip(leaves, self.leaves):
+            body = leaf[0]
+            L = body.shape[0] if gl.scanned and body.dim() > 1 else 1
+            flat = body.reshape(L, -1)
+            if gl.mode == "sparse":
+                dense, own = _sbc_local(flat, leaf_rows(gl)[2], self.group,
+                                        out_dtype=leaf.dtype)
+            elif gl.mode == "dense":
+                dense, own = _dense_local(flat.to(torch.float32), self.group)
+            else:  # skip: no traffic; the residual keeps the full update
+                dense = own = torch.zeros_like(flat)
+            new_res = (flat.to(torch.float32) - own.to(torch.float32)).to(self.residual_dtype)
+            means.append(dense.reshape(body.shape).to(leaf.dtype)[None])
+            residuals.append(new_res.reshape(body.shape).to(leaf.dtype)[None])
+            owns.append(own.reshape(body.shape).to(leaf.dtype)[None] if need_own
+                        else torch.zeros((1,) * leaf.dim(), dtype=leaf.dtype,
+                                         device=leaf.device))
+        return tuple(means), tuple(residuals), tuple(owns)
+
     def exchange_flat(self, res: torch.Tensor, leaves: Sequence[torch.Tensor],
                       need_own: bool) -> tuple:
         """Residual add + compression + exchange on ONE flat buffer, one
-        launch per pass.  ``leaves`` carry the leading client axis."""
+        launch per pass.  ``leaves`` carry the leading client axis of 1."""
         space = self.flat_space
         bodies = [leaf[0] for leaf in leaves]
         packed = None
@@ -399,12 +485,21 @@ class ShardedGspmdChannel:
     # ------------------------------------------------------- bit accounting
 
     def bits(self) -> ChannelBits:
-        """Static Eq. 1 bits per round per client, summed from the §11
-        per-(segment, shard) table (per sparse leaf
-        ``L·S_shards·(k_loc·b̄_pos(p_leaf) + 32)``), beside the 32-bit dense
-        equivalent."""
-        dense = sum(32.0 * int(np.prod(gl.global_shape) or 1) for gl in self.leaves)
-        return ChannelBits(per_client=self.flat_space.bits_per_client(), dense=dense)
+        """Static Eq. 1 bits per round per client: per sparse leaf
+        ``L·S_shards·(k_loc·b̄_pos(p_leaf) + 32)``, dense 32 bits/entry,
+        skip 0, beside the 32-bit dense equivalent.  The §11 flat space's
+        per-(segment, shard) table gives the same totals, term by term in
+        the same order."""
+        per_client = dense = 0.0
+        for gl in self.leaves:
+            size = int(np.prod(gl.global_shape) or 1)
+            if gl.mode == "sparse":
+                L, _, k_loc = leaf_rows(gl)
+                per_client += L * gl.n_shards * (k_loc * expected_position_bits(gl.rate) + 32.0)
+            elif gl.mode == "dense":
+                per_client += 32.0 * size
+            dense += 32.0 * size
+        return ChannelBits(per_client=per_client, dense=dense)
 
     # ------------------------------------------------------------ metering
 
@@ -416,7 +511,7 @@ class ShardedGspmdChannel:
         numpy over the client's dense ΔW*."""
         total = 0.0
         for gl, leaf in zip(self.leaves, tree_flatten(own_tree)[0]):
-            arr = leaf.detach().cpu().numpy()
+            arr = leaf.detach().to(torch.float32).cpu().numpy()  # numpy has no bf16
             if gl.mode == "dense":
                 total += 32.0 * arr.size
                 continue

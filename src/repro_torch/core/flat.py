@@ -5,8 +5,9 @@ the block-padded layout helpers, the three-pass hist pipeline,
 :class:`FlatParamSpace` (the ``fast=True`` path of ``ResolvedPolicy``:
 its exact engine ``compress``, which the local backend runs, and its hist
 engine ``compress_hist``), and the parts of :class:`ShardedFlatParamSpace`
-that the GSPMD backend runs on one card: the hist engine and the exact
-engine with its device-packed wire.
+that the GSPMD backend runs: the hist engine and the exact engine with its
+device-packed wire, one client per process, exchanging over a
+:class:`~repro_torch.launch.mesh.ClientGroup`.
 
 Layout contract (identical to the reference):
 
@@ -32,7 +33,9 @@ from repro_torch.core.tree import tree_map
 from repro_torch.kernels.flat import seg_binarize_apply, seg_hist2side, seg_moments
 from repro_torch.kernels.hist2side import SPAN_OCTAVES, bucket_lower_edges
 from repro_torch.kernels.ops import _side_threshold
-from repro_torch.kernels.pack import bits_from_positions, pack_bit_rows, row_words
+from repro_torch.kernels.pack import (bits_from_positions, golomb_decode_rows, pack_bit_rows,
+                                      row_words)
+from repro_torch.kernels.reduce import _reciprocal
 from repro_torch.kernels.topk import _top_k, _two_sided_topk  # noqa: F401  (_top_k re-exported)
 
 
@@ -260,7 +263,8 @@ class FlatParamSpace:
             out.append(piece.to(seg.dtype) if cast else piece)
         return self.resolved.treedef.unflatten(out)
 
-    def zeros_residual(self, device=None) -> torch.Tensor:
+    def zeros_residual(self, device) -> torch.Tensor:
+        """The flat error-feedback state of one client, on ``device``."""
         return torch.zeros((self.n_pad,), dtype=torch.float32, device=device)
 
     def _check_rates(self, rates) -> Tuple[float, ...]:
@@ -427,11 +431,12 @@ class ShardedFlatParamSpace:
     (DESIGN.md §11), holding every local leaf shard.
 
     The residual buffer has shape ``(n_clients, shards_per_client,
-    n_pad)``; each device owns its ``(1, 1, n_pad)`` slice.  The port runs
-    one client on one card, so the exchange across the client axes (the
-    hist engine's ``pmean``, the exact engine's ``all_gather``) is the
-    identity; more clients need ``torch.distributed`` (ROADMAP A9) and
-    raise ``NotImplementedError``.
+    n_pad)``; each process holds its client's ``(1, 1, n_pad)`` row.  One client
+    runs per process (:mod:`repro_torch.launch.mesh`): ``group`` is the
+    :class:`~repro_torch.launch.mesh.ClientGroup` whose ranks are the
+    clients, and the exchange across them (the hist engine's ``pmean``,
+    the exact engine's ``all_gather``) goes through it.  With one client
+    the exchange is the identity and crosses no process.
     """
 
     segments: Tuple[DistSegment, ...]
@@ -439,6 +444,7 @@ class ShardedFlatParamSpace:
     shard_axes: Tuple[str, ...]
     n_clients: int
     shards_per_client: int
+    group: Any  # ClientGroup of n_clients ranks
     bm: int = 8
     lanes: int = 128
 
@@ -503,12 +509,13 @@ class ShardedFlatParamSpace:
         shard_axes: Tuple[str, ...],
         n_clients: int,
         shards_per_client: int,
+        group: Any,
         bm: int = 8,
         lanes: int = 128,
     ) -> "ShardedFlatParamSpace":
         """``entries``: per-leaf dicts with keys ``path``, ``shape``
         (local body shape), ``rows``, ``kind``, ``rate``, ``n_shards``,
-        ``global_size``."""
+        ``global_size``; ``group`` the clients' ClientGroup."""
         per_block = bm * lanes
         segs: List[DistSegment] = []
         off = 0
@@ -516,10 +523,7 @@ class ShardedFlatParamSpace:
             size = int(np.prod(e["shape"])) if e["shape"] else 1
             rows = int(e["rows"])
             n_loc = size // rows
-            k = (
-                max(1, min(n_loc, int(round(e["rate"] * n_loc))))
-                if e["kind"] == "sparse" else 0
-            )
+            k = k_for(n_loc, e["rate"]) if e["kind"] == "sparse" else 0
             segs.append(DistSegment(
                 path=e["path"], shape=tuple(e["shape"]), rows=rows,
                 n_loc=n_loc, offset=off, kind=e["kind"],
@@ -531,6 +535,7 @@ class ShardedFlatParamSpace:
             segments=tuple(segs), client_axes=tuple(client_axes),
             shard_axes=tuple(shard_axes), n_clients=int(n_clients),
             shards_per_client=int(shards_per_client), bm=bm, lanes=lanes,
+            group=group,
         )
 
     def _device_maps(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
@@ -565,11 +570,11 @@ class ShardedFlatParamSpace:
         ]
 
     def zeros_residual(self, device) -> torch.Tensor:
-        """The flat sharded error-feedback state."""
-        return torch.zeros(
-            (self.n_clients, self.shards_per_client, self.n_pad),
-            dtype=torch.float32, device=device,
-        )
+        """This client's flat sharded error-feedback state: its row
+        ``(1, shards_per_client, n_pad)`` of the reference's ``(n_clients,
+        shards_per_client, n_pad)`` buffer."""
+        return torch.zeros((1, self.shards_per_client, self.n_pad), dtype=torch.float32,
+                           device=device)
 
     # ------------------------------------------------------- bit accounting
 
@@ -596,28 +601,32 @@ class ShardedFlatParamSpace:
         *,
         device_pack: bool = False,
     ) -> tuple:
-        """Compress this device's shard of every leaf and exchange.
+        """Compress this client's shard of every leaf and exchange.
         Returns ``(mean_flat, own_flat, new_res_flat)``: the aggregated
         update, this client's ΔW*, and the new residual, all in the local
         flat layout.
 
         Per-(segment, row) exact two-sided top-k (paper Alg. 2,
         :func:`_two_sided_topk`); dense segments send their values, skip
-        segments nothing (their update stays in the residual).  With one
-        client the exchange is the identity, so the mean is ΔW*.
+        segments nothing (their update stays in the residual).  The
+        exchange gathers every client's positions and μ stream over the
+        group, then adds each client's ``μ / n_clients`` (as the jitted
+        reference computes it: ``μ · (1/n_clients)``) at its positions,
+        one client after the other in client order (the reference's scan:
+        one scatter over every client at once would add colliding
+        positions in no fixed order on the card).  Dense segments take the
+        group's ``pmean``.  With one client the mean is ΔW*.
 
         ``device_pack=True`` also Golomb-packs every (segment, row)'s
         surviving positions on the device (:meth:`_pack_local`, one
-        :func:`~repro_torch.kernels.pack.pack_bit_rows` launch) and returns
-        two more outputs, ``(words u32[n_pack_words], nbits int32[n_mu])``:
-        this shard's packed streams and exact per-row bit counts,
-        byte-identical to the host ``encode_positions_packed``.
+        :func:`~repro_torch.kernels.pack.pack_bit_rows` launch), gathers
+        those words in place of the positions and decodes them
+        (:meth:`_decode_gathered`); it returns two more outputs, ``(words
+        u32[n_pack_words], nbits int32[n_mu])``: this shard's packed
+        streams and exact per-row bit counts, byte-identical to the host
+        ``encode_positions_packed``.  The mean is the same either way.
         """
-        if self.client_axes and self.n_clients > 1:
-            raise NotImplementedError(
-                "the exact exchange over more than one client needs "
-                "torch.distributed (ROADMAP A9)"
-            )
+        group = self._client_group()
         acc = self.flatten_local(bodies)
         if res_flat is not None:
             acc = res_flat + acc
@@ -634,17 +643,48 @@ class ShardedFlatParamSpace:
 
         own = torch.zeros((self.n_pad,), dtype=torch.float32, device=acc.device)
         if pos_parts:
-            own[torch.cat(pos_parts)] = torch.cat(mu_parts)[pos_row]
+            pos, mu = torch.cat(pos_parts), torch.cat(mu_parts)
+            own[pos] = mu[pos_row]
         if self._dense_idx.size:
-            own[dense_idx] = acc[dense_idx]
-        # one client: the all_gather of (positions, μ) and the pmean of the
-        # dense values are the identity
-        mean = own
-        new_res = acc - own if res_flat is not None else None
+            dvals = acc[dense_idx]
+            own[dense_idx] = dvals
         if device_pack:
             words, nbits = self._pack_local(idx_parts, acc.device)
+
+        mean = own
+        C = self.n_clients
+        if self.client_axes and C > 1 and pos_parts:
+            # THE exchange: the (positions, μ) streams of every client,
+            # the positions as their packed wire words with device_pack
+            gpos = (self._decode_gathered(group.all_gather_rows(words)) if device_pack
+                    else group.all_gather_rows(pos))
+            gmu = group.all_gather_rows(mu)
+            # μ / C, which XLA computes as μ · (1/C) under jit
+            inv = _reciprocal(C, acc.device)
+            mean = torch.zeros((self.n_pad,), dtype=torch.float32, device=acc.device)
+            for c in range(C):
+                mean.index_add_(0, gpos[c], gmu[c][pos_row] * inv)
+        if self.client_axes and C > 1 and self._dense_idx.size:
+            mean = own.clone() if mean is own else mean
+            mean[dense_idx] = group.pmean(dvals)
+        new_res = acc - own if res_flat is not None else None
+        if device_pack:
             return mean, own, new_res, words, nbits
         return mean, own, new_res
+
+    def _client_group(self):
+        """The group the exchange crosses; raises unless its world is
+        ``n_clients``."""
+        if self.shards_per_client != 1:
+            raise NotImplementedError(
+                "a \"model\" axis larger than 1 (shards_per_client > 1, fsdp) belongs to "
+                "the decoder and MoE configs (ROADMAP A12)")
+        if self.group.world != self.n_clients:
+            raise ValueError(
+                f"the exchange over {self.n_clients} clients needs a ClientGroup of "
+                f"{self.n_clients} ranks (repro_torch.launch.mesh); got world "
+                f"{self.group.world}")
+        return self.group
 
     def _pack_local(self, idx_parts: List[torch.Tensor], device: torch.device) -> tuple:
         """This shard's survivors → (packed u32 words, per-row bit counts).
@@ -667,6 +707,22 @@ class ShardedFlatParamSpace:
         allbits = torch.cat(chunks)
         return pack_bit_rows(allbits), torch.cat(nb_parts)
 
+    def _decode_gathered(self, gw: torch.Tensor) -> torch.Tensor:
+        """Gathered word buffers u32[C, n_pack_words] → global positions
+        int64[C, n_pos] (:func:`~repro_torch.kernels.pack.golomb_decode_rows`,
+        segment by segment: each has its own k, b* and row stride).  Each
+        row's positions come out ascending; every position of a row takes
+        the row's μ, so the mean does not depend on their order."""
+        words = gw.view(torch.int32) if gw.dtype == torch.uint32 else gw
+        C = words.shape[0]
+        parts = []
+        for s, (b, w, off) in zip(self._sparse, self._pack_info):
+            seg_w = words[:, off:off + s.rows * w].reshape(C, s.rows, w)
+            ploc = golomb_decode_rows(seg_w, k=s.k, bstar=b).to(torch.int64)
+            base = s.offset + s.n_loc * torch.arange(s.rows, device=words.device)
+            parts.append((ploc + base[None, :, None]).reshape(C, -1))
+        return torch.cat(parts, 1)
+
     # -------------------------------------------------------- hist exchange
 
     def exchange_local_hist(
@@ -680,20 +736,16 @@ class ShardedFlatParamSpace:
         this device's local flat buffer — one launch per pass.
 
         Approximate survivor counts (histogram thresholds); the exchange
-        is a mean of the binarized ΔW* over the clients.  Requires an
-        all-sparse policy.  Returns ``(mean_flat, own_flat,
-        new_res_flat)``.
+        is the group's ``pmean`` of the binarized ΔW* (none with one
+        client).  Requires an all-sparse policy.
+        Returns ``(mean_flat, own_flat, new_res_flat)``.
         """
         if any(s.kind != "sparse" for s in self.segments):
             raise ValueError(
                 "exchange_local_hist needs an all-SBC policy; dense/skip "
                 "leaves belong to the exact engine"
             )
-        if self.client_axes and self.n_clients > 1:
-            raise NotImplementedError(
-                "the hist exchange over more than one client needs "
-                "torch.distributed (ROADMAP A9)"
-            )
+        group = self._client_group()
         acc = self.flatten_local(bodies)
         if res_flat is not None:
             acc = res_flat + acc
@@ -708,7 +760,6 @@ class ShardedFlatParamSpace:
             lanes=self.lanes,
             nbins=nbins,
         )
-        # one client: the pmean over the client axes is the identity
-        mean = own
+        mean = group.pmean(own) if self.client_axes and self.n_clients > 1 else own
         new_res = res if res_flat is not None else None
         return mean, own, new_res

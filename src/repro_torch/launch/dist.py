@@ -1,18 +1,24 @@
-"""The GSPMD backend's DSGD train step, on one card.
+"""The GSPMD backend's DSGD train step, one client per process.
 
 Counterpart of ``repro.launch.dist`` (DESIGN.md §4).  The reference builds
-its step on a mesh; on one device that mesh is
-``Mesh(devices.reshape(1, 1), ("data", "model"))``, which gives one client
-on the "data" axis and a size-1 "model" axis.  The port carries exactly
-that topology with the §11 flat fast path, the exact engine (optionally
-with the device-packed Golomb wire) or the hist engine, and an f32
-residual.  A per-leaf policy maps each leaf to one of the exchange's
-three modes (:func:`dist_leaf_mode`: SBC, dense, skip); the hist engine
-takes all-SBC policies only (its flat space raises ``ValueError``
-otherwise, as the reference's does).  ``repro_torch.run.build_run``
-refuses every other combination (more clients over ``torch.distributed``,
-the per-leaf exchange, other codecs) with ``NotImplementedError`` naming
-the ROADMAP item that brings it.
+its step on a mesh ``Mesh(devices.reshape(-1, 1), ("data", "model"))``:
+one client per device on the "data" axis and a size-1 "model" axis, the
+exchange inside ``shard_map``.  The port runs one client per process: a
+:class:`~repro_torch.launch.mesh.ClientGroup` gives the client index (its
+rank) and the number of clients (its world), and every round's exchange
+crosses the ranks over ``torch.distributed`` (NCCL on cards, gloo on the
+CPU).  Each rank holds the reference's shard-local state: the params
+(the same on every rank), its own row of the optimizer state and of the
+residual (a leading client axis of 1).
+
+The exchange is the §11 flat fast path (``fast=True``: the exact engine,
+optionally with the device-packed Golomb wire, or the hist engine) or the
+per-leaf exchange (``fast=False``, or a non-f32 ``residual_dtype``).  A
+per-leaf policy maps each leaf to one of the exchange's three modes
+(:func:`dist_leaf_mode`: SBC, dense, skip); the hist engine takes all-SBC
+policies only (its flat space raises ``ValueError`` otherwise, as the
+reference's does).  ``client_mode="pod"`` and a "model" axis larger than 1
+belong to the decoder and MoE configs (ROADMAP A12).
 
 Behaviour of the reference that the step reproduces as it is:
 
@@ -22,8 +28,9 @@ Behaviour of the reference that the step reproduces as it is:
     takes one local step per round (``delay`` is not read);
   * after the exchange, momentum (Adam's ``m``) is zeroed where the
     client's own ΔW* is non-zero;
-  * the applied update is client 0's row of the mean, and the loss metric
-    is the mean over clients.
+  * the applied update is the mean's row of this client, which is client
+    0's on every rank, and the loss metric is the mean over clients
+    (``jnp.mean`` of the gathered losses, in XLA's order).
 """
 from __future__ import annotations
 
@@ -37,17 +44,20 @@ from repro_torch.core.codec import Codec, make_codec
 from repro_torch.core.flat import ShardedFlatParamSpace
 from repro_torch.core.policy import CompressionPolicy, path_str
 from repro_torch.core.tree import tree_flatten, tree_flatten_with_path, tree_map
-from repro_torch.device import resolve_device
+from repro_torch.kernels.reduce import f32_mean_xla
+from repro_torch.launch.mesh import ClientGroup, make_host_group
 from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import get_optimizer, map_states
 
 
-def client_topology(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
-    """(n_clients, client axes) of the one-device topology: a size-1
-    "data" axis and a size-1 "model" axis."""
+def client_topology(cfg: ModelConfig, group: ClientGroup) -> tuple[int, tuple[str, ...]]:
+    """(n_clients, client axes): one client per rank of ``group`` on the
+    "data" axis."""
     if cfg.client_mode == "pod":
-        return 1, ()  # the in-process topology has no "pod" axis
-    return 1, ("data",)
+        raise NotImplementedError(
+            "client_mode='pod' (one client per pod, dense all-reduce inside it) "
+            "belongs to the decoder and MoE configs (ROADMAP A12)")
+    return group.world, ("data",)
 
 
 class DistTrainFns(NamedTuple):
@@ -55,8 +65,8 @@ class DistTrainFns(NamedTuple):
     init_state: Callable  # generator -> state
     bits_per_client: float  # static Eq. 1 wire bits per round
     bits_dense: float
-    flat_space: Any  # ShardedFlatParamSpace of the flat fast path
-    residual_to_tree: Callable  # flat residual → the params' tree of (1,)+shape
+    flat_space: Any  # ShardedFlatParamSpace of the flat fast path, or None
+    residual_to_tree: Optional[Callable]  # flat residual → the params' tree of (1,)+shape
     channel: Any  # the ShardedGspmdChannel driving the exchange
 
 
@@ -80,16 +90,21 @@ def dist_leaf_mode(codec: Codec) -> str:
 def build_dist_train(
     cfg: ModelConfig,
     *,
+    group: Optional[ClientGroup] = None,
     sparsity: float = 0.001,
     policy: Optional[CompressionPolicy] = None,
+    fast: Optional[bool] = True,
     flat_engine: str = "exact",
     measure: bool = False,
     device_pack: bool = False,
     model: Optional[Model] = None,
     device=None,
 ) -> DistTrainFns:
-    """Build the DSGD train step for ``cfg`` on one device: the reference's
-    ``fast=True`` route with ``flat_engine`` ("exact" or "hist").
+    """Build this rank's DSGD train step for ``cfg``.
+
+    ``group``: the :class:`~repro_torch.launch.mesh.ClientGroup` whose
+    ranks are the clients (default: :func:`~repro_torch.launch.mesh.
+    make_host_group` on ``device``, one client and no process group).
 
     ``policy``: an optional per-leaf :class:`CompressionPolicy` (path-regex
     rules): each leaf takes its plan's exchange mode
@@ -98,17 +113,28 @@ def build_dist_train(
     fixed when the step is built, so a policy with per-round schedules
     raises, as the reference's does.
 
-    State = ``{'params', 'opt', 'residual'}``; the batch has a leading
-    client axis of size ``client_topology(cfg)[0]`` (1 here).  ``measure``
-    adds client 0's transmitted ΔW* to the metrics (``own_client0``) for
-    wire metering; with ``device_pack`` (exact engine) also the packed
-    bit counts of every (client, shard, row) (``packed_nbits``) and client
-    0's packed word buffer (``packed_words_client0``).
+    ``fast``: True (the port's default) takes the §11 flat fast path with
+    ``flat_engine`` ("exact" or "hist"), False the per-leaf exchange, None
+    the policy's own flag (the reference's default).  A non-f32
+    ``cfg.residual_dtype`` takes the per-leaf exchange either way.
+
+    State = ``{'params', 'opt', 'residual'}``; the batch is this client's,
+    with a leading client axis of 1.  ``measure`` adds client 0's
+    transmitted ΔW* to rank 0's metrics (``own_client0``) for wire
+    metering; with ``device_pack`` too (exact engine) every rank's metrics
+    also hold the packed bit counts of every (client, shard, row)
+    (``packed_nbits``, gathered) and rank 0's hold client 0's packed word
+    buffer (``packed_words_client0``).
     """
-    device = resolve_device(device)
+    if group is None:
+        group = make_host_group(device)
+    elif device is not None and torch.device(device) != group.device:
+        raise ValueError(f"device {device} is not the group's {group.device}")
+    device = group.device
     model = model or build_model(cfg)
-    n_clients, client_axes = client_topology(cfg)
-    opt = get_optimizer(cfg.local_opt)
+    n_clients, client_axes = client_topology(cfg, group)
+    opt_kw = {} if cfg.local_opt == "sgd" else {"state_dtype": cfg.residual_dtype}
+    opt = get_optimizer(cfg.local_opt, **opt_kw)
 
     if policy is None:
         policy = CompressionPolicy.single(make_codec("sbc"), name="sbc")
@@ -117,7 +143,6 @@ def build_dist_train(
     # shard), in JAX's leaf order with its "a/b" paths
     flat_p, treedef = tree_flatten_with_path(model.init(torch.Generator()))
     keys = [path_str(path) for path, _ in flat_p]
-    shapes = {k: tuple(v.shape) for k, (_, v) in zip(keys, flat_p)}
     plans = [policy.plan_for(k) for k in keys]
     scheduled = [pl.path for pl in plans if pl.schedule is not None]
     if scheduled:
@@ -126,24 +151,29 @@ def build_dist_train(
             f"built; policy rules attach per-round schedules to {scheduled[:3]}…"
         )
     leaves = tuple(
-        GspmdLeaf(path=k, global_shape=shapes[k], dtype=torch.float32,
+        GspmdLeaf(path=k, global_shape=tuple(v.shape), dtype=v.dtype,
                   scanned="stack/scan" in k, mode=dist_leaf_mode(pl.codec),
                   rate=pl.rate(sparsity, 0), n_shards=1,
-                  shard_grid=(1,) * len(shapes[k]))
-        for k, pl in zip(keys, plans)
+                  shard_grid=(1,) * v.dim())
+        for k, (_, v), pl in zip(keys, flat_p, plans)
     )
-    space = ShardedFlatParamSpace.build(
-        [dict(path=gl.path, shape=gl.global_shape,
-              rows=gl.global_shape[0] if gl.scanned and len(gl.global_shape) > 1 else 1,
-              kind=gl.mode, rate=gl.rate, n_shards=gl.n_shards,
-              global_size=int(torch.Size(gl.global_shape).numel()))
-         for gl in leaves],
-        client_axes=client_axes, shard_axes=("model",), n_clients=n_clients,
-        shards_per_client=1,
-    )
+    want_fast = policy.fast if fast is None else bool(fast)
+    space = None
+    if (want_fast and cfg.residual_dtype == torch.float32
+            and all(gl.dtype == torch.float32 for gl in leaves)):
+        space = ShardedFlatParamSpace.build(
+            [dict(path=gl.path, shape=gl.global_shape,
+                  rows=gl.global_shape[0] if gl.scanned and len(gl.global_shape) > 1 else 1,
+                  kind=gl.mode, rate=gl.rate, n_shards=gl.n_shards,
+                  global_size=int(torch.Size(gl.global_shape).numel()))
+             for gl in leaves],
+            client_axes=client_axes, shard_axes=("model",), n_clients=n_clients,
+            shards_per_client=1, group=group,
+        )
     channel = ShardedGspmdChannel(
         leaves=leaves, client_axes=client_axes, n_clients=n_clients,
-        flat_space=space, flat_engine=flat_engine, device_pack=device_pack,
+        residual_dtype=cfg.residual_dtype, flat_space=space, flat_engine=flat_engine,
+        device_pack=device_pack, group=group,
     )
     bits = channel.bits()
 
@@ -151,8 +181,7 @@ def build_dist_train(
         params = tree_map(lambda v: v.to(device), model.init(gen))
         return {
             "params": params,
-            "opt": map_states(lambda v: v[0].expand((n_clients,) + v[0].shape).clone(),
-                               [opt.init(params)]),
+            "opt": map_states(lambda v: v[0][None].clone(), [opt.init(params)]),
             "residual": channel.init_state(params),
         }
 
@@ -161,49 +190,45 @@ def build_dist_train(
 
     def train_step(state: dict, batch: dict) -> tuple:
         params = state["params"]
-        deltas, opt_states, losses = [], [], []
-        for c in range(n_clients):
-            leaves_c = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
-            loss = model.loss_fn(treedef.unflatten(leaves_c),
-                                 tree_map(lambda v: v[c], batch))
-            grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves_c)))
-            with torch.no_grad():
-                p2, os2 = opt.apply(map_states(lambda v: v[0][c], [state["opt"]]),
-                                    grads, params, cfg.base_lr, 0)
-                deltas.append(tree_map(
-                    lambda a, b: a.to(torch.float32) - b.to(torch.float32), p2, params))
-            opt_states.append(os2)
-            losses.append(loss.detach())
-
+        leaves_p = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
+        loss = model.loss_fn(treedef.unflatten(leaves_p), tree_map(lambda v: v[0], batch))
+        grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves_p)))
         with torch.no_grad():
-            stacked = tree_map(lambda *xs: torch.stack(xs), *deltas)
-            out = channel.round_exchange(state["residual"], stacked,
-                                         need_own=need_own)
+            p2, opt_state = opt.apply(map_states(lambda v: v[0][0], [state["opt"]]),
+                                      grads, params, cfg.base_lr, 0)
+            deltas = tree_map(
+                lambda a, b: (a.to(torch.float32) - b.to(torch.float32))
+                .to(cfg.residual_dtype)[None], p2, params)
+            out = channel.round_exchange(state["residual"], deltas, need_own=need_own)
             mean_tree, new_residual, own_tree = out[:3]
-            # every client reconstructs the identical mean; take client 0
+            # every client reconstructs the identical mean
             new_params = tree_map(
                 lambda p, m: (p.to(torch.float32) + m[0].to(torch.float32)).to(p.dtype),
                 params, mean_tree)
-            opt_state = map_states(torch.stack, opt_states)
+            opt_state = map_states(lambda v: v[0][None], [opt_state])
             if need_mask:
                 transmitted = tree_map(lambda o: (o != 0).to(torch.float32), own_tree)
                 opt_state = opt.mask(opt_state, transmitted)
-            metrics = {"loss": torch.stack(losses).mean()}
-            if measure:
-                # client 0's transmitted ΔW*, for host-side wire metering
+            losses = group.all_gather_rows(loss.detach().reshape(()))
+            metrics = {"loss": f32_mean_xla(losses)}
+            if measure and device_pack:
+                # exact per-(client, shard, row) packed wire bits of every
+                # client (a collective: every rank takes part)
+                words, nbits = out[3]
+                metrics["packed_nbits"] = group.all_gather_rows(nbits[0])
+            if measure and group.rank == 0:
+                # client 0's transmitted ΔW* (and packed words), for wire metering
                 metrics["own_client0"] = tree_map(lambda o: o[0], own_tree)
                 if device_pack:
-                    # exact per-(client, shard, row) packed wire bits +
-                    # client 0's packed word buffer
-                    words, nbits = out[3]
-                    metrics["packed_nbits"] = nbits
                     metrics["packed_words_client0"] = words[0]
         return {"params": new_params, "opt": opt_state, "residual": new_residual}, metrics
 
-    def residual_to_tree(flat_res: torch.Tensor) -> dict:
-        """The flat residual as the per-leaf stacked tree the per-leaf
-        path stores (views, no copy)."""
-        return treedef.unflatten([b[None] for b in space.unflatten_local(flat_res[0, 0])])
+    residual_to_tree = None
+    if space is not None:
+        def residual_to_tree(flat_res: torch.Tensor) -> dict:
+            """The flat residual as the per-leaf stacked tree the per-leaf
+            path stores (views, no copy)."""
+            return treedef.unflatten([b[None] for b in space.unflatten_local(flat_res[0, 0])])
 
     return DistTrainFns(
         train_step=train_step, init_state=init_state,

@@ -11,7 +11,16 @@ Same flags as ``python -m repro.run``; the port runs
   PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend gspmd \\
       --fast --flat-engine exact --device-pack --measure-wire --sparsity 0.01
 
-on the CUDA card (``--device cpu`` runs the kernels' plain versions).
+on the CUDA card (``--device cpu`` runs the kernels' plain versions).  The
+GSPMD backend runs one client per process; ``torchrun`` starts them, one
+per card over NCCL, or on the CPU over gloo with ``--device cpu``:
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.run \\
+      --preset lenet5 --backend gspmd --fast --flat-engine exact --device-pack \\
+      --measure-wire [--device cpu]
+
+Rank 0 alone prints, meters the wire into its ledger and writes
+``--trace``/``--metrics-out``/``--history``.
 """
 from __future__ import annotations
 
@@ -33,7 +42,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
     spec = spec_from_args(args)
     run = build_run(spec, device=args.device)
+    group = getattr(run, "group", None)
+    try:
+        if group is None or group.rank == 0:
+            return _report(run, spec, args)
+        run.run()
+        return None
+    finally:
+        if group is not None:
+            group.close()
 
+
+def _report(run, spec, args) -> dict:
+    """Run, and print and write what the reference's launcher does."""
     n_params = sum(v.numel() for v in tree_flatten(run.model.init(torch.Generator()))[0])
     engine = (f"engine={spec.flat_engine} device_pack={spec.device_pack} "
               if spec.backend == "gspmd" else "")

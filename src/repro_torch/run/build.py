@@ -11,12 +11,19 @@ presets (``lenet5``, ``charlstm``) on two backends:
               build_run(RunSpec(preset="charlstm", backend="local",
                                 sparsity=0.01, measure_wire=True))
 
-  gspmd   one card, either flat engine, the exact one optionally with the
-          device-packed Golomb wire and its metering:
+  gspmd   one client per process (a :class:`~repro_torch.launch.mesh.
+          ClientGroup`: the ranks ``torchrun`` starts, or one client on one
+          card), either flat engine, the exact one optionally with the
+          device-packed Golomb wire and its metering, or the per-leaf
+          exchange (``fast=False``):
 
               build_run(RunSpec(preset="lenet5", backend="gspmd", fast=True,
                                 flat_engine="exact", device_pack=True,
                                 measure_wire=True, sparsity=0.01))
+
+          Under ``torchrun`` every rank calls ``build_run`` and takes its
+          client from ``repro_torch.launch.mesh.group_from_env``; rank 0
+          alone meters the wire into the ledger.
 
 Both take per-leaf policy rules (``dense_pattern``, ``skip_pattern``),
 built by :func:`policy_from_spec` as in the reference; the GSPMD hist
@@ -57,15 +64,13 @@ def _check_slice(spec: RunSpec) -> None:
         todo.append(f"preset {spec.preset!r} (ROADMAP A12)")
     if spec.compressor != "sbc":
         todo.append(f"compressor {spec.compressor!r} (ROADMAP A12)")
-    if spec.backend == "gspmd" and not spec.fast:
-        todo.append("fast=False on gspmd, the per-leaf exchange (ROADMAP A9)")
     if todo:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(todo) + ". This port carries "
             "preset='lenet5' and 'charlstm' on backend='local' (fast either way, "
-            "measure_wire) and on backend='gspmd' with fast=True and "
-            "flat_engine='hist' or 'exact' (device_pack, measure_wire), with "
-            "dense_pattern, skip_pattern and telemetry on both."
+            "measure_wire) and on backend='gspmd' (one client per rank; fast=True "
+            "with flat_engine='hist' or 'exact' (device_pack), or fast=False; "
+            "measure_wire), with dense_pattern, skip_pattern and telemetry on both."
         )
 
 
@@ -246,7 +251,8 @@ def _build_local(spec: RunSpec, dev: torch.device) -> LocalRun:
 
 @dataclasses.dataclass(eq=False)
 class GspmdRun(Run):
-    """A built GSPMD backend: the init/step/run surface."""
+    """A built GSPMD backend, seen from one client (one rank of
+    :attr:`group`): the init/step/run surface."""
 
     spec: RunSpec
     cfg: Any
@@ -256,6 +262,7 @@ class GspmdRun(Run):
     fns: Any  # DistTrainFns
     n_clients: int
     device: torch.device
+    group: Any  # ClientGroup
 
     def init(self, gen: Optional[torch.Generator] = None) -> dict:
         if gen is None:
@@ -264,17 +271,18 @@ class GspmdRun(Run):
         return self.fns.init_state(gen)
 
     def _batch(self, round_idx: int) -> dict:
-        per = [self.task.sample(round_idx, c) for c in range(self.n_clients)]
-        return {k: torch.stack([b[k] for b in per]) for k in per[0]}
+        """This client's batch (a leading client axis of 1)."""
+        return {k: v[None] for k, v in self.task.sample(round_idx, self.group.rank).items()}
 
     @property
     def ledger(self):
-        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`."""
+        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`
+        (rank 0's holds every client's uploads)."""
         return self.channel.ledger
 
     def step(self, state: dict, round_idx: int) -> tuple:
         """One communication round; returns ``(state, metrics)``.  With
-        ``measure_wire`` the round's uploads are metered into the ledger
+        ``measure_wire`` rank 0 meters the round's uploads into its ledger
         (every client's packed bits with ``device_pack``, else client 0's
         host-encoded ΔW*), which waits for the device."""
         # the round (local step, compress, exchange, apply) traced as one
@@ -283,10 +291,10 @@ class GspmdRun(Run):
             state, m = self.fns.train_step(state, self._batch(round_idx))
             self.telemetry.fence(state["params"])
         m = dict(m)
-        if self.spec.measure_wire:
-            own_client0 = m.pop("own_client0")
-            packed_nbits = m.pop("packed_nbits", None)
-            m.pop("packed_words_client0", None)
+        own_client0 = m.pop("own_client0", None)
+        packed_nbits = m.pop("packed_nbits", None)
+        m.pop("packed_words_client0", None)
+        if self.spec.measure_wire and self.group.rank == 0:
             m["measured_bits_per_client"] = self.channel.record_round(
                 round_idx, own_client0=own_client0, packed_nbits=packed_nbits
             )
@@ -301,10 +309,17 @@ class GspmdRun(Run):
         return state["residual"]
 
     def _leaf_table(self, state) -> list:
-        """The rows of the flat space's segments: a sparse leaf's ``k`` is
-        the survivors its kernels select, ``k`` a row of each shard."""
-        return [(s.path, s.global_size, s.rows * s.n_shards * s.k if s.kind == "sparse" else None,
-                 s.rate) for s in self.fns.flat_space.segments]
+        """Per leaf ``(path, n, k, rate)``: a sparse leaf's ``k`` is the
+        survivors its shards select, ``k`` a row of each shard."""
+        from repro_torch.core.channel import leaf_rows
+
+        rows = []
+        for gl in self.channel.leaves:
+            L, _, k_loc = leaf_rows(gl)
+            rows.append((gl.path, int(torch.Size(gl.global_shape).numel()),
+                         L * gl.n_shards * k_loc if gl.mode == "sparse" else None,
+                         float(gl.rate)))
+        return rows
 
     def _finalize_hist(self, hist: dict, n_rounds: int) -> dict:
         hist["total_upload_bits"] = float(self.fns.bits_per_client) * n_rounds
@@ -315,28 +330,43 @@ class GspmdRun(Run):
         return hist
 
 
-def build_run(spec: RunSpec, device=None) -> Union[LocalRun, GspmdRun]:
+TORCHRUN = ("torchrun --standalone --nproc-per-node {n} -m repro_torch.run --preset lenet5 "
+            "--backend gspmd --fast --flat-engine exact --device-pack --measure-wire")
+
+
+def build_run(spec: RunSpec, device=None, group=None) -> Union[LocalRun, GspmdRun]:
     """Construct the backend a spec names, on ``device`` (default: the CUDA
     card; an explicit ``"cuda:N"`` picks one of several cards).
-    ``spec.telemetry`` attaches one enabled :class:`~repro_torch.obs.Telemetry`
-    to the run and its channel; a disabled run keeps the shared no-op
-    ``NULL_TELEMETRY``."""
-    run = _build(spec, device)
+
+    On gspmd the clients are the ranks of ``group`` (a
+    :class:`~repro_torch.launch.mesh.ClientGroup`); without one, the
+    ranks ``torchrun`` started (:func:`~repro_torch.launch.mesh.
+    group_from_env`, on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over
+    gloo with ``device="cpu"``), else one client on ``device``.
+    ``spec.telemetry`` attaches one enabled
+    :class:`~repro_torch.obs.Telemetry` to the run and its channel; a
+    disabled run keeps the shared no-op ``NULL_TELEMETRY``."""
+    run = _build(spec, device, group)
     if spec.telemetry:
         run.telemetry = make_telemetry()
         run.channel.telemetry = run.telemetry
     return run
 
 
-def _build(spec: RunSpec, device) -> Union[LocalRun, GspmdRun]:
+def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun]:
+    from repro_torch.launch.mesh import group_from_env, launched_by_torchrun, make_host_group
+
     _check_slice(spec)
-    if spec.backend == "gspmd" and device is None and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "the reference puts one client on every local device; several "
-            "cards need torch.distributed (ROADMAP A9). Pass device='cuda:0' "
-            "for a one-card run."
-        )
-    dev = resolve_device(device)
+    if spec.backend == "gspmd" and group is None:
+        if launched_by_torchrun():
+            group = group_from_env(device)
+        elif device is None and torch.cuda.device_count() > 1:
+            n = torch.cuda.device_count()
+            raise NotImplementedError(
+                f"the reference puts one client on every local device; the port runs "
+                f"one client per process: start {n} of them with `"
+                f"{TORCHRUN.format(n=n)}`, or pass device='cuda:0' for a one-card run")
+    dev = group.device if group is not None else resolve_device(device)
     # This is a parity port of an f32 reference: keep f32 matmuls and
     # convolutions in full f32 (cuDNN would otherwise run convolutions in
     # TF32, which keeps about three decimal digits).
@@ -344,15 +374,16 @@ def _build(spec: RunSpec, device) -> Union[LocalRun, GspmdRun]:
     torch.backends.cudnn.allow_tf32 = False
     if spec.backend == "local":
         return _build_local(spec, dev)
+    group = group or make_host_group(dev)
     cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
                              seed=spec.seed, device=dev)
     model = build_model(cfg)
     policy = policy_from_spec(spec)
-    fns = build_dist_train(cfg, sparsity=spec.sparsity,
-                           policy=None if isinstance(policy, Compressor) else policy,
-                           flat_engine=spec.flat_engine,
+    fns = build_dist_train(cfg, group=group, sparsity=spec.sparsity,
+                           policy=None if isinstance(policy, Compressor) else as_policy(policy),
+                           fast=True if spec.fast else None, flat_engine=spec.flat_engine,
                            measure=spec.measure_wire, device_pack=spec.device_pack,
-                           model=model, device=dev)
-    n_clients, _ = client_topology(cfg)
-    return GspmdRun(spec=spec, cfg=cfg, model=model, task=task,
-                    channel=fns.channel, fns=fns, n_clients=n_clients, device=dev)
+                           model=model)
+    n_clients, _ = client_topology(cfg, group)
+    return GspmdRun(spec=spec, cfg=cfg, model=model, task=task, channel=fns.channel,
+                    fns=fns, n_clients=n_clients, device=dev, group=group)

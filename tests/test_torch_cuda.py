@@ -181,6 +181,39 @@ def test_lenet5_rounds_run_through_the_kernels(cuda):
     assert res.is_cuda and tuple(res.shape) == (1, 1, 1_259_520)
 
 
+@pytest.mark.cuda
+def test_nccl_group_of_one_returns_its_input(cuda, tmp_path):
+    """A real NCCL process group of one rank: its gather and mean return
+    their input bit for bit, and a LeNet5 round through it equals one
+    without a group."""
+    from repro_torch.launch.mesh import ClientGroup
+
+    group = ClientGroup.connect(rank=0, world=1, device=cuda, backend="nccl",
+                                init_method=f"file://{tmp_path}/store")
+    try:
+        x = torch.randn(1000, device=cuda)
+        w = torch.arange(77, dtype=torch.int32, device=cuda).view(torch.uint32)
+        assert torch.equal(group.all_gather_rows(x)[0].view(torch.int32), x.view(torch.int32))
+        assert torch.equal(group.pmean(x).view(torch.int32), x.view(torch.int32))
+        assert torch.equal(group.all_gather_rows(w).view(torch.int32)[0], w.view(torch.int32))
+        spec = RunSpec(preset="lenet5", backend="gspmd", fast=True, flat_engine="exact",
+                       device_pack=True, measure_wire=True, sparsity=0.01, batch=32)
+        saved, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+        try:
+            states = []
+            for g in (None, group):
+                run = build_run(spec, device="cuda", group=g)
+                state, _ = run.step(run.init(), 0)
+                states.append(state)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        for k, v in states[0]["params"].items():
+            assert torch.equal(v.view(torch.int32), states[1]["params"][k].view(torch.int32))
+        assert torch.equal(states[0]["residual"], states[1]["residual"])
+    finally:
+        group.close()
+
+
 # --------------------------------------------------------------- packers
 
 
@@ -494,7 +527,7 @@ def test_exact_rounds_run_through_the_packer(cuda):
     assert kernels.launch_counts() == {
         "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0,
         "seg_packbits": 2, "seg_select_pack": 0, "hist2side": 0, "masked_moments": 0,
-        "binarize_apply": 0, "f32_mean_xla": 2 * run.fns.flat_space.n_mu}
+        "binarize_apply": 0, "f32_mean_xla": 2 * (run.fns.flat_space.n_mu + 1)}  # + the loss
     n_mu = run.fns.flat_space.n_mu
     assert [r.up_bits_measured for r in run.ledger.records] == [b + 32.0 * n_mu for b in nbits]
 

@@ -39,6 +39,7 @@ from repro_torch.core.flat import ShardedFlatParamSpace as TSpace
 from repro_torch.core.golomb import encode_positions_packed, packed_words_to_bytes
 from repro_torch.kernels import pack as tpack
 from repro_torch.launch.dist import build_dist_train
+from repro_torch.launch.mesh import make_host_group
 from torch_helpers import n, t
 
 # (path, local shape, rows, kind, rate): ragged sizes, a scanned
@@ -58,7 +59,7 @@ def spaces(layout, client_axes=("data",)):
                     global_size=int(np.prod(s))) for p, s, r, kd, rate in layout]
     kw = dict(client_axes=client_axes, shard_axes=("model",), n_clients=1,
               shards_per_client=1)
-    return JSpace.build(entries, **kw), TSpace.build(entries, **kw)
+    return JSpace.build(entries, **kw), TSpace.build(entries, **kw, group=make_host_group("cpu"))
 
 
 def bodies_for(layout, seed, kind="random"):
@@ -152,9 +153,10 @@ def test_top_k_orders_ties_and_signed_zeros_as_lax():
 
 
 def test_exchange_local_over_several_clients_raises():
+    """More clients than the space's group has ranks (here: one)."""
     _, tspace = spaces(SPARSE)
     tspace.n_clients = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="needs a ClientGroup of 2 ranks"):
         tspace.exchange_local([t(b) for b in bodies_for(SPARSE, 0)], None)
 
 

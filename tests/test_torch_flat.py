@@ -20,6 +20,7 @@ from repro.core.stages import k_for as j_k_for
 from repro_torch.core.flat import ShardedFlatParamSpace as TSpace
 from repro_torch.core.flat import _hist_pipeline as t_hist_pipeline
 from repro_torch.core.stages import k_for
+from repro_torch.launch.mesh import make_host_group
 from torch_helpers import n, t
 
 # LeNet5's leaves in JAX's tree-flatten order (sorted keys)
@@ -56,7 +57,7 @@ def both(entries, **kw):
     axes = dict(client_axes=("data",), shard_axes=("model",), n_clients=1,
                 shards_per_client=1)
     axes.update(kw)
-    return JSpace.build(entries, **axes), TSpace.build(entries, **axes)
+    return JSpace.build(entries, **axes), TSpace.build(entries, **axes, group=make_host_group("cpu"))
 
 
 @pytest.mark.parametrize("which", ["lenet5", "mixed"])
@@ -153,5 +154,5 @@ def test_exchange_local_hist_refuses_what_the_slice_lacks():
         ts.exchange_local_hist(bodies, None)
     _, ts2 = both(lenet5_entries(), n_clients=4)
     bodies = [torch.zeros(s) for _, s in LENET5]
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(ValueError, match="needs a ClientGroup of 4 ranks"):
         ts2.exchange_local_hist(bodies, None)

@@ -53,6 +53,7 @@ from repro_torch.core.flat import _hist_pipeline as t_hist_pipeline
 from repro_torch.data import make_classification_task
 from repro_torch.kernels import flat as tflat
 from repro_torch.launch.dist import build_dist_train
+from repro_torch.launch.mesh import make_host_group
 from repro_torch.run import RunSpec, build_parser, build_preset, build_run
 from torch_helpers import n, near_edge_mask, t
 
@@ -255,11 +256,12 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 @pytest.mark.parametrize("change", [
     dict(backend="fed", telemetry=True), dict(backend="fed"),
     dict(flat_engine="exact", compressor="signsgd"),
-    dict(fast=False), dict(preset="tiny"), dict(compressor="topk"),
-    dict(flat_engine="exact", skip_pattern="f2", fast=False), dict(preset="lm-100m"),
+    dict(fast=False, compressor="dgc"), dict(preset="tiny"), dict(compressor="topk"),
+    dict(flat_engine="exact", skip_pattern="f2", fast=False, preset="resnet32"),
+    dict(preset="lm-100m"),
     dict(dense_pattern="b$", backend="local", compressor="topk"),
     dict(skip_pattern="f2", preset="tiny"),
-    dict(flat_engine="exact", fast=False),
+    dict(flat_engine="exact", fast=False, backend="fed"),
 ])
 def test_specs_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -276,11 +278,13 @@ def full_width_jax_bits():
 @pytest.mark.parametrize("change", [
     dict(flat_engine="exact"), dict(measure_wire=True),
     dict(flat_engine="exact", device_pack=True),
+    dict(fast=False, flat_engine="exact", measure_wire=True), dict(fast=False, flat_engine="exact"),
 ])
 def test_specs_now_in_the_port_run_on_the_cpu(change, full_width_jax_bits):
     """Full-width LeNet5 on the CPU: finite losses, the reference's Eq. 1
     bits (102,035.46 a client a round), one ledger row a round when the
-    wire is metered, and no kernel launch."""
+    wire is metered, and no kernel launch; the flat residual, or per leaf
+    with ``fast=False``."""
     run = build_run(RunSpec(**{**SLICE, **change}, batch=8, rounds=2), device="cpu")
     kernels.reset_launches()
     state, hist = run.run()
@@ -288,7 +292,10 @@ def test_specs_now_in_the_port_run_on_the_cpu(change, full_width_jax_bits):
     assert run.fns.bits_per_client == full_width_jax_bits
     assert len(run.ledger.records) == (2 if run.spec.measure_wire else 0)
     assert set(kernels.launch_counts().values()) == {0}
-    assert tuple(state["residual"].shape) == (1, 1, 1_259_520)
+    if run.spec.fast:
+        assert tuple(state["residual"].shape) == (1, 1, 1_259_520)
+    else:
+        assert run.fns.flat_space is None and state["residual"]["f1"].shape == (1, 2450, 500)
 
 
 def test_gspmd_channel_refuses_what_the_reference_refuses():
@@ -296,6 +303,7 @@ def test_gspmd_channel_refuses_what_the_reference_refuses():
     its messages; a spec with device_pack outside the exact engine is
     refused by RunSpec itself, as in the reference."""
     space = object()  # the checks only ask whether there is a flat space
+    one = make_host_group("cpu")
     for kw in (dict(flat_space=space, flat_engine="hist", device_pack=True),
                dict(flat_space=None, flat_engine="hist"),
                dict(flat_space=None, flat_engine="exact", device_pack=True),
@@ -303,10 +311,15 @@ def test_gspmd_channel_refuses_what_the_reference_refuses():
         with pytest.raises(ValueError) as want:
             JShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=1, **kw)
         with pytest.raises(ValueError) as got:
-            ShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=1, **kw)
+            ShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=1,
+                                group=one, **kw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=1)
+    # no flat space: the per-leaf exchange, as in the reference; more
+    # clients than its group has ranks are refused
+    assert ShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=1,
+                               group=one).flat_space is None
+    with pytest.raises(ValueError, match="need a ClientGroup of 2 ranks"):
+        ShardedGspmdChannel(leaves=(), client_axes=("data",), n_clients=2, group=one)
     with pytest.raises(ValueError, match="device_pack"):
         RunSpec(**SLICE, device_pack=True)
 

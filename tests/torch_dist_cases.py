@@ -1,0 +1,562 @@
+"""Multi-client cases of the GSPMD backend, run by both packages.
+
+The reference runs on N forced host devices (one process,
+``XLA_FLAGS=--xla_force_host_platform_device_count=N``), its channel or
+train step on a ``("data", "model")`` mesh of N x 1; the port runs on N
+gloo ranks on the CPU, one client per rank
+(``repro_torch.launch.mesh.ClientGroup``, a ``file://`` store).  The test
+process makes every input with numpy from a seed (the initial parameters
+with the reference's ``model.init``, handed across) and writes one npz;
+each side writes its outputs, and the tests compare them.
+
+    python tests/torch_dist_cases.py reference N IN OUT
+    python tests/torch_dist_cases.py port RANK N STORE IN OUT
+
+Cases (names are keys of the dicts below):
+  * ``EXCHANGES``: ``ShardedGspmdChannel.round_exchange`` on the same
+    per-client deltas and residuals, two rounds (the residual carried
+    over), each metered into the channel's ledger as ``GspmdRun.step``
+    does (LeNet5 at ``img_size=12``, p = 0.01);
+  * ``EQ1``: the static Eq. 1 bits of full-width presets;
+  * ``RUNS``: three train steps from one carried-across state on the same
+    batches, metered; CharLSTM through ``build_run``/``GspmdRun``;
+  * ``GROUP``: ``pmean`` and ``all_gather`` of the collectives themselves.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+SRC = HERE.parent / "src"
+P = 0.01
+DENSE, SKIP = r"^f[12]b$", r"^c1$"
+EXCHANGE_ROUNDS = 2
+EXCHANGES = {
+    "exact": dict(fast=True, flat_engine="exact"),
+    "exact-pack": dict(fast=True, flat_engine="exact", device_pack=True),
+    "exact-pack-dense-skip": dict(fast=True, flat_engine="exact", device_pack=True,
+                                  dense_pattern=DENSE, skip_pattern=SKIP),
+    "leaf-dense-skip": dict(fast=False, dense_pattern=DENSE, skip_pattern=SKIP),
+    "leaf-bf16": dict(fast=False, residual_dtype="bfloat16"),
+    "hist": dict(fast=True, flat_engine="hist"),
+}
+EQ1 = {
+    "lenet5": dict(preset="lenet5", fast=True),
+    "lenet5-dense": dict(preset="lenet5", fast=True, dense_pattern=DENSE),
+    "lenet5-leaf-dense": dict(preset="lenet5", fast=False, dense_pattern=DENSE),
+    "charlstm": dict(preset="charlstm", fast=True),
+}
+RUN_ROUNDS = 3
+RUNS = {
+    "lenet5-exact-pack": dict(preset="lenet5", fast=True, flat_engine="exact", device_pack=True),
+    "lenet5-leaf": dict(preset="lenet5", fast=False, dense_pattern=DENSE),
+    "charlstm-exact": dict(preset="charlstm", fast=True, flat_engine="exact",
+                           device_pack=True),
+}
+LM = dict(batch=2, seq_len=8)  # CharLSTM's run size
+LENET5_BATCH = 16
+
+
+def _cfg_kw(case: dict) -> dict:
+    return {"img_size": 12} if case.get("preset", "lenet5") == "lenet5" else {}
+
+
+def _spec_kw(case: dict) -> dict:
+    return {k: case[k] for k in ("fast", "dense_pattern", "skip_pattern") if k in case}
+
+
+# ------------------------------------------------------------- the inputs
+
+
+def make_inputs(path: Path, n: int, *, exchanges=(), runs=(), eq1=(), group=False,
+                seed: int = 0) -> None:
+    """Write every input of the named cases to ``path`` (an npz), made with
+    numpy from ``seed``; the reference's ``model.init`` gives the initial
+    parameters (in this process, on its one device)."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs.base import get_config
+    from repro.models.model import build_model
+
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    meta = dict(n=n, exchanges=list(exchanges), runs=list(runs), eq1=list(eq1), group=group)
+
+    def shapes(case):
+        cfg = dataclasses.replace(get_config(case.get("preset", "lenet5")), **_cfg_kw(case))
+        a = jax.eval_shape(build_model(cfg).init, jax.random.PRNGKey(0))
+        flat = jax.tree_util.tree_flatten_with_path(a)[0]
+        return cfg, [("/".join(str(k.key) for k in p), tuple(v.shape)) for p, v in flat]
+
+    for name in exchanges:
+        _, leaves = shapes(EXCHANGES[name])
+        for leaf, s in leaves:
+            arrays[f"x/{name}/res/{leaf}"] = (1e-3 * rng.standard_normal((n,) + s)
+                                              ).astype(np.float32)
+            for r in range(EXCHANGE_ROUNDS):
+                arrays[f"x/{name}/delta/{r}/{leaf}"] = (
+                    1e-3 * rng.standard_normal((n,) + s)
+                    * np.exp(rng.standard_normal((n,) + s))).astype(np.float32)
+    for name in runs:
+        case = RUNS[name]
+        cfg, leaves = shapes(case)
+        params = build_model(cfg).init(jax.random.PRNGKey(0))
+        for (p, _), v in zip(leaves, jax.tree.leaves(params)):
+            arrays[f"r/{name}/params/{p}"] = np.asarray(v)
+        if cfg.local_opt == "adam":  # a warm Adam state (ROADMAP C: no μ± tie)
+            for p, s in leaves:
+                arrays[f"r/{name}/m/{p}"] = (0.01 * rng.standard_normal((n,) + s)
+                                             ).astype(np.float32)
+                arrays[f"r/{name}/v/{p}"] = ((0.01 * rng.standard_normal((n,) + s)) ** 2
+                                             ).astype(np.float32)
+        for r in range(RUN_ROUNDS):
+            if case["preset"] == "lenet5":
+                arrays[f"r/{name}/batch/{r}/images"] = rng.standard_normal(
+                    (n, LENET5_BATCH, 12, 12, 1)).astype(np.float32)
+                arrays[f"r/{name}/batch/{r}/labels"] = rng.integers(
+                    0, 10, (n, LENET5_BATCH)).astype(np.int32)
+            else:
+                toks = rng.integers(0, 98, (n, LM["batch"], LM["seq_len"] + 1)
+                                    ).astype(np.int32)
+                arrays[f"r/{name}/batch/{r}/tokens"] = toks[..., :-1]
+                arrays[f"r/{name}/batch/{r}/labels"] = toks[..., 1:]
+    if group:
+        x = rng.standard_normal((n, 64)).astype(np.float32) * np.float32(1e3)
+        # columns whose sum depends on the order of the adds
+        big = np.float32(1e8)
+        orders = [[big, 1, -big, 1], [1, 1, big, -big], [big, -big, 1, 1],
+                  [1, big, 1, -big], [-big, 1, big, 1]]
+        for j, col in enumerate(orders):
+            x[:, j] = np.asarray((col * n)[:n], np.float32)
+        x[:, 5] = np.float32(1) / np.float32(3)
+        arrays["g/x"] = x
+        arrays["g/words"] = rng.integers(0, 2 ** 32, (n, 9), dtype=np.uint64).astype(np.uint32)
+        arrays["g/pos"] = rng.integers(0, 2 ** 40, (n, 5)).astype(np.int64)
+    np.savez(path, meta=np.array(json.dumps(meta)), **arrays)
+
+
+def _load(path):
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+        return meta, {k: z[k] for k in z.files if k != "meta"}
+
+
+def _tree(arrays: dict, prefix: str, fn=lambda a: a) -> dict:
+    """The nested dict under ``prefix`` ("a/b" keys → {"a": {"b": ...}})."""
+    out: dict = {}
+    for key, v in arrays.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        node, parts = out, key[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = fn(v)
+    return out
+
+
+def _paths(tree, pre=""):
+    """``"a/b"`` paths of a nested dict, in sorted-key (leaf) order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(_paths(v, f"{pre}{k}/") if isinstance(v, dict) else [pre + k])
+    return out
+
+
+def _f32(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.kind == "V" or str(a.dtype) == "bfloat16" else a
+
+
+# ----------------------------------------------------------- the reference
+
+
+def reference_main(n: int, inp: str, out: str) -> None:
+    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n}"
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as PS
+
+    from repro.configs.base import get_config
+    from repro.core.api import Compressor
+    from repro.core.channel import shard_map
+    from repro.launch.dist import build_dist_train
+    from repro.optim.optimizers import AdamState
+    from repro.run import RunSpec
+    from repro.run.build import as_policy, policy_from_spec
+
+    meta, x = _load(inp)
+    mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(n, 1), ("data", "model"))
+    res_out, info = {}, {}
+
+    def build(case, full=False, measure=True):
+        cfg = get_config(case.get("preset", "lenet5"))
+        cfg = dataclasses.replace(cfg, **({} if full else _cfg_kw(case)))
+        if case.get("residual_dtype") == "bfloat16":
+            cfg = dataclasses.replace(cfg, residual_dtype=jnp.bfloat16)
+        policy = policy_from_spec(RunSpec(compressor="sbc", **_spec_kw(case)))
+        return build_dist_train(
+            cfg, mesh, compressor="sbc", sparsity=P,
+            policy=None if isinstance(policy, Compressor) else as_policy(policy),
+            fast=True if case.get("fast") else None,
+            flat_engine=case.get("flat_engine", "exact"), measure=measure,
+            device_pack=case.get("device_pack", False))
+
+    def put(prefix, tree):
+        for path, v in zip(_paths(tree), jax.tree.leaves(tree)):
+            res_out[f"{prefix}/{path}"] = _f32(v)
+
+    for name in meta["exchanges"]:
+        case = EXCHANGES[name]
+        fns = build(case)
+        ch = fns.channel
+        res_tree = _tree(x, f"x/{name}/res", jnp.asarray)
+        if ch.flat_space is not None:
+            space = ch.flat_space
+            leaves = jax.tree.leaves(res_tree)
+            res = jnp.stack([space.flatten_local([v[c] for v in leaves])
+                             for c in range(n)])[:, None]
+        else:
+            res = jax.tree.map(lambda v: v.astype(ch.residual_dtype), res_tree)
+        specs = tuple(PS("data") for _ in jax.tree.leaves(res_tree))
+        step = jax.jit(lambda res, d: ch.round_exchange(
+            res, d, mesh=mesh, in_specs=specs, res_spec=PS("data", "model", None),
+            need_own=True))
+        for r in range(EXCHANGE_ROUNDS):
+            out_r = step(res, _tree(x, f"x/{name}/delta/{r}", jnp.asarray))
+            mean, res, own = out_r[:3]
+            put(f"{name}/{r}/mean", mean)
+            put(f"{name}/{r}/own", own)
+            if ch.flat_space is not None:
+                res_out[f"{name}/{r}/res"] = np.asarray(res)
+            else:
+                put(f"{name}/{r}/res", res)
+            packed_nbits = None
+            if case.get("device_pack"):
+                res_out[f"{name}/{r}/words"] = np.asarray(out_r[3][0])
+                res_out[f"{name}/{r}/nbits"] = np.asarray(out_r[3][1])
+                packed_nbits = out_r[3][1]
+            ch.record_round(r, own_client0=jax.tree.map(lambda o: o[0], own),
+                            packed_nbits=packed_nbits)
+        info[name] = dict(ledger=ch.ledger.history(), bits_per_client=fns.bits_per_client,
+                          bits_dense=fns.bits_dense)
+
+    for name in meta["eq1"]:
+        fns = build(EQ1[name], full=True, measure=False)
+        info[f"eq1/{name}"] = dict(bits_per_client=fns.bits_per_client,
+                                   bits_dense=fns.bits_dense)
+
+    for name in meta["runs"]:
+        case = RUNS[name]
+        fns = build(case)
+        state = fns.init_state(jax.random.PRNGKey(0))
+        state["params"] = _tree(x, f"r/{name}/params", jnp.asarray)
+        if f"r/{name}/m/" + _paths(state["params"])[0] in x:
+            state["opt"] = AdamState(_tree(x, f"r/{name}/m", jnp.asarray),
+                                     _tree(x, f"r/{name}/v", jnp.asarray))
+        losses = []
+        for r in range(RUN_ROUNDS):
+            state, m = fns.train_step(state, _tree(x, f"r/{name}/batch/{r}", jnp.asarray))
+            losses.append(float(m["loss"]))
+            fns.channel.record_round(r, own_client0=m.get("own_client0"),
+                                     packed_nbits=m.get("packed_nbits"))
+            put(f"{name}/{r}/own_client0", m["own_client0"])
+        put(f"{name}/params", state["params"])
+        info[name] = dict(losses=losses, ledger=fns.channel.ledger.history(),
+                          bits_per_client=fns.bits_per_client)
+
+    if meta["group"]:
+        for w in range(2, n + 1):
+            sub = Mesh(np.asarray(jax.devices()[:w]).reshape(w), ("data",))
+            fn = jax.jit(shard_map(lambda v: (jax.lax.psum(v, "data"), jax.lax.pmean(v, "data")),
+                                   mesh=sub, in_specs=PS("data"),
+                                   out_specs=(PS("data"), PS("data"))))
+            psum, pmean = fn(jnp.asarray(x["g/x"][:w]))
+            res_out[f"g/{w}/psum"] = np.asarray(psum)
+            res_out[f"g/{w}/pmean"] = np.asarray(pmean)
+
+    np.savez(out + ".npz", **res_out)
+    Path(out + ".json").write_text(json.dumps(info))
+
+
+# ---------------------------------------------------------------- the port
+
+
+def port_main(rank: int, n: int, store: str, inp: str, out: str) -> None:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import state_from_jax
+    from repro_torch.core.api import Compressor
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.launch.dist import build_dist_train
+    from repro_torch.launch.mesh import ClientGroup
+    from repro_torch.optim.optimizers import AdamState
+    from repro_torch.run import RunSpec
+    from repro_torch.run.build import as_policy, policy_from_spec
+
+    torch.set_num_threads(1)
+    meta, x = _load(inp)
+    res_out, info = {}, {}
+
+    def row(a):
+        return torch.from_numpy(np.array(a[rank:rank + 1]))
+
+    def put(prefix, tree):
+        for path, v in zip(_paths(tree), tree_flatten(tree)[0]):
+            res_out[f"{prefix}/{path}"] = v.detach().to(
+                torch.float32 if v.is_floating_point() else v.dtype).numpy()
+
+    def build(case, group, full=False, measure=True):
+        cfg = dataclasses.replace(get_config(case.get("preset", "lenet5")),
+                                  **({} if full else _cfg_kw(case)))
+        if case.get("residual_dtype") == "bfloat16":
+            cfg = dataclasses.replace(cfg, residual_dtype=torch.bfloat16)
+        policy = policy_from_spec(RunSpec(compressor="sbc", **_spec_kw(case)))
+        return build_dist_train(
+            cfg, group=group, sparsity=P,
+            policy=None if isinstance(policy, Compressor) else as_policy(policy),
+            fast=True if case.get("fast") else None,
+            flat_engine=case.get("flat_engine", "exact"), measure=measure,
+            device_pack=case.get("device_pack", False))
+
+    group = ClientGroup.connect(rank=rank, world=n, device="cpu", backend="gloo",
+                                init_method=f"file://{store}")
+    try:
+        for name in meta["exchanges"]:
+            case = EXCHANGES[name]
+            fns = build(case, group)
+            ch = fns.channel
+            res_tree = _tree(x, f"x/{name}/res", row)
+            if ch.flat_space is not None:
+                res = ch.flat_space.flatten_local([v[0] for v in tree_flatten(res_tree)[0]]
+                                                  )[None, None]
+            else:
+                res = tree_map(lambda v: v.to(ch.residual_dtype), res_tree)
+            for r in range(EXCHANGE_ROUNDS):
+                out_r = ch.round_exchange(res, _tree(x, f"x/{name}/delta/{r}", row),
+                                          need_own=True)
+                mean, res, own = out_r[:3]
+                put(f"{name}/{r}/mean", mean)
+                put(f"{name}/{r}/own", own)
+                if ch.flat_space is not None:
+                    res_out[f"{name}/{r}/res"] = res.numpy()
+                else:
+                    put(f"{name}/{r}/res", res)
+                packed_nbits = None
+                if case.get("device_pack"):
+                    words, nbits = out_r[3]
+                    res_out[f"{name}/{r}/words"] = words.view(torch.int32).numpy().view(
+                        np.uint32)
+                    res_out[f"{name}/{r}/nbits"] = nbits.numpy()
+                    packed_nbits = group.all_gather_rows(nbits[0])
+                if rank == 0:
+                    ch.record_round(r, own_client0=tree_map(lambda o: o[0], own),
+                                    packed_nbits=packed_nbits)
+            info[name] = dict(ledger=ch.ledger.history(), bits_per_client=fns.bits_per_client,
+                              bits_dense=fns.bits_dense)
+
+        for name in meta["eq1"]:
+            fns = build(EQ1[name], group, full=True, measure=False)
+            info[f"eq1/{name}"] = dict(bits_per_client=fns.bits_per_client,
+                                       bits_dense=fns.bits_dense)
+
+        for name in meta["runs"]:
+            case = RUNS[name]
+            fns = build(case, group)
+            # the reference's state of n clients (zero residuals in its
+            # layout), and this rank's row of it
+            zeros = fns.init_state(torch.Generator())["residual"]
+            zeros = (np.zeros((n,) + tuple(zeros.shape[1:]), np.float32)
+                     if isinstance(zeros, torch.Tensor) else
+                     tree_map(lambda v: np.zeros((n,) + tuple(v.shape[1:]), np.float32), zeros))
+            np_state = {"params": _tree(x, f"r/{name}/params"), "residual": zeros,
+                        "opt": (AdamState(_tree(x, f"r/{name}/m"), _tree(x, f"r/{name}/v"))
+                                if any(k.startswith(f"r/{name}/m/") for k in x) else ())}
+            state = state_from_jax(np_state, "cpu", client=rank)
+            losses = []
+            for r in range(RUN_ROUNDS):
+                batch = _tree(x, f"r/{name}/batch/{r}", row)
+                if "labels" in batch:
+                    batch["labels"] = batch["labels"].long()
+                if "tokens" in batch:
+                    batch["tokens"] = batch["tokens"].long()
+                state, m = fns.train_step(state, batch)
+                losses.append(float(m["loss"]))
+                if rank == 0:
+                    fns.channel.record_round(r, own_client0=m.get("own_client0"),
+                                             packed_nbits=m.get("packed_nbits"))
+                    put(f"{name}/{r}/own_client0", m["own_client0"])
+            put(f"{name}/params", state["params"])
+            info[name] = dict(losses=losses, ledger=fns.channel.ledger.history(),
+                              bits_per_client=fns.bits_per_client)
+
+        if meta["group"]:
+            xr = torch.from_numpy(x["g/x"][rank])
+            res_out["g/pmean"] = group.pmean(xr).numpy()
+            res_out["g/rows"] = group.all_gather_rows(xr).numpy()
+            words = torch.from_numpy(x["g/words"][rank].view(np.int32)).view(torch.uint32)
+            res_out["g/words"] = group.all_gather_rows(words).view(torch.int32).numpy().view(
+                np.uint32)
+            res_out["g/pos"] = group.all_gather_rows(torch.from_numpy(x["g/pos"][rank])).numpy()
+    finally:
+        group.close()
+    np.savez(f"{out}.rank{rank}.npz", **res_out)
+    Path(f"{out}.rank{rank}.json").write_text(json.dumps(info))
+
+
+# --------------------------------------------------- running both sides
+
+
+def _env() -> dict:
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(SRC), str(HERE)]),
+           "OMP_NUM_THREADS": "1"}
+    env.pop("XLA_FLAGS", None)
+    return env
+
+
+def start_reference(tmp: Path, inp: Path, n: int, tag: str = "ref") -> subprocess.Popen:
+    """The reference's process on ``n`` forced host devices."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "reference",
+                             str(n), str(inp), str(tmp / tag)], env=_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def start_port(tmp: Path, inp: Path, n: int, tag: str = "port") -> list:
+    """The port's ``n`` gloo ranks, one process each, meeting at a
+    ``file://`` store under ``tmp``."""
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "port",
+                              str(r), str(n), str(tmp / f"{tag}.store"), str(inp),
+                              str(tmp / tag)], env=_env(), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for r in range(n)]
+
+
+def finish(procs: list, timeout: float) -> None:
+    """Wait for every process within ``timeout`` seconds of wall clock;
+    kill them all after it, or when one fails (the others would wait in
+    a collective), and raise with the failing one's output."""
+    deadline = time.monotonic() + timeout
+    pending = list(procs)
+    try:
+        while pending:
+            for p in list(pending):
+                if p.poll() is None:
+                    continue
+                pending.remove(p)
+                if p.returncode != 0:
+                    raise AssertionError(f"{' '.join(p.args[2:4])} exited {p.returncode}:\n"
+                                         f"{p.stdout.read()[-4000:]}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{len(pending)} processes outlived {timeout:.0f} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            p.stdout.close()
+
+
+def load_outputs(tmp: Path, tag: str, ranks=None) -> tuple:
+    """``(arrays, info)`` of the reference (``ranks=None``), or lists of
+    them, one a rank."""
+    if ranks is None:
+        return dict(np.load(tmp / f"{tag}.npz")), json.loads((tmp / f"{tag}.json").read_text())
+    return ([dict(np.load(tmp / f"{tag}.rank{r}.npz")) for r in range(ranks)],
+            [json.loads((tmp / f"{tag}.rank{r}.json").read_text()) for r in range(ranks)])
+
+
+def run_both(tmp: Path, n: int, timeout: float = 300.0, **cases) -> tuple:
+    """Write the inputs of ``cases``, run the reference (one process) and
+    the port (``n`` gloo ranks) at once within ``timeout`` seconds, and
+    return ``(ref arrays, ref info, [per-rank arrays], [per-rank info])``."""
+    inp = tmp / "inputs.npz"
+    make_inputs(inp, n, **cases)
+    finish([start_reference(tmp, inp, n)] + start_port(tmp, inp, n), timeout)
+    return load_outputs(tmp, "ref") + load_outputs(tmp, "port", n)
+
+
+# ------------------------------------------------------------ the checks
+
+
+def bits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+def check_rows(name: str, n: int, ref: dict, ports: list, rtol=None) -> int:
+    """Every output of case ``name`` on every rank equals the reference's
+    row of that client, bit for bit (or within ``rtol``); returns how many
+    arrays were compared."""
+    keys = sorted(k for k in ref if k.startswith(name + "/"))
+    assert keys, f"no reference outputs for {name}"
+    for r in range(n):
+        assert sorted(k for k in ports[r] if k.startswith(name + "/")) == keys, r
+        for k in keys:
+            want, got = ref[k][r:r + 1], ports[r][k]
+            assert got.shape == want.shape and got.dtype == want.dtype, (k, got.shape,
+                                                                           want.shape)
+            if rtol is None:
+                np.testing.assert_array_equal(bits(got), bits(want), err_msg=f"rank {r} {k}")
+            else:
+                np.testing.assert_allclose(got, want, rtol=rtol, atol=0,
+                                           err_msg=f"rank {r} {k}")
+    return len(keys) * n
+
+
+def check_hist(name: str, n: int, ref: dict, ports: list, rtol: float = 1e-6) -> None:
+    """The hist engine within ``rtol``: the same survivors, each client's
+    ΔW* within ``rtol`` of the reference's, the mean within ``rtol`` of
+    Σ_c |ΔW*_c| / C (a sum of the clients' ±μ / C can cancel, so its error
+    is relative to that sum, not to the mean), and the residual within
+    ``2 · rtol · max |ΔW*|`` (``acc`` where no round selected it)."""
+    for key in sorted(k for k in ref if k.startswith(name + "/") and "/own/" in k):
+        mean_key, res_key = key.replace("/own/", "/mean/"), key.replace("/own/", "/res/")
+        scale = np.abs(ref[key]).sum(0) / n
+        for r in range(n):
+            own, want = ports[r][key][0], ref[key][r]
+            np.testing.assert_array_equal(own != 0, want != 0, err_msg=f"rank {r} {key}")
+            np.testing.assert_allclose(own, want, rtol=rtol, atol=0, err_msg=f"rank {r} {key}")
+            err = np.abs(ports[r][mean_key][0] - ref[mean_key][r])
+            assert (err <= rtol * scale).all(), (r, mean_key, float(err.max()))
+    # a residual entry moves by at most the μ errors of the rounds that
+    # selected it: within 2·rtol·max|ΔW*| over both rounds
+    for r in range(n):
+        top = max(float(np.abs(ref[k][r]).max()) for k in ref
+                  if k.startswith(name + "/") and "/own/" in k)
+        for k in sorted(k for k in ref if k.startswith(name + "/") and k.endswith("/res")):
+            err = np.abs(ports[r][k] - ref[k][r:r + 1])
+            assert (err <= 2 * rtol * top).all(), (r, k, float(err.max()), top)
+
+
+def check_same_on_every_rank(prefix: str, n: int, ports: list) -> None:
+    """The outputs under ``prefix`` are the same on every rank, bit for bit
+    (every client applies the same mean)."""
+    keys = [k for k in ports[0] if k.startswith(prefix + "/")]
+    assert keys
+    for r in range(1, n):
+        for k in keys:
+            np.testing.assert_array_equal(bits(ports[r][k]), bits(ports[0][k]),
+                                          err_msg=f"rank {r} {k}")
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "reference":
+        reference_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        port_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
