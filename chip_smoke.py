@@ -153,7 +153,35 @@ Without arguments, phases, each of which fails the run:
      ``rtol=1e-6``), one profiled round, and ``golomb_decode_rows`` on the
      gathered words of the device pack, checked against both clients'
      survivors and timed;
-  9. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  9. federation (the fed backend: a parameter server and a client pool on
+     the card, real SBW1 bytes both ways).  (a) LeNet5 at full width
+     (``FED``: batch 128, p = 0.01, 8 clients, cohorts of 4 in two
+     profiles of delay 1 and 2, one member a tile), five sync rounds with
+     ``fast=True`` (24 ``f32_mean_xla`` a round: one a segment a tile) and
+     per leaf (48), then the flat path on the host store: the counts set
+     to 0 just before and read just after each run; every
+     ``f32_mean_xla`` call held bit for bit against the plain cascade on
+     its own operands; every accepted upload decoded on the server equal
+     to the member's ΔW* as the pool computed it on the card; with the
+     dense downstream the replica equal to W after every round; the
+     ledger reconciled (``rel=0.1``); the three runs' params, client rows
+     and ledger rows bit-identical.  (b) The same with a 5% downstream
+     (30 ``f32_mean_xla`` a round: the broadcast's 6 on the card): the
+     replica advances by exactly the broadcast's decoded bytes every round,
+     and W − replica stays within 64 ulps of |W| of the downstream
+     residual (the reference's own rounding; the worst is printed).  (c)
+     A corrupt upload and a straggler in round 2 (their rows as before the
+     round), a kill after round 4's aggregation, then checkpoint, rebuild,
+     restore and resume: params and ledger totals bit-identical to the
+     run without the kill.  (d) Async rounds (``max_staleness=2``, the
+     staleness aggregator): the staleness draws equal
+     ``default_rng([seed, r, 7])``'s.  (e) CharLSTM at full width, flat,
+     4 clients, cohorts of 2, 3 rounds (8 ``f32_mean_xla`` a round), with
+     (a)'s checks.  For each path: every round's step ms, the server's
+     decode ms (the host Golomb decoder over the round's uploads) and
+     receive ms, and one profiled round (device operations, busy ms and
+     busy share);
+  10. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -163,7 +191,8 @@ Without arguments, phases, each of which fails the run:
      each multi-rank path (rank 0) in ``launches_multi_rank``;
      ``masked_moments`` holds its default tile's times in
      ``default_tile_*`` fields; ``f32_mean_xla`` replaces no Pallas
-     kernel, which its ``reference`` field says), then the card line,
+     kernel, which its ``reference`` field says; it also holds its
+     launches on each fed path in ``launches_fed``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -1785,6 +1814,359 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict) -> dict:
             "compared": compared, "decode_us": decode_us, "decode_host_ms": decode_host_ms}
 
 
+# ------------------------------------------------------------ federation
+
+
+# phase 9: the fed backend on the card.  LeNet5 at full width, 8 clients,
+# cohorts of 4 in two profiles (delay 1 and 2, p = 0.01), one member a
+# tile; f32_mean_xla a round: one a segment a tile on the flat path (4
+# tiles x 6), two per SBC leaf and member per leaf (4 x 12); the dense
+# downstream launches none, the 5% downstream one a segment (6)
+FED = dict(preset="lenet5", backend="fed", clients=8, cohort=4, batch=128, sparsity=0.01,
+           profiles=((1, 0.01, 1.0), (2, 0.01, 1.0)), cohort_tile=1, rounds=ROUNDS)
+FED_PER_ROUND = {True: per_call(f32_mean_xla=4 * 6), False: per_call(f32_mean_xla=4 * 2 * 6)}
+FED_DOWN_PER_ROUND = per_call(f32_mean_xla=4 * 6 + 6)
+# CharLSTM: 4 clients, cohorts of 2 in one profile, one tile: 8 a round
+FED_CHARLSTM = dict(CHARLSTM, backend="fed", clients=4, cohort=2, fast=True, rounds=3)
+FED_CHARLSTM_PER_ROUND = per_call(f32_mean_xla=CHARLSTM_LEAVES)
+FED_KILL_ROUND = 3
+
+
+def fed_drive(dev, spec: dict, per_round: dict, label: str, rounds: int = ROUNDS,
+              run=None, before_round=None) -> dict:
+    """``rounds`` rounds of the fed backend (``spec`` through ``build_run``,
+    or the given ``run`` already initialized), with the launch counts set
+    to 0 just before and read just after; ``before_round(r, sched)`` runs
+    before each round, outside its timer.  Per round: the loss, step ms,
+    launches, the server's decode ms (the Golomb host decoder of every
+    upload) and its receive ms; every loss finite; with the dense
+    downstream Ŵ == W after each round.  Every ``f32_mean_xla`` call of the
+    rounds is held bit for bit against the plain cascade on its own
+    operands, and every accepted upload decodes on the server to the
+    member's ΔW* as the pool computed it on the card.  Returns the run, its
+    scheduler, the launches, step ms, decode ms and the uploads."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import stages as core_stages
+    from repro_torch.core import wire as core_wire
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.fed import clients as fed_clients
+    from repro_torch.kernels import reduce as kreduce
+    from repro_torch.kernels import topk as ktopk
+    from repro_torch.run import RunSpec, build_run
+
+    if run is None:
+        run = build_run(RunSpec(**spec), device=dev)
+        run.init()
+    sched = run.scheduler
+    means: list = []  # every f32_mean_xla call of the rounds
+    tiles: list = []  # (round, member ids) of every tile, as the pool runs them
+    dense_rows: list = []  # every tile's ΔW* rows, as the pool computed them
+    decode_s: list = []
+    uploads: list = []
+    compress = fed_clients.compress_clients
+    unpack = core_wire.Wire.unpack_compressed
+    local = sched.pool._local
+
+    def observed_local(round_idx, group_ids, *a, **kw):
+        tiles.append((round_idx, [int(c) for c in group_ids]))
+        return local(round_idx, group_ids, *a, **kw)
+
+    def observed_compress(resolved, deltas, state, rates):
+        out = compress(resolved, deltas, state, rates)
+        dense_rows.append(tree_flatten(out[1])[0])
+        return out
+
+    def timed_unpack(self, data):
+        t0 = time.perf_counter()
+        try:
+            return unpack(self, data)
+        finally:
+            decode_s.append(time.perf_counter() - t0)
+
+    receive = sched.server.receive
+    receive_ms: list = []
+
+    def observed_receive(ups, round_idx):
+        uploads.append((round_idx, list(ups)))
+        t0 = time.perf_counter()
+        info = receive(ups, round_idx)
+        receive_ms.append((time.perf_counter() - t0) * 1e3)
+        return info
+
+    sched.server.receive = observed_receive
+    sched.pool._local = observed_local
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    counts, step_ms, decode_ms, ms_list = [], [], [], []
+    try:
+        with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), means)), \
+                swapped(core_stages, recording(core_stages, ("f32_mean_xla",), means)), \
+                swapped(fed_clients, {"compress_clients": observed_compress}), \
+                swapped(core_wire.Wire, {"unpack_compressed": timed_unpack}):
+            for r in range(rounds):
+                if before_round is not None:
+                    before_round(r, sched)
+                before, n_dec = kernels.launch_counts(), len(decode_s)
+                t0 = time.perf_counter()
+                m = sched.step(r)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                after = kernels.launch_counts()
+                counts.append({k: after[k] - before[k] for k in after})
+                decode_ms.append(1e3 * sum(decode_s[n_dec:]))
+                check(math.isfinite(m["loss"]), f"{label} round {r + 1}: loss {m['loss']}")
+                if sched.server.down_sparsity >= 1:
+                    check(all(bit_equal(w, e) for w, e in zip(
+                        tree_flatten(sched.server.params)[0],
+                        tree_flatten(sched.server.estimate)[0])),
+                          f"{label} round {r + 1}: dense downstream, but the replica != W")
+                print(f"{label} round {r + 1}: loss {m['loss']:.6f}  step {step_ms[-1]:.3f} ms  "
+                      f"launches { {k: v for k, v in counts[-1].items() if v} }  server decode "
+                      f"{decode_ms[-1]:.3f} ms, receive {receive_ms[-1]:.3f} ms  accepted "
+                      f"{m['accepted']}  staleness {m['staleness']}")
+                ms_list.append(m)
+        launches = kernels.launch_counts()
+    finally:
+        sched.server.receive = receive
+        del sched.pool._local
+    check(all(c == per_round for c in counts), f"{label}: launches per round {counts}")
+    shapes = sorted({tuple(args[0].shape) for _, args, _ in means})
+    for _, args, kwargs in means:
+        check(bit_equal(kreduce.f32_mean_xla(*args, **kwargs),
+                        kreduce.f32_mean_xla_plain(*args, **kwargs)),
+              f"{label}: f32_mean_xla on {tuple(args[0].shape)}: kernel != plain cascade")
+    print(f"{label}: all {len(means)} f32_mean_xla calls of the {rounds} rounds bit-equal to "
+          f"the plain cascade on their operands, shapes {shapes}")
+    # every accepted upload decodes to the member's ΔW* as computed on the card
+    check(len(tiles) == len(dense_rows), f"{label}: {len(tiles)} tiles, {len(dense_rows)} "
+          f"compressions")
+    row_of = {}
+    for (r, ids), rows in zip(tiles, dense_rows):
+        for j, cid in enumerate(ids):
+            row_of.setdefault((r, cid), [leaf[j] for leaf in rows])
+    checked = 0
+    for r, ups in uploads:
+        for u in ups:
+            wire = sched.server.up_wire(u.rate, r)
+            try:
+                got = tree_flatten(wire.dense_of(wire.unpack_compressed(u.blob)))[0]
+            except ValueError:
+                continue  # a corrupt upload, rejected
+            want = row_of[(r, int(u.client_id))]
+            check(all(bit_equal(g, w.cpu()) for g, w in zip(got, want)),
+                  f"{label} round {r + 1}: client {u.client_id}'s upload does not decode to "
+                  f"its ΔW*")
+            checked += 1
+    print(f"{label}: {checked} accepted uploads decode on the server to the members' ΔW* "
+          f"bit for bit")
+    return {"run": run, "sched": sched, "launches": launches, "step_ms": step_ms,
+            "decode_ms": decode_ms, "metrics": ms_list, "uploads": uploads,
+            "state": fed_state(sched), "history": sched.ledger.history()}
+
+
+def fed_profiled_round(sched, r: int, label: str) -> int:
+    """One more round under the profiler: its device operations, busy ms and
+    busy share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.step(r)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    events = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
+    busy_ms = sum(_self_device_us(e) for e in events) / 1e3
+    check(busy_ms > 0, f"{label}: torch.profiler saw no device time in the profiled round")
+    on_device = sum(e.count for e in events if _self_device_us(e) > 0)
+    print(f"{label} profiled round {r + 1}: step {step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / step_ms:.1f}% of the step), {on_device} device operations; "
+          f"top by device time:")
+    for e in events[:8]:
+        print(f"  {_self_device_us(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:100]}")
+    return on_device
+
+
+def fed_state(sched) -> list:
+    """The server's params and the pool's rows as one flat list of tensors
+    (the flat residual unflattened to the tree, so both paths compare)."""
+    import torch
+    from repro_torch.core.tree import tree_flatten
+
+    st = sched.pool.export_state()
+    res = st["residual"]
+    space = sched.pool._resolved.flat_space(sched.server.params) \
+        if sched.pool.policy.fast else None
+    if space is not None:
+        res = space.unflatten(torch.from_numpy(res), cast=False)
+    return (tree_flatten(sched.server.params)[0]
+            + [torch.as_tensor(x) for x in tree_flatten(res)[0]]
+            + [torch.as_tensor(x) for x in tree_flatten(tuple(st["opt"]))[0]])
+
+
+def fed_phase(dev) -> dict:
+    """Phase 9: the fed backend on the card (ROADMAP A8).  Returns each
+    path's f32_mean_xla launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.fed import ServerKilled, restore_fed_state
+    from repro_torch.run import RunSpec, build_run
+
+    launches, paths = {}, {}
+    # 9a. LeNet5, flat and per leaf, then the flat path on the host store
+    for fast in (True, False):
+        label = f"fed lenet5 ({'flat' if fast else 'per-leaf'})"
+        paths[fast] = fed_drive(dev, dict(FED, fast=fast), FED_PER_ROUND[fast], label)
+        paths[fast]["sched"].ledger.reconcile(rel=0.1)
+        launches[label] = paths[fast]["launches"]["f32_mean_xla"]
+        fed_profiled_round(paths[fast]["sched"], ROUNDS, label)
+    paths["host"] = fed_drive(dev, dict(FED, fast=True, client_store="host"),
+                              FED_PER_ROUND[True], "fed lenet5 (flat, host store)")
+    # the states after the five rounds (before the profiled one)
+    for other, what in ((False, "per-leaf path"), ("host", "host store")):
+        a, b = paths[True]["state"], paths[other]["state"]
+        check(len(a) == len(b) and all(bit_equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+              and paths[True]["history"] == paths[other]["history"],
+              f"fed lenet5: the {what}'s params, client rows or ledger rows differ from the "
+              f"flat path's")
+    print(f"fed lenet5: after {ROUNDS} rounds (and one profiled) the flat and the per-leaf "
+          f"path, and the host store, give bit-identical params, client rows and ledger rows")
+
+    # 9b. the 5% downstream: the broadcast compresses on the card; the
+    # replica advances by exactly the broadcast's decoded bytes
+    label = "fed lenet5 (flat, 5% downstream)"
+    run = build_run(RunSpec(**FED, fast=True, down_sparsity=0.05), device=dev)
+    server = run.init().server
+    broadcast, sent = server.broadcast, []
+
+    def observed_broadcast(round_idx):
+        before = server.estimate
+        bc = broadcast(round_idx)
+        sent.append((round_idx, before, server.estimate, bc.blob))
+        return bc
+
+    server.broadcast = observed_broadcast
+    down = fed_drive(dev, None, FED_DOWN_PER_ROUND, label, run=run)
+    del server.broadcast
+    # decoded after the rounds, so the rounds' decode ms are the server's own
+    for r, before, after, blob in sent:
+        wire = server.down_wire(r)
+        got = tree_flatten(wire.dense_of(wire.unpack_compressed(blob)))[0]
+        check(all(bit_equal(new, old + d.to(old.device)) for new, old, d in zip(
+                  tree_flatten(after)[0], tree_flatten(before)[0], got)),
+              f"{label} round {r + 1}: the replica did not advance by the broadcast's "
+              f"decoded bytes")
+    # W − Ŵ against the downstream residual: the reference's own rounding
+    # ((W − Ŵ − r) + r is not W − Ŵ in f32) makes them differ by a few ulps
+    worst = 0.0
+    for w, e, res in zip(*(tree_flatten(x)[0] for x in (server.params, server.estimate,
+                                                         server.down_residual))):
+        ulp = 2.0 ** -23 * torch.maximum(w.abs(), e.abs()).clamp_min(1e-30)
+        worst = max(worst, float(((w - e - res).abs() / ulp).max()))
+    check(worst <= 64, f"{label}: W - replica is {worst:.1f} ulps of W off the residual")
+    print(f"{label}: the replica advanced by exactly the decoded broadcast every round; "
+          f"W - replica within {worst:.2f} ulps of |W| of the downstream residual")
+    # no reconcile here: the gap broadcast at p = 0.05 holds fewer non-zero
+    # entries than k in round 1, so its positions are no geometric draw
+    t = down["sched"].ledger.totals()
+    print(f"{label}: measured/analytic up x{t['up_bits_measured'] / t['up_bits_analytic']:.3f}, "
+          f"down x{t['down_bits_measured'] / t['down_bits_analytic']:.3f}; down "
+          f"{t['down_bytes'] / 1e3:.1f} kB against the dense path's "
+          f"{sum(paths[True]['history']['down_bytes']) / 1e3:.1f} kB in {ROUNDS} rounds")
+    launches[label] = down["launches"]["f32_mean_xla"]
+    fed_profiled_round(down["sched"], ROUNDS, label)
+
+    # 9c. elasticity: a corrupt upload and a straggler in round 1, a kill
+    # after round 3's aggregation; checkpoint, rebuild, restore, resume
+    probe = build_run(RunSpec(**FED, fast=True), device=dev)
+    cohort = [int(c) for c in probe.init().pool.sample_cohort(1, FED["cohort"])]
+    corrupt, slow = cohort[0], cohort[1]
+    faults = {"corrupt": [[1, corrupt]], "slow": [[1, slow, 5.0]]}
+    spec = dict(FED, fast=True, straggler_timeout=2.5, rounds=ROUNDS)
+    rows: dict = {}
+
+    def rows_of(st, cid):
+        return [np.asarray(x)[cid] for x in tree_flatten(
+            (tuple(st["opt"]), st["residual"], st["rng"], st["step"]))[0]]
+
+    def around_round_2(r, sched):
+        if r in (1, 2):  # before and after the faults' round
+            st = sched.pool.export_state()
+            rows[r] = {cid: rows_of(st, cid) for cid in (corrupt, slow)}
+
+    label = "fed lenet5 (flat, faults)"
+    whole = fed_drive(dev, dict(spec, faults=json.dumps(faults)), FED_PER_ROUND[True],
+                      label, before_round=around_round_2)
+    ws = whole["sched"]
+    m = whole["metrics"][1]
+    check(m["rejected"] == [corrupt] and m["stragglers"] == [slow],
+          f"fed faults round 2: rejected {m['rejected']}, stragglers {m['stragglers']}")
+    for cid in (corrupt, slow):
+        check(all(np.array_equal(a, b) for a, b in zip(rows[1][cid], rows[2][cid])),
+              f"fed faults: client {cid}'s row moved in its failed round")
+    killed = build_run(RunSpec(**spec, faults=json.dumps(
+        {**faults, "kill_server": [[FED_KILL_ROUND, "post_aggregate"]]})), device=dev)
+    ks = killed.init()
+    try:
+        for r in range(ROUNDS):
+            ks.step(r)
+        raise SmokeFailure("fed faults: the scheduled kill did not fire")
+    except ServerKilled as e:
+        check(e.round_idx == FED_KILL_ROUND, f"fed faults: killed at round {e.round_idx}")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            killed.checkpoint(ks, f"{tmp}/fed.npz", rounds_done=e.round_idx)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            fresh = build_run(RunSpec(**spec, faults=killed.spec.faults), device=dev)
+            t0 = time.perf_counter()
+            restore_fed_state(f"{tmp}/fed.npz", fresh.init())
+            restore_ms = (time.perf_counter() - t0) * 1e3
+        rs = fresh.scheduler
+        check(rs.resume_pending() is not None, "fed faults: no pending round after restore")
+        for r in range(e.round_idx + 1, ROUNDS):
+            rs.step(r)
+    check(all(bit_equal(x, y) for x, y in zip(tree_flatten(rs.server.params)[0],
+                                              tree_flatten(ws.server.params)[0]))
+          and rs.ledger.totals() == ws.ledger.totals(),
+          "fed faults: the resumed run differs from the run without the kill")
+    t = ws.ledger.totals()
+    print(f"fed faults: round 2 rejected client {corrupt}'s corrupt upload and aborted client "
+          f"{slow}'s (straggler), both rows as before the round; {t['up_bytes_wasted']} bytes "
+          f"wasted; killed after round {FED_KILL_ROUND + 1}'s aggregation, checkpoint "
+          f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms, resumed: params and ledger totals "
+          f"bit-identical to the run without the kill")
+    launches[label] = whole["launches"]["f32_mean_xla"]
+    fed_profiled_round(ws, ROUNDS, label)
+
+    # 9d. async rounds, stale starts, the staleness aggregator
+    label = "fed lenet5 (async)"
+    spec = dict(FED, fast=True, async_rounds=True, max_staleness=2, agg="staleness")
+    asy = fed_drive(dev, spec, FED_PER_ROUND[True], label)
+    for r, m in enumerate(asy["metrics"]):
+        want = np.random.default_rng([FED.get("seed", 0), r, 7]).integers(
+            0, min(2, r) + 1, size=len(m["staleness"]))
+        check(m["staleness"] == [int(s) for s in want],
+              f"{label} round {r + 1}: staleness {m['staleness']}, drawn {list(want)}")
+    print(f"{label}: staleness draws {[m['staleness'] for m in asy['metrics']]} == "
+          f"default_rng([seed, r, 7])'s")
+    launches[label] = asy["launches"]["f32_mean_xla"]
+    fed_profiled_round(asy["sched"], ROUNDS, label)
+
+    # 9e. CharLSTM at full width
+    label = "fed charlstm (flat)"
+    lstm = fed_drive(dev, FED_CHARLSTM, FED_CHARLSTM_PER_ROUND, label,
+                     rounds=FED_CHARLSTM["rounds"])
+    lstm["sched"].ledger.reconcile(rel=0.1)
+    launches[label] = lstm["launches"]["f32_mean_xla"]
+    fed_profiled_round(lstm["sched"], FED_CHARLSTM["rounds"], label)
+    return launches
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -1892,6 +2274,9 @@ def main(argv: list) -> int:
     # ---- 8. clients across ranks
     nccl_world_one(dev)
     multi = multi_rank_phase(dev)
+
+    # ---- 9. federation
+    fed = fed_phase(dev)
     check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
     rows["f32_mean_xla"]["launches_local_per_leaf_path"] = local[False]["f32_mean_xla"]
     rows["f32_mean_xla"]["launches_local_flat_path"] = local[True]["f32_mean_xla"]
@@ -1908,8 +2293,10 @@ def main(argv: list) -> int:
         rows[name]["launches_exact_path"] = rows[name]["launches"]
         rows[name]["launches"] = codec["launches"][name]
     rows["seg_select_pack"]["leaf_us"] = codec["select_us"]
+    # f32_mean_xla's launches in the rounds of each fed path
+    rows["f32_mean_xla"]["launches_fed"] = fed
 
-    # ---- 9. results
+    # ---- 10. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

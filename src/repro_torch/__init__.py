@@ -16,8 +16,11 @@ hand-written CUDA kernels of :mod:`repro_torch.kernels.flat`, and
 whose Golomb wire is packed by the kernels of
 :mod:`repro_torch.kernels.pack` and metered into the ledger; either takes
 ``dense_pattern``/``skip_pattern`` rules (the hist engine all-SBC only).
-``telemetry=True`` traces a run into the reference's ``repro-obs-v1``
-files (:mod:`repro_torch.obs`).
+The GSPMD backend also runs one client per process over
+``torch.distributed``, and the fed backend (:mod:`repro_torch.fed`,
+``backend="fed"``) a parameter server and a client pool on one card, with
+real SBW1 bytes both ways.  ``telemetry=True`` traces a run into the
+reference's ``repro-obs-v1`` files (:mod:`repro_torch.obs`).
 
 It also carries the codec core as a library, as in the reference:
 :mod:`repro_torch.core.stages`, ``codec``, ``policy``, ``api``, ``sbc``,

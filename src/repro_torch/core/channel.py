@@ -1,4 +1,4 @@
-"""The communication channels of the local and GSPMD backends.
+"""The communication channels of the local, GSPMD and fed backends.
 
 Counterpart of ``repro.core.channel`` (DESIGN.md §12).  The port carries
 
@@ -13,9 +13,12 @@ Counterpart of ``repro.core.channel`` (DESIGN.md §12).  The port carries
                                optional device-packed Golomb wire) on ONE
                                flat buffer, or leaf by leaf (``fast=False``),
                                + the exchange across the clients'
-                               ``ClientGroup`` (``torch.distributed``).
+                               ``ClientGroup`` (``torch.distributed``);
+  :class:`FedWireChannel`      real packed SBW1 bytes both directions
+                               through a parameter server (the fed
+                               backend).
 
-Both meter a round's uploads into a
+Each meters a round's traffic into a
 :class:`~repro_torch.core.ledger.BandwidthLedger`.  Pytrees are nested
 dicts of tensors whose leaves are taken in JAX's tree-flatten order
 (sorted keys, :mod:`repro_torch.core.tree`), so segments, the flat
@@ -32,7 +35,7 @@ import torch
 
 from repro_torch.core.api import Compressor
 from repro_torch.core.golomb import encode_positions, expected_position_bits
-from repro_torch.core.ledger import BandwidthLedger
+from repro_torch.core.ledger import BandwidthLedger, RoundRecord
 from repro_torch.core.policy import CompressionPolicy, CompressorState, ResolvedPolicy
 from repro_torch.core.stages import LeafCompressed, k_for
 from repro_torch.core.tree import tree_flatten, tree_map
@@ -155,6 +158,38 @@ def client_seeds(seed: int, n_clients: int) -> torch.Tensor:
                         dtype=torch.int64)
 
 
+def compress_clients(resolved: ResolvedPolicy, deltas: PyTree, state: CompressorState,
+                     rates: Tuple[float, ...]) -> tuple:
+    """Compress C clients' updates with error feedback, the clients as rows
+    (every leaf of ``deltas`` and of ``state`` has a leading C axis).
+
+    On the flat fast path (a ``fast`` policy with a flat space) that is one
+    :meth:`FlatParamSpace.compress_rows`: each SBC segment's C rows in one
+    top-k and one ``f32_mean_xla`` launch.  Otherwise the per-leaf path
+    runs client by client.  Both give the same bits.  Returns ``(ctrees,
+    dense, new_state)`` with the leading C axis (each LeafCompressed field
+    too)."""
+    one = tree_map(lambda x: x[0], deltas)
+    space = resolved.flat_space(one) if resolved.policy.fast else None
+    if space is not None:
+        return space.compress_rows(deltas, state, rates)
+    outs = []
+    for c in range(tree_flatten(deltas)[0][0].shape[0]):
+        st = CompressorState(
+            residual=(tree_map(lambda x: x[c], state.residual)
+                      if resolved.any_residual else state.residual),
+            rng=state.rng[c], step=state.step[c])
+        outs.append(resolved.compress(tree_map(lambda x: x[c], deltas), st, rates))
+    leaves = [resolved._leaves_of(o[0]) for o in outs]
+    ctrees = resolved.treedef.unflatten([_stack_comp(ls) for ls in zip(*leaves)])
+    dense = tree_map(lambda *xs: torch.stack(xs), *[o[1] for o in outs])
+    new_state = CompressorState(
+        residual=(tree_map(lambda *xs: torch.stack(xs), *[o[2].residual for o in outs])
+                  if resolved.any_residual else state.residual),
+        rng=state.rng, step=state.step + 1)
+    return ctrees, dense, new_state
+
+
 @dataclasses.dataclass(eq=False)
 class LocalVmapChannel:
     """Per-client compression with the clients as a leading axis; the
@@ -195,30 +230,11 @@ class LocalVmapChannel:
                        rates: Union[float, Tuple[float, ...]], *,
                        return_compressed: bool = False) -> LocalExchange:
         """Compress every client's update with error feedback and average."""
-        one = tree_map(lambda x: x[0], deltas)
-        resolved = self.resolved(one)
+        resolved = self.resolved(tree_map(lambda x: x[0], deltas))
         if not isinstance(rates, tuple):  # the rules' rates, as Compressor.compress takes them
             rates = resolved.rates(float(rates))
-        space = resolved.flat_space(one) if resolved.policy.fast else None
-        if space is not None:
-            ctrees, dense, new_state = space.compress_rows(deltas, state, rates)
-            bits = resolved.total_bits(ctrees)
-        else:
-            outs = []
-            for c in range(self.n_clients):
-                st = CompressorState(
-                    residual=(tree_map(lambda x: x[c], state.residual)
-                              if resolved.any_residual else state.residual),
-                    rng=state.rng[c], step=state.step[c])
-                outs.append(resolved.compress(tree_map(lambda x: x[c], deltas), st, rates))
-            leaves = [resolved._leaves_of(o[0]) for o in outs]
-            ctrees = resolved.treedef.unflatten([_stack_comp(ls) for ls in zip(*leaves)])
-            dense = tree_map(lambda *xs: torch.stack(xs), *[o[1] for o in outs])
-            new_state = CompressorState(
-                residual=(tree_map(lambda *xs: torch.stack(xs), *[o[2].residual for o in outs])
-                          if resolved.any_residual else state.residual),
-                rng=state.rng, step=state.step + 1)
-            bits = resolved.total_bits(ctrees)
+        ctrees, dense, new_state = compress_clients(resolved, deltas, state, rates)
+        bits = resolved.total_bits(ctrees)
         mean_delta = tree_map(mean_over_clients, dense)
         comp0 = None
         if return_compressed:
@@ -597,3 +613,178 @@ class ShardedGspmdChannel:
             up_bits_analytic=analytic * self.n_clients,
         )
         return measured
+
+
+# ============================================================== fed backend
+
+
+@dataclasses.dataclass(eq=False)
+class FedWireChannel:
+    """Wire-level channel: real packed SBW1 buffers cross in BOTH
+    directions through a :class:`~repro_torch.fed.server.ParameterServer`,
+    with a cohort of :class:`~repro_torch.fed.clients.ClientPool` members on
+    the other end (DESIGN.md §9).
+
+    The server and the pool share ONE cached :class:`ResolvedPolicy` per
+    (policy, topology) through :func:`resolve_cached`.  A broadcast that
+    rides a DeltaLog comes with ROADMAP A10 (the server refuses it).
+    """
+
+    server: Any  # repro_torch.fed.server.ParameterServer
+    pool: Any  # repro_torch.fed.clients.ClientPool
+
+    def __post_init__(self) -> None:
+        self.ledger = BandwidthLedger()
+        self.telemetry = NULL_TELEMETRY  # build_run swaps in an enabled one
+        # a mid-round kill (ServerKilled at post_aggregate) parks the
+        # aggregated-but-unbroadcast round here; checkpointable, finished
+        # by _finish_round on resume
+        self._pending: Optional[dict] = None
+
+    # ------------------------------------------------------------- protocol
+
+    def init_state(self, params: Optional[PyTree] = None, rng: Optional[int] = None) -> None:
+        """Allocate the pool's per-client state from the server replica."""
+        self.pool.init(params if params is not None else self.server.estimate, rng)
+
+    def round_exchange(
+        self,
+        round_idx: int,
+        cohort: Sequence[int],
+        start_params: PyTree,
+        staleness: Optional[np.ndarray] = None,
+        faults: Any = None,
+        straggler_timeout: Optional[float] = None,
+        kill_step: Optional[str] = None,
+    ) -> dict:
+        """One federated round: run the cohort, pack real uploads, decode and
+        aggregate on the server, compress the broadcast, meter both
+        directions into the ledger.
+
+        Elasticity (DESIGN.md §14): ``faults`` is a
+        :class:`~repro_torch.fed.faults.FaultSchedule` whose slow and
+        corrupt entries apply to this round; ``straggler_timeout`` aborts
+        uploads whose simulated duration ``profile.delay × slowdown``
+        exceeds it.  A failed participation (straggler abort or rejected
+        corrupt upload) rolls the member's pool state back to its
+        pre-round snapshot and meters the spent bytes as
+        ``up_bytes_wasted``; the ``up_*`` columns cover ACCEPTED uploads
+        only.  ``kill_step="post_aggregate"`` raises
+        :class:`~repro_torch.fed.faults.ServerKilled` after aggregation with
+        the unfinished round parked in ``self._pending`` (resumed through
+        :meth:`_finish_round`)."""
+        from repro_torch.fed.faults import NO_FAULTS, ServerKilled, straggler_ids
+        from repro_torch.fed.server import ClientUpdate
+
+        fsched = faults if faults is not None else NO_FAULTS
+        if staleness is None:
+            staleness = np.zeros((len(cohort),), np.int64)
+
+        # at-risk members (stragglers to abort, uploads to corrupt) get a
+        # pre-round snapshot: a failed participation must leave residual,
+        # momentum and seed bit for bit as they were
+        delays = {int(c): self.pool.profile_of(int(c)).delay for c in cohort}
+        stragglers = straggler_ids(fsched, round_idx, cohort, delays, straggler_timeout)
+        corrupts = fsched.corrupts_at(round_idx) & {int(c) for c in cohort}
+        at_risk = sorted(stragglers | corrupts)
+        snap = self.pool.snapshot_clients(at_risk) if at_risk else None
+
+        tel = self.telemetry
+        tel.metrics.gauge("fed/cohort_size", len(cohort), round=round_idx)
+        # run_cohort ends on the host copy of its outputs, so the span
+        # covers the device work without a fence
+        with tel.span("select_quantize", round=round_idx, cohort=len(cohort)):
+            result = self.pool.run_cohort(round_idx, cohort, start_params)
+
+        uploads, blob_len, wasted = [], {}, 0
+        with tel.span("encode", round=round_idx, cohort=len(cohort)):
+            for i, cid in enumerate(result.client_ids):
+                wire = self.server.up_wire(result.rates[i], round_idx)
+                blob = wire.pack(result.ctrees[i])
+                if int(cid) in stragglers:
+                    # timed out mid-upload: the work and bytes are spent,
+                    # but the server never sees them
+                    wasted += len(blob)
+                    continue
+                if int(cid) in corrupts:
+                    blob = fsched.corrupt_blob(blob, round_idx, int(cid))
+                blob_len[int(cid)] = len(blob)
+                uploads.append(ClientUpdate(
+                    client_id=cid, blob=blob, rate=result.rates[i],
+                    weight=result.weights[i], staleness=int(staleness[i])))
+        info = self.server.receive(uploads, round_idx)
+        accepted = [int(c) for c in info["accepted"]]
+        rejected = [int(c) for c in info["rejected"]]
+        up_bytes = sum(blob_len[c] for c in accepted)
+        wasted += sum(blob_len[c] for c in rejected)
+        failed = sorted(stragglers | set(rejected))
+        if snap is not None and failed:
+            self.pool.restore_clients(snap, only=failed)
+        acc_set = set(accepted)
+        acc_pos = [i for i, c in enumerate(result.client_ids) if int(c) in acc_set]
+        pending = {
+            "round_idx": int(round_idx),
+            "cohort": [int(c) for c in cohort],
+            "accepted": accepted,
+            "rejected": rejected,
+            "stragglers": sorted(stragglers),
+            "up_bytes": int(up_bytes),
+            "up_bytes_wasted": int(wasted),
+            "up_bits_measured": float(info["up_bits_measured"]),
+            "up_bits_analytic": float(
+                np.sum(np.asarray(result.bits_analytic)[acc_pos])) if acc_pos else 0.0,
+            "loss": float(np.mean(np.asarray(result.losses)[acc_pos])) if acc_pos
+            else float("nan"),
+            "update_norm": float(info["update_norm"]),
+            "weights": [float(w) for w in info["weights"]],
+            "staleness": [int(s) for s in staleness],
+            "catchup": None,  # a DeltaLog catch-up's bytes (ROADMAP A10)
+        }
+        if kill_step == "post_aggregate":
+            self._pending = pending
+            raise ServerKilled(round_idx, "post_aggregate")
+        return self._finish_round(pending)
+
+    def _finish_round(self, pending: dict) -> dict:
+        """Broadcast + ledger entry for an aggregated round — the second
+        half of :meth:`round_exchange`, callable on its own to resume a
+        round interrupted by a ``post_aggregate`` server kill."""
+        self._pending = None
+        round_idx = pending["round_idx"]
+        bc = self.server.broadcast(round_idx)
+        recipients = len(pending["cohort"])
+        down_bytes = len(bc.blob) * recipients
+        self.ledger.record(RoundRecord(
+            round=round_idx,
+            cohort=tuple(pending["accepted"]),
+            up_bytes=pending["up_bytes"],
+            up_bits_measured=pending["up_bits_measured"],
+            up_bits_analytic=pending["up_bits_analytic"],
+            down_bytes=down_bytes,
+            down_bits_measured=bc.bits_measured * recipients,
+            down_bits_analytic=bc.bits_analytic * recipients,
+            down_recipients=recipients,
+            up_bytes_wasted=pending["up_bytes_wasted"],
+        ))
+        return {
+            "round": round_idx,
+            "loss": pending["loss"],
+            "update_norm": pending["update_norm"],
+            "staleness": pending["staleness"],
+            "weights": pending["weights"],
+            "up_bytes": pending["up_bytes"],
+            "down_bytes": down_bytes,
+            "accepted": pending["accepted"],
+            "rejected": pending["rejected"],
+            "stragglers": pending["stragglers"],
+            "up_bytes_wasted": pending["up_bytes_wasted"],
+        }
+
+    def bits(self, rate: Optional[float] = None, round_idx: int = 0) -> ChannelBits:
+        """Analytic Eq. 1 upstream bits for ONE client at ``rate`` (default:
+        the pool's first profile) against the dense 32-bit equivalent."""
+        resolved = self.server._up_resolved
+        if rate is None:
+            rate = self.pool.profiles[0].sparsity
+        return analytic_bits(resolved, resolved._leaves_of(self.server.params),
+                             resolved.rates(rate, round_idx))

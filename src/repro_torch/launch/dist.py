@@ -93,7 +93,7 @@ def build_dist_train(
     group: Optional[ClientGroup] = None,
     sparsity: float = 0.001,
     policy: Optional[CompressionPolicy] = None,
-    fast: Optional[bool] = True,
+    fast: Optional[bool] = None,
     flat_engine: str = "exact",
     measure: bool = False,
     device_pack: bool = False,
@@ -113,9 +113,10 @@ def build_dist_train(
     fixed when the step is built, so a policy with per-round schedules
     raises, as the reference's does.
 
-    ``fast``: True (the port's default) takes the §11 flat fast path with
-    ``flat_engine`` ("exact" or "hist"), False the per-leaf exchange, None
-    the policy's own flag (the reference's default).  A non-f32
+    ``fast``: True takes the §11 flat fast path with ``flat_engine``
+    ("exact" or "hist"), False the per-leaf exchange, and None (the
+    default, as in the reference) the policy's own flag: the per-leaf
+    exchange for the default ``sbc`` policy.  A non-f32
     ``cfg.residual_dtype`` takes the per-leaf exchange either way.
 
     State = ``{'params', 'opt', 'residual'}``; the batch is this client's,

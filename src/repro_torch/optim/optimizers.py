@@ -108,12 +108,13 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def map_states(fn, states):
     """Apply ``fn`` to the list of matching tensors of several optimizer
-    states (Adam's ``(m, v)``, a momentum tree, or SGD's ``()``)."""
+    states (Adam's ``(m, v)``, a momentum tree, or SGD's ``()``) or other
+    trees of the same structure (a tensor is a tree of one leaf)."""
     s0 = states[0]
     if isinstance(s0, AdamState):
         return AdamState(map_states(fn, [s.m for s in states]),
                          map_states(fn, [s.v for s in states]))
-    return _map(lambda *xs: fn(list(xs)), *states) if s0 else s0
+    return _map(lambda *xs: fn(list(xs)), *states)
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

@@ -7,13 +7,21 @@
 
 CLI: ``python -m repro_torch.run`` with the flags of ``python -m repro.run``.
 """
-from repro_torch.run.build import GspmdRun, LocalRun, build_run, lr_schedule, policy_from_spec
+from repro_torch.run.build import (
+    FedRun,
+    GspmdRun,
+    LocalRun,
+    build_run,
+    lr_schedule,
+    policy_from_spec,
+)
 from repro_torch.run.flags import build_parser, spec_from_args
 from repro_torch.run.presets import build_preset
 from repro_torch.run.spec import BACKENDS, RunSpec
 
 __all__ = [
     "BACKENDS",
+    "FedRun",
     "GspmdRun",
     "LocalRun",
     "RunSpec",

@@ -10,6 +10,8 @@ Same flags as ``python -m repro.run``; the port runs
       --fast --flat-engine hist --sparsity 0.01 --batch 128 --rounds 5
   PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend gspmd \\
       --fast --flat-engine exact --device-pack --measure-wire --sparsity 0.01
+  PYTHONPATH=src python -m repro_torch.run --preset lenet5 --backend fed \\
+      --clients 8 --cohort 4 --rounds 5 --sparsity 0.01 --measure-wire [--fast]
 
 on the CUDA card (``--device cpu`` runs the kernels' plain versions).  The
 GSPMD backend runs one client per process; ``torchrun`` starts them, one
@@ -71,11 +73,12 @@ def _report(run, spec, args) -> dict:
     print(
         f"done in {dt:.1f}s: loss {hist['loss'][0]:.4f} → {hist['loss'][-1]:.4f}"
     )
-    print(
-        f"upload {hist['total_upload_bits']/8e6:.2f} MB/client  "
-        f"compression ×{hist['compression_rate']:.0f}"
-    )
-    if spec.measure_wire and run.ledger.records:
+    if "compression_rate" in hist:
+        print(
+            f"upload {hist['total_upload_bits']/8e6:.2f} MB/client  "
+            f"compression ×{hist['compression_rate']:.0f}"
+        )
+    if run.ledger.records:
         t = run.ledger.totals()
         print(
             f"wire: up {t['up_bytes']/1e3:.1f} kB, down {t['down_bytes']/1e3:.1f} kB "

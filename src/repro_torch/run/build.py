@@ -1,7 +1,7 @@
 """``build_run(spec) -> Run``: a declarative spec drives the port.
 
 Counterpart of ``repro.run.build``.  The port carries the paper's two
-presets (``lenet5``, ``charlstm``) on two backends:
+presets (``lenet5``, ``charlstm``) on three backends:
 
   local   :class:`~repro_torch.train.trainer.DSGDTrainer` over a
           :class:`~repro_torch.core.channel.LocalVmapChannel` (the paper's
@@ -25,7 +25,15 @@ presets (``lenet5``, ``charlstm``) on two backends:
           client from ``repro_torch.launch.mesh.group_from_env``; rank 0
           alone meters the wire into the ledger.
 
-Both take per-leaf policy rules (``dense_pattern``, ``skip_pattern``),
+  fed     a :class:`~repro_torch.fed.scheduler.RoundScheduler` over a
+          :class:`~repro_torch.core.channel.FedWireChannel`: a parameter
+          server and a client pool on one card, real SBW1 bytes both
+          ways, cohorts, profiles, async rounds, faults and checkpoints:
+
+              build_run(RunSpec(preset="lenet5", backend="fed", clients=8,
+                                cohort=4, sparsity=0.01))
+
+All take per-leaf policy rules (``dense_pattern``, ``skip_pattern``),
 built by :func:`policy_from_spec` as in the reference; the GSPMD hist
 engine takes all-SBC policies only and raises ``ValueError`` at its first
 step otherwise, as the reference does.  ``telemetry=True`` attaches one
@@ -58,8 +66,8 @@ from repro_torch.run.spec import RunSpec
 def _check_slice(spec: RunSpec) -> None:
     """Refuse every spec field this port does not carry yet."""
     todo = []
-    if spec.backend == "fed":
-        todo.append("backend='fed' (ROADMAP A8)")
+    if spec.backend == "fed" and spec.broadcast_log:
+        todo.append("broadcast_log, the fed broadcast DeltaLog (ROADMAP A10)")
     if spec.preset not in PORTED_PRESETS:
         todo.append(f"preset {spec.preset!r} (ROADMAP A12)")
     if spec.compressor != "sbc":
@@ -68,9 +76,10 @@ def _check_slice(spec: RunSpec) -> None:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(todo) + ". This port carries "
             "preset='lenet5' and 'charlstm' on backend='local' (fast either way, "
-            "measure_wire) and on backend='gspmd' (one client per rank; fast=True "
+            "measure_wire), on backend='gspmd' (one client per rank; fast=True "
             "with flat_engine='hist' or 'exact' (device_pack), or fast=False; "
-            "measure_wire), with dense_pattern, skip_pattern and telemetry on both."
+            "measure_wire) and on backend='fed' (without broadcast_log), with "
+            "dense_pattern, skip_pattern and telemetry on all three."
         )
 
 
@@ -113,12 +122,16 @@ def lr_schedule(base_lr: float) -> Callable[[int], float]:
 
 
 class Run:
-    """The run surface both backends share: :meth:`run`, one round loop
+    """The run surface every backend shares: :meth:`run`, one round loop
     that records the reference's telemetry when it is on (``build_run``
     sets an enabled :attr:`telemetry`; the class default is the no-op
     ``NULL_TELEMETRY``)."""
 
     telemetry = NULL_TELEMETRY
+
+    def _init_for_run(self):
+        """The state :meth:`run` starts from (fed reuses a live scheduler)."""
+        return self.init()
 
     def _leaf_table(self, state) -> list:
         """Per-leaf static compression plan rows ``(path, n, k, rate)``
@@ -150,7 +163,7 @@ class Run:
         from repro_torch.train.trainer import run_rounds
 
         n_rounds = self.spec.rounds if n_rounds is None else n_rounds
-        state = self.init()
+        state = self._init_for_run()
         if self.telemetry.enabled:
             self._record_static_gauges(state)
         state, hist = run_rounds(state, self.step, n_rounds=n_rounds, log_every=log_every,
@@ -330,11 +343,137 @@ class GspmdRun(Run):
         return hist
 
 
+# -------------------------------------------------------------- fed backend
+
+
+@dataclasses.dataclass(eq=False)
+class FedRun(Run):
+    """A built fed backend: the stateful
+    :class:`~repro_torch.fed.scheduler.RoundScheduler` IS the run state
+    (:meth:`init` builds it; :meth:`step` drives one round of it)."""
+
+    spec: RunSpec
+    cfg: Any
+    model: Any
+    task: Any
+    device: torch.device
+    channel: Any = None  # the scheduler's FedWireChannel, set by init
+    scheduler: Any = None
+
+    @property
+    def n_clients(self) -> int:
+        return self.spec.clients
+
+    @property
+    def ledger(self):
+        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`."""
+        return self.channel.ledger
+
+    def init(self, gen: Optional[torch.Generator] = None):
+        """Build the server (parameters drawn from ``gen``, default seeded
+        ``spec.seed``), the pool and the scheduler; returns the scheduler."""
+        from repro_torch.core.tree import tree_map
+        from repro_torch.fed import ClientPool, FaultSchedule, ParameterServer, RoundScheduler
+        from repro_torch.optim import get_optimizer
+        from repro_torch.run.flags import profiles_from_spec
+
+        spec = self.spec
+        if gen is None:
+            gen = torch.Generator().manual_seed(spec.seed)
+        params = tree_map(lambda v: v.to(self.device), self.model.init(gen))
+        policy = as_policy(policy_from_spec(spec))
+        agg = spec.agg or ("staleness" if spec.async_rounds else "mean")
+        lr = spec.lr if spec.lr is not None else self.cfg.base_lr
+        server = ParameterServer(
+            params=params, up_policy=policy, down_sparsity=spec.down_sparsity,
+            aggregator=agg, staleness_beta=spec.staleness_beta)
+        pool = ClientPool(
+            model=self.model, optimizer=get_optimizer(self.cfg.local_opt), policy=policy,
+            task=self.task, n_clients=spec.clients, lr=lr_schedule(lr),
+            profiles=profiles_from_spec(spec), seed=spec.seed,
+            cohort_tile=spec.cohort_tile, store=spec.client_store, device=self.device)
+        self.scheduler = RoundScheduler(
+            server=server, pool=pool, cohort_size=spec.cohort or spec.clients,
+            mode="async" if spec.async_rounds else "sync",
+            max_staleness=spec.max_staleness, seed=spec.seed,
+            straggler_timeout=spec.straggler_timeout,
+            faults=FaultSchedule.parse(spec.faults) if spec.faults else None)
+        self.channel = self.scheduler.channel
+        # the telemetry handle reaches both wire ends: select_quantize and
+        # encode spans in the channel, decode/apply/encode in the server
+        self.channel.telemetry = self.telemetry
+        server.telemetry = self.telemetry
+        return self.scheduler
+
+    def step(self, state, round_idx: int) -> tuple:
+        return state, state.step(round_idx)
+
+    def checkpoint(self, state, path: str, rounds_done: Optional[int] = None) -> None:
+        """Whole-federation snapshot (server + pool + channel): a restored
+        run continues bit for bit, mid-round included."""
+        from repro_torch.fed.checkpoint import save_fed_state
+
+        save_fed_state(path, state, rounds_done=rounds_done)
+
+    def restore(self, path: str) -> dict:
+        """Restore a :meth:`checkpoint` file into a freshly initialized
+        scheduler; returns the checkpoint meta (``rounds_done`` etc.)."""
+        from repro_torch.fed.checkpoint import restore_fed_state
+
+        return restore_fed_state(path, self._init_for_run())
+
+    def params_of(self, state):
+        return state.server.params
+
+    def _residual_of(self, state):
+        return None  # the reference's traced loop records no residual norm here
+
+    def _init_for_run(self):
+        return self.init() if self.scheduler is None else self.scheduler
+
+    def _leaf_table(self, state) -> list:
+        from repro_torch.core.stages import k_for
+
+        resolved = state.server._up_resolved
+        rates = resolved.rates(self.spec.sparsity, 0)
+        rows = []
+        for plan, leaf, p in zip(resolved.plans, resolved._leaves_of(state.server.params),
+                                 rates):
+            n = leaf.numel()
+            sparse = not (plan.codec.skip or plan.codec.selector.dense)
+            rows.append((plan.path, n, k_for(n, p) if sparse else None, float(p)))
+        return rows
+
+    def _finalize_hist(self, hist: dict, n_rounds: int) -> dict:
+        hist.update({f"wire_{k}": v for k, v in self.ledger.history().items()})
+        hist.update(self.ledger.totals())
+        return hist
+
+    def run(self, n_rounds: Optional[int] = None, log_every: int = 0) -> tuple:
+        """The scheduler's own loop; with telemetry on, the traced loop of
+        :meth:`Run.run` over :meth:`step`, as the reference does."""
+        if self.telemetry.enabled:
+            return super().run(n_rounds, log_every)
+        state = self._init_for_run()
+        return state, state.run(self.spec.rounds if n_rounds is None else n_rounds,
+                                log_every=log_every)
+
+
+def _build_fed(spec: RunSpec, dev: torch.device) -> FedRun:
+    cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
+                             seed=spec.seed, device=dev)
+    if spec.non_iid:
+        # the reference's own refusal for every preset the port carries;
+        # its non-IID LM task comes with the decoder presets (ROADMAP A12)
+        raise ValueError(f"non_iid needs an LM preset; {spec.preset!r} is {cfg.family}")
+    return FedRun(spec=spec, cfg=cfg, model=build_model(cfg), task=task, device=dev)
+
+
 TORCHRUN = ("torchrun --standalone --nproc-per-node {n} -m repro_torch.run --preset lenet5 "
             "--backend gspmd --fast --flat-engine exact --device-pack --measure-wire")
 
 
-def build_run(spec: RunSpec, device=None, group=None) -> Union[LocalRun, GspmdRun]:
+def build_run(spec: RunSpec, device=None, group=None) -> Union[LocalRun, GspmdRun, FedRun]:
     """Construct the backend a spec names, on ``device`` (default: the CUDA
     card; an explicit ``"cuda:N"`` picks one of several cards).
 
@@ -344,16 +483,18 @@ def build_run(spec: RunSpec, device=None, group=None) -> Union[LocalRun, GspmdRu
     group_from_env`, on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over
     gloo with ``device="cpu"``), else one client on ``device``.
     ``spec.telemetry`` attaches one enabled
-    :class:`~repro_torch.obs.Telemetry` to the run and its channel; a
-    disabled run keeps the shared no-op ``NULL_TELEMETRY``."""
+    :class:`~repro_torch.obs.Telemetry` to the run and its channel (the
+    fed run's channel and server get it when :meth:`FedRun.init` builds
+    them); a disabled run keeps the shared no-op ``NULL_TELEMETRY``."""
     run = _build(spec, device, group)
     if spec.telemetry:
         run.telemetry = make_telemetry()
-        run.channel.telemetry = run.telemetry
+        if run.channel is not None:
+            run.channel.telemetry = run.telemetry
     return run
 
 
-def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun]:
+def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun, FedRun]:
     from repro_torch.launch.mesh import group_from_env, launched_by_torchrun, make_host_group
 
     _check_slice(spec)
@@ -374,6 +515,8 @@ def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun]:
     torch.backends.cudnn.allow_tf32 = False
     if spec.backend == "local":
         return _build_local(spec, dev)
+    if spec.backend == "fed":
+        return _build_fed(spec, dev)
     group = group or make_host_group(dev)
     cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
                              seed=spec.seed, device=dev)

@@ -120,7 +120,7 @@ def add_run_flags(ap: argparse.ArgumentParser, **defaults) -> argparse.ArgumentP
 def build_parser(**defaults) -> argparse.ArgumentParser:
     """The parser of ``python -m repro_torch.run``."""
     ap = argparse.ArgumentParser(
-        description="One declarative RunSpec (PyTorch port: the local and gspmd backends)"
+        description="One declarative RunSpec (PyTorch port: the local, gspmd and fed backends)"
     )
     add_run_flags(ap, **defaults)
     return ap
@@ -140,6 +140,16 @@ def parse_profiles(spec_str: str) -> Tuple[Tuple[int, float, float], ...]:
             float(fields[2]) if len(fields) == 3 else 1.0,
         ))
     return tuple(out)
+
+
+def profiles_from_spec(spec: RunSpec):
+    """Spec profile triples → ClientProfile tuple (one homogeneous default
+    profile at (delay, sparsity) when none are named)."""
+    from repro_torch.fed import ClientProfile
+
+    if not spec.profiles:
+        return (ClientProfile(delay=spec.delay, sparsity=spec.sparsity),)
+    return tuple(ClientProfile(delay=d, sparsity=p, weight=w) for d, p, w in spec.profiles)
 
 
 def spec_from_args(args: argparse.Namespace,

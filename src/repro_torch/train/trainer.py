@@ -109,27 +109,17 @@ class DSGDTrainer:
         per_client_batch, ...)``.  Returns ``(state, metrics)``, and client
         0's compressed tree with ``return_compressed``."""
         params = state.params
-        treedef = tree_flatten(params)[1]
         iteration = int(state.round) * n_delay  # forward-backward passes so far
         deltas, opt_states, losses = [], [], []
         with _deterministic_convolutions():
             for c in range(self.n_clients):
-                p = params
-                os = map_states(lambda v: v[0][c], [state.opt_states])
-                client_losses = []
-                for d in range(n_delay):
-                    it = iteration + d
-                    leaves = [v.detach().requires_grad_(True) for v in tree_flatten(p)[0]]
-                    loss = self.model.loss_fn(treedef.unflatten(leaves),
-                                              tree_map(lambda v: v[c, d], batch))
-                    grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
-                    with torch.no_grad():
-                        p, os = self.optimizer.apply(os, grads, p, self.lr(it), it)
-                    client_losses.append(loss.detach())
-                deltas.append(tree_map(lambda a, b: a.to(torch.float32) - b.to(torch.float32),
-                                       p, params))
+                delta, os, loss = local_steps(
+                    self.model, self.optimizer, self.lr, params,
+                    map_states(lambda v: v[0][c], [state.opt_states]),
+                    [tree_map(lambda v: v[c, d], batch) for d in range(n_delay)], iteration)
+                deltas.append(delta)
                 opt_states.append(os)
-                losses.append(mean_over_clients(torch.stack(client_losses)))
+                losses.append(loss)
 
         with torch.no_grad():
             stacked = tree_map(lambda *xs: torch.stack(xs), *deltas)
@@ -189,47 +179,75 @@ class DSGDTrainer:
             n_rounds=n_rounds, log_every=log_every)
 
 
+def local_steps(model: Model, optimizer: Optimizer, lr: Callable[[int], float],
+                params: PyTree, opt_state: Any, batches: list, iteration: int) -> tuple:
+    """One client's local optimizer steps of a round (Alg. 1 l.10): step
+    ``d`` takes ``batches[d]`` at iteration ``iteration + d`` with
+    ``lr(iteration + d)``.  Returns ``(ΔW, new optimizer state, loss)``:
+    ΔW = W' − W in f32, and the loss the mean over the steps, in XLA's
+    order (:func:`~repro_torch.core.channel.mean_over_clients`)."""
+    treedef = tree_flatten(params)[1]
+    p, os, losses = params, opt_state, []
+    for d, batch in enumerate(batches):
+        it = iteration + d
+        leaves = [v.detach().requires_grad_(True) for v in tree_flatten(p)[0]]
+        loss = model.loss_fn(treedef.unflatten(leaves), batch)
+        grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
+        with torch.no_grad():
+            p, os = optimizer.apply(os, grads, p, lr(it), it)
+        losses.append(loss.detach())
+    with torch.no_grad():
+        delta = tree_map(lambda a, b: a.to(torch.float32) - b.to(torch.float32), p, params)
+    return delta, os, mean_over_clients(torch.stack(losses))
+
+
 def run_rounds(state: Any, step: Callable[[Any, int], tuple], *, n_rounds: int,
                log_every: int = 0, telemetry: Telemetry = NULL_TELEMETRY,
                params_of: Callable = lambda s: s.params,
                residual_of: Callable = lambda s: s.comp_state.residual) -> tuple:
-    """The round loop of both backends: ``step(state, r)`` for each round,
+    """The round loop of every backend: ``step(state, r)`` for each round,
     its metrics gathered into the reference's history (with
     ``measured_bits_per_client`` and ``measured_total_bits`` where the
-    step meters the wire).  With an enabled ``telemetry`` each round is a
-    ``round`` span fenced on ``params_of(state)``, with the ``train/*``
-    gauges (``phase="compile"`` on round 0) and the residual's norm; with
-    the default no-op one nothing waits for the device.  Returns
-    ``(state, history)``."""
+    step meters the wire, and the compression totals where it reports
+    ``bits_dense``; a step without ``bits_per_client`` counts 0 bits, as
+    the reference's traced loop does).  With an enabled ``telemetry`` each
+    round is a ``round`` span fenced on ``params_of(state)``, with the
+    ``train/*`` gauges (``phase="compile"`` on round 0) and the norm of
+    ``residual_of(state)`` unless that is None; with the default no-op one
+    nothing waits for the device.  Returns ``(state, history)``."""
     tel = telemetry
     hist: dict = {"round": [], "loss": [], "bits_per_client": []}
-    dense_total = 0.0
+    dense_total = None
     for r in range(n_rounds):
         t0 = time.perf_counter()
         with tel.span("round", round=r):
             state, m = step(state, r)
             tel.fence(params_of(state))
         step_ms = (time.perf_counter() - t0) * 1e3
-        loss, bits = float(m["loss"]), float(m["bits_per_client"])
+        loss, bits = float(m["loss"]), float(m.get("bits_per_client", 0.0))
         if tel.enabled:
             tel.metrics.gauge("train/step_ms", step_ms, round=r,
                               phase="compile" if r == 0 else "steady")
             tel.metrics.gauge("train/loss", loss, round=r)
-            tel.metrics.gauge("train/bits_per_client", bits, round=r)
-            norm = torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                                  for x in tree_flatten(residual_of(state))[0]))
-            tel.metrics.gauge("train/residual_norm", float(norm), round=r)
+            if "bits_per_client" in m:
+                tel.metrics.gauge("train/bits_per_client", bits, round=r)
+            res = residual_of(state)
+            if res is not None:
+                norm = torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                                      for x in tree_flatten(res)[0]))
+                tel.metrics.gauge("train/residual_norm", float(norm), round=r)
         hist["round"].append(r)
         hist["loss"].append(loss)
         hist["bits_per_client"].append(bits)
-        dense_total += float(m["bits_dense"])
+        if "bits_dense" in m:
+            dense_total = (dense_total or 0.0) + float(m["bits_dense"])
         if "measured_bits_per_client" in m:
             hist.setdefault("measured_bits_per_client", []).append(
                 float(m["measured_bits_per_client"]))
         if log_every and (r + 1) % log_every == 0:
             print(f"round {r + 1:5d}  loss {loss:.4f}  bits/client {bits:.3e}  "
                   f"step {step_ms:.1f} ms")
-    return state, finish_history(hist, dense_total)
+    return state, (hist if dense_total is None else finish_history(hist, dense_total))
 
 
 def finish_history(hist: dict, dense_total: float) -> dict:

@@ -1308,3 +1308,45 @@ def test_tracer_fence_synchronizes_the_card(cuda, monkeypatch):
     assert obs.Tracer().fence(y) is y
     assert calls == [y["w"].device] and torch.cuda.current_stream(cuda).query()
     assert obs.NULL_TELEMETRY.fence(y) is y and len(calls) == 1
+
+
+# ------------------------------------------------------------ the fed backend
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast, per_round", [(True, 6), (False, 2 * 6 * 4)],
+                         ids=["flat", "per-leaf"])
+def test_fed_round_holds_each_mean_against_plain_on_the_card(cuda, monkeypatch, fast,
+                                                             per_round):
+    """One LeNet5 fed round on the card (four clients in one tile, the
+    dense downstream): ``f32_mean_xla`` is the only kernel launched (one a
+    segment on the flat path, two per SBC leaf and member per leaf), each
+    call equals its plain cascade on its own operands bit for bit, the
+    uploads decode on the server, and the dense broadcast leaves the
+    replica equal to W."""
+    from repro_torch.core import stages as core_stages
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import topk as ktopk
+
+    calls = []
+    for mod in (ktopk, core_stages):
+        real = mod.f32_mean_xla
+        monkeypatch.setattr(mod, "f32_mean_xla", lambda x, *a, real=real, **kw:
+                            calls.append((x, a, kw)) or real(x, *a, **kw))
+    run = build_run(RunSpec(preset="lenet5", backend="fed", clients=4, batch=32,
+                            sparsity=0.01, fast=fast), device=cuda)
+    sched = run.init()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    m = sched.step(0)
+    assert np.isfinite(m["loss"]) and m["accepted"] == [0, 1, 2, 3] and not m["rejected"]
+    counts = kernels.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "f32_mean_xla": per_round}
+    assert len(calls) == per_round
+    for x, a, kw in calls:
+        got, want = treduce.f32_mean_xla(x, *a, **kw), treduce.f32_mean_xla_plain(x, *a, **kw)
+        assert got.is_cuda
+        np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+    for w, e in zip(tree_flatten(sched.server.params)[0], tree_flatten(sched.server.estimate)[0]):
+        assert w.is_cuda
+        np.testing.assert_array_equal(n(w).view(np.uint32), n(e).view(np.uint32))

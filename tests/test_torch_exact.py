@@ -188,7 +188,7 @@ def test_three_exact_rounds_match_jax(device_pack):
                               fast=True, flat_engine="exact", measure=True,
                               device_pack=device_pack)
     tfns = build_dist_train(dataclasses.replace(get_config("lenet5"), img_size=12),
-                            sparsity=0.01, flat_engine="exact", measure=True,
+                            sparsity=0.01, fast=True, flat_engine="exact", measure=True,
                             device_pack=device_pack, device="cpu")
     np_state = warm_state(jfns)
     jstate = jax.tree.map(jnp.asarray, np_state)

@@ -249,7 +249,8 @@ def test_fast_and_per_leaf_local_runs_are_bit_identical():
 
 @pytest.mark.parametrize("change, item", [
     (dict(preset="tiny"), "A12"), (dict(compressor="topk"), "A12"),
-    (dict(backend="fed"), "A8"),
+    # the fed backend (A8) refuses only its DeltaLog broadcast, which A10 brings
+    (dict(backend="fed", broadcast_log=True), "A10"),
 ], ids=["A12", "A12-compressor", "A8"])
 def test_local_fields_not_carried_raise(change, item):
     spec = RunSpec(**{**dict(preset="lenet5", backend="local"), **change})

@@ -79,8 +79,8 @@ def test_three_exact_rounds_with_rules_match_jax(rules, device_pack):
         compressor="sbc", sparsity=0.01, policy=jpol, fast=True, flat_engine="exact",
         measure=True, device_pack=device_pack)
     tfns = build_dist_train(dataclasses.replace(get_config("lenet5"), img_size=12),
-                            sparsity=0.01, policy=tpol, flat_engine="exact", measure=True,
-                            device_pack=device_pack, device="cpu")
+                            sparsity=0.01, policy=tpol, fast=True, flat_engine="exact",
+                            measure=True, device_pack=device_pack, device="cpu")
     modes = {gl.path: gl.mode for gl in tfns.channel.leaves}
     assert modes == {gl.path: gl.mode for gl in jfns.channel.leaves}
     assert tfns.bits_per_client == jfns.bits_per_client

@@ -74,7 +74,7 @@ def pair():
     jfns = j_build_dist_train(jcfg, one_device_mesh(), compressor="sbc",
                               sparsity=0.01, fast=True, flat_engine="hist")
     tfns = build_dist_train(dataclasses.replace(get_config("lenet5"), img_size=12),
-                            sparsity=0.01, flat_engine="hist", device="cpu")
+                            sparsity=0.01, fast=True, flat_engine="hist", device="cpu")
     jstate = jfns.init_state(jax.random.PRNGKey(0))
     rng = np.random.default_rng(42)
     jstate["opt"] = JAdamState(
@@ -254,14 +254,14 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("change", [
-    dict(backend="fed", telemetry=True), dict(backend="fed"),
+    dict(backend="fed", telemetry=True, broadcast_log=True), dict(backend="fed", preset="tiny"),
     dict(flat_engine="exact", compressor="signsgd"),
     dict(fast=False, compressor="dgc"), dict(preset="tiny"), dict(compressor="topk"),
     dict(flat_engine="exact", skip_pattern="f2", fast=False, preset="resnet32"),
     dict(preset="lm-100m"),
     dict(dense_pattern="b$", backend="local", compressor="topk"),
     dict(skip_pattern="f2", preset="tiny"),
-    dict(flat_engine="exact", fast=False, backend="fed"),
+    dict(flat_engine="exact", fast=False, backend="fed", compressor="topk"),
 ])
 def test_specs_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -354,3 +354,40 @@ def test_full_size_cpu_rounds_use_the_plain_versions():
     assert run.fns.bits_dense == jfns.bits_dense
     assert set(tflat.launch_counts().values()) == {0}
     assert tuple(state["residual"].shape) == (1, 1, 1_259_520)
+
+
+def test_build_dist_train_defaults_keep_the_policys_flag():
+    """``build_dist_train`` with its defaults takes the policy's own flag in
+    both packages: the default ``sbc`` policy is per leaf, so both take the
+    per-leaf exchange and keep a residual tree.  One round at lr 0 from a
+    seeded residual (so ΔW is 0 in both and the accumulator is the
+    residual, bit for bit) gives the reference's ΔW* and new residual, bit
+    for bit."""
+    jcfg = dataclasses.replace(j_get_config("lenet5"), img_size=12, base_lr=0.0)
+    tcfg = dataclasses.replace(get_config("lenet5"), img_size=12, base_lr=0.0)
+    jfns = j_build_dist_train(jcfg, one_device_mesh(), sparsity=0.01, measure=True)
+    tfns = build_dist_train(tcfg, sparsity=0.01, measure=True, device="cpu")
+    assert jfns.flat_space is None and tfns.flat_space is None
+    assert jfns.residual_to_tree is None and tfns.residual_to_tree is None
+    jstate = jfns.init_state(jax.random.PRNGKey(0))
+    assert isinstance(jstate["residual"], dict)
+    assert isinstance(tfns.init_state(torch.Generator().manual_seed(0))["residual"], dict)
+    rng = np.random.default_rng(7)
+    jstate["residual"] = jax.tree.map(
+        lambda x: jnp.asarray(0.01 * rng.standard_normal(x.shape), jnp.float32),
+        jstate["residual"])
+    np_state = jax.tree.map(np.asarray, jstate)
+    tstate = state_from_jax(np_state, device="cpu")
+    assert isinstance(tstate["residual"], dict)
+    b = batches(1)[0]
+    b = {"images": b["images"][:, :, :12, :12], "labels": b["labels"]}
+    jstate, jm = jfns.train_step(jstate, j_batch(b))
+    tstate, tm = tfns.train_step(tstate, {"images": t(b["images"]),
+                                          "labels": t(b["labels"]).long()})
+    for k, v in jm["own_client0"].items():
+        np.testing.assert_array_equal(n(tm["own_client0"][k]).view(np.uint32),
+                                      n(v).view(np.uint32), err_msg=f"dW* {k}")
+        np.testing.assert_array_equal(n(tstate["residual"][k]).view(np.uint32),
+                                      n(jstate["residual"][k]).view(np.uint32),
+                                      err_msg=f"residual {k}")
+        assert n(v).any()
