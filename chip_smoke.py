@@ -110,13 +110,14 @@ Without arguments, phases, each of which fails the run:
      the four clients as rows: 6 ``f32_mean_xla`` a round), nothing else
      launched, each with the counts set to 0 just before and read just
      after; per round the loss, step ms, launches and the ledger's measured
-     bits against Eq. 1's, and one profiled round each.  Every
-     ``f32_mean_xla`` call of the rounds must have a shape of
-     ``MEAN_SHAPES`` (the flat path's 8 x k rows, the per-leaf path's
-     2 x k and 1 x k) and is held bit for bit against the plain cascade on
-     its own operands.  The last round's residual must be ``acc − ΔW*``
-     bit for bit for every client, and the two paths must give
-     bit-identical params, residuals, Adam states and ledger rows;
+     bits against Eq. 1's, and one profiled round each.  The
+     ``f32_mean_xla`` calls of the rounds must have the path's own shapes
+     (``path_mean_shapes``: the flat path's 8 x k rows, the per-leaf
+     path's 2 x k and 1 x k a leaf) and each is held bit for bit against
+     the plain cascade on its own operands.  Each ledger row must be C x
+     client 0's packed bits and C x Eq. 1, the last round's residual
+     ``acc − ΔW*`` bit for bit for every client, and the two paths must
+     give bit-identical params, residuals, Adam states and ledger rows;
   7. the CharLSTM phase: the paper's second preset at full width (2 x 200,
      vocab 98, 680,800 parameters in 8 leaves, batch 8 x 64 tokens, p =
      0.01), five rounds on every run path with the counts set to 0 just
@@ -181,7 +182,38 @@ Without arguments, phases, each of which fails the run:
      decode ms (the host Golomb decoder over the round's uploads) and
      receive ms, and one profiled round (device operations, busy ms and
      busy share);
-  10. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  10. the paper's baselines and its other two models.  (a) Table II:
+     every point of ``TABLE2`` (``benchmarks/common.py``'s methods:
+     ``none``, ``topk`` at 0.001, ``none`` at n 10, SBC(1)-(3); the
+     ``fedavg`` codec at n 10; ``dgc``, ``dgc_policy``, ``signsgd``,
+     ``onebit``, ``terngrad``, ``qsgd``, ``randomk``, ``variance`` at n 1)
+     on LeNet5's local backend, 4 clients, batch 128, per leaf, 2 rounds
+     each, with the counts set to 0 just before and read just after: each
+     round's loss finite, its ``f32_mean_xla`` launches as counted from
+     the stages (``table2_means``) and nothing else, every call bit-equal
+     to the plain cascade, its Eq. 1 bits equal to ``TABLE2_BITS`` (which
+     a CPU test holds to the reference's), the ledger's rows C x client
+     0's packed bits and C x Eq. 1, and ``variance``'s last upload through
+     ``Wire.pack_with_bits(device_pack=True)``, with the counts set to 0
+     again (6 ``seg_select_pack``, one a Golomb leaf), equal to the host
+     pack byte for byte.  (b) ResNet-32 at full width (466,714 parameters
+     in 97 leaves) on CIFAR-shaped class blobs, batch 128, momentum at lr
+     0.01, p = 0.01, through ``build_dist_train`` and ``DSGDTrainer``,
+     each of which must turn off the TF32 the script turns on before it:
+     one forward and gradient against f64 (``RESNET32_F64_TOL``; the same
+     with cuDNN's TF32 on must miss it), the GSPMD hist engine with
+     phase 2's checks (and each hist kernel against its plain version over
+     the 97 segments), the exact engine with the device pack and the
+     ledger with phase 3's checks (1 ``seg_packbits`` + 98
+     ``f32_mean_xla`` a round), and the local backend with 4 clients per
+     leaf (776) and flat (97) with phase 6's checks, 5 rounds each.  (c)
+     WordLSTM at full width (19,765,200 parameters) on the markov task of
+     vocabulary 10,000, batch 20 x 35, SGD at lr 1.0, p = 0.01, through
+     the library: the local backend with 4 clients on the flat space (8
+     a round) and the GSPMD exact engine with the device pack (1 + 9), 3
+     rounds each, and the card's peak memory.  Each path prints its step
+     ms and a profiled round;
+  11. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -192,7 +224,11 @@ Without arguments, phases, each of which fails the run:
      ``masked_moments`` holds its default tile's times in
      ``default_tile_*`` fields; ``f32_mean_xla`` replaces no Pallas
      kernel, which its ``reference`` field says; it also holds its
-     launches on each fed path in ``launches_fed``), then the card line,
+     launches on each fed path in ``launches_fed``; the rows phase 10
+     launches hold its counts in ``launches_baselines``,
+     ``launches_resnet32`` and ``launches_wordlstm``, and
+     ``seg_select_pack`` the variance pack check's in
+     ``launches_variance_pack_check``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -254,14 +290,16 @@ DENSE_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=4 + 1)
 # the profiled exact round's device operations before f32_mean_xla, when
 # each side's mean was three torch operations (PERF.md §5)
 EXACT_DEVICE_OPS_BEFORE = 812
-# (rows, n) of every f32_mean_xla call of the exact path (2 x k a segment),
-# of the codec + wire and the local per-leaf paths (2 x k and 1 x k an SBC
-# leaf) and of the local flat path (2 sides x 4 clients x k a segment), for
-# LeNet5 (k 1, 5, 50, 250, 12,250) and CharLSTM (k 8, 196, 1,600)
+# (rows, n) of the f32_mean_xla calls timed by mean_shapes: those of the
+# exact path (2 x k a segment), of the codec + wire and the local per-leaf
+# paths (2 x k and 1 x k an SBC leaf) and of the local flat path (2 sides x
+# 4 clients x k a segment), for LeNet5 (k 1, 5, 50, 250, 12,250) and
+# CharLSTM (k 8, 196, 1,600), and the widest the port meets, WordLSTM's
+# embedding and head (k 65,000) on the exact and the local flat path
 MEAN_SHAPES = ((2, 1), (1, 1), (2, 5), (1, 5), (2, 50), (1, 50), (2, 250), (1, 250),
                (2, 12_250), (1, 12_250), (8, 1), (8, 5), (8, 50), (8, 250), (8, 12_250),
                (2, 8), (1, 8), (8, 8), (2, 196), (1, 196), (8, 196),
-               (2, 1_600), (1, 1_600), (8, 1_600))
+               (2, 1_600), (1, 1_600), (8, 1_600), (2, 65_000), (8, 65_000))
 # (rows, n, k, b*) of the card tests' seg_select_pack rows, timed beside f1
 SELECT_PACK_SHAPES = ((5, 1000, 37, 4), (1, 1000, 10, 6))
 LEAF_PER_LEAF = per_call(hist2side=2, masked_moments=1, binarize_apply=1)
@@ -442,8 +480,8 @@ def swapped(module, replacements):
             setattr(module, name, fn)
 
 
-def drive(run, exchange_name: str, per_round: dict, label: str) -> dict:
-    """Five rounds of ``run`` with the launch counts set to 0 just before
+def drive(run, exchange_name: str, per_round: dict, label: str, rounds: int = ROUNDS) -> dict:
+    """``rounds`` rounds of ``run`` with the launch counts set to 0 just before
     and read just after; the space's ``exchange_name`` method is observed
     so the last round's operands and outputs are kept.  Returns the
     capture: ``launches`` (counts of the run), ``last`` (bodies, res, out
@@ -475,7 +513,7 @@ def drive(run, exchange_name: str, per_round: dict, label: str) -> dict:
         torch.cuda.synchronize()
         kernels.reset_launches()
         losses, counts = [], []
-        for r in range(ROUNDS):
+        for r in range(rounds):
             before = kernels.launch_counts()
             t0 = time.perf_counter()
             state, m = run.step(state, r)
@@ -655,7 +693,7 @@ def hist_kernels_vs_plain(acc, space, dev, label: str, launches: dict | None = N
             name, launches[name], err,
             device_ms(fn_k, copies, 240, name, ops=1 if name in ONE_OP else None),
             device_ms(fn_p, copies, 48), 4 * (xpad.numel() + params.numel()) + out_bytes,
-            OPS_PER_ELEMENT[name] * xpad.numel())
+            OPS_PER_ELEMENT[name] * xpad.numel(), label=f"{name} ({label} path)")
         del copies
     check(sorted({c[0] for c in calls}) == sorted(names), f"{label}: kernels compared "
                                                            f"{sorted({c[0] for c in calls})}")
@@ -881,8 +919,8 @@ def exact_wire_checks(run, cap: dict, dev, label: str) -> tuple:
 def exact_means_vs_plain(space, last: dict, label: str) -> list:
     """``f32_mean_xla`` on the exact path's own top-k values: the last
     round's exchange once more, both sides of every segment, one call per
-    segment, each bit-equal to the plain cascade and of a shape in
-    ``MEAN_SHAPES``.  Returns the recorded calls."""
+    segment of shape ``(2 rows, k)``, each bit-equal to the plain cascade.
+    Returns the recorded calls."""
     import torch
     from repro_torch.kernels import reduce as kreduce
     from repro_torch.kernels import topk as ktopk
@@ -898,11 +936,9 @@ def exact_means_vs_plain(space, last: dict, label: str) -> list:
         torch.cuda.synchronize()
         check(tuple(vals.shape) == (2 * s.rows, s.k) and bit_equal(got, want),
               f"{label} f32_mean_xla {s.path}: kernel != plain cascade on {tuple(vals.shape)}")
-    shapes = {tuple(c[1][0].shape) for c in calls}
-    check(shapes <= set(MEAN_SHAPES), f"{label}: f32_mean_xla shapes {shapes} not all in "
-                                      f"MEAN_SHAPES")
+    seen = {tuple(c[1][0].shape) for c in calls}
     print(f"{label} f32_mean_xla: bit-equal to the plain cascade on the top-k values of every "
-          f"segment ({[tuple(c[1][0].shape) for c in calls]})")
+          f"segment ({len(calls)} calls, shapes {sorted(seen)})")
     return calls
 
 
@@ -1062,7 +1098,9 @@ def leaf_path(dev, hist: dict) -> dict:
             kw = dict(kwargs, bm=MOMENT_TILES[1][0], lanes=MOMENT_TILES[1][1])
             default_ms = device_ms(lambda *a: wrap[name](*a, **kw), copies, 240,
                                    "masked_moments (default tile)", ops=1)
-            default_plain_ms = device_ms(lambda *a: plain[name](*a, **kw), copies, 24)
+            # 8 calls: its 1,037 device operations a call over 24 calls (24,888
+            # records) overran the profiler's buffer and lost records
+            default_plain_ms = device_ms(lambda *a: plain[name](*a, **kw), copies, 8)
         del copies
         if zoomed:
             rows[name].update(zoomed_ms=ms, zoomed_plain_ms=plain_ms)
@@ -1270,19 +1308,25 @@ def codec_path(dev) -> dict:
 
 
 def local_path(dev, spec: dict = LOCAL_SPEC, per_round: dict = LOCAL_PER_ROUND,
-               name: str = "local") -> dict:
-    """Phase 6 (and the CharLSTM phase's local half): the local backend's
-    Alg. 1 round (``LocalRun``), five full-width rounds of ``spec`` on the
-    per-leaf path (``fast=False``, the reference's default) and on the
-    flat path (``fast=True``), each with the launch counts set to 0 just
-    before and read just after (``per_round`` a round, nothing else), and
-    one profiled round each.  Every loss must be finite; the last round's
-    residual must be ``acc − ΔW*`` bit for bit for every client; every
-    ``f32_mean_xla`` call must have a shape of ``MEAN_SHAPES`` and equal
-    its plain cascade on its operands; and the two paths must give
-    bit-identical params, residuals, optimizer states and ledger rows.
-    Returns each path's launches of its five rounds, its step ms and its
-    state after them."""
+               name: str = "local", build=None, rounds: int = ROUNDS,
+               profile: bool = True) -> dict:
+    """Phase 6, and the local rounds of phases 7 and 10: the local
+    backend's Alg. 1 round (``LocalRun``) of ``spec`` at full width,
+    ``rounds`` rounds on each path that ``per_round`` names (``False`` per
+    leaf, the reference's default; ``True`` the flat space), each with the
+    launch counts set to 0 just before and read just after (``per_round``
+    a round, nothing else) and, with ``profile``, one profiled round.
+    ``build(fast)`` builds the run where ``spec`` is not a preset's
+    (through the library).  Checks: every loss finite; the last round's
+    residual ``acc − ΔW*`` bit for bit for every client (codecs with error
+    feedback); every ``f32_mean_xla`` call bit-equal to its plain cascade
+    on its operands, and their shapes the path's own
+    (:func:`path_mean_shapes`); each ledger row's measured bits C x client
+    0's packed upload (the wire's ``measured_bits``) and its analytic bits
+    C x the round's Eq. 1; with both paths, bit-identical params,
+    residuals, optimizer states and ledger rows.  Returns, by path, the
+    launches, each round's metrics and step ms, the state, the run and
+    the last round's client-0 upload."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import stages as core_stages
@@ -1292,90 +1336,145 @@ def local_path(dev, spec: dict = LOCAL_SPEC, per_round: dict = LOCAL_PER_ROUND,
     from repro_torch.optim import AdamState
     from repro_torch.run import RunSpec, build_run
 
-    runs, states, launches, step_ms = {}, {}, {}, {}
-    for fast in (False, True):
-        run = build_run(RunSpec(**spec, fast=fast), device=dev)
+    check(spec.get("measure_wire"), f"{name}: the ledger's checks need measure_wire")
+    out = {key: {} for key in ("launches", "metrics", "step_ms", "states", "runs", "upload")}
+    for fast, want in per_round.items():
+        run = (build(fast) if build is not None
+               else build_run(RunSpec(**spec, fast=fast), device=dev))
         label = f"{name} ({'flat' if fast else 'per-leaf'} path)"
-        state = run.init()
-        means: list = []  # every f32_mean_xla call of the five rounds
-        last: dict = {}  # the last exchange's operands and outputs
-        exchange = run.channel.round_exchange
+        channel = run.channel
+        exchange, record = channel.round_exchange, channel.record_round
+        last, uploads, means = {}, [], []
 
         def observed(deltas, comp_state, *a, exchange=exchange, last=last, **kw):
             ex = exchange(deltas, comp_state, *a, **kw)
             last.update(deltas=deltas, residual=comp_state.residual, ex=ex)
             return ex
 
-        run.channel.round_exchange = observed
+        def metered(round_idx, record=record, uploads=uploads, **kw):
+            uploads.append(kw)
+            return record(round_idx, **kw)
+
+        channel.round_exchange, channel.record_round = observed, metered
+        state = run.init()
         torch.cuda.synchronize()
         kernels.reset_launches()
-        counts, step_ms[fast] = [], []
-        with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), means)), \
-                swapped(core_stages, recording(core_stages, ("f32_mean_xla",), means)):
-            for r in range(ROUNDS):
-                before = kernels.launch_counts()
-                t0 = time.perf_counter()
-                state, m = run.step(state, r)
-                loss = float(m["loss"])
-                torch.cuda.synchronize()
-                step_ms[fast].append((time.perf_counter() - t0) * 1e3)
-                after = kernels.launch_counts()
-                counts.append({k: after[k] - before[k] for k in after})
-                rec = run.ledger.records[-1]
-                check(math.isfinite(loss), f"{label} round {r + 1}: loss {loss}")
-                print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms[fast][-1]:.3f} ms"
-                      f"  launches { {k: v for k, v in counts[-1].items() if v} }  measured "
-                      f"{rec.up_bits_measured:.0f} bits against Eq. 1's "
-                      f"{rec.up_bits_analytic:.2f} ({len(rec.cohort)} clients)")
-        launches[fast] = kernels.launch_counts()
-        del run.channel.round_exchange
-        check(all(c == per_round[fast] for c in counts),
-              f"{label}: launches per round {counts}")
+        counts, metrics, step_ms = [], [], []
+        try:
+            with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), means)), \
+                    swapped(core_stages, recording(core_stages, ("f32_mean_xla",), means)):
+                for r in range(rounds):
+                    before = kernels.launch_counts()
+                    t0 = time.perf_counter()
+                    state, m = run.step(state, r)
+                    loss = float(m["loss"])
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    after = kernels.launch_counts()
+                    counts.append({k: after[k] - before[k] for k in after})
+                    metrics.append(m)
+                    check(math.isfinite(loss), f"{label} round {r + 1}: loss {loss}")
+                    print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms[-1]:.3f} ms"
+                          f"  launches { {k: v for k, v in counts[-1].items() if v} }  upload "
+                          f"bits measured {float(m['measured_bits_per_client']):.0f}, Eq. 1 "
+                          f"{float(m['bits_per_client']):.2f} a client ({run.n_clients} "
+                          f"clients)")
+            launches = kernels.launch_counts()
+        finally:
+            del channel.round_exchange, channel.record_round
+        check(all(c == want for c in counts), f"{label}: launches per round {counts}, "
+                                              f"not {want}")
         # every client's residual is acc - dW* bit for bit (the flat path's
         # rows unflattened to the tree)
         ex, res = last["ex"], last["residual"]
-        new_res = ex.state.residual
-        if fast:
-            space = run.trainer.resolved(state.params).flat_space(state.params)
-            res, new_res = space.unflatten(res), space.unflatten(new_res)
-        for old, delta, sent, new in zip(*(tree_flatten(x)[0] for x in (
-                res, last["deltas"], ex.transmitted, new_res))):
-            check(bit_equal(new, (old + delta) - sent),
-                  f"{label}: the last round's residual != acc - dW* bit for bit")
-        print(f"{label}: last round's residual == acc - dW* bit for bit, every client")
-        # every f32_mean_xla call of the rounds has a shape that mean_shapes
-        # times, and is held bit for bit against the plain cascade on its
-        # own operands (these launches come after the counts were read)
-        shapes = sorted({tuple(args[0].shape) for _, args, _ in means})
-        check(set(shapes) <= set(MEAN_SHAPES),
-              f"{label}: f32_mean_xla shapes {shapes} not all in MEAN_SHAPES")
+        if tree_flatten(res)[0]:
+            new_res = ex.state.residual
+            if fast:
+                space = run.trainer.resolved(state.params).flat_space(state.params)
+                res, new_res = space.unflatten(res), space.unflatten(new_res)
+            for old, delta, sent, new in zip(*(tree_flatten(x)[0] for x in (
+                    res, last["deltas"], ex.transmitted, new_res))):
+                check(bit_equal(new, (old + delta) - sent),
+                      f"{label}: the last round's residual != acc - dW* bit for bit")
+            print(f"{label}: last round's residual == acc - dW* bit for bit, every client")
+        # every f32_mean_xla call of the rounds, of the path's own shapes,
+        # against the plain cascade on its own operands (these launches come
+        # after the counts were read)
+        seen = {tuple(args[0].shape) for _, args, _ in means}
+        shapes = path_mean_shapes(spec.get("compressor", "sbc"), state.params,
+                                  spec["sparsity"], fast, run.n_clients)
+        check(seen == shapes, f"{label}: f32_mean_xla shapes {sorted(seen)}, the path's "
+                              f"{sorted(shapes)}")
         for _, args, kwargs in means:
-            got = kreduce.f32_mean_xla(*args, **kwargs)
-            check(bit_equal(got, kreduce.f32_mean_xla_plain(*args, **kwargs)),
+            check(bit_equal(kreduce.f32_mean_xla(*args, **kwargs),
+                            kreduce.f32_mean_xla_plain(*args, **kwargs)),
                   f"{label}: f32_mean_xla on {tuple(args[0].shape)}: kernel != plain cascade")
-        print(f"{label}: all {len(means)} f32_mean_xla calls of the {ROUNDS} rounds bit-equal "
-              f"to the plain cascade on their operands, shapes {shapes}")
-        runs[fast], states[fast] = run, state
-        profiled_round(run, state, label)
+        print(f"{label}: all {len(means)} f32_mean_xla calls bit-equal to the plain cascade "
+              f"on their operands, {len(seen)} shapes, the path's own: "
+              f"{sorted(seen) if len(seen) <= 30 else sorted(seen)[:30] + ['...']}")
+        # each ledger row: C x client 0's packed bits and C x Eq. 1
+        C = run.n_clients
+        for r, (rec, m, up) in enumerate(zip(run.ledger.records, metrics, uploads)):
+            packed = float(channel.wire(up["params"], up["rate"], r).measured_bits(
+                up["compressed0"]))
+            check(float(m["measured_bits_per_client"]) == packed
+                  and rec.up_bits_measured == packed * C
+                  and rec.up_bits_analytic == float(m["bits_per_client"]) * C,
+                  f"{label} round {r + 1}: the ledger's row ({rec.up_bits_measured}, "
+                  f"{rec.up_bits_analytic}) != C x (packed {packed}, Eq. 1 "
+                  f"{float(m['bits_per_client'])})")
+        print(f"{label}: the ledger's {rounds} rows are C x client 0's packed and Eq. 1 bits")
+        if profile:
+            profiled_round(run, state, label)
+        for key, value in (("launches", launches), ("metrics", metrics), ("step_ms", step_ms),
+                           ("states", state), ("runs", run), ("upload", uploads[rounds - 1])):
+            out[key][fast] = value
 
-    slow, quick = states[False], states[True]
-    space = runs[True].trainer.resolved(quick.params).flat_space(quick.params)
-    # Adam's (m, v) as a plain pair: the tree walk takes a NamedTuple for a leaf
-    opt = [tuple(s.opt_states) if isinstance(s.opt_states, AdamState) else s.opt_states
-           for s in (quick, slow)]
-    for what, a, b in (("params", quick.params, slow.params),
-                       ("residual", space.unflatten(quick.comp_state.residual),
-                        slow.comp_state.residual),
-                       ("optimizer state", *opt)):
-        fa, fb = tree_flatten(a)[0], tree_flatten(b)[0]
-        check(len(fa) == len(fb) and all(bit_equal(x, y) for x, y in zip(fa, fb)),
-              f"{name}: the {what} differs between the flat and the per-leaf path")
-    check(runs[True].ledger.history() == runs[False].ledger.history(),
-          f"{name}: the two paths' ledger rows differ")
-    runs[True].ledger.reconcile(rel=0.25)
-    print(f"{name}: after {ROUNDS} rounds (and one profiled) the flat and the per-leaf path "
-          f"give bit-identical params, residuals, optimizer states and ledger rows")
-    return {"launches": launches, "step_ms": step_ms, "states": states}
+    if len(per_round) == 2:
+        runs, slow, quick = out["runs"], out["states"][False], out["states"][True]
+        space = runs[True].trainer.resolved(quick.params).flat_space(quick.params)
+        # Adam's (m, v) as a plain pair: the tree walk takes a NamedTuple for a leaf
+        opt = [tuple(s.opt_states) if isinstance(s.opt_states, AdamState) else s.opt_states
+               for s in (quick, slow)]
+        for what, a, b in (("params", quick.params, slow.params),
+                           ("residual", space.unflatten(quick.comp_state.residual),
+                            slow.comp_state.residual),
+                           ("optimizer state", *opt)):
+            fa, fb = tree_flatten(a)[0], tree_flatten(b)[0]
+            check(len(fa) == len(fb) and all(bit_equal(x, y) for x, y in zip(fa, fb)),
+                  f"{name}: the {what} differs between the flat and the per-leaf path")
+        check(runs[True].ledger.history() == runs[False].ledger.history(),
+              f"{name}: the two paths' ledger rows differ")
+        runs[True].ledger.reconcile(rel=0.25)
+        print(f"{name}: after {rounds} rounds{' (and one profiled)' if profile else ''} the "
+              f"flat and the per-leaf path give bit-identical params, residuals, optimizer "
+              f"states and ledger rows")
+    return out
+
+
+def leaf_mean_shapes(compressor: str, n: int, k: int) -> tuple:
+    """The ``(rows, n)`` of each ``f32_mean_xla`` call that one client's
+    leaf of ``n`` values (``k`` kept) makes a round on the per-leaf path,
+    counted from core/stages.py: SBC's top-k means (both sides in one
+    call) and its binarize; sign's mean |v|; two_means' two sides; the
+    stochastic quantizer's norm; the variance selector's block RMS (blocks
+    of 256); none for dense, top-k, ternary and random-k."""
+    b = min(256, n)
+    return {"sbc": ((2, k), (1, k)), "signsgd": ((1, n),), "onebit": ((2, n),),
+            "qsgd": ((1, n),), "variance": ((-(-n // b), b),)}.get(compressor, ())
+
+
+def path_mean_shapes(compressor: str, params, p: float, fast: bool, clients: int) -> set:
+    """The ``(rows, n)`` of the ``f32_mean_xla`` calls a local round makes:
+    :func:`leaf_mean_shapes` of every leaf, or on the flat path (SBC) one
+    call of both sides of every client, ``(2 C, k)``, a segment."""
+    from repro_torch.core.stages import k_for
+    from repro_torch.core.tree import tree_flatten
+
+    sizes = [v.numel() for v in tree_flatten(params)[0]]
+    if fast:
+        return {(2 * clients, k_for(n, p)) for n in sizes}
+    return {s for n in sizes for s in leaf_mean_shapes(compressor, n, k_for(n, p))}
 
 
 # ------------------------------------------------------------ CharLSTM
@@ -1637,8 +1736,6 @@ def rank_worker(rank: int, world: int, store: str, out: str) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch.mesh import ClientGroup
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     group = ClientGroup.connect(rank=rank, world=world, device=dev, backend="gloo",
                                 init_method=f"file://{store}")
@@ -2167,6 +2264,340 @@ def fed_phase(dev) -> dict:
     return launches
 
 
+# ------------------------------------------- the paper's baselines and models
+
+
+# phase 10a: the paper's Table II operating points (benchmarks/common.py
+# METHODS: label, compressor, delay n, sparsity p), then the fedavg codec
+# and every other baseline at n 1, on LeNet5's local backend (4 clients,
+# batch 128, per leaf: the reference's default), 2 rounds each
+TABLE2 = (("baseline", "none", 1, 1.0), ("grad_dropping", "topk", 1, 0.001),
+          ("fedavg", "none", 10, 1.0), ("sbc1", "sbc", 1, 0.001), ("sbc2", "sbc", 10, 0.01),
+          ("sbc3", "sbc", 100, 0.01), ("fedavg_codec", "fedavg", 10, 1.0),
+          ("dgc", "dgc", 1, 0.001), ("dgc_policy", "dgc_policy", 1, 0.001),
+          ("signsgd", "signsgd", 1, 0.001), ("onebit", "onebit", 1, 0.001),
+          ("terngrad", "terngrad", 1, 0.001), ("qsgd", "qsgd", 1, 0.001),
+          ("randomk", "randomk", 1, 0.001), ("variance", "variance", 1, 0.001))
+TABLE2_ROUNDS = 2
+TABLE2_CLIENTS = 4
+# Eq. 1 bits a client in rounds 1 and 2 of each point (LeNet5, 1,256,010
+# parameters); tests/test_torch_baselines_run.py holds them equal to the
+# reference's.  dgc_policy's warm-up lowers its rate from round to round.
+TABLE2_BITS = {
+    "none": (40_192_320.0, 40_192_320.0), "fedavg": (40_192_320.0, 40_192_320.0),
+    "topk": (60_384.0, 60_384.0), "dgc": (60_384.0, 60_384.0),
+    "dgc_policy": (3_790_416.0, 953_280.0), "signsgd": (1_256_202.0, 1_256_202.0),
+    "onebit": (1_256_394.0, 1_256_394.0), "terngrad": (1_990_920.875, 1_990_920.875),
+    "qsgd": (6_222_712.0, 6_222_712.0), "randomk": (40_448.0, 40_448.0),
+    "variance": (54_716.26953125, 54_716.26953125),
+    ("sbc", 0.001): (14_652.2724609375, 14_652.2724609375),
+    ("sbc", 0.01): (102_035.4609375, 102_035.4609375),
+}
+LENET5_LEAVES = 6
+# ResNet-32 at full width (paper §IV-A; 466,714 parameters in 97 leaves) on
+# CIFAR-shaped class blobs, batch 128 (paper Table III), momentum at lr
+# 0.01, p = 0.01
+RESNET32_PARAMS, RESNET32_LEAVES = 466_714, 97
+RESNET32_EQ1 = 41_267.933283016355  # tests/test_torch_resnet32.py
+# one forward and gradient against f64 (resnet32_vs_f64): the loss's
+# relative error and the gradients' in norm.  On the CPU at batch 16 the
+# port's f32 is inside and a TF32 rounding of the convolutions outside
+# (tests/test_torch_resnet32.py::test_f32_gradients_against_f64_and_a_tf32_control)
+RESNET32_F64_TOL = {"loss": 1e-6, "grads": 5e-3}
+RESNET32_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=RESNET32_LEAVES + 1)
+RESNET32_LOCAL_PER_ROUND = {True: per_call(f32_mean_xla=RESNET32_LEAVES),
+                            False: per_call(f32_mean_xla=2 * RESNET32_LEAVES * 4)}
+# WordLSTM at full width (Zaremba et al. "medium": 2 x 650, vocabulary
+# 10,000; 19,765,200 parameters in 8 leaves), SGD at lr 1.0, batch 20 x 35
+# tokens, p = 0.01, 3 rounds
+WORDLSTM_PARAMS, WORDLSTM_LEAVES, WORDLSTM_ROUNDS = 19_765_200, 8, 3
+WORDLSTM_BATCH, WORDLSTM_SEQ = 20, 35
+WORDLSTM_LOCAL_PER_ROUND = per_call(f32_mean_xla=WORDLSTM_LEAVES)
+WORDLSTM_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=WORDLSTM_LEAVES + 1)
+
+
+def table2_bits(compressor: str, p: float) -> tuple:
+    return TABLE2_BITS[(compressor, p) if compressor == "sbc" else compressor]
+
+
+def table2_means(compressor: str) -> int:
+    """``f32_mean_xla`` launches a round of a point, on LeNet5's per-leaf
+    path with ``TABLE2_CLIENTS`` clients."""
+    return len(leaf_mean_shapes(compressor, 1, 1)) * LENET5_LEAVES * TABLE2_CLIENTS
+
+
+@contextlib.contextmanager
+def builder_turns_tf32_off(label: str):
+    """TF32 on, as cuDNN's default has it for convolutions, around a
+    library builder, which must turn it off for matmuls and convolutions
+    itself (:func:`repro_torch.device.full_f32_math`)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    yield
+    check(not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32),
+          f"{label}: the builder left TF32 on")
+
+
+def library_local_run(cfg, task, spec, dev):
+    """A :class:`~repro_torch.run.LocalRun` of ``cfg`` on ``task`` through
+    the library, the trainer built by ``DSGDTrainer`` as
+    ``benchmarks/common.py`` ``run_training`` builds it (the model is not
+    a preset's): ``spec``'s policy, clients and the config's lr."""
+    import warnings
+
+    from repro_torch.data import client_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.run import LocalRun, lr_schedule, policy_from_spec
+    from repro_torch.train import DSGDTrainer
+
+    model = build_model(cfg)
+    with builder_turns_tf32_off("DSGDTrainer"), warnings.catch_warnings():
+        # the direct constructor warns that build_run is the declarative surface
+        warnings.simplefilter("ignore", DeprecationWarning)
+        trainer = DSGDTrainer(model=model, compressor=policy_from_spec(spec),
+                              optimizer=get_optimizer(cfg.local_opt), n_clients=spec.clients,
+                              lr=lr_schedule(cfg.base_lr), device=dev)
+    return LocalRun(spec=spec, cfg=cfg, model=model, task=task, channel=trainer.channel,
+                    trainer=trainer, batch_fn=client_batches(task, spec.clients, spec.delay),
+                    device=dev)
+
+
+def library_gspmd_run(cfg, task, spec, dev):
+    """A one-client :class:`~repro_torch.run.GspmdRun` of ``cfg`` on
+    ``task`` through ``build_dist_train``, the way the reference reaches
+    ResNet-32 (its preset has no image task)."""
+    from repro_torch.launch.dist import build_dist_train
+    from repro_torch.launch.mesh import make_host_group
+    from repro_torch.models.model import build_model
+    from repro_torch.run import GspmdRun
+
+    group = make_host_group(dev)
+    model = build_model(cfg)
+    with builder_turns_tf32_off("build_dist_train"):
+        fns = build_dist_train(cfg, group=group, compressor=spec.compressor,
+                               sparsity=spec.sparsity, fast=True, flat_engine=spec.flat_engine,
+                               measure=spec.measure_wire, device_pack=spec.device_pack,
+                               model=model)
+    return GspmdRun(spec=spec, cfg=cfg, model=model, task=task, channel=fns.channel, fns=fns,
+                    n_clients=1, device=dev, group=group)
+
+
+def table2_phase(dev) -> dict:
+    """Phase 10a: every point of ``TABLE2`` on LeNet5's local backend at
+    full width (4 clients, batch 128), ``TABLE2_ROUNDS`` rounds each on the
+    per-leaf path through ``build_run``, with :func:`local_path`'s checks,
+    each round's Eq. 1 bits equal to ``TABLE2_BITS`` and its
+    ``f32_mean_xla`` launches to :func:`table2_means`.  Then, with the
+    counts set to 0, ``variance``'s last upload through
+    ``Wire.pack_with_bits(device_pack=True)``: one ``seg_select_pack`` a
+    Golomb leaf, the host pack's bytes and bits.  Returns each point's
+    ``f32_mean_xla`` launches, and the ``seg_select_pack`` launches of
+    the pack check."""
+    import torch
+    from repro_torch import kernels
+
+    launches = {}
+    print(f"table II: LeNet5, local, {TABLE2_CLIENTS} clients, batch 128, per leaf, "
+          f"{TABLE2_ROUNDS} rounds a point")
+    for label, comp, delay, p in TABLE2:
+        spec = dict(preset="lenet5", backend="local", compressor=comp, delay=delay,
+                    sparsity=p, clients=TABLE2_CLIENTS, batch=128, measure_wire=True,
+                    rounds=TABLE2_ROUNDS)
+        cap = local_path(dev, spec, {False: per_call(f32_mean_xla=table2_means(comp))},
+                         f"table II {label} ({comp}, n {delay}, p {p})", rounds=TABLE2_ROUNDS,
+                         profile=False)
+        bits = tuple(float(m["bits_per_client"]) for m in cap["metrics"][False])
+        check(bits == table2_bits(comp, p), f"table II {label}: Eq. 1 bits {bits}, not "
+                                            f"{table2_bits(comp, p)}")
+        dense = float(cap["metrics"][False][0]["bits_dense"])
+        print(f"table II {label}: Eq. 1 {bits[-1]:.2f} bits a client a round against dense "
+              f"{dense:.0f} (x{dense / bits[-1]:.1f}); step ms "
+              f"{', '.join(f'{t:.3f}' for t in cap['step_ms'][False])}")
+        launches[label] = {"f32_mean_xla": cap["launches"][False]["f32_mean_xla"]}
+        if comp == "variance":
+            up = cap["upload"][False]
+            wire = cap["runs"][False].channel.wire(up["params"], up["rate"], TABLE2_ROUNDS - 1)
+            golomb = sum(s.encoder == "golomb" for s in wire.specs)
+            host = wire.pack_with_bits(up["compressed0"])
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            got = wire.pack_with_bits(up["compressed0"], device_pack=True)
+            torch.cuda.synchronize()
+            packs = kernels.launch_counts()["seg_select_pack"]
+            check(got == host and packs == golomb == LENET5_LEAVES,
+                  f"table II variance: device pack ({len(got[0])} bytes, {got[1]} bits, "
+                  f"{packs} seg_select_pack) != host pack ({len(host[0])}, {host[1]}, "
+                  f"{golomb} Golomb leaves)")
+            print(f"table II variance: Wire.pack_with_bits(device_pack=True) == the host "
+                  f"pack byte for byte ({len(host[0])} bytes, {host[1]} bits), "
+                  f"{packs} seg_select_pack (one a Golomb leaf)")
+        del cap
+    return {"launches": launches, "variance_pack": packs}
+
+
+def resnet32_vs_f64(cfg, model, params, batch, label: str) -> None:
+    """One ResNet-32 forward and gradient on the card through the model's
+    f32 loss, with cuDNN as the library left it, against the same
+    computation in f64 (its own log-softmax, since the model's loss takes
+    f32 logits): the loss within ``RESNET32_F64_TOL["loss"]`` relative
+    and every gradient within ``RESNET32_F64_TOL["grads"]`` (the error's
+    norm over all leaves over the f64 gradient's).  The control, the same
+    f32 computation with cuDNN's TF32 on, must miss one of the two."""
+    import torch
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.models import cnn
+
+    leaves, treedef = tree_flatten(params)
+    labels = batch["labels"].long()
+
+    def f64():
+        ls = [v.detach().double().requires_grad_(True) for v in leaves]
+        logits = cnn.resnet32_apply(treedef.unflatten(ls), batch["images"].double(), cfg)
+        loss = torch.mean(torch.logsumexp(logits, -1) - logits.gather(-1, labels[:, None])[:, 0])
+        return loss, torch.autograd.grad(loss, ls)
+
+    def f32():
+        ls = [v.detach().requires_grad_(True) for v in leaves]
+        loss = model.loss_fn(treedef.unflatten(ls), batch)
+        return loss, torch.autograd.grad(loss, ls)
+
+    loss64, grads64 = f64()
+    norm64 = torch.sqrt(sum(torch.sum(g * g) for g in grads64))
+
+    def errors(got) -> tuple:
+        loss, grads = got
+        diff = torch.sqrt(sum(torch.sum((g.double() - w) ** 2) for g, w in zip(grads, grads64)))
+        return (abs(float(loss.detach()) - float(loss64.detach())) / abs(float(loss64.detach())),
+                float(diff / norm64))
+
+    full = errors(f32())
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = errors(f32())
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    tol = (RESNET32_F64_TOL["loss"], RESNET32_F64_TOL["grads"])
+    print(f"{label}: against f64 (batch {labels.shape[0]}), loss and gradient errors "
+          f"{full[0]:.3e}, {full[1]:.3e} in f32; {tf32[0]:.3e}, {tf32[1]:.3e} with cuDNN's "
+          f"TF32 on (tolerance {tol[0]:g}, {tol[1]:g})")
+    check(full[0] <= tol[0] and full[1] <= tol[1], f"{label}: f32 off f64 by {full}")
+    check(tf32[0] > tol[0] or tf32[1] > tol[1],
+          f"{label}: the check cannot see TF32 ({tf32} within {tol})")
+
+
+def resnet32_phase(dev) -> dict:
+    """Phase 10b: ResNet-32 at full width (466,714 parameters in 97 leaves)
+    on CIFAR-shaped class blobs (32 x 32 x 3, batch 128), momentum at lr
+    0.01, p = 0.01, through the library, whose builders must turn TF32
+    off (:func:`builder_turns_tf32_off`): one forward and gradient against
+    f64 (:func:`resnet32_vs_f64`); the GSPMD hist engine (one client, 5
+    rounds, phase 2's checks, each hist kernel held against its plain
+    version on the path's operands over 97 segments), the exact engine
+    with the device-packed wire and the ledger (phase 3's checks), and the
+    local backend with 4 clients per leaf and flat (:func:`local_path`),
+    each with a profiled round.  Returns every path's launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import make_classification_task
+    from repro_torch.run import RunSpec
+
+    cfg = get_config("resnet32")
+    task = make_classification_task(n_classes=10, img_size=32, channels=3, batch=128,
+                                    device=dev)
+    gspmd = dict(preset="resnet32", backend="gspmd", fast=True, sparsity=0.01, batch=128,
+                 rounds=ROUNDS)
+    run = library_gspmd_run(cfg, task, RunSpec(**gspmd, flat_engine="hist"), dev)
+    resnet32_vs_f64(cfg, run.model, run.init()["params"], task.sample(0, 0), "resnet32")
+    space = run.fns.flat_space
+    n_params = sum(s.global_size for s in space.segments)
+    small = sum(s.global_size < 1024 for s in space.segments)
+    print(f"resnet32: {n_params} params in {len(space.segments)} segments ({small} of them "
+          f"under 1,024 entries; k per segment {sorted({s.k for s in space.segments})}), "
+          f"{space.n_blocks} blocks, n_pad {space.n_pad}; bits_per_client "
+          f"{run.fns.bits_per_client:.2f}")
+    check(n_params == RESNET32_PARAMS and len(space.segments) == RESNET32_LEAVES
+          and run.fns.bits_per_client == RESNET32_EQ1, "ResNet-32 layout and Eq. 1 bits")
+    out = {}
+    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, "resnet32 hist")
+    one_mu_per_segment(space, cap, "resnet32 hist")
+    profiled_round(run, cap["state"], "resnet32 hist")
+    hist_kernels_vs_plain(cap["acc"], space, dev, "resnet32 hist")
+    out["hist"] = cap["launches"]
+
+    run = library_gspmd_run(cfg, task, RunSpec(**gspmd, flat_engine="exact",
+                                               device_pack=True, measure_wire=True), dev)
+    cap = drive(run, "exchange_local", RESNET32_EXACT_PER_ROUND, "resnet32 exact")
+    exact_wire_checks(run, cap, dev, "resnet32 exact")
+    exact_means_vs_plain(run.fns.flat_space, cap["last"], "resnet32 exact")
+    profiled_round(run, cap["state"], "resnet32 exact")
+    out["exact"] = cap["launches"]
+    del run, cap
+    local_spec = dict(preset="resnet32", backend="local", clients=4, batch=128, sparsity=0.01,
+                      measure_wire=True, rounds=ROUNDS)
+    local = local_path(dev, local_spec, RESNET32_LOCAL_PER_ROUND, "resnet32 local",
+                       build=lambda fast: library_local_run(
+                           cfg, task, RunSpec(**local_spec, fast=fast), dev))
+    out["local_per_leaf"], out["local_flat"] = local["launches"][False], local["launches"][True]
+    torch.cuda.synchronize()
+    return out
+
+
+def wordlstm_phase(dev) -> dict:
+    """Phase 10c: WordLSTM at full width (2 x 650, vocabulary 10,000;
+    19,765,200 parameters) on the markov task of vocabulary 10,000 (its
+    transition table 400 MB of f32 on the card), batch 20 x 35 tokens, SGD
+    at lr 1.0, p = 0.01, through the library as ``benchmarks/common.py``
+    ``run_training`` goes (the reference's preset reduces it): the local
+    backend with 4 clients on the flat space (:func:`local_path`) and the
+    GSPMD exact engine with the device-packed wire (phase 3's checks), 3
+    rounds each with a profiled round.  Prints the card's peak memory.
+    Returns every path's launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import make_lm_task
+    from repro_torch.run import RunSpec
+
+    cfg = get_config("wordlstm")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    task = make_lm_task(vocab=cfg.vocab_size, batch=WORDLSTM_BATCH, seq_len=WORDLSTM_SEQ,
+                        temperature=0.5, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"wordlstm: the markov task of vocabulary {cfg.vocab_size} built in "
+          f"{time.perf_counter() - t0:.2f} s (entropy floor {task.entropy_floor:.3f} nats)")
+    common = dict(preset="wordlstm", sparsity=0.01, batch=WORDLSTM_BATCH,
+                  seq_len=WORDLSTM_SEQ, rounds=WORDLSTM_ROUNDS)
+    local_spec = dict(common, backend="local", clients=4, measure_wire=True)
+    local = local_path(dev, local_spec, {True: WORDLSTM_LOCAL_PER_ROUND}, "wordlstm local",
+                       build=lambda fast: library_local_run(
+                           cfg, task, RunSpec(**local_spec, fast=fast), dev),
+                       rounds=WORDLSTM_ROUNDS)
+    local["runs"][True].ledger.reconcile(rel=0.25)
+    n_params = sum(v.numel() for v in tree_flatten(local["states"][True].params)[0])
+    check(n_params == WORDLSTM_PARAMS, f"WordLSTM: {n_params} params")
+    print(f"wordlstm: {n_params} params in {WORDLSTM_LEAVES} leaves")
+    out = {"local_flat": local["launches"][True]}
+    del local
+    run = library_gspmd_run(cfg, task, RunSpec(**common, backend="gspmd", fast=True,
+                                               flat_engine="exact", device_pack=True,
+                                               measure_wire=True), dev)
+    space = run.fns.flat_space
+    print(f"wordlstm exact: {[(s.path, s.global_size, s.k) for s in space.segments]}, "
+          f"bits_per_client {run.fns.bits_per_client:.2f}")
+    cap = drive(run, "exchange_local", WORDLSTM_EXACT_PER_ROUND, "wordlstm exact",
+                rounds=WORDLSTM_ROUNDS)
+    exact_wire_checks(run, cap, dev, "wordlstm exact")
+    exact_means_vs_plain(space, cap["last"], "wordlstm exact")
+    profiled_round(run, cap["state"], "wordlstm exact")
+    out["exact"] = cap["launches"]
+    print(f"wordlstm: the card's peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} "
+          f"GiB (torch.cuda.max_memory_allocated)")
+    return out
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -2249,9 +2680,6 @@ def main(argv: list) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
-    # a parity port of an f32 reference: full f32 matmuls and convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
     # ---- 1. card and build
@@ -2277,6 +2705,11 @@ def main(argv: list) -> int:
 
     # ---- 9. federation
     fed = fed_phase(dev)
+
+    # ---- 10. the paper's baselines, ResNet-32 and WordLSTM
+    baselines = table2_phase(dev)
+    resnet32 = resnet32_phase(dev)
+    wordlstm = wordlstm_phase(dev)
     check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
     rows["f32_mean_xla"]["launches_local_per_leaf_path"] = local[False]["f32_mean_xla"]
     rows["f32_mean_xla"]["launches_local_flat_path"] = local[True]["f32_mean_xla"]
@@ -2295,8 +2728,17 @@ def main(argv: list) -> int:
     rows["seg_select_pack"]["leaf_us"] = codec["select_us"]
     # f32_mean_xla's launches in the rounds of each fed path
     rows["f32_mean_xla"]["launches_fed"] = fed
+    # phase 10's launches, on the rows its paths launch
+    for name in KERNELS:
+        for key, paths in (("launches_baselines", baselines["launches"]),
+                           ("launches_resnet32", resnet32), ("launches_wordlstm", wordlstm)):
+            counts = {path: c.get(name, 0) for path, c in paths.items()}
+            if any(counts.values()):
+                rows[name][key] = counts
+    # the variance upload's device pack, a check made after its rounds
+    rows["seg_select_pack"]["launches_variance_pack_check"] = baselines["variance_pack"]
 
-    # ---- 10. results
+    # ---- 11. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

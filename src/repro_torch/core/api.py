@@ -11,10 +11,9 @@ pipeline:
 :class:`Compressor` is a named policy with the leaf and tree call surface
 (``compress_leaf``/``decompress_leaf``/``compress``/``decompress``/
 ``init_state``); :func:`make_compressor` looks one up by the name a
-``RunSpec`` gives.  The port registers ``"sbc"``
-(:mod:`repro_torch.core.sbc`); the reference's baselines
-(``core/baselines.py``) come with ROADMAP A12, and their names raise
-``NotImplementedError`` until then.
+``RunSpec`` gives.  Importing :mod:`repro_torch.core` registers ``"sbc"``
+(:mod:`repro_torch.core.sbc`) and the paper's baselines
+(:mod:`repro_torch.core.baselines`), as the reference's package does.
 """
 from __future__ import annotations
 
@@ -48,11 +47,6 @@ __all__ = [
     "available",
     "k_for",
 ]
-
-# compressors the reference registers in core/baselines.py (ROADMAP A12)
-BASELINE_NAMES = ("dgc", "dgc_policy", "fedavg", "none", "onebit", "qsgd", "randomk",
-                  "signsgd", "terngrad", "topk", "variance")
-
 
 @dataclasses.dataclass(frozen=True)
 class Compressor:
@@ -148,11 +142,6 @@ def register(name: str) -> Callable:
 def make_compressor(name: str, **kwargs: Any) -> Compressor:
     """Instantiate a registered compressor by name (``RunSpec.compressor``)."""
     if name not in _REGISTRY:
-        if name in BASELINE_NAMES:
-            raise NotImplementedError(
-                f"compressor {name!r} is one of the reference's baselines "
-                "(core/baselines.py), not ported yet (ROADMAP A12)"
-            )
         raise KeyError(f"unknown compressor {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
 

@@ -122,7 +122,7 @@ def make_lm_task(
     if extra_fields is not None:
         raise NotImplementedError(
             "make_lm_task(extra_fields=...) serves the zoo presets, which come "
-            "with ROADMAP A12")
+            "with ROADMAP A12, part 2")
     dev = resolve_device(device)
     floor = 0.0
     if kind == "markov":

@@ -33,3 +33,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; the port runs on cuda or cpu")
     return dev
+
+
+def full_f32_math() -> None:
+    """Run f32 matmuls and convolutions in full f32 in this process.
+
+    The port is held to an f32 reference, and cuDNN's default runs f32
+    convolutions in TF32, which keeps 10 bits of mantissa.  Every builder
+    of a training step (``DSGDTrainer``, ``build_dist_train``,
+    ``ClientPool``) calls this, so the library's routes run what
+    ``build_run`` does.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

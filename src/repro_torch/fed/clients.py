@@ -43,7 +43,7 @@ from repro_torch.core.policy import CompressionPolicy, CompressorState, Resolved
 from repro_torch.core.stages import LeafCompressed
 from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.data.synthetic import Task
-from repro_torch.device import resolve_device
+from repro_torch.device import full_f32_math, resolve_device
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import AdamState, Optimizer, map_states
 from repro_torch.train.trainer import _deterministic_convolutions, local_steps
@@ -271,6 +271,7 @@ class ClientPool:
                     "(delay=0 would upload an untrained zero delta)"
                 )
         self.device = resolve_device(self.device)
+        full_f32_math()
         self._resolved: Optional[ResolvedPolicy] = None
         self._opt_states: PyTree = None
         self._comp_state: Optional[CompressorState] = None

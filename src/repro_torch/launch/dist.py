@@ -18,7 +18,7 @@ per-leaf policy maps each leaf to one of the exchange's three modes
 (:func:`dist_leaf_mode`: SBC, dense, skip); the hist engine takes all-SBC
 policies only (its flat space raises ``ValueError`` otherwise, as the
 reference's does).  ``client_mode="pod"`` and a "model" axis larger than 1
-belong to the decoder and MoE configs (ROADMAP A12).
+belong to the decoder and MoE configs (ROADMAP A12, part 2).
 
 Behaviour of the reference that the step reproduces as it is:
 
@@ -44,6 +44,7 @@ from repro_torch.core.codec import Codec, make_codec
 from repro_torch.core.flat import ShardedFlatParamSpace
 from repro_torch.core.policy import CompressionPolicy, path_str
 from repro_torch.core.tree import tree_flatten, tree_flatten_with_path, tree_map
+from repro_torch.device import full_f32_math
 from repro_torch.kernels.reduce import f32_mean_xla
 from repro_torch.launch.mesh import ClientGroup, make_host_group
 from repro_torch.models.model import Model, build_model
@@ -56,7 +57,7 @@ def client_topology(cfg: ModelConfig, group: ClientGroup) -> tuple[int, tuple[st
     if cfg.client_mode == "pod":
         raise NotImplementedError(
             "client_mode='pod' (one client per pod, dense all-reduce inside it) "
-            "belongs to the decoder and MoE configs (ROADMAP A12)")
+            "belongs to the decoder and MoE configs (ROADMAP A12, part 2)")
     return group.world, ("data",)
 
 
@@ -91,6 +92,7 @@ def build_dist_train(
     cfg: ModelConfig,
     *,
     group: Optional[ClientGroup] = None,
+    compressor: str = "sbc",
     sparsity: float = 0.001,
     policy: Optional[CompressionPolicy] = None,
     fast: Optional[bool] = None,
@@ -109,9 +111,13 @@ def build_dist_train(
     ``policy``: an optional per-leaf :class:`CompressionPolicy` (path-regex
     rules): each leaf takes its plan's exchange mode
     (:func:`dist_leaf_mode`) and rate (``plan.rate(sparsity, 0)``).
-    Without one, every leaf is SBC-compressed at ``sparsity``.  Rates are
-    fixed when the step is built, so a policy with per-round schedules
-    raises, as the reference's does.
+    Without one, ``compressor`` picks one codec for every leaf, as in the
+    reference: ``"sbc"`` compresses every leaf with SBC at ``sparsity``,
+    and any other name takes the ``dense`` codec under that name (this
+    backend has no exchange for the baselines' codecs, so a baseline's
+    round is the dense exchange and its bits are 32 a parameter).  Rates
+    are fixed when the step is built, so a policy with per-round
+    schedules raises, as the reference's does.
 
     ``fast``: True takes the §11 flat fast path with ``flat_engine``
     ("exact" or "hist"), False the per-leaf exchange, and None (the
@@ -132,13 +138,15 @@ def build_dist_train(
     elif device is not None and torch.device(device) != group.device:
         raise ValueError(f"device {device} is not the group's {group.device}")
     device = group.device
+    full_f32_math()
     model = model or build_model(cfg)
     n_clients, client_axes = client_topology(cfg, group)
     opt_kw = {} if cfg.local_opt == "sgd" else {"state_dtype": cfg.residual_dtype}
     opt = get_optimizer(cfg.local_opt, **opt_kw)
 
     if policy is None:
-        policy = CompressionPolicy.single(make_codec("sbc"), name="sbc")
+        default = "sbc" if compressor == "sbc" else "dense"
+        policy = CompressionPolicy.single(make_codec(default), name=compressor)
 
     # leaf plan from the parameter shapes (every leaf replicated: one
     # shard), in JAX's leaf order with its "a/b" paths

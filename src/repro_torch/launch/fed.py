@@ -10,7 +10,7 @@ accounting reconciled against Eq. 1/Eq. 5.  All flags are the shared
 defaults for this launcher pinned on top (the ``fed-tiny`` preset, 16
 clients, 20 rounds, delay 3, lr 0.05, the DGC-style dense-small rule), so
 one command line names the same run in both packages.  ``fed-tiny`` is a
-decoder preset, which comes with ROADMAP A12; until then name a ported
+decoder preset, which comes with ROADMAP A12, part 2; until then name a ported
 preset:
 
   PYTHONPATH=src python -m repro_torch.launch.fed --preset lenet5 --rounds 2 \\

@@ -1,17 +1,21 @@
 """End-to-end DSGD training launcher: a thin parser over ``repro_torch.run``.
 
 Counterpart of ``repro.launch.train``: the paper's training setting (M
-clients, communication delay n, sparsity p, SBC) on a synthetic task
-sized by ``--preset``, with the backend pinned to "local".  The flags are
-the shared run flags (:func:`repro_torch.run.flags.add_run_flags`) plus
-``--save``, ``--print-policy`` and ``--device``.  The port carries the
-paper's presets, ``lenet5``/``paper-lenet`` (the default here) and
-``charlstm``/``paper-lstm``; the reference's default ``lm-100m`` comes
-with ROADMAP A12.
+clients, communication delay n, sparsity p, any registered compressor) on
+a synthetic task sized by ``--preset``, with the backend pinned to
+"local".  The flags are the shared run flags
+(:func:`repro_torch.run.flags.add_run_flags`) plus ``--save``,
+``--print-policy`` and ``--device``.  The port carries the
+paper's presets, ``lenet5``/``paper-lenet`` (the default here),
+``charlstm``/``paper-lstm`` and ``wordlstm``, with any registered
+compressor; the reference's default ``lm-100m`` comes with ROADMAP A12,
+part 2.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --preset lenet5 \\
       --sparsity 0.01 --rounds 5 --clients 4 --batch 128 --measure-wire
+  PYTHONPATH=src python -m repro_torch.launch.train --preset paper-lenet \\
+      --compressor topk --sparsity 0.001 --rounds 100
   PYTHONPATH=src python -m repro_torch.launch.train --preset paper-lstm \\
       --compressor sbc --sparsity 0.01 --rounds 3 --clients 2 --batch 4 \\
       --seq-len 32 --log-every 1
@@ -26,6 +30,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import save_pytree
+from repro_torch.core.baselines import dgc_policy  # noqa: F401 (registration)
 from repro_torch.core.tree import tree_flatten
 from repro_torch.run.build import build_run, lr_schedule  # noqa: F401 (re-export)
 from repro_torch.run.flags import add_run_flags, spec_from_args

@@ -1,7 +1,7 @@
 """Shared layers (counterpart of ``repro.models.layers``).
 
 The port carries what the paper's CharLSTM reads: the token embedding.
-Rotary embeddings, norms and MLPs come with the model zoo (ROADMAP A12).
+Rotary embeddings, norms and MLPs come with the model zoo (ROADMAP A12, part 2).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """``build_model(cfg) → Model``: init and loss of one architecture.
 
-Counterpart of ``repro.models.model``; the port builds the paper's two
-models, the CNN family's LeNet5 and the LSTM family's CharLSTM.  The
-other families come with ROADMAP A12.
+Counterpart of ``repro.models.model``; the port builds the paper's four
+models: the CNN family's LeNet5 and ResNet-32, and the LSTM family's
+CharLSTM and WordLSTM.  The other families come with ROADMAP A12, part 2.
 """
 from __future__ import annotations
 
@@ -24,18 +24,23 @@ class Model(NamedTuple):
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "lstm":
         return _build_lstm(cfg)
-    if cfg.family != "cnn" or cfg.name != "lenet5":
-        raise NotImplementedError(
-            f"model {cfg.name!r} ({cfg.family}) is not ported yet; the port "
-            "has lenet5 and the lstm family (the zoo comes with ROADMAP A12)"
-        )
+    if cfg.family == "cnn":
+        return _build_cnn(cfg)
+    raise NotImplementedError(
+        f"model {cfg.name!r} ({cfg.family}) is not ported yet; the port has the "
+        "cnn and lstm families (the zoo comes with ROADMAP A12, part 2)"
+    )
+
+
+def _build_cnn(cfg: ModelConfig) -> Model:
+    is_lenet = cfg.name == "lenet5"
 
     def init(gen: torch.Generator) -> dict:
-        return cnn.init_lenet5(gen, cfg)
+        return cnn.init_lenet5(gen, cfg) if is_lenet else cnn.init_resnet32(gen, cfg)
 
     def loss_fn(params: dict, batch: dict) -> torch.Tensor:
-        logits = cnn.lenet5_apply(params, batch["images"], cfg)
-        return softmax_xent(logits, batch["labels"])
+        apply = cnn.lenet5_apply if is_lenet else cnn.resnet32_apply
+        return softmax_xent(apply(params, batch["images"], cfg), batch["labels"])
 
     return Model(cfg, init, loss_fn)
 

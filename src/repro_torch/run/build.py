@@ -1,7 +1,9 @@
 """``build_run(spec) -> Run``: a declarative spec drives the port.
 
-Counterpart of ``repro.run.build``.  The port carries the paper's two
-presets (``lenet5``, ``charlstm``) on three backends:
+Counterpart of ``repro.run.build``.  The port carries the paper's
+presets (``lenet5``, ``charlstm`` and the reference's reduced
+``wordlstm``), with ``sbc`` or any of the paper's baseline compressors,
+on three backends:
 
   local   :class:`~repro_torch.train.trainer.DSGDTrainer` over a
           :class:`~repro_torch.core.channel.LocalVmapChannel` (the paper's
@@ -36,7 +38,12 @@ presets (``lenet5``, ``charlstm``) on three backends:
 All take per-leaf policy rules (``dense_pattern``, ``skip_pattern``),
 built by :func:`policy_from_spec` as in the reference; the GSPMD hist
 engine takes all-SBC policies only and raises ``ValueError`` at its first
-step otherwise, as the reference does.  ``telemetry=True`` attaches one
+step otherwise, as the reference does.  On gspmd a compressor other than
+``sbc`` without rules takes the dense exchange under its own name (32 bits
+a parameter), as the reference's ``build_dist_train`` does; with rules its
+codec has no exchange there and raises.  ``preset="resnet32"`` raises the
+reference's ``ValueError`` (its preset is an LM task of vocabulary 0).
+``telemetry=True`` attaches one
 enabled :class:`~repro_torch.obs.Telemetry` to the run and its channel,
 and ``run()`` records what the reference's traced loop records (one
 ``round`` span a round, the ``train/*`` and ``leaf/*`` gauges, the
@@ -69,13 +76,12 @@ def _check_slice(spec: RunSpec) -> None:
     if spec.backend == "fed" and spec.broadcast_log:
         todo.append("broadcast_log, the fed broadcast DeltaLog (ROADMAP A10)")
     if spec.preset not in PORTED_PRESETS:
-        todo.append(f"preset {spec.preset!r} (ROADMAP A12)")
-    if spec.compressor != "sbc":
-        todo.append(f"compressor {spec.compressor!r} (ROADMAP A12)")
+        todo.append(f"preset {spec.preset!r} (ROADMAP A12, part 2)")
     if todo:
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(todo) + ". This port carries "
-            "preset='lenet5' and 'charlstm' on backend='local' (fast either way, "
+            "not ported yet: " + "; ".join(todo) + ". This port carries the paper's "
+            "presets (lenet5, charlstm, wordlstm) with every registered compressor "
+            "(sbc and the baselines) on backend='local' (fast either way, "
             "measure_wire), on backend='gspmd' (one client per rank; fast=True "
             "with flat_engine='hist' or 'exact' (device_pack), or fast=False; "
             "measure_wire) and on backend='fed' (without broadcast_log), with "
@@ -464,7 +470,7 @@ def _build_fed(spec: RunSpec, dev: torch.device) -> FedRun:
                              seed=spec.seed, device=dev)
     if spec.non_iid:
         # the reference's own refusal for every preset the port carries;
-        # its non-IID LM task comes with the decoder presets (ROADMAP A12)
+        # its non-IID LM task comes with the decoder presets (ROADMAP A12, part 2)
         raise ValueError(f"non_iid needs an LM preset; {spec.preset!r} is {cfg.family}")
     return FedRun(spec=spec, cfg=cfg, model=build_model(cfg), task=task, device=dev)
 
@@ -508,11 +514,6 @@ def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun, FedRun]:
                 f"one client per process: start {n} of them with `"
                 f"{TORCHRUN.format(n=n)}`, or pass device='cuda:0' for a one-card run")
     dev = group.device if group is not None else resolve_device(device)
-    # This is a parity port of an f32 reference: keep f32 matmuls and
-    # convolutions in full f32 (cuDNN would otherwise run convolutions in
-    # TF32, which keeps about three decimal digits).
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     if spec.backend == "local":
         return _build_local(spec, dev)
     if spec.backend == "fed":
@@ -522,7 +523,8 @@ def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun, FedRun]:
                              seed=spec.seed, device=dev)
     model = build_model(cfg)
     policy = policy_from_spec(spec)
-    fns = build_dist_train(cfg, group=group, sparsity=spec.sparsity,
+    fns = build_dist_train(cfg, group=group, compressor=spec.compressor,
+                           sparsity=spec.sparsity,
                            policy=None if isinstance(policy, Compressor) else as_policy(policy),
                            fast=True if spec.fast else None, flat_engine=spec.flat_engine,
                            measure=spec.measure_wire, device_pack=spec.device_pack,

@@ -18,7 +18,7 @@ def add_compression_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParse
     """The compression-policy knobs (DESIGN.md §3/§10/§11)."""
     g = ap.add_argument_group("compression policy")
     g.add_argument("--compressor", default="sbc",
-                   help="compressor name (the port carries 'sbc')")
+                   help="registered compressor name (see repro_torch.core.api)")
     g.add_argument("--sparsity", type=float, default=0.001,
                    help="upstream gradient sparsity rate p")
     g.add_argument("--dense-pattern", default=None,

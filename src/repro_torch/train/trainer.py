@@ -38,7 +38,7 @@ from repro_torch.core.api import Compressor
 from repro_torch.core.channel import LocalVmapChannel, mean_over_clients
 from repro_torch.core.policy import CompressionPolicy, CompressorState, ResolvedPolicy
 from repro_torch.core.tree import tree_flatten, tree_map
-from repro_torch.device import resolve_device
+from repro_torch.device import full_f32_math, resolve_device
 from repro_torch.obs import NULL_TELEMETRY, Telemetry
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer, map_states
@@ -72,6 +72,7 @@ class DSGDTrainer:
                 "RunSpec(backend='local', ...)) (the same trainer and states)",
                 DeprecationWarning, stacklevel=2)
         self.device = resolve_device(self.device)
+        full_f32_math()
         if isinstance(self.compressor, CompressionPolicy):
             self.compressor = Compressor.from_policy(self.compressor.name, self.compressor)
         self.channel = LocalVmapChannel(compressor=self.compressor, n_clients=self.n_clients)

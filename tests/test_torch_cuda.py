@@ -51,17 +51,31 @@ from torch_helpers import (
     coarse_ranges,
     cuda,  # noqa: F401  (fixture)
     hist_params,
+    load_chip_smoke,
     n,
     segment_layout,
     t,
     zoomed_ranges,
 )
 
-# ragged tails + an all-zero segment; and LeNet5's six segments (c1, c2,
-# f1, f1b, f2, f2b in sorted-key order: 1 + 25 + 1197 + 1 + 5 + 1 blocks)
+# ragged tails + an all-zero segment; LeNet5's six segments (c1, c2, f1,
+# f1b, f2, f2b in sorted-key order: 1 + 25 + 1197 + 1 + 5 + 1 blocks); and
+# ResNet-32's 97
+def _resnet32_sizes() -> tuple:
+    """ResNet-32's 97 leaf sizes in leaf order (66 under 1,024 entries)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.models.model import build_model
+
+    tree = build_model(get_config("resnet32")).init(torch.Generator().manual_seed(0))
+    return tuple(v.numel() for v in tree_flatten(tree)[0])
+
+
 LAYOUTS = {
     "ragged": ((1000, 2 * BM * LANES + 5, 65, 3000, 17), (2,)),
     "lenet5": ((500, 25000, 1225000, 500, 5000, 10), ()),
+    # ResNet-32's 97 segments, most of 16-64 entries, each in a block of its own
+    "resnet32": (_resnet32_sizes(), ()),
 }
 
 
@@ -1350,3 +1364,50 @@ def test_fed_round_holds_each_mean_against_plain_on_the_card(cuda, monkeypatch, 
     for w, e in zip(tree_flatten(sched.server.params)[0], tree_flatten(sched.server.estimate)[0]):
         assert w.is_cuda
         np.testing.assert_array_equal(n(w).view(np.uint32), n(e).view(np.uint32))
+
+
+COMPRESSORS = ("dgc", "dgc_policy", "fedavg", "none", "onebit", "qsgd", "randomk", "sbc",
+               "signsgd", "terngrad", "topk", "variance")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COMPRESSORS)
+def test_baseline_local_round_on_the_card(cuda, name):
+    """One LeNet5 local round of every registered compressor on the card
+    (two clients, per leaf): a finite loss, ``f32_mean_xla`` launches as
+    counted from the stages and no other kernel, every call bit-equal to
+    its plain cascade, and the ledger's measured bits equal to client 0's
+    packed upload (``Wire.measured_bits``) times the clients."""
+    from repro_torch.core import stages as core_stages
+    from repro_torch.kernels import topk as ktopk
+
+    run = build_run(RunSpec(preset="lenet5", backend="local", compressor=name, clients=2,
+                            batch=32, sparsity=0.01, measure_wire=True), device=cuda)
+    state = run.init()
+    uploads, calls = [], []
+    record = run.channel.record_round
+    run.channel.record_round = lambda r, **kw: uploads.append(kw) or record(r, **kw)
+    means = {}
+    for mod in (ktopk, core_stages):
+        real = mod.f32_mean_xla
+        means[mod] = real
+        mod.f32_mean_xla = lambda x, *a, real=real, **k: calls.append((x, a, k)) or real(
+            x, *a, **k)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        state, m = run.step(state, 0)
+        assert np.isfinite(float(m["loss"]))
+        counts = kernels.launch_counts()
+    finally:
+        for mod, real in means.items():
+            mod.f32_mean_xla = real
+    # chip_smoke.py's table of f32_mean_xla calls a leaf, by compressor
+    means = len(load_chip_smoke().leaf_mean_shapes(name, 1, 1))
+    assert counts == {**{k: 0 for k in counts}, "f32_mean_xla": means * 6 * 2}
+    for x, a, k in calls:
+        got, want = treduce.f32_mean_xla(x, *a, **k), treduce.f32_mean_xla_plain(x, *a, **k)
+        np.testing.assert_array_equal(n(got).view(np.uint32), n(want).view(np.uint32))
+    up = uploads[0]
+    bits = run.channel.wire(up["params"], up["rate"], 0).measured_bits(up["compressed0"])
+    assert run.ledger.records[0].up_bits_measured == 2 * float(bits)

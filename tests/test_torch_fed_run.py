@@ -202,7 +202,9 @@ def test_fed_launcher_kills_checkpoints_restores_and_resumes():
 @pytest.mark.parametrize("change, error, match", [
     (dict(broadcast_log=True), NotImplementedError, "ROADMAP A10"),
     (dict(preset="fed-tiny"), NotImplementedError, "ROADMAP A12"),
-    (dict(compressor="dgc"), NotImplementedError, "ROADMAP A12"),
+    # a baseline compressor runs on fed (tests/test_torch_baselines_run.py);
+    # with a decoder preset the preset still refuses
+    (dict(compressor="dgc", preset="lm-100m"), NotImplementedError, "ROADMAP A12"),
     (dict(non_iid=True), ValueError, "non_iid needs an LM preset"),
     (dict(non_iid=True, preset="charlstm"), ValueError, "non_iid needs an LM preset"),
 ])

@@ -248,7 +248,9 @@ def test_fast_and_per_leaf_local_runs_are_bit_identical():
 
 
 @pytest.mark.parametrize("change, item", [
-    (dict(preset="tiny"), "A12"), (dict(compressor="topk"), "A12"),
+    # a baseline compressor runs (tests/test_torch_baselines_run.py); with a
+    # decoder preset the preset still refuses
+    (dict(preset="tiny"), "A12"), (dict(compressor="topk", preset="fed-tiny"), "A12"),
     # the fed backend (A8) refuses only its DeltaLog broadcast, which A10 brings
     (dict(backend="fed", broadcast_log=True), "A10"),
 ], ids=["A12", "A12-compressor", "A8"])

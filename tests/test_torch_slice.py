@@ -253,15 +253,22 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
     call(device="cpu")
 
 
+# the baseline compressors and the wordlstm preset run now
+# (tests/test_torch_baselines_run.py, tests/test_torch_wordlstm.py) and
+# resnet32's preset raises the reference's ValueError
+# (tests/test_torch_resnet32.py); their cases here keep the compressor and
+# meet a field still outside the port
 @pytest.mark.parametrize("change", [
     dict(backend="fed", telemetry=True, broadcast_log=True), dict(backend="fed", preset="tiny"),
-    dict(flat_engine="exact", compressor="signsgd"),
-    dict(fast=False, compressor="dgc"), dict(preset="tiny"), dict(compressor="topk"),
-    dict(flat_engine="exact", skip_pattern="f2", fast=False, preset="resnet32"),
+    dict(flat_engine="exact", compressor="signsgd", preset="fed-tiny"),
+    dict(fast=False, compressor="dgc", backend="fed", broadcast_log=True),
+    dict(preset="tiny"), dict(compressor="topk", preset="lm-100m"),
+    dict(flat_engine="exact", skip_pattern="f2", fast=False, preset="mixtral_8x7b"),
     dict(preset="lm-100m"),
-    dict(dense_pattern="b$", backend="local", compressor="topk"),
+    dict(dense_pattern="b$", backend="local", compressor="topk", preset="tiny"),
     dict(skip_pattern="f2", preset="tiny"),
-    dict(flat_engine="exact", fast=False, backend="fed", compressor="topk"),
+    dict(flat_engine="exact", fast=False, backend="fed", compressor="topk",
+         broadcast_log=True),
 ])
 def test_specs_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -354,6 +361,40 @@ def test_full_size_cpu_rounds_use_the_plain_versions():
     assert run.fns.bits_dense == jfns.bits_dense
     assert set(tflat.launch_counts().values()) == {0}
     assert tuple(state["residual"].shape) == (1, 1, 1_259_520)
+
+
+@pytest.mark.parametrize("builder", ["DSGDTrainer", "build_dist_train", "ClientPool"])
+def test_step_builders_turn_tf32_off(builder):
+    """Every builder of a training step keeps f32 matmuls and convolutions
+    in full f32 (cuDNN runs f32 convolutions in TF32 by default), so a
+    library caller gets what ``build_run`` gives."""
+    import warnings
+
+    from repro_torch.core.api import make_compressor
+    from repro_torch.fed import ClientPool
+    from repro_torch.launch.dist import build_dist_train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train import DSGDTrainer
+
+    cfg = get_config("lenet5")
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        if builder == "DSGDTrainer":
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                DSGDTrainer(model=build_model(cfg), compressor=make_compressor("sbc"),
+                            optimizer=get_optimizer("adam"), n_clients=2, lr=lambda it: 0.1,
+                            device="cpu")
+        elif builder == "build_dist_train":
+            build_dist_train(cfg, sparsity=0.01, device="cpu")
+        else:
+            ClientPool(model=None, optimizer=None, task=None, lr=lambda it: 0.1,
+                       policy=make_compressor("sbc").policy, n_clients=2, device="cpu")
+        assert not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def test_build_dist_train_defaults_keep_the_policys_flag():

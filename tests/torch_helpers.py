@@ -26,6 +26,19 @@ def cuda():
     return torch.device("cuda")
 
 
+def load_chip_smoke():
+    """``chip_smoke.py`` at the repo's root as a module (its tables and
+    pure helpers; nothing runs at import)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_tables", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def t(a, device="cpu") -> torch.Tensor:
     """numpy (or jax) array → torch tensor, same dtype and values."""
     return torch.from_numpy(np.array(a)).to(device)
