@@ -213,7 +213,32 @@ Without arguments, phases, each of which fails the run:
      a round) and the GSPMD exact engine with the device pack (1 + 9), 3
      rounds each, and the card's peak memory.  Each path prints its step
      ms and a profiled round;
-  11. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  11. delta broadcast (``repro_torch.serve`` on the card).  (a) Phase
+     9's LeNet5 fed spec with a 5% downstream that rides the broadcast
+     log (``broadcast_log=True, delta_horizon=4``), 5 rounds with phase
+     9's checks and the counts set to 0 just before and read just after
+     (30 ``f32_mean_xla`` a round, as phase 9b's round without the log):
+     the log's replica on the card; round 1 pulls nothing; each round's
+     down bytes equal the cohort members' plans' bytes; each member's
+     replica, moved by its plan and by the stacked and full messages not
+     chosen, equals the log's replica bit for bit; a checkpoint after
+     round 3, restored into a fresh run, resumes rounds 4-5 to the
+     uninterrupted run's log, ``_last_sync``, ledger rows and W bit for
+     bit; step ms, the host ms of ``DeltaLog.append`` and of a round's
+     planning, and a profiled round.  (b) ``simulate_fanout`` on LeNet5's
+     parameters at ``benchmarks/broadcast_fanout.py``'s settings (16
+     rounds, horizon 8, a 2% downstream, periods 1, 2, 4, 8, three
+     verified classes, the default ``sbc`` + dense-small policy) at
+     10,000 and 100,000 subscribers, and (c) on WordLSTM's 19,765,200
+     parameters at 10,000 subscribers, the same settings: each with the
+     counts set to 0 just before and read just after (the server's 2
+     ``f32_mean_xla`` a leaf a round, each bit-equal to the plain
+     cascade), the pool's state on the card, the reference's gates (a
+     bit-exact stack, catch-ups cheaper than a resync at every lag, a
+     reconciled ledger), and prints rounds/s, subscriber syncs/s, bytes
+     a subscriber a round, the saving against a full resync, the plan by
+     lag, the host ms of append and planning, and the peak memory;
+  12. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -228,7 +253,8 @@ Without arguments, phases, each of which fails the run:
      launches hold its counts in ``launches_baselines``,
      ``launches_resnet32`` and ``launches_wordlstm``, and
      ``seg_select_pack`` the variance pack check's in
-     ``launches_variance_pack_check``), then the card line,
+     ``launches_variance_pack_check``; every row holds phase 11's in
+     ``launches_broadcast``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -1922,6 +1948,7 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict) -> dict:
 FED = dict(preset="lenet5", backend="fed", clients=8, cohort=4, batch=128, sparsity=0.01,
            profiles=((1, 0.01, 1.0), (2, 0.01, 1.0)), cohort_tile=1, rounds=ROUNDS)
 FED_PER_ROUND = {True: per_call(f32_mean_xla=4 * 6), False: per_call(f32_mean_xla=4 * 2 * 6)}
+FED_DOWN = dict(FED, fast=True, down_sparsity=0.05)
 FED_DOWN_PER_ROUND = per_call(f32_mean_xla=4 * 6 + 6)
 # CharLSTM: 4 clients, cohorts of 2 in one profile, one tile: 8 a round
 FED_CHARLSTM = dict(CHARLSTM, backend="fed", clients=4, cohort=2, fast=True, rounds=3)
@@ -2103,9 +2130,10 @@ def fed_state(sched) -> list:
             + [torch.as_tensor(x) for x in tree_flatten(tuple(st["opt"]))[0]])
 
 
-def fed_phase(dev) -> dict:
+def fed_phase(dev) -> tuple:
     """Phase 9: the fed backend on the card (ROADMAP A8).  Returns each
-    path's f32_mean_xla launches."""
+    path's f32_mean_xla launches, and 9b's per-round losses and trained
+    state (``fed_state``) after its rounds."""
     import tempfile
 
     import numpy as np
@@ -2137,7 +2165,7 @@ def fed_phase(dev) -> dict:
     # 9b. the 5% downstream: the broadcast compresses on the card; the
     # replica advances by exactly the broadcast's decoded bytes
     label = "fed lenet5 (flat, 5% downstream)"
-    run = build_run(RunSpec(**FED, fast=True, down_sparsity=0.05), device=dev)
+    run = build_run(RunSpec(**FED_DOWN), device=dev)
     server = run.init().server
     broadcast, sent = server.broadcast, []
 
@@ -2176,6 +2204,7 @@ def fed_phase(dev) -> dict:
           f"{t['down_bytes'] / 1e3:.1f} kB against the dense path's "
           f"{sum(paths[True]['history']['down_bytes']) / 1e3:.1f} kB in {ROUNDS} rounds")
     launches[label] = down["launches"]["f32_mean_xla"]
+    trained = {"losses": [m["loss"] for m in down["metrics"]], "state": down["state"]}
     fed_profiled_round(down["sched"], ROUNDS, label)
 
     # 9c. elasticity: a corrupt upload and a straggler in round 1, a kill
@@ -2261,7 +2290,7 @@ def fed_phase(dev) -> dict:
     lstm["sched"].ledger.reconcile(rel=0.1)
     launches[label] = lstm["launches"]["f32_mean_xla"]
     fed_profiled_round(lstm["sched"], FED_CHARLSTM["rounds"], label)
-    return launches
+    return launches, trained
 
 
 # ------------------------------------------- the paper's baselines and models
@@ -2598,6 +2627,304 @@ def wordlstm_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ delta broadcast
+
+
+# phase 11a: phase 9's LeNet5 fed spec with a 5% downstream that rides the
+# broadcast log (horizon 4): the log adds no launch, so a round launches
+# phase 9b's 30 f32_mean_xla (4 tiles x 6, and the broadcast's 6)
+FED_LOG = dict(FED_DOWN, broadcast_log=True, delta_horizon=4)
+FED_LOG_PER_ROUND = FED_DOWN_PER_ROUND
+FED_LOG_CKPT_ROUND = 2  # checkpoint after round 3 (index 2), resume rounds 4 and 5
+# 11b: benchmarks/broadcast_fanout.py's settings (16 rounds, horizon 8, a 2%
+# downstream, sync periods 1, 2, 4, 8, three verified classes, sbc with the
+# small leaves dense) on LeNet5, at 10,000 and 100,000 subscribers; the
+# server's per-leaf downstream compress takes 2 f32_mean_xla a leaf
+FANOUT = dict(rounds=16, horizon=8, down_sparsity=0.02, periods=(1, 2, 4, 8),
+              verify_classes=3, seed=0)
+FANOUT_SUBSCRIBERS = (10_000, 100_000)
+LENET5_PARAMS = 1_256_010
+FANOUT_LENET5_PER_ROUND = per_call(f32_mean_xla=2 * LENET5_LEAVES)
+# 11c: the same settings, uncut, on WordLSTM (19,765,200 parameters,
+# 395,304 positions a broadcast at 2%), the largest union to code; the
+# host Golomb coder sets its time (a horizon cut below the longest period,
+# 8, would force that class to full resyncs)
+FANOUT_WORDLSTM_PER_ROUND = per_call(f32_mean_xla=2 * WORDLSTM_LEAVES)
+
+
+@contextlib.contextmanager
+def broadcast_observed(plans: list, append_ms: list, plan_ms: list, others: bool = False):
+    """Time every ``DeltaLog.append`` and ``CatchupPlanner.plan`` (host ms,
+    appended to the lists) and record every plan as ``(head, from_round,
+    plan, the log's replica then, the SBD1 messages not chosen)``; the last
+    two only with ``others`` (else None and []): the stacked message (where
+    the window is held) and the full one, encoded after the timer."""
+    from repro_torch.serve import broadcast as sb
+    from repro_torch.serve import deltalog as sd
+
+    append, plan = sd.DeltaLog.append, sb.CatchupPlanner.plan
+
+    def timed_append(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        entry = append(self, *args, **kwargs)
+        append_ms.append((time.perf_counter() - t0) * 1e3)
+        return entry
+
+    def timed_plan(self, from_round):
+        t0 = time.perf_counter()
+        got = plan(self, from_round)
+        plan_ms.append((self.log.head, (time.perf_counter() - t0) * 1e3))
+        replica, rest = None, []
+        if others:
+            replica = self.log.replica_flat()
+            if got.kind not in ("stacked", "none") and self.log.can_stack(from_round):
+                rest.append(self.log.encode_stacked(from_round).blob)
+            if got.kind not in ("full", "none"):
+                rest.append(self.log.encode_full().blob)
+        plans.append((self.log.head, from_round, got, replica, rest))
+        return got
+
+    with swapped(sd.DeltaLog, {"append": timed_append}), \
+            swapped(sb.CatchupPlanner, {"plan": timed_plan}):
+        yield
+
+
+def log_state(sched) -> dict:
+    """The log path's state: the log's head, replica and held blobs, the
+    channel's sync horizon, the ledger's rows and W."""
+    from repro_torch.core.tree import tree_flatten
+
+    log = sched.server.delta_log
+    return {"head": log.head, "replica": [r.clone() for r in log._replica],
+            "blobs": [(e.round, e.blob) for e in log._entries],
+            "last_sync": dict(sched.channel._last_sync), "history": sched.ledger.history(),
+            "params": [x.clone() for x in tree_flatten(sched.server.params)[0]]}
+
+
+def same_log_state(a: dict, b: dict) -> bool:
+    return (a["head"] == b["head"] and a["blobs"] == b["blobs"]
+            and a["last_sync"] == b["last_sync"] and a["history"] == b["history"]
+            and all(bit_equal(x, y) for x, y in zip(a["replica"], b["replica"]))
+            and all(bit_equal(x, y) for x, y in zip(a["params"], b["params"])))
+
+
+def fed_log_phase(dev, trained: dict) -> int:
+    """Phase 11a: the fed backend with the broadcast log on the card, held
+    to phase 9b's run of the same spec without the log (``trained``: its
+    per-round losses and trained state).  Returns the f32_mean_xla
+    launches of its rounds."""
+    import tempfile
+
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.fed import restore_fed_state
+    from repro_torch.run import RunSpec, build_run
+    from repro_torch.serve import apply_catchup_flat, apply_plan
+
+    label = "fed lenet5 (broadcast log)"
+    run = build_run(RunSpec(**FED_LOG), device=dev)
+    sched = run.init()
+    log, channel = sched.server.delta_log, sched.channel
+    check(log is not None and log.device.type == "cuda"
+          and all(r.is_cuda for r in log._replica), f"{label}: the log's replica is not on the card")
+    initial = log.replica_flat()
+    cohorts, synced_before, plans, append_ms, plan_ms = {}, {}, [], [], []
+    exchange = channel.round_exchange
+
+    def observed_exchange(round_idx, cohort, *args, **kwargs):
+        cohorts[round_idx] = [int(c) for c in cohort]
+        return exchange(round_idx, cohort, *args, **kwargs)
+
+    def before_round(r, s):
+        synced_before[r] = dict(channel._last_sync)
+
+    channel.round_exchange = observed_exchange
+    try:
+        with broadcast_observed(plans, append_ms, plan_ms, others=True):
+            drove = fed_drive(dev, None, FED_LOG_PER_ROUND, label, run=run,
+                              before_round=before_round)
+    finally:
+        del channel.round_exchange
+    whole = log_state(sched)
+    # the log changes what is metered, not what is trained
+    losses = [m["loss"] for m in drove["metrics"]]
+    check(losses == trained["losses"] and len(drove["state"]) == len(trained["state"])
+          and all(bit_equal(a, b) for a, b in zip(drove["state"], trained["state"])),
+          f"{label}: losses {losses} or the params and client rows differ from phase 9b's "
+          f"run without the log ({trained['losses']})")
+    print(f"{label}: per-round losses, params and client rows bit-identical to phase 9b's "
+          f"run of the same spec without the log")
+
+    # round 0 pulls nothing; a round's down bytes are its members' plans'
+    # bytes; a member's replica moved by its plan, each replayed SBW1 blob
+    # decoded through the server's down wire as a receiver decodes it, is
+    # the log's replica bit for bit
+    def receiver_dense(round_idx, blob):
+        dense = sched.server.down_wire(round_idx).unpack(blob)
+        return [x.reshape(-1).to(dev) for x in tree_flatten(dense)[0]]
+
+    members = {}
+    by_round: dict = {}
+    for head, frm, plan, replica, rest in plans:
+        by_round.setdefault(head + 1, {})[frm] = (plan, replica, rest)
+    moved = others = decoded = 0
+    for r, m in enumerate(drove["metrics"]):
+        made = by_round.get(r, {})
+        want = 0
+        for cid in cohorts[r]:
+            frm = synced_before[r].get(cid, -1)
+            check(frm in made, f"{label} round {r + 1}: no plan from round {frm}")
+            plan, replica, rest = made[frm]
+            want += plan.nbytes
+            if plan.kind == "none":
+                continue
+            at, flats = members.get(cid, (-1, initial))
+            check(at == frm, f"{label} round {r + 1}: client {cid} holds round {at}, not {frm}")
+            # the messages not chosen move the same replica to the same bits
+            for blob in rest:
+                got = apply_catchup_flat(flats, blob)[0]
+                check(all(bit_equal(a, b) for a, b in zip(got, replica)),
+                      f"{label} round {r + 1}: client {cid}'s replica moved by the "
+                      f"{'stacked' if blob[4] == 0 else 'full'} message != the log's replica")
+                others += 1
+            flats = apply_plan(flats, plan, receiver_dense)
+            decoded += len(plan.blobs) if plan.kind == "replay" else 0
+            check(all(bit_equal(a, b) for a, b in zip(flats, replica)),
+                  f"{label} round {r + 1}: client {cid}'s replica moved by its {plan.kind} plan "
+                  f"!= the log's replica")
+            members[cid] = (plan.to_round, flats)
+            moved += 1
+        check(m["down_bytes"] == want, f"{label} round {r + 1}: down bytes {m['down_bytes']} != "
+              f"the members' plans' {want}")
+    check(drove["metrics"][0]["down_bytes"] == 0, f"{label}: round 1 pulled bytes")
+    kinds = sorted({p[2].kind for p in plans})
+    print(f"{label}: round 1 pulled nothing; every round's down bytes == the members' plans' "
+          f"bytes ({[m['down_bytes'] for m in drove['metrics']]}); {moved} member replicas moved "
+          f"by their plans ({kinds}; {decoded} replayed SBW1 blobs decoded through the down "
+          f"wire), and by the {others} stacked and full messages not chosen, == the log's "
+          f"replica bit for bit on the card")
+    # no reconcile, as in phase 9b: round 1's gap broadcast at p = 0.05 holds
+    # fewer non-zero entries than k, so its positions are no geometric draw
+    per_round = [sum(ms for h, ms in plan_ms if h == r - 1) for r in range(ROUNDS)]
+    print(f"{label}: step ms rounds 2-{ROUNDS} {[round(x, 3) for x in drove['step_ms'][1:]]}; "
+          f"DeltaLog.append host ms {[round(x, 3) for x in append_ms]}; planning host ms a "
+          f"round {[round(x, 3) for x in per_round]}")
+    fed_profiled_round(sched, ROUNDS, label)
+
+    # a checkpoint after round 3 resumes rounds 4 and 5 to the same log
+    part = build_run(RunSpec(**FED_LOG), device=dev)
+    ps = part.init()
+    for r in range(FED_LOG_CKPT_ROUND + 1):
+        ps.step(r)
+    with tempfile.TemporaryDirectory() as tmp:
+        part.checkpoint(ps, f"{tmp}/fed.npz", rounds_done=FED_LOG_CKPT_ROUND + 1)
+        fresh = build_run(RunSpec(**FED_LOG), device=dev)
+        rs = fresh.init()
+        meta = restore_fed_state(f"{tmp}/fed.npz", rs)
+    check(meta["log"]["head"] == FED_LOG_CKPT_ROUND, f"{label}: checkpoint log {meta['log']}")
+    for r in range(FED_LOG_CKPT_ROUND + 1, ROUNDS):
+        rs.step(r)
+    check(same_log_state(log_state(rs), whole),
+          f"{label}: the resumed run's log, last_sync, ledger or params differ from the "
+          f"uninterrupted run's")
+    print(f"{label}: checkpoint after round {FED_LOG_CKPT_ROUND + 1}, restore, rounds "
+          f"{FED_LOG_CKPT_ROUND + 2}-{ROUNDS}: log (head {whole['head']}, replica, "
+          f"{len(whole['blobs'])} blobs), last_sync, ledger rows and W bit-identical to the "
+          f"uninterrupted run")
+    t = sched.ledger.totals()
+    print(f"{label}: down {t['down_bytes'] / 1e3:.1f} kB in {ROUNDS} rounds, measured/analytic "
+          f"down x{t['down_bits_measured'] / max(t['down_bits_analytic'], 1):.3f}")
+    return drove["launches"]["f32_mean_xla"]
+
+
+def fanout_run(dev, preset: str, n_subscribers: int, settings: dict, per_round: dict,
+               label: str) -> dict:
+    """``simulate_fanout`` on ``preset``'s parameters (the model's seed-0
+    init) on the card, with the launch counts set to 0 just before and read
+    just after (``per_round`` a round, nothing else), every ``f32_mean_xla``
+    call held bit for bit against the plain cascade, the pool's state and
+    the log's replica on the card, and the reference's gates: a bit-exact
+    stack, catch-ups cheaper than a resync at every lag, a reconciled
+    ledger.  Prints the rates, bytes, saving, plan by lag and host ms."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import stages as core_stages
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import reduce as kreduce
+    from repro_torch.kernels import topk as ktopk
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import broadcast as sb
+    from repro_torch.serve import simulate_fanout
+
+    params = build_model(get_config(preset)).init(torch.Generator().manual_seed(0))
+    means, pools, plans, append_ms, plan_ms = [], [], [], [], []
+    sync = sb.SubscriberPool.sync_round
+
+    def observed_sync(self, round_idx):
+        if not pools:
+            pools.append(self)
+        return sync(self, round_idx)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    with swapped(ktopk, recording(ktopk, ("f32_mean_xla",), means)), \
+            swapped(core_stages, recording(core_stages, ("f32_mean_xla",), means)), \
+            swapped(sb.SubscriberPool, {"sync_round": observed_sync}), \
+            broadcast_observed(plans, append_ms, plan_ms):
+        t0 = time.perf_counter()
+        out = simulate_fanout(params, n_subscribers=n_subscribers, device=dev, **settings)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rounds = settings["rounds"]
+    check(launches == {k: v * rounds for k, v in per_round.items()},
+          f"{label}: launches {launches}, not {per_round} a round for {rounds} rounds")
+    pool = pools[0]
+    check(pool._synced.is_cuda and pool._bytes.is_cuda and pool.log._replica[0].is_cuda,
+          f"{label}: the pool's state or the log's replica is not on the card")
+    for _, args, kwargs in means:
+        check(bit_equal(kreduce.f32_mean_xla(*args, **kwargs),
+                        kreduce.f32_mean_xla_plain(*args, **kwargs)),
+              f"{label}: f32_mean_xla on {tuple(args[0].shape)}: kernel != plain cascade")
+    check(out["n_params"] == sum(v.numel() for v in tree_flatten(params)[0]),
+          f"{label}: {out['n_params']} params")
+    check(out["stack_bit_exact"] and out["catchup_beats_full_all_lags"]
+          and out["ledger_reconciles"], f"{label}: gates {out}")
+    classes = {p.kind for _, _, p, _, _ in plans}
+    per_round_plan = [sum(ms for h, ms in plan_ms if h == r) for r in range(rounds)]
+    print(f"{label}: {n_subscribers} subscribers x {rounds} rounds (horizon "
+          f"{settings['horizon']}, p_down {settings['down_sparsity']}, {out['n_params']} params) "
+          f"in {wall_s:.2f} s: {out['rounds_per_sec']:.3f} rounds/s, "
+          f"{out['subscriber_syncs_per_sec']:.0f} subscriber syncs/s, "
+          f"{out['bytes_per_subscriber_per_round']:.1f} B a subscriber a round (full resync "
+          f"{out['full_resync_bytes']} B), saving x{out['bytes_saving_vs_full_resync']:.2f} "
+          f"against a full resync; stack bit-exact ({pool.verified_syncs} verified syncs), "
+          f"catch-ups beat a resync at every lag, ledger reconciled; plans made {sorted(classes)}")
+    print(f"{label}: plan by lag " + json.dumps(
+        {lag: {"kind": v["kind"], "nbytes": v["nbytes"]} for lag, v in out["plan_by_lag"].items()}))
+    print(f"{label}: DeltaLog.append host ms {[round(x, 1) for x in append_ms]}; planning host "
+          f"ms a round {[round(x, 1) for x in per_round_plan]}; {len(means)} f32_mean_xla calls "
+          f"bit-equal to the plain cascade; the card's peak memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    return launches
+
+
+def broadcast_phase(dev, trained: dict) -> dict:
+    """Phase 11: delta broadcast on the card (ROADMAP A10); ``trained`` is
+    phase 9b's run without the log.  Returns each path's launches (every
+    kernel, its whole run)."""
+    out = {"fed lenet5 (broadcast log)": {"f32_mean_xla": fed_log_phase(dev, trained)}}
+    for n in FANOUT_SUBSCRIBERS:
+        label = f"fanout lenet5 ({n} subscribers)"
+        out[label] = fanout_run(dev, "lenet5", n, FANOUT, FANOUT_LENET5_PER_ROUND, label)
+    label = f"fanout wordlstm ({FANOUT_SUBSCRIBERS[0]} subscribers)"
+    out[label] = fanout_run(dev, "wordlstm", FANOUT_SUBSCRIBERS[0], FANOUT,
+                            FANOUT_WORDLSTM_PER_ROUND, label)
+    return out
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -2704,12 +3031,15 @@ def main(argv: list) -> int:
     multi = multi_rank_phase(dev)
 
     # ---- 9. federation
-    fed = fed_phase(dev)
+    fed, fed_down = fed_phase(dev)
 
     # ---- 10. the paper's baselines, ResNet-32 and WordLSTM
     baselines = table2_phase(dev)
     resnet32 = resnet32_phase(dev)
     wordlstm = wordlstm_phase(dev)
+
+    # ---- 11. delta broadcast
+    broadcast = broadcast_phase(dev, fed_down)
     check(set(rows) == set(KERNELS), f"kernels compared: {sorted(rows)}")
     rows["f32_mean_xla"]["launches_local_per_leaf_path"] = local[False]["f32_mean_xla"]
     rows["f32_mean_xla"]["launches_local_flat_path"] = local[True]["f32_mean_xla"]
@@ -2737,8 +3067,13 @@ def main(argv: list) -> int:
                 rows[name][key] = counts
     # the variance upload's device pack, a check made after its rounds
     rows["seg_select_pack"]["launches_variance_pack_check"] = baselines["variance_pack"]
+    # phase 11's launches, on every row: the broadcast paths launch
+    # f32_mean_xla only (the server's downstream compress)
+    for name in KERNELS:
+        rows[name]["launches_broadcast"] = {path: counts.get(name, 0)
+                                            for path, counts in broadcast.items()}
 
-    # ---- 11. results
+    # ---- 12. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

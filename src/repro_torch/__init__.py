@@ -19,7 +19,9 @@ whose Golomb wire is packed by the kernels of
 The GSPMD backend also runs one client per process over
 ``torch.distributed``, and the fed backend (:mod:`repro_torch.fed`,
 ``backend="fed"``) a parameter server and a client pool on one card, with
-real SBW1 bytes both ways.  ``telemetry=True`` traces a run into the
+real SBW1 bytes both ways; with ``broadcast_log=True`` its downstream
+rides a broadcast log (:mod:`repro_torch.serve`: SBD1 catch-ups, and a
+subscriber fan-out on the card).  ``telemetry=True`` traces a run into the
 reference's ``repro-obs-v1`` files (:mod:`repro_torch.obs`).
 
 It also carries the codec core as a library, as in the reference:

@@ -626,8 +626,10 @@ class FedWireChannel:
     the other end (DESIGN.md §9).
 
     The server and the pool share ONE cached :class:`ResolvedPolicy` per
-    (policy, topology) through :func:`resolve_cached`.  A broadcast that
-    rides a DeltaLog comes with ROADMAP A10 (the server refuses it).
+    (policy, topology) through :func:`resolve_cached`.  When the server
+    carries a :class:`~repro_torch.serve.deltalog.DeltaLog`
+    (``delta_horizon``), each cohort member pulls the cheapest catch-up
+    from its last-synced round instead of a fresh per-member broadcast.
     """
 
     server: Any  # repro_torch.fed.server.ParameterServer
@@ -636,6 +638,10 @@ class FedWireChannel:
     def __post_init__(self) -> None:
         self.ledger = BandwidthLedger()
         self.telemetry = NULL_TELEMETRY  # build_run swaps in an enabled one
+        # DeltaLog-backed downstream (server.delta_horizon set): per-client
+        # last-synced round + one CatchupPlanner over the server's log
+        self._last_sync: Dict[int, int] = {}
+        self._planner: Any = None
         # a mid-round kill (ServerKilled at post_aggregate) parks the
         # aggregated-but-unbroadcast round here; checkpointable, finished
         # by _finish_round on resume
@@ -679,6 +685,32 @@ class FedWireChannel:
         fsched = faults if faults is not None else NO_FAULTS
         if staleness is None:
             staleness = np.zeros((len(cohort),), np.int64)
+
+        log = getattr(self.server, "delta_log", None)
+        catchup = None
+        if log is not None:
+            # the broadcast rides the DeltaLog: each cohort member PULLS
+            # the cheapest catch-up (replay / stacked / full) from its
+            # last-synced round up to the current head before training —
+            # one plan/encode per distinct lag class, bytes shared within
+            # the class — instead of paying a fresh per-member broadcast
+            from repro_torch.serve.broadcast import CatchupPlanner
+
+            if self._planner is None or self._planner.log is not log:
+                self._planner = CatchupPlanner(log, telemetry=self.telemetry)
+            plans: Dict[int, Any] = {}
+            down_bytes = 0
+            down_m = down_a = 0.0
+            for cid in cohort:
+                frm = self._last_sync.get(int(cid), -1)
+                plan = plans.get(frm)
+                if plan is None:
+                    plan = plans[frm] = self._planner.plan(frm)
+                down_bytes += plan.nbytes
+                down_m += plan.bits_measured
+                down_a += plan.bits_analytic
+                self._last_sync[int(cid)] = log.head
+            catchup = (down_bytes, down_m, down_a)
 
         # at-risk members (stragglers to abort, uploads to corrupt) get a
         # pre-round snapshot: a failed participation must leave residual,
@@ -738,7 +770,7 @@ class FedWireChannel:
             "update_norm": float(info["update_norm"]),
             "weights": [float(w) for w in info["weights"]],
             "staleness": [int(s) for s in staleness],
-            "catchup": None,  # a DeltaLog catch-up's bytes (ROADMAP A10)
+            "catchup": catchup,
         }
         if kill_step == "post_aggregate":
             self._pending = pending
@@ -753,7 +785,12 @@ class FedWireChannel:
         round_idx = pending["round_idx"]
         bc = self.server.broadcast(round_idx)
         recipients = len(pending["cohort"])
-        down_bytes = len(bc.blob) * recipients
+        if pending["catchup"] is None:
+            down_bytes = len(bc.blob) * recipients
+            down_m = bc.bits_measured * recipients
+            down_a = bc.bits_analytic * recipients
+        else:
+            down_bytes, down_m, down_a = pending["catchup"]
         self.ledger.record(RoundRecord(
             round=round_idx,
             cohort=tuple(pending["accepted"]),
@@ -761,8 +798,8 @@ class FedWireChannel:
             up_bits_measured=pending["up_bits_measured"],
             up_bits_analytic=pending["up_bits_analytic"],
             down_bytes=down_bytes,
-            down_bits_measured=bc.bits_measured * recipients,
-            down_bits_analytic=bc.bits_analytic * recipients,
+            down_bits_measured=down_m,
+            down_bits_analytic=down_a,
             down_recipients=recipients,
             up_bytes_wasted=pending["up_bytes_wasted"],
         ))

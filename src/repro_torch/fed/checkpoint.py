@@ -10,16 +10,20 @@ compressed ``.npz`` holding
                     downstream compressor state ``down/{residual,rng,step}``
                     and the pool's ``pool/{opt,residual,rng,step}``;
   ``snap/k/i``      leaf i of the scheduler's k-th staleness snapshot;
+  ``log/replica/i`` leaf i of the broadcast DeltaLog's replica, and
+  ``log/blob/j``    the j-th held broadcast blob (u8), when the server
+                    carries a log;
   ``__fedmeta__``   one JSON blob: round counters, rejoin bookkeeping,
-                    fired kills, the ledger's rows, and the pending round
-                    of a mid-round kill.
+                    fired kills, the channel's per-client sync horizon
+                    (``last_sync``), the ledger's rows, the log's head,
+                    entry rounds and analytic bits (``log``), and the
+                    pending round of a mid-round kill.
 
 :func:`restore_fed_state` writes it back into a freshly built scheduler of
 the same spec (shapes are checked against its state), after which
 ``resume_pending()`` + ``run(..., start_round=...)`` continues the run bit
-for bit.  The broadcast DeltaLog's ``log/…`` entries and the channel's
-per-client sync horizon come with ROADMAP A10; a checkpoint that holds
-them is refused.
+for bit.  The log's held entries re-decode from their bytes through the
+server's ``down_wire``.
 """
 from __future__ import annotations
 
@@ -73,6 +77,20 @@ def save_fed_state(path: str, sched, rounds_done: Optional[int] = None) -> None:
         for i, leaf in enumerate(tree_flatten(snap)[0]):
             put(f"snap/{k}/{i}", leaf)
 
+    log = getattr(sched.server, "delta_log", None)
+    log_meta = None
+    if log is not None:
+        st = log.state_dict()
+        for i, rep in enumerate(st["replica"]):
+            arrays[f"log/replica/{i}"] = rep
+        for j, (_, blob, _) in enumerate(st["entries"]):
+            arrays[f"log/blob/{j}"] = np.frombuffer(blob, np.uint8)
+        log_meta = {
+            "head": st["head"],
+            "entry_rounds": [r for r, _, _ in st["entries"]],
+            "entry_bits": [b for _, _, b in st["entries"]],
+        }
+
     ch = sched.channel
     meta = {
         "format": FORMAT,
@@ -82,10 +100,10 @@ def save_fed_state(path: str, sched, rounds_done: Optional[int] = None) -> None:
         "last_download": {str(k): int(v) for k, v in sched._last_download.items()},
         "failed": {str(k): int(v) for k, v in sched._failed.items()},
         "kills_fired": sorted([int(r), s] for r, s in sched._kills_fired),
-        "last_sync": {},  # the DeltaLog's per-client sync horizon (A10)
+        "last_sync": {str(k): int(v) for k, v in ch._last_sync.items()},
         "pending": ch._pending,
         "ledger": [dataclasses.asdict(rec) for rec in ch.ledger.records],
-        "log": None,  # the DeltaLog's window (A10)
+        "log": log_meta,
     }
     arrays["__fedmeta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -103,10 +121,6 @@ def restore_fed_state(path: str, sched) -> dict:
     if meta.get("format") != FORMAT:
         raise ValueError(f"{path} is not a {FORMAT} checkpoint "
                          f"(format={meta.get('format')!r})")
-    if meta.get("log") is not None or meta.get("last_sync") or any(
-            k.startswith("log/") for k in data):
-        raise NotImplementedError(
-            f"{path} holds a broadcast DeltaLog; restoring it comes with ROADMAP A10")
 
     # -- template-shaped half: restore into the fresh scheduler's structure
     tmpl = _fixed_tree(sched)
@@ -136,11 +150,35 @@ def restore_fed_state(path: str, sched) -> dict:
                   for i, e in enumerate(tree_flatten(server.estimate)[0])]
         sched._snapshots.append(tree_flatten(server.estimate)[1].unflatten(leaves))
 
-    # -- bookkeeping: rejoin maps, fired kills, ledger, pending
+    # -- DeltaLog: replica set directly, window entries re-decoded from
+    #    their stored bytes through the same down-wire contract
+    log = getattr(server, "delta_log", None)
+    if (log is None) != (meta["log"] is None):
+        raise ValueError(
+            "checkpoint and scheduler disagree on delta_horizon "
+            f"(checkpoint log: {meta['log'] is not None}, "
+            f"scheduler log: {log is not None})")
+    if log is not None:
+        lm = meta["log"]
+
+        def get(key: str) -> np.ndarray:
+            if key not in data:
+                raise ValueError(f"checkpoint {path} is missing array {key!r}")
+            return data[key]
+
+        log.restore({
+            "head": lm["head"],
+            "replica": [get(f"log/replica/{i}") for i in range(len(log._replica))],
+            "entries": [(r, get(f"log/blob/{j}").tobytes(), b)
+                        for j, (r, b) in enumerate(zip(lm["entry_rounds"], lm["entry_bits"]))],
+        }, wire_for_round=server.down_wire)
+
+    # -- bookkeeping: rejoin maps, fired kills, sync horizon, ledger, pending
     sched._last_download = {int(k): int(v) for k, v in meta["last_download"].items()}
     sched._failed = {int(k): int(v) for k, v in meta["failed"].items()}
     sched._kills_fired = {(int(r), str(s)) for r, s in meta["kills_fired"]}
     ch = sched.channel
+    ch._last_sync = {int(k): int(v) for k, v in meta["last_sync"].items()}
     ch._pending = meta["pending"]
     ch.ledger = BandwidthLedger()
     for rec in meta["ledger"]:

@@ -105,8 +105,9 @@ class ParameterServer:
     it.  ``up_policy`` must be the policy the clients compress with (the
     shared wire contract); ``down_policy`` defaults to it, or to a dense
     ``dense32`` policy when ``down_sparsity >= 1`` (the classic FL
-    assumption).  ``delta_horizon`` (a DeltaLog of broadcasts) comes with
-    ROADMAP A10 and raises until then.
+    assumption).  ``delta_horizon`` attaches a
+    :class:`~repro_torch.serve.deltalog.DeltaLog` on the server's device
+    that logs every broadcast once for catch-ups.
     """
 
     params: PyTree
@@ -115,18 +116,13 @@ class ParameterServer:
     down_sparsity: float = 1.0
     aggregator: str = "mean"
     staleness_beta: float = 0.5
-    delta_horizon: Optional[int] = None  # rounds kept in the DeltaLog (A10)
+    delta_horizon: Optional[int] = None  # rounds kept in the DeltaLog
 
     def __post_init__(self) -> None:
         self.telemetry = NULL_TELEMETRY  # the run layer swaps in an enabled one
         if self.aggregator not in AGGREGATORS:
             raise KeyError(
                 f"unknown aggregator {self.aggregator!r}; have {sorted(AGGREGATORS)}"
-            )
-        if self.delta_horizon is not None:
-            raise NotImplementedError(
-                "not ported yet: the broadcast DeltaLog (delta_horizon, "
-                "RunSpec.broadcast_log; serve/deltalog.py) comes with ROADMAP A10"
             )
         if self.down_policy is None:
             # a dense broadcast cannot ride a sparse-position codec: at p=1
@@ -143,6 +139,15 @@ class ParameterServer:
         # the clients' replica Ŵ — advanced ONLY by broadcast wire content
         self.estimate: PyTree = f32
         self._wires: Dict[Tuple[Tuple[float, ...], bool], Wire] = {}
+        # optional round-indexed broadcast log (serve/deltalog.py): every
+        # broadcast is appended so receivers lagging k rounds can pull a
+        # stacked catch-up instead of k re-broadcasts or a full resync
+        self.delta_log = None
+        if self.delta_horizon is not None:
+            from repro_torch.serve.deltalog import DeltaLog
+
+            dev = tree_flatten(f32)[0][0].device
+            self.delta_log = DeltaLog(f32, horizon=int(self.delta_horizon), device=dev)
 
     # ------------------------------------------------------------- wiring
 
@@ -251,10 +256,15 @@ class ParameterServer:
                 delta, self._down_state, rates)
             self.telemetry.fence(dense)
         with self.telemetry.span("encode", round=round_idx, side="down"):
-            blob, bits = self.down_wire(round_idx).pack_with_bits(ctree)
+            wire = self.down_wire(round_idx)
+            blob, bits = wire.pack_with_bits(ctree)
         self.estimate = tree_map(torch.add, self.estimate, dense)
-        return Broadcast(blob=blob, dense=dense,
-                         bits_analytic=float(self._down_resolved.total_bits(ctree)),
+        analytic = float(self._down_resolved.total_bits(ctree))
+        if self.delta_log is not None:
+            # the log decodes the blob through the same wire a receiver
+            # uses, so its replica trajectory is the receivers', bit for bit
+            self.delta_log.append(round_idx, blob, wire, bits_analytic=analytic)
+        return Broadcast(blob=blob, dense=dense, bits_analytic=analytic,
                          bits_measured=float(bits))
 
     @property

@@ -23,8 +23,8 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List, Tuple
 
-# name -> (kind, description): the reference's table, whole (the fed and
-# serve names included, which the port records once A8 and A10 come).
+# name -> (kind, description): the reference's table, whole; the fed
+# backend records the fed names, serve/broadcast.py the serve names.
 METRIC_NAMES: Dict[str, Tuple[str, str]] = {
     # ---- wire accounting (one sample per round, straight off the ledger)
     "wire/up_bytes": ("gauge", "framed upstream SBW1 bytes this round"),

@@ -73,8 +73,6 @@ from repro_torch.run.spec import RunSpec
 def _check_slice(spec: RunSpec) -> None:
     """Refuse every spec field this port does not carry yet."""
     todo = []
-    if spec.backend == "fed" and spec.broadcast_log:
-        todo.append("broadcast_log, the fed broadcast DeltaLog (ROADMAP A10)")
     if spec.preset not in PORTED_PRESETS:
         todo.append(f"preset {spec.preset!r} (ROADMAP A12, part 2)")
     if todo:
@@ -84,7 +82,7 @@ def _check_slice(spec: RunSpec) -> None:
             "(sbc and the baselines) on backend='local' (fast either way, "
             "measure_wire), on backend='gspmd' (one client per rank; fast=True "
             "with flat_engine='hist' or 'exact' (device_pack), or fast=False; "
-            "measure_wire) and on backend='fed' (without broadcast_log), with "
+            "measure_wire) and on backend='fed' (broadcast_log too), with "
             "dense_pattern, skip_pattern and telemetry on all three."
         )
 
@@ -392,7 +390,8 @@ class FedRun(Run):
         lr = spec.lr if spec.lr is not None else self.cfg.base_lr
         server = ParameterServer(
             params=params, up_policy=policy, down_sparsity=spec.down_sparsity,
-            aggregator=agg, staleness_beta=spec.staleness_beta)
+            aggregator=agg, staleness_beta=spec.staleness_beta,
+            delta_horizon=spec.delta_horizon if spec.broadcast_log else None)
         pool = ClientPool(
             model=self.model, optimizer=get_optimizer(self.cfg.local_opt), policy=policy,
             task=self.task, n_clients=spec.clients, lr=lr_schedule(lr),

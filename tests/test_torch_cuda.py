@@ -1411,3 +1411,50 @@ def test_baseline_local_round_on_the_card(cuda, name):
     up = uploads[0]
     bits = run.channel.wire(up["params"], up["rate"], 0).measured_bits(up["compressed0"])
     assert run.ledger.records[0].up_bits_measured == 2 * float(bits)
+
+
+def test_broadcast_log_and_pool_on_the_card_equal_the_cpu(cuda):
+    """The fed server's broadcast log and a subscriber pool on the card
+    against the same on the CPU, fed the same seeded updates: every
+    broadcast, the log's replica, every stacked and full message, each
+    round's fan-out and the pool's arrays are equal; the card's log never
+    falls back to the host."""
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.fed.server import ParameterServer
+    from repro_torch.serve import SubscriberPool, apply_catchup_flat
+
+    rng = np.random.default_rng(42)
+    base = {"w": rng.normal(size=(20_000,)).astype(np.float32),
+            "b": rng.normal(size=(50,)).astype(np.float32)}
+    ends = {}
+    for dev in ("cpu", "cuda"):
+        server = ParameterServer(params={k: torch.from_numpy(v).to(dev) for k, v in base.items()},
+                                 up_policy=CompressionPolicy.single("sbc"), down_sparsity=0.05,
+                                 delta_horizon=4)
+        pool = SubscriberPool(log=server.delta_log, n_subscribers=2_000, periods=(1, 2, 3, 6),
+                              verify_classes=4)
+        draws = np.random.default_rng(7)
+        blobs, infos, msgs = [], [], []
+        for r in range(8):
+            server.params = {k: v + torch.from_numpy(
+                (1e-2 * draws.standard_normal(v.shape)).astype(np.float32)).to(dev)
+                for k, v in server.params.items()}
+            blobs.append(server.broadcast(r).blob)
+            infos.append(pool.sync_round(r))
+            log = server.delta_log
+            msgs.append([log.encode_stacked(f).blob for f in range(log.oldest - 1, log.head)]
+                        + [log.encode_full().blob])
+        assert all(x.device.type == dev for x in server.delta_log._replica + [pool._synced])
+        assert pool.verify_ok and pool.verified_syncs > 0
+        flats = [torch.zeros_like(x) for x in server.delta_log._replica]
+        got, _, _ = apply_catchup_flat(flats, msgs[-1][-1])
+        assert all(torch.equal(a, b) for a, b in zip(got, server.delta_log._replica))
+        ends[dev] = (blobs, infos, msgs, [n(x) for x in server.delta_log._replica],
+                     pool.synced_round, pool.bytes_down, pool.totals())
+    cpu, card = ends["cpu"], ends["cuda"]
+    assert card[:3] == cpu[:3]
+    for a, b in zip(card[3], cpu[3]):
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    np.testing.assert_array_equal(card[4], cpu[4])
+    np.testing.assert_array_equal(card[5], cpu[5])
+    assert card[6] == cpu[6]

@@ -199,8 +199,8 @@ def test_fed_launcher_kills_checkpoints_restores_and_resumes():
         main(["--device", "cpu"])  # the reference's default preset, fed-tiny
 
 
+# broadcast_log runs now (tests/test_torch_fed_broadcast.py)
 @pytest.mark.parametrize("change, error, match", [
-    (dict(broadcast_log=True), NotImplementedError, "ROADMAP A10"),
     (dict(preset="fed-tiny"), NotImplementedError, "ROADMAP A12"),
     # a baseline compressor runs on fed (tests/test_torch_baselines_run.py);
     # with a decoder preset the preset still refuses
@@ -226,8 +226,9 @@ def test_fed_entry_points_need_a_card_unless_cpu(monkeypatch):
     assert run.init().pool.device.type == "cpu"
     params = tree_flatten(run.scheduler.server.params)[0]
     assert all(p.device.type == "cpu" for p in params)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ParameterServer(params=run.scheduler.server.params,
-                        up_policy=as_policy(policy_from_spec(RunSpec(**LENET))),
-                        delta_horizon=4)
+    # the broadcast log lives on the server's device: the CPU here
+    server = ParameterServer(params=run.scheduler.server.params,
+                             up_policy=as_policy(policy_from_spec(RunSpec(**LENET))),
+                             delta_horizon=4)
+    assert server.delta_log.device.type == "cpu" and server.delta_log.horizon == 4
     assert FaultSchedule.parse("{}").last_round() == -1 and MAGIC == b"SBW1"

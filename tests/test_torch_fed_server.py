@@ -166,11 +166,14 @@ def test_server_refuses_what_the_reference_refuses(uploads):
     assert str(got.value) == str(want.value)
 
 
-def test_checkpoint_layout_is_the_references(tmp_path):
+@pytest.mark.parametrize("log", [
+    dict(), dict(broadcast_log=True, delta_horizon=4, down_sparsity=0.05),
+], ids=["no-log", "broadcast-log"])
+def test_checkpoint_layout_is_the_references(log, tmp_path):
     """The port's fedckpt-v1 file holds the reference's array keys and meta
-    keys for the same spec and rounds."""
+    keys for the same spec and rounds, with the broadcast log's too."""
     spec = dict(LENET, batch=4, clients=4, cohort=2, rounds=1, fast=True, async_rounds=True,
-                max_staleness=1)
+                max_staleness=1, **log)
     _, jsched, trun, tsched = paired(spec)
     jsched.step(0)
     tsched.step(0)
@@ -183,3 +186,5 @@ def test_checkpoint_layout_is_the_references(tmp_path):
     assert set(tmeta) == set(jmeta)
     assert tmeta["n_snapshots"] == jmeta["n_snapshots"] == 1
     assert [set(r) for r in tmeta["ledger"]] == [set(r) for r in jmeta["ledger"]]
+    assert tmeta["last_sync"] == jmeta["last_sync"] and tmeta["log"] == jmeta["log"]
+    assert bool(log) == any(k.startswith("log/blob/") for k in tz.files)

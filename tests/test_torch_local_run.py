@@ -250,10 +250,9 @@ def test_fast_and_per_leaf_local_runs_are_bit_identical():
 @pytest.mark.parametrize("change, item", [
     # a baseline compressor runs (tests/test_torch_baselines_run.py); with a
     # decoder preset the preset still refuses
+    # the fed backend's broadcast log runs now (tests/test_torch_fed_broadcast.py)
     (dict(preset="tiny"), "A12"), (dict(compressor="topk", preset="fed-tiny"), "A12"),
-    # the fed backend (A8) refuses only its DeltaLog broadcast, which A10 brings
-    (dict(backend="fed", broadcast_log=True), "A10"),
-], ids=["A12", "A12-compressor", "A8"])
+], ids=["A12", "A12-compressor"])
 def test_local_fields_not_carried_raise(change, item):
     spec = RunSpec(**{**dict(preset="lenet5", backend="local"), **change})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

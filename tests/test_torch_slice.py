@@ -257,18 +257,16 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 # (tests/test_torch_baselines_run.py, tests/test_torch_wordlstm.py) and
 # resnet32's preset raises the reference's ValueError
 # (tests/test_torch_resnet32.py); their cases here keep the compressor and
-# meet a field still outside the port
+# meet a field still outside the port.  The fed broadcast_log cases run now
+# (tests/test_torch_fed_broadcast.py)
 @pytest.mark.parametrize("change", [
-    dict(backend="fed", telemetry=True, broadcast_log=True), dict(backend="fed", preset="tiny"),
+    dict(backend="fed", preset="tiny"),
     dict(flat_engine="exact", compressor="signsgd", preset="fed-tiny"),
-    dict(fast=False, compressor="dgc", backend="fed", broadcast_log=True),
     dict(preset="tiny"), dict(compressor="topk", preset="lm-100m"),
     dict(flat_engine="exact", skip_pattern="f2", fast=False, preset="mixtral_8x7b"),
     dict(preset="lm-100m"),
     dict(dense_pattern="b$", backend="local", compressor="topk", preset="tiny"),
     dict(skip_pattern="f2", preset="tiny"),
-    dict(flat_engine="exact", fast=False, backend="fed", compressor="topk",
-         broadcast_log=True),
 ])
 def test_specs_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):

@@ -34,6 +34,7 @@ from repro_torch.core.tree import tree_flatten
 from repro_torch.data.synthetic import Task as TTask
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.run import RunSpec, build_run
+from repro_torch.serve import DeltaLog
 from torch_helpers import n
 
 LENET = dict(preset="lenet5", backend="fed", batch=16, sparsity=0.01)
@@ -118,6 +119,9 @@ def paired(spec: dict, *, warm_adam: bool = False, residual: bool = False) -> tu
     params = jax.tree.map(np.asarray, jsched.server.params)
     tsched.server.params = params_from_jax(params, "cpu")
     tsched.server.estimate = params_from_jax(params, "cpu")
+    if tsched.server.delta_log is not None:  # the log starts at the handed params too
+        tsched.server.delta_log = DeltaLog(tsched.server.estimate,
+                                           horizon=tsched.server.delta_log.horizon, device="cpu")
     if warm_adam or residual:
         np_state = seeded_state(jax.tree.map(np.asarray, jsched.pool.export_state()),
                                 warm_adam, residual)
