@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare SRC   # the last redesigned kernels only
+    python3 chip_smoke.py --decoder       # phases 1 and 12 only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
@@ -238,7 +239,28 @@ Without arguments, phases, each of which fails the run:
      reconciled ledger), and prints rounds/s, subscriber syncs/s, bytes
      a subscriber a round, the saving against a full resync, the plan by
      lag, the host ms of append and planning, and the peak memory;
-  12. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  12. the dense decoders (ROADMAP A12, part 2).  (a) lm-100m at full
+     width (137,841,408 parameters in 11 leaves, 110 SBC rows on the GSPMD
+     engines) on the reference's training default: the local backend
+     through ``build_run`` (4 clients, per leaf, batch 8 x 256, p =
+     0.001: 88 ``f32_mean_xla`` a round, phase 6's checks), then one
+     client on the GSPMD hist engine (2/1/1 + 1, phase 2's checks, each
+     hist kernel against its plain version on the path's operands, the
+     largest bin count beside 2^24; not timed there: at 137.8 M entries
+     the profiler lost 14 of 240 records of every trace) and on the exact engine with the
+     device-packed wire (1 ``seg_packbits`` + 12, phase 3's checks,
+     ``seg_packbits`` against its plain version), 3 rounds each and a
+     profiled round: every loss finite and the held-out loss lower after
+     the rounds, Eq. 1 bits the pinned reference's (``LM100M_EQ1``), the
+     ledgers reconciled; round ms, each path's peak memory.  (b) the
+     serving engine of ``repro_torch.launch.serve`` on gemma3-1b at full
+     width in bf16 (999,812,736 parameters drawn on the card; 4 prompts
+     of 2,048 tokens, 32 new): greedy tokens equal in two runs and in
+     range, the decode at position 2,048 within 5% of the largest logit
+     of a prefill of the 2,049 tokens, no hand kernel launched; prefill
+     ms, decode ms a token, tokens/s, peak memory.
+     ``python3 chip_smoke.py --decoder`` runs phases 1 and 12 alone;
+  13. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -254,7 +276,8 @@ Without arguments, phases, each of which fails the run:
      ``launches_resnet32`` and ``launches_wordlstm``, and
      ``seg_select_pack`` the variance pack check's in
      ``launches_variance_pack_check``; every row holds phase 11's in
-     ``launches_broadcast``), then the card line,
+     ``launches_broadcast``, and the rows phase 12a launches its counts in
+     ``launches_decoder``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -349,6 +372,34 @@ CHARLSTM_LEAVES = 8
 CHARLSTM_LOCAL_PER_ROUND = {True: per_call(f32_mean_xla=CHARLSTM_LEAVES),
                             False: per_call(f32_mean_xla=2 * CHARLSTM_LEAVES * 4)}
 CHARLSTM_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=CHARLSTM_LEAVES + 1)
+# phase 12a: the reference's training default (repro/launch/train.py:
+# lm-100m, 4 clients, batch 8 x 256 tokens, p = 0.001) at full width:
+# 137,841,408 parameters in 11 leaves, the 9 under stack/scan 12 rows each
+# (101 SBC rows on the GSPMD engines); 3 rounds a path
+LM100M_ROUNDS = 3
+LM100M = dict(preset="lm-100m", sparsity=0.001, batch=8, seq_len=256, rounds=LM100M_ROUNDS)
+LM100M_LOCAL = dict(LM100M, backend="local", clients=4, measure_wire=True)
+LM100M_PARAMS = 137_841_408
+LM100M_LEAVES = 11
+LM100M_ROWS = 2 + 9 * 12
+# the local backend's default, per leaf: two means per leaf and client
+LM100M_LOCAL_PER_ROUND = {False: per_call(f32_mean_xla=2 * LM100M_LEAVES * 4)}
+LM100M_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=LM100M_LEAVES + 1)
+# Eq. 1 bits a client a round (local: k a leaf; GSPMD: k a row), pinned to
+# the reference's by tests/test_torch_decoder_run.py::test_chip_smoke_pins_are_the_references
+LM100M_EQ1 = {"local": 1584809.1439180223, "gspmd": 1588000.1332195308}
+# phase 12b: the serving engine on gemma3-1b at full width in bf16
+# (999,812,736 parameters in 74 leaves), through repro_torch.launch.serve's
+# flags: 4 prompts of 2,048 tokens (two query chunks of 1,024 in the
+# prefill; the 512-token local window rolls), 32 new tokens
+SERVE_ARGV = ["--arch", "gemma3-1b", "--full-size", "--batch", "4", "--prompt-len", "2048",
+              "--new-tokens", "32"]
+GEMMA3_PARAMS = 999_812_736
+# the prefill of 2,049 tokens that the decode at position 2,048 is held
+# against: 2,049 = 3 x 683 (the default rule's chunk, 1,024, does not
+# divide it, and the reference asserts that it does)
+SERVE_REF_Q_CHUNK = 683
+DECODE_TOL = 0.05  # tests/test_arch_smoke.py::test_decode_matches_prefill's bound
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
 SOURCE = {name: SEG_SBC for name in KERNELS}
 SOURCE.update(seg_packbits="src/repro_torch/kernels/csrc/pack.cu",
@@ -538,18 +589,18 @@ def drive(run, exchange_name: str, per_round: dict, label: str, rounds: int = RO
         state = run.init()
         torch.cuda.synchronize()
         kernels.reset_launches()
-        losses, counts = [], []
+        losses, counts, step_ms = [], [], []
         for r in range(rounds):
             before = kernels.launch_counts()
             t0 = time.perf_counter()
             state, m = run.step(state, r)
             loss = float(m["loss"])
             torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3
+            step_ms.append((time.perf_counter() - t0) * 1e3)
             after = kernels.launch_counts()
             counts.append({k: after[k] - before[k] for k in after})
             losses.append(loss)
-            print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms:.3f} ms  "
+            print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms[-1]:.3f} ms  "
                   f"launches {counts[-1]}")
         launches = kernels.launch_counts()
     finally:
@@ -563,7 +614,7 @@ def drive(run, exchange_name: str, per_round: dict, label: str, rounds: int = RO
           f"{label}: residual != acc - dW* bit for bit")
     check(mean is own, f"{label}: one client: the mean is the client's own dW*")
     return {"launches": launches, "last": last, "acc": acc, "metrics": metrics,
-            "state": state}
+            "state": state, "losses": losses, "step_ms": step_ms}
 
 
 def profiled_round(run, state, label: str) -> None:
@@ -736,7 +787,6 @@ def exact_path(dev) -> dict:
     """Phase 3; returns the two packers' rows of the kernels line."""
     import numpy as np
     import torch
-    from repro_torch.core import flat as core_flat
     from repro_torch.kernels import pack as kpack
     from repro_torch.run import RunSpec, build_run
 
@@ -769,21 +819,8 @@ def exact_path(dev) -> dict:
 
     rows = {}
     # the path's one launch: seg_packbits on its stream-order bits
-    calls: list = []
-    with swapped(core_flat, recording(core_flat, ("pack_bit_rows",), calls)):
-        space.exchange_local(last["bodies"], last["res"], device_pack=True)
-    check(len(calls) == 1, f"one pack_bit_rows call per exchange, saw {len(calls)}")
-    allbits = calls[0][1][0]
+    allbits = packbits_vs_plain(space, last, words, "exact")
     nwords = -(-allbits.numel() // 32)
-    got = kpack.seg_packbits_stream(allbits)
-    want = kpack.seg_packbits_stream_plain(allbits)
-    torch.cuda.synchronize()
-    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-          "seg_packbits (stream order): kernel words != plain words")
-    check(torch.equal(got.view(torch.int32), words.view(torch.int32)),
-          "seg_packbits (stream order): words != the path's words")
-    print(f"seg_packbits (stream order): {allbits.numel()} bits -> {nwords} words, no pad "
-          f"and no transpose, bit-equal to the plain version and the path")
     copies = [(allbits.clone(),) for _ in range(copies_past_l2(4 * allbits.numel()))]
     stream = kernel_row(
         "seg_packbits", cap["launches"]["seg_packbits"], 0.0,
@@ -2925,6 +2962,239 @@ def broadcast_phase(dev, trained: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ decoders
+
+
+def heldout_loss(model, params, task) -> float:
+    """The loss of ``params`` on one held-out batch (a stream no client
+    draws), the same batch every call."""
+    import torch
+
+    with torch.no_grad():
+        return float(model.loss_fn(params, task.sample(0, 99)))
+
+
+def _falls(losses: list, before: float, after: float, label: str) -> None:
+    """Every round's loss finite, and the held-out loss lower after the
+    rounds than at the start (each round's training loss is on its own
+    batch, whose noise is larger than three rounds' progress at p = 0.001)."""
+    check(all(math.isfinite(x) for x in losses) and after < before,
+          f"{label}: losses {losses}; held-out {before} -> {after}")
+    print(f"{label}: held-out loss {before:.6f} -> {after:.6f} after the rounds")
+
+
+def _rounds_ms(step_ms: list) -> str:
+    return ", ".join(f"{x:.3f}" for x in step_ms[1:])
+
+
+def packbits_vs_plain(space, last: dict, words, label: str):
+    """The exact path's one ``seg_packbits`` (stream order) on the last
+    round's bits once more: bit-equal to its plain version and to the
+    path's words.  Returns the bits."""
+    import torch
+    from repro_torch.core import flat as core_flat
+    from repro_torch.kernels import pack as kpack
+
+    calls: list = []
+    with swapped(core_flat, recording(core_flat, ("pack_bit_rows",), calls)):
+        space.exchange_local(last["bodies"], last["res"], device_pack=True)
+    check(len(calls) == 1, f"{label}: one pack_bit_rows call per exchange, saw {len(calls)}")
+    allbits = calls[0][1][0]
+    got, want = kpack.seg_packbits_stream(allbits), kpack.seg_packbits_stream_plain(allbits)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and torch.equal(got.view(torch.int32), words.view(torch.int32)),
+          f"{label}: seg_packbits != its plain version or the path's words")
+    print(f"{label}: seg_packbits (stream order) on the path's {allbits.numel()} bits -> "
+          f"{got.numel()} words, no pad and no transpose, bit-equal to the plain version and "
+          f"the path")
+    return allbits
+
+
+def largest_bins(acc, space, label: str) -> None:
+    """The largest count of any bin in the hist pipeline's two passes on
+    ``acc``, beside 2^24, the last integer f32 holds exactly: the kernel and
+    its plain version count in integers and round to f32 once (the
+    reference's Pallas kernel adds f32 block counts, ROADMAP C)."""
+    import torch
+    from repro_torch.core import flat as core_flat
+    from repro_torch.kernels import flat as kflat
+
+    bounds = [(s.offset, s.rows * s.n_loc) for s in space.segments]
+    sob = torch.from_numpy(space.seg_of_block.astype("int64")).to(acc.device)
+    calls: list = []
+    with swapped(core_flat, recording(core_flat, ("seg_hist2side",), calls)):
+        core_flat._hist_pipeline(acc, bounds, [s.k for s in space.segments],
+                                 [s.rate for s in space.segments], sob, space.n_blocks,
+                                 space.bm, space.lanes, 128)
+    tops = [int(kflat.seg_hist2side(*a, **kw).max()) for _, a, kw in calls]
+    print(f"{label}: the largest bin count of each pass {tops} (2^24 = {2 ** 24}); "
+          f"{'above' if max(tops) > 2 ** 24 else 'within'} f32's exact integers")
+
+
+def lm100m_phase(dev) -> dict:
+    """Phase 12a: lm-100m at full width (137,841,408 parameters) on the
+    reference's training default, the local backend (4 clients, per leaf,
+    batch 8 x 256, p = 0.001, through ``build_run``), then one client on
+    the GSPMD hist engine and on the exact engine with the device-packed
+    wire and its ledger (the same task), 3 rounds each and a profiled
+    round: finite losses that fall, each round's Eq. 1 bits the pinned
+    reference's (``LM100M_EQ1``), the ledger reconciled, the launches a
+    round predicted, every kernel call equal to its plain version on the
+    path's operands (phases 2, 3 and 6's checks), and the largest count a
+    histogram bin holds against f32's exact integers (2^24).  Prints
+    round ms (rounds 2 on) and each path's peak memory.  Returns every
+    path's launches."""
+    import torch
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.run import RunSpec
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    local = local_path(dev, LM100M_LOCAL, LM100M_LOCAL_PER_ROUND, "lm-100m local",
+                       rounds=LM100M_ROUNDS)
+    run, metrics = local["runs"][False], local["metrics"][False]
+    n_params = sum(v.numel() for v in tree_flatten(local["states"][False].params)[0])
+    check(n_params == LM100M_PARAMS, f"lm-100m: {n_params} params")
+    # the local path reports Eq. 1 as the f32 sum of its leaves' terms, as
+    # the reference's metric does: within one f32 ulp of the f64 pin
+    bits = [float(m["bits_per_client"]) for m in metrics]
+    pin = LM100M_EQ1["local"]
+    check(all(abs(b - pin) <= pin * 2 ** -23 for b in bits),
+          f"lm-100m local Eq. 1 bits {bits}, not {pin!r} within one f32 ulp")
+    _falls([float(m["loss"]) for m in metrics],
+           heldout_loss(run.model, run.init().params, run.task),
+           heldout_loss(run.model, local["states"][False].params, run.task), "lm-100m local")
+    run.ledger.reconcile(rel=0.25)
+    print(f"lm-100m local: {n_params} params; Eq. 1 {bits[0]!r} bits a client a round (the "
+          f"reference's {pin!r} in f32); ledger reconciled; round ms (rounds 2 on) "
+          f"{_rounds_ms(local['step_ms'][False])}; the card's peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB (torch.cuda."
+          f"max_memory_allocated, the task's table included)")
+    out["local_per_leaf"] = local["launches"][False]
+    task, cfg = run.task, run.cfg
+    del local, run, metrics
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    for engine, per_round in (("hist", HIST_PER_ROUND), ("exact", LM100M_EXACT_PER_ROUND)):
+        label = f"lm-100m {engine}"
+        extra = dict(device_pack=True, measure_wire=True) if engine == "exact" else {}
+        run = library_gspmd_run(cfg, task, RunSpec(**LM100M, backend="gspmd", fast=True,
+                                                   flat_engine=engine, **extra), dev)
+        space = run.fns.flat_space
+        check(sum(s.global_size for s in space.segments) == LM100M_PARAMS
+              and len(space.segments) == LM100M_LEAVES
+              and sum(s.rows for s in space.segments) == LM100M_ROWS
+              and run.fns.bits_per_client == LM100M_EQ1["gspmd"],
+              f"{label}: layout or Eq. 1 bits {run.fns.bits_per_client!r}")
+        print(f"{label}: {len(space.segments)} segments, {LM100M_ROWS} rows, {space.n_blocks} "
+              f"blocks, n_pad {space.n_pad}; Eq. 1 {run.fns.bits_per_client!r} bits a client "
+              f"a round (the reference's)")
+        exchange = "exchange_local_hist" if engine == "hist" else "exchange_local"
+        cap = drive(run, exchange, per_round, label, rounds=LM100M_ROUNDS)
+        _falls(cap["losses"], heldout_loss(run.model, run.init()["params"], task),
+               heldout_loss(run.model, cap["state"]["params"], task), label)
+        if engine == "hist":
+            one_mu_per_segment(space, cap, label)
+            hist_kernels_vs_plain(cap["acc"], space, dev, label)
+            largest_bins(cap["acc"], space, label)
+        else:
+            _, words, _ = exact_wire_checks(run, cap, dev, label)
+            exact_means_vs_plain(space, cap["last"], label)
+            packbits_vs_plain(space, cap["last"], words, label)
+            run.ledger.reconcile(rel=0.25)
+        profiled_round(run, cap["state"], label)
+        print(f"{label}: round ms (rounds 2 on) {_rounds_ms(cap['step_ms'])}; the card's peak "
+              f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        out[engine] = cap["launches"]
+        del run, cap
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    return out
+
+
+def serve_phase(dev) -> dict:
+    """Phase 12b: ``repro_torch.launch.serve``'s engine on gemma3-1b at
+    full width in bf16 (``SERVE_ARGV``): the prefill alone, then
+    ``generate`` twice (greedy tokens equal and in range), and the decode
+    step at position 2,048 against a prefill of the 2,049 tokens (within
+    ``DECODE_TOL`` of the largest logit).  Prints prefill ms, decode ms a
+    token, tokens/s and the card's peak memory.  Returns the path's
+    launches (the serving path runs no hand kernel: the reference's
+    attention, MLP and logits are plain jnp, ported as torch ops)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = serve.build_parser().parse_args(SERVE_ARGV + ["--device", str(dev)])
+    t0 = time.perf_counter()
+    cfg, engine, params, batch = serve.build_engine(args)
+    torch.cuda.synchronize()
+    leaves = tree_flatten(params)[0]
+    n_params = sum(v.numel() for v in leaves)
+    check(n_params == GEMMA3_PARAMS and all(v.dtype == torch.bfloat16 and v.is_cuda
+                                            for v in leaves),
+          f"gemma3-1b: {n_params} params, dtypes {sorted({str(v.dtype) for v in leaves})}")
+    print(f"serve gemma3-1b: {n_params} bf16 params in {len(leaves)} leaves drawn on the card "
+          f"in {time.perf_counter() - t0:.2f} s; prompts {tuple(batch['tokens'].shape)}")
+    B, S, new = args.batch, args.prompt_len, args.new_tokens
+    kernels.reset_launches()
+    with torch.no_grad():
+        engine.prefill(params, batch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = engine.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        outs, gen_ms = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(engine.generate(params, batch, max_new_tokens=new).cpu())
+            gen_ms.append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(outs[0], outs[1]), "serve: greedy tokens differ between two runs")
+        check(tuple(outs[0].shape) == (B, new) and int(outs[0].min()) >= 0
+              and int(outs[0].max()) < cfg.vocab_size, f"serve: tokens out of range")
+        # the decode step at position S against a prefill of S + 1 tokens
+        nxt = outs[0][:, :1].to(dev)
+        step_logits, _ = engine.serve_step(params, nxt, caches, S)
+        hidden, _ = engine.model.prefill(
+            params, {"tokens": torch.cat([batch["tokens"], nxt], dim=1)},
+            q_chunk=SERVE_REF_Q_CHUNK)
+        emb = transformer.output_embedding(params, cfg)
+        ref = hidden[:, -1:, :].to(torch.float32) @ emb.to(torch.float32).T
+        rel = float((step_logits - ref).abs().max()) / (float(ref.abs().max()) + 1e-6)
+        check(bool(torch.isfinite(step_logits).all()) and rel < DECODE_TOL,
+              f"serve: decode at position {S} vs prefill of {S + 1}: {rel:.4f}")
+    launches = kernels.launch_counts()
+    check(not any(launches.values()), f"serve: hand kernels launched {launches}")
+    best = min(gen_ms)
+    decode_ms = (best - prefill_ms) / (new - 1)
+    print(f"serve gemma3-1b: prefill {B} x {S} tokens {prefill_ms:.3f} ms; generate {new} "
+          f"tokens {', '.join(f'{x:.3f}' for x in gen_ms)} ms; decode {decode_ms:.3f} ms a "
+          f"token (after the prefill), {B * new / (best / 1e3):.1f} tokens/s; greedy tokens "
+          f"equal in two runs, in range; decode at {S} vs prefill of {S + 1}: "
+          f"{rel:.4e} of the largest logit (limit {DECODE_TOL}); sample "
+          f"{outs[0][0, :8].tolist()}")
+    print(f"serve gemma3-1b: no hand kernel on the path ({launches}); the card's peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    return launches
+
+
+def decoder_phase(dev) -> dict:
+    """Phase 12: lm-100m's training paths and gemma3-1b's serving.
+    Returns each path's launches."""
+    import torch
+
+    torch.cuda.synchronize(dev)  # the card's context, before its memory stats are reset
+    out = {f"lm-100m {k}": v for k, v in lm100m_phase(dev).items()}
+    out["serve gemma3-1b"] = serve_phase(dev)
+    return out
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -2999,7 +3269,9 @@ def main(argv: list) -> int:
         return compare(Path(argv[1]))
     if argv[:1] == ["--rank-worker"] and len(argv) == 5:
         return rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
-    check(not argv, f"usage: {Path(__file__).name} [--compare SRC]; got {argv}")
+    decoder_only = argv == ["--decoder"]
+    check(not argv or decoder_only,
+          f"usage: {Path(__file__).name} [--compare SRC | --decoder]; got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
     check((ROOT / "src" / "repro_torch").is_dir(),
@@ -3017,6 +3289,10 @@ def main(argv: list) -> int:
     _build.library()
     print(f"built {[str(p.relative_to(ROOT)) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s")
+
+    if decoder_only:  # phase 12 alone
+        print(json.dumps({"launches_decoder": decoder_phase(dev)}))
+        return 0
 
     # ---- 2. to 7. the paths, one client
     rows, hist = hist_path(dev)
@@ -3073,7 +3349,14 @@ def main(argv: list) -> int:
         rows[name]["launches_broadcast"] = {path: counts.get(name, 0)
                                             for path, counts in broadcast.items()}
 
-    # ---- 12. results
+    # ---- 12. the dense decoders: lm-100m's training, gemma3-1b's serving
+    decoder = decoder_phase(dev)
+    for name in KERNELS:
+        counts = {path: c.get(name, 0) for path, c in decoder.items()}
+        if any(counts.values()):
+            rows[name]["launches_decoder"] = counts
+
+    # ---- 13. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,8 @@
 
 Trained with Adam @ 1e-3, batch 128×4 clients (paper Table III).
 """
+import torch
+
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -13,4 +15,7 @@ CONFIG = ModelConfig(
     n_classes=10,
     local_opt="adam",
     base_lr=1e-3,
+    dtype=torch.float32,
+    scan_layers=False,
+    remat=False,
 )

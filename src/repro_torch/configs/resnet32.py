@@ -3,6 +3,8 @@ widths 16/32/64).
 
 Momentum SGD at lr 0.01, batch 128 x 4 clients (paper Table III).
 """
+import torch
+
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -16,4 +18,7 @@ CONFIG = ModelConfig(
     n_classes=10,
     local_opt="momentum",
     base_lr=0.01,
+    dtype=torch.float32,
+    scan_layers=False,
+    remat=False,
 )

@@ -5,7 +5,8 @@ draws at random — initial parameters above all — is handed across as
 numpy.  Both packages store parameters in the same layouts (conv kernels
 HWIO, dense ``(in, out)``) and the same nested trees (CharLSTM's
 ``{"cell0": {"b", "wh", "wx"}, …}``), so a tree crosses as it is, leaf by
-leaf.  This module takes numpy only; it never imports ``jax``.
+leaf, bf16 leaves bit for bit.  This module takes numpy only; it never
+imports ``jax``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,13 @@ from repro_torch.optim.optimizers import AdamState
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """One leaf as a tensor on ``device``.  numpy has no bf16 of its own
+    (JAX's is ``ml_dtypes.bfloat16``, which torch cannot read), so a bf16
+    leaf crosses as its bit pattern, as ``checkpoint/io.py`` stores it."""
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def params_from_jax(np_tree: Dict[str, Any], device=None) -> Dict[str, Any]:

@@ -677,8 +677,8 @@ class ShardedFlatParamSpace:
         ``n_clients``."""
         if self.shards_per_client != 1:
             raise NotImplementedError(
-                "a \"model\" axis larger than 1 (shards_per_client > 1, fsdp) belongs to "
-                "the decoder and MoE configs (ROADMAP A12, part 2)")
+                "a \"model\" axis larger than 1 (shards_per_client > 1, fsdp) comes "
+                "with ROADMAP A12, part 3")
         if self.group.world != self.n_clients:
             raise ValueError(
                 f"the exchange over {self.n_clients} clients needs a ClientGroup of "

@@ -121,8 +121,8 @@ def make_lm_task(
     """
     if extra_fields is not None:
         raise NotImplementedError(
-            "make_lm_task(extra_fields=...) serves the zoo presets, which come "
-            "with ROADMAP A12, part 2")
+            "make_lm_task(extra_fields=...) serves the encoder-decoder and vision "
+            "presets, which come with ROADMAP A12, part 3")
     dev = resolve_device(device)
     floor = 0.0
     if kind == "markov":

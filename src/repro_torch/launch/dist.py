@@ -17,8 +17,10 @@ per-leaf exchange (``fast=False``, or a non-f32 ``residual_dtype``).  A
 per-leaf policy maps each leaf to one of the exchange's three modes
 (:func:`dist_leaf_mode`: SBC, dense, skip); the hist engine takes all-SBC
 policies only (its flat space raises ``ValueError`` otherwise, as the
-reference's does).  ``client_mode="pod"`` and a "model" axis larger than 1
-belong to the decoder and MoE configs (ROADMAP A12, part 2).
+reference's does).  ``client_mode="pod"`` (granite-20b, command-r-35b)
+and a "model" axis larger than 1 come with ROADMAP A12, part 3.
+:func:`main` is the reference's launcher (``python -m
+repro_torch.launch.dist``, the ``tiny`` preset by default).
 
 Behaviour of the reference that the step reproduces as it is:
 
@@ -57,7 +59,7 @@ def client_topology(cfg: ModelConfig, group: ClientGroup) -> tuple[int, tuple[st
     if cfg.client_mode == "pod":
         raise NotImplementedError(
             "client_mode='pod' (one client per pod, dense all-reduce inside it) "
-            "belongs to the decoder and MoE configs (ROADMAP A12, part 2)")
+            "comes with ROADMAP A12, part 3 (the ≥20B decoders' mode)")
     return group.world, ("data",)
 
 
@@ -149,8 +151,10 @@ def build_dist_train(
         policy = CompressionPolicy.single(make_codec(default), name=compressor)
 
     # leaf plan from the parameter shapes (every leaf replicated: one
-    # shard), in JAX's leaf order with its "a/b" paths
-    flat_p, treedef = tree_flatten_with_path(model.init(torch.Generator()))
+    # shard), in JAX's leaf order with its "a/b" paths; drawn on the meta
+    # device, so nothing is allocated
+    with torch.device("meta"):
+        flat_p, treedef = tree_flatten_with_path(model.init(torch.Generator()))
     keys = [path_str(path) for path, _ in flat_p]
     plans = [policy.plan_for(k) for k in keys]
     scheduled = [pl.path for pl in plans if pl.schedule is not None]
@@ -244,3 +248,69 @@ def build_dist_train(
         bits_per_client=bits.per_client, bits_dense=bits.dense,
         flat_space=space, residual_to_tree=residual_to_tree, channel=channel,
     )
+
+
+# -------------------------------------------------------------- launcher
+
+
+def build_parser():
+    """Thin parser over the shared RunSpec surface, pinned to gspmd, with
+    the reference's defaults (``tiny``, 10 rounds) and ``--device``."""
+    import argparse
+
+    from repro_torch.run.flags import add_run_flags
+
+    ap = argparse.ArgumentParser(
+        description="GSPMD DSGD launcher (one client per process; start N of "
+        "them with torchrun --nproc-per-node N)")
+    add_run_flags(ap, backend="gspmd", preset="tiny", rounds=10, log_every=5)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default), cuda:N, or cpu for the plain versions")
+    return ap
+
+
+def main(argv=None):
+    """``python -m repro_torch.launch.dist``: the reference's output lines,
+    printed by rank 0."""
+    from repro_torch.run.build import build_run
+    from repro_torch.run.flags import spec_from_args
+
+    args = build_parser().parse_args(argv)
+    spec = spec_from_args(args, backend="gspmd")
+    run = build_run(spec, device=args.device)
+    try:
+        if run.group.rank != 0:
+            run.run()
+            return None
+        print(f"gspmd: {run.n_clients} clients over {run.group.world} process(es), "
+              f"p={spec.sparsity}, fast={spec.fast}, "
+              f"bits/client/round={run.fns.bits_per_client:.3e} "
+              f"(dense {run.fns.bits_dense:.3e}), device={run.device}")
+        state, hist = run.run(log_every=args.log_every)
+        print(f"loss {hist['loss'][0]:.4f} → {hist['loss'][-1]:.4f}  "
+              f"compression ×{hist['compression_rate']:.0f}")
+        if spec.measure_wire:
+            run.ledger.reconcile(rel=0.1)
+            t = run.ledger.totals()
+            print(f"wire: up {t['up_bytes']/1e3:.1f} kB (measured/analytic "
+                  f"×{t['up_bits_measured']/max(t['up_bits_analytic'], 1):.3f})")
+        if spec.telemetry:
+            from repro_torch.obs import finish_run
+
+            finish_run(run.telemetry, trace=args.trace, metrics_out=args.metrics_out,
+                       meta={"backend": "gspmd", "preset": spec.preset,
+                             "rounds": spec.rounds})
+        if args.history:
+            import json
+            import os
+
+            os.makedirs(os.path.dirname(os.path.abspath(args.history)), exist_ok=True)
+            with open(args.history, "w") as f:
+                json.dump(hist, f, default=float)
+        return hist
+    finally:
+        run.group.close()
+
+
+if __name__ == "__main__":
+    main()

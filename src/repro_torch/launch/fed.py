@@ -9,10 +9,10 @@ accounting reconciled against Eq. 1/Eq. 5.  All flags are the shared
 :func:`repro_torch.run.flags.add_run_flags` surface with the reference's
 defaults for this launcher pinned on top (the ``fed-tiny`` preset, 16
 clients, 20 rounds, delay 3, lr 0.05, the DGC-style dense-small rule), so
-one command line names the same run in both packages.  ``fed-tiny`` is a
-decoder preset, which comes with ROADMAP A12, part 2; until then name a ported
-preset:
+one command line names the same run in both packages:
 
+  PYTHONPATH=src python -m repro_torch.launch.fed --rounds 2 --clients 4 \\
+      --cohort 2                                            # fed-tiny
   PYTHONPATH=src python -m repro_torch.launch.fed --preset lenet5 --rounds 2 \\
       --clients 4 --cohort 2
   PYTHONPATH=src python -m repro_torch.launch.fed --preset lenet5 --clients 8 \\

@@ -5,13 +5,17 @@ clients, communication delay n, sparsity p, any registered compressor) on
 a synthetic task sized by ``--preset``, with the backend pinned to
 "local".  The flags are the shared run flags
 (:func:`repro_torch.run.flags.add_run_flags`) plus ``--save``,
-``--print-policy`` and ``--device``.  The port carries the
-paper's presets, ``lenet5``/``paper-lenet`` (the default here),
-``charlstm``/``paper-lstm`` and ``wordlstm``, with any registered
-compressor; the reference's default ``lm-100m`` comes with ROADMAP A12,
-part 2.
+``--print-policy`` and ``--device``.  The default preset is the
+reference's, ``lm-100m`` (137,841,408 parameters, seq 256); the paper's
+presets (``lenet5``/``paper-lenet``, ``charlstm``/``paper-lstm``,
+``wordlstm``), ``tiny``, ``fed-tiny`` and the reduced dense decoders
+run too, with any registered compressor.
 
 Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --clients 4 --batch 8 \\
+      --sparsity 0.001 --rounds 3 --log-every 1            # lm-100m, the card
+  PYTHONPATH=src python -m repro_torch.launch.train --preset tiny --rounds 3 \\
+      --batch 4 --seq-len 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --preset lenet5 \\
       --sparsity 0.01 --rounds 5 --clients 4 --batch 128 --measure-wire
   PYTHONPATH=src python -m repro_torch.launch.train --preset paper-lenet \\
@@ -38,7 +42,7 @@ from repro_torch.run.flags import add_run_flags, spec_from_args
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    add_run_flags(ap, preset="lenet5", backend="local", rounds=200, seq_len=256,
+    add_run_flags(ap, preset="lm-100m", backend="local", rounds=200, seq_len=256,
                   log_every=10)
     ap.add_argument("--save", default=None, help="checkpoint path (.npz)")
     ap.add_argument("--print-policy", action="store_true",
@@ -52,7 +56,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     spec = spec_from_args(args, backend="local")
     run = build_run(spec, device=args.device)
-    params = run.model.init(torch.Generator())
+    with torch.device("meta"):  # shapes only
+        params = run.model.init(torch.Generator())
 
     if args.print_policy:
         print(run.trainer.resolved(params).describe())

@@ -1,24 +1,30 @@
-"""``build_model(cfg) → Model``: init and loss of one architecture.
+"""``build_model(cfg) → Model``: init, loss, prefill and decode of one
+architecture.
 
 Counterpart of ``repro.models.model``; the port builds the paper's four
-models: the CNN family's LeNet5 and ResNet-32, and the LSTM family's
-CharLSTM and WordLSTM.  The other families come with ROADMAP A12, part 2.
+models (the CNN family's LeNet5 and ResNet-32, the LSTM family's CharLSTM
+and WordLSTM) and the dense text decoders.  ``make_param_specs`` (the
+reference's sharding rules) comes with the "model" axis, ROADMAP A12,
+part 3.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import cnn, lstm
-from repro_torch.models.losses import softmax_xent
+from repro_torch.models import cnn, lstm, transformer
+from repro_torch.models.losses import chunked_softmax_xent, softmax_xent
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
-    init: Callable[[torch.Generator], dict]  # generator → params (CPU)
+    init: Callable[[torch.Generator], dict]  # generator → params (on its device)
     loss_fn: Callable[[dict, dict], torch.Tensor]  # (params, batch) → scalar
+    prefill: Optional[Callable] = None  # (params, batch) → (hidden, caches)
+    decode_step: Optional[Callable] = None  # (params, tokens, caches, pos) → (logits, caches)
+    init_caches: Optional[Callable] = None  # (params, batch, seq_len) → caches
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -26,10 +32,34 @@ def build_model(cfg: ModelConfig) -> Model:
         return _build_lstm(cfg)
     if cfg.family == "cnn":
         return _build_cnn(cfg)
-    raise NotImplementedError(
-        f"model {cfg.name!r} ({cfg.family}) is not ported yet; the port has the "
-        "cnn and lstm families (the zoo comes with ROADMAP A12, part 2)"
-    )
+    return _build_transformer(cfg)
+
+
+AUX_WEIGHT = 0.01  # MoE load-balance loss coefficient
+
+
+def _build_transformer(cfg: ModelConfig) -> Model:
+    transformer.check_dense(cfg)
+
+    def init(gen: torch.Generator) -> dict:
+        return transformer.init_decoder_lm(gen, cfg)
+
+    def loss_fn(params: dict, batch: dict) -> torch.Tensor:
+        hidden, aux = transformer.decoder_hidden(params, batch["tokens"], cfg)
+        emb = transformer.output_embedding(params, cfg)
+        loss = chunked_softmax_xent(hidden, emb, batch["labels"])
+        return loss + AUX_WEIGHT * aux
+
+    def prefill(params: dict, batch: dict, q_chunk: int = 0):
+        return transformer.decoder_prefill(params, batch["tokens"], cfg, q_chunk=q_chunk)
+
+    def decode_step(params: dict, tokens, caches, pos):
+        return transformer.decoder_decode_step(params, tokens, cfg, caches, pos)
+
+    def init_caches(params: dict, batch: int, seq_len: int):
+        return transformer.init_decode_caches(params, cfg, batch, seq_len)
+
+    return Model(cfg, init, loss_fn, prefill, decode_step, init_caches)
 
 
 def _build_cnn(cfg: ModelConfig) -> Model:

@@ -57,7 +57,8 @@ def main(argv=None):
 
 def _report(run, spec, args) -> dict:
     """Run, and print and write what the reference's launcher does."""
-    n_params = sum(v.numel() for v in tree_flatten(run.model.init(torch.Generator()))[0])
+    with torch.device("meta"):  # shapes only
+        n_params = sum(v.numel() for v in tree_flatten(run.model.init(torch.Generator()))[0])
     engine = (f"engine={spec.flat_engine} device_pack={spec.device_pack} "
               if spec.backend == "gspmd" else "")
     print(

@@ -1,17 +1,19 @@
 """``build_run(spec) -> Run``: a declarative spec drives the port.
 
 Counterpart of ``repro.run.build``.  The port carries the paper's
-presets (``lenet5``, ``charlstm`` and the reference's reduced
-``wordlstm``), with ``sbc`` or any of the paper's baseline compressors,
-on three backends:
+presets (``lenet5``, ``charlstm``, the reference's reduced ``wordlstm``),
+the decoder presets (``tiny``, ``fed-tiny``, ``lm-100m``) and the reduced
+dense decoders (``gemma3_1b``, ``qwen15_4b``, ``granite_20b``,
+``command_r_35b``), with ``sbc`` or any of the paper's baseline
+compressors, on three backends:
 
   local   :class:`~repro_torch.train.trainer.DSGDTrainer` over a
           :class:`~repro_torch.core.channel.LocalVmapChannel` (the paper's
           Alg. 1 round, clients as a leading axis), with ``fast`` either
           way and ``measure_wire``:
 
-              build_run(RunSpec(preset="charlstm", backend="local",
-                                sparsity=0.01, measure_wire=True))
+              build_run(RunSpec(preset="lm-100m", backend="local",
+                                sparsity=0.001, measure_wire=True))
 
   gspmd   one client per process (a :class:`~repro_torch.launch.mesh.
           ClientGroup`: the ranks ``torchrun`` starts, or one client on one
@@ -25,7 +27,9 @@ on three backends:
 
           Under ``torchrun`` every rank calls ``build_run`` and takes its
           client from ``repro_torch.launch.mesh.group_from_env``; rank 0
-          alone meters the wire into the ledger.
+          alone meters the wire into the ledger.  The pod-mode configs
+          (``granite_20b``, ``command_r_35b``) raise there: one client per
+          pod comes with ROADMAP A12, part 3.
 
   fed     a :class:`~repro_torch.fed.scheduler.RoundScheduler` over a
           :class:`~repro_torch.core.channel.FedWireChannel`: a parameter
@@ -49,9 +53,11 @@ and ``run()`` records what the reference's traced loop records (one
 ``round`` span a round, the ``train/*`` and ``leaf/*`` gauges, the
 ledger's ``wire/*``).
 Every other combination raises ``NotImplementedError`` naming the
-ROADMAP item that brings it; none runs a different path in silence.  The
-run is on the CUDA card unless ``device="cpu"`` is passed; without a card
-``build_run`` raises ``RuntimeError``.
+ROADMAP item that brings it (the MoE, SSM, encoder-decoder and vision
+configs, ``non_iid`` on a decoder preset: A12, part 3); none runs a
+different path in silence.  The run is on the CUDA card unless
+``device="cpu"`` is passed; without a card ``build_run`` raises
+``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -66,25 +72,26 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.dist import build_dist_train, client_topology
 from repro_torch.models.model import build_model
 from repro_torch.obs import NULL_TELEMETRY, make_telemetry
-from repro_torch.run.presets import PORTED_PRESETS, build_preset
+from repro_torch.run.presets import PAPER_PRESETS, build_preset
 from repro_torch.run.spec import RunSpec
 
 
 def _check_slice(spec: RunSpec) -> None:
-    """Refuse every spec field this port does not carry yet."""
-    todo = []
-    if spec.preset not in PORTED_PRESETS:
-        todo.append(f"preset {spec.preset!r} (ROADMAP A12, part 2)")
-    if todo:
+    """Refuse every spec field this port does not carry yet.  The
+    assigned architectures outside the port raise from ``get_config``
+    when the preset is built, naming ROADMAP A12, part 3."""
+    if spec.non_iid and spec.backend == "fed" and spec.preset not in PAPER_PRESETS:
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(todo) + ". This port carries the paper's "
-            "presets (lenet5, charlstm, wordlstm) with every registered compressor "
-            "(sbc and the baselines) on backend='local' (fast either way, "
-            "measure_wire), on backend='gspmd' (one client per rank; fast=True "
-            "with flat_engine='hist' or 'exact' (device_pack), or fast=False; "
-            "measure_wire) and on backend='fed' (broadcast_log too), with "
-            "dense_pattern, skip_pattern and telemetry on all three."
-        )
+            "not ported yet: non_iid (make_non_iid_lm_task, split_among_clients) "
+            "comes with ROADMAP A12, part 3. This port carries the paper's presets "
+            "(lenet5, charlstm, wordlstm), the decoder presets (tiny, fed-tiny, "
+            "lm-100m) and the reduced dense decoders (gemma3_1b, qwen15_4b, "
+            "granite_20b, command_r_35b) with every registered compressor on "
+            "backend='local' (fast either way, measure_wire), on backend='gspmd' "
+            "(one client per rank; fast=True with flat_engine='hist' or 'exact' "
+            "(device_pack), or fast=False; measure_wire) and on backend='fed' "
+            "(broadcast_log too), with dense_pattern, skip_pattern and telemetry "
+            "on all three.")
 
 
 def policy_from_spec(spec: RunSpec) -> Union[Compressor, CompressionPolicy]:
@@ -467,9 +474,7 @@ class FedRun(Run):
 def _build_fed(spec: RunSpec, dev: torch.device) -> FedRun:
     cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
                              seed=spec.seed, device=dev)
-    if spec.non_iid:
-        # the reference's own refusal for every preset the port carries;
-        # its non-IID LM task comes with the decoder presets (ROADMAP A12, part 2)
+    if spec.non_iid:  # the reference's own refusal (decoders: _check_slice)
         raise ValueError(f"non_iid needs an LM preset; {spec.preset!r} is {cfg.family}")
     return FedRun(spec=spec, cfg=cfg, model=build_model(cfg), task=task, device=dev)
 

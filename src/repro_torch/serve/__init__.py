@@ -7,9 +7,10 @@
                                       simulate_fanout — fan-out to 10k–100k
                                       subscribers on the card
 
-The reference's ``ServeEngine`` (prefill and decode of a transformer)
-needs the decoder zoo, which comes with ROADMAP A12, part 2; the name
-raises until then.
+and the serving engine:
+
+  :mod:`repro_torch.serve.engine`     ServeEngine — prefill, then one
+                                      token a step against KV caches
 """
 from repro_torch.serve.broadcast import (
     CatchupPlan,
@@ -24,12 +25,14 @@ from repro_torch.serve.deltalog import (
     apply_catchup,
     apply_catchup_flat,
 )
+from repro_torch.serve.engine import ServeEngine
 
 __all__ = [
     "CatchupMessage",
     "CatchupPlan",
     "CatchupPlanner",
     "DeltaLog",
+    "ServeEngine",
     "SubscriberPool",
     "apply_catchup",
     "apply_catchup_flat",
@@ -37,11 +40,3 @@ __all__ = [
     "simulate_fanout",
 ]
 
-
-def __getattr__(name: str):
-    if name == "ServeEngine":
-        raise NotImplementedError(
-            "not ported yet: ServeEngine (serve/engine.py) needs the transformer "
-            "of the decoder zoo, which comes with ROADMAP A12, part 2"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

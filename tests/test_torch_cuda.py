@@ -1458,3 +1458,43 @@ def test_broadcast_log_and_pool_on_the_card_equal_the_cpu(cuda):
     np.testing.assert_array_equal(card[4], cpu[4])
     np.testing.assert_array_equal(card[5], cpu[5])
     assert card[6] == cpu[6]
+
+
+def test_decoder_forward_and_greedy_tokens_on_the_card_equal_the_cpu(cuda):
+    """The dense decoder (tiny and a reduced gemma3, whose 64-token local
+    window a 72-token prompt rolls) on the card against the same port on
+    the CPU: the loss and its gradients within ``rtol=1e-4`` (cuBLAS and
+    the CPU order a GEMM's adds differently; TF32 is off), and the greedy
+    tokens of the serving engine equal (each step's top logit leads by far
+    more than that)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.device import full_f32_math
+    from repro_torch.models.model import build_model
+    from repro_torch.run.presets import tiny_config
+    from repro_torch.serve import ServeEngine
+
+    full_f32_math()
+    for cfg in (tiny_config(), reduced(get_config("gemma3_1b"))):
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 73))).long()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            leaves, treedef = tree_flatten(tree_map(lambda v: v.to(dev), params))
+            leaves = [v.requires_grad_(True) for v in leaves]
+            loss = model.loss_fn(treedef.unflatten(leaves),
+                                 tree_map(lambda v: v.to(dev), batch))
+            grads[dev] = (float(loss), [g.cpu() for g in torch.autograd.grad(loss, leaves)])
+        np.testing.assert_allclose(grads["cuda"][0], grads["cpu"][0], rtol=1e-5)
+        for a, b in zip(grads["cuda"][1], grads["cpu"][1]):
+            np.testing.assert_allclose(n(a), n(b), rtol=1e-4,
+                                       atol=1e-5 * float(b.abs().max()) + 1e-12)
+        engine = ServeEngine(model)
+        out = {dev: engine.generate(tree_map(lambda v: v.to(dev), params),
+                                    {"tokens": batch["tokens"].to(dev)},
+                                    max_new_tokens=8).cpu()
+               for dev in ("cpu", "cuda")}
+        assert torch.equal(out["cuda"], out["cpu"]), cfg.name

@@ -195,16 +195,15 @@ def test_fed_launcher_kills_checkpoints_restores_and_resumes():
     assert "server killed at round 1 (post_aggregate)" in text
     assert text.strip().splitlines()[-1].startswith("wire: up ")
     assert hist["rounds"] == 3 and len(hist["loss"]) == 1  # round 2 after the resume
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        main(["--device", "cpu"])  # the reference's default preset, fed-tiny
+    # the launcher's default preset, fed-tiny, runs now
+    # (tests/test_torch_decoder_run.py::test_fed_launcher_runs_its_default_preset)
 
 
-# broadcast_log runs now (tests/test_torch_fed_broadcast.py)
+# broadcast_log runs now (tests/test_torch_fed_broadcast.py), and so do the
+# decoder presets (tests/test_torch_decoder_run.py); non_iid on a decoder
+# preset is ROADMAP A12, part 3
 @pytest.mark.parametrize("change, error, match", [
-    (dict(preset="fed-tiny"), NotImplementedError, "ROADMAP A12"),
-    # a baseline compressor runs on fed (tests/test_torch_baselines_run.py);
-    # with a decoder preset the preset still refuses
-    (dict(compressor="dgc", preset="lm-100m"), NotImplementedError, "ROADMAP A12"),
+    (dict(non_iid=True, preset="fed-tiny"), NotImplementedError, "ROADMAP A12, part 3"),
     (dict(non_iid=True), ValueError, "non_iid needs an LM preset"),
     (dict(non_iid=True, preset="charlstm"), ValueError, "non_iid needs an LM preset"),
 ])

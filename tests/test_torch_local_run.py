@@ -247,16 +247,8 @@ def test_fast_and_per_leaf_local_runs_are_bit_identical():
     assert runs[True].ledger.history() == runs[False].ledger.history()
 
 
-@pytest.mark.parametrize("change, item", [
-    # a baseline compressor runs (tests/test_torch_baselines_run.py); with a
-    # decoder preset the preset still refuses
-    # the fed backend's broadcast log runs now (tests/test_torch_fed_broadcast.py)
-    (dict(preset="tiny"), "A12"), (dict(compressor="topk", preset="fed-tiny"), "A12"),
-], ids=["A12", "A12-compressor"])
-def test_local_fields_not_carried_raise(change, item):
-    spec = RunSpec(**{**dict(preset="lenet5", backend="local"), **change})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        build_run(spec, device="cpu")
+# the decoder presets' cases that were refused here run now
+# (tests/test_torch_decoder_run.py)
 
 
 def test_local_run_without_a_card_raises_unless_cpu(monkeypatch):
@@ -311,12 +303,13 @@ def test_train_launcher_prints_the_policy_and_trains(tmp_path):
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        main(["--print-policy", "--device", "cpu", "--dense-pattern", "^f[12]b$"])
+        main(["--preset", "lenet5", "--print-policy", "--device", "cpu",
+              "--dense-pattern", "^f[12]b$"])
     assert "f1b" in out.getvalue() and "dense" in out.getvalue()
     save = tmp_path / "params.npz"
     with contextlib.redirect_stdout(io.StringIO()):
-        hist = main(["--rounds", "2", "--batch", "4", "--clients", "2", "--device", "cpu",
-                     "--save", str(save), "--log-every", "1"])
+        hist = main(["--preset", "lenet5", "--rounds", "2", "--batch", "4", "--clients", "2",
+                     "--device", "cpu", "--save", str(save), "--log-every", "1"])
     assert save.exists() and len(hist["loss"]) == 2
 
 

@@ -82,8 +82,9 @@ def images(batch, size=32, channels=3, seed=0):
 def test_config_and_tree_are_the_reference(jparams):
     cfg, jcfg = get_config("resnet32"), j_get_config("resnet32")
     for f in dataclasses.fields(cfg):
-        if f.name != "residual_dtype":
+        if f.name not in ("dtype", "residual_dtype"):  # each framework's own dtypes
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert cfg.dtype == torch.float32 and jnp.dtype(jcfg.dtype).name == "float32"
     assert "resnet32" in PAPER_ARCHS
     tree = build_model(cfg).init(torch.Generator().manual_seed(0))
     got = [(path_str(p), tuple(v.shape)) for p, v in tree_flatten_with_path(tree)[0]]

@@ -256,17 +256,11 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 # the baseline compressors and the wordlstm preset run now
 # (tests/test_torch_baselines_run.py, tests/test_torch_wordlstm.py) and
 # resnet32's preset raises the reference's ValueError
-# (tests/test_torch_resnet32.py); their cases here keep the compressor and
-# meet a field still outside the port.  The fed broadcast_log cases run now
-# (tests/test_torch_fed_broadcast.py)
+# (tests/test_torch_resnet32.py).  The fed broadcast_log cases run now
+# (tests/test_torch_fed_broadcast.py), and so do the decoder presets' cases
+# (tests/test_torch_decoder_run.py); the MoE config is ROADMAP A12, part 3
 @pytest.mark.parametrize("change", [
-    dict(backend="fed", preset="tiny"),
-    dict(flat_engine="exact", compressor="signsgd", preset="fed-tiny"),
-    dict(preset="tiny"), dict(compressor="topk", preset="lm-100m"),
     dict(flat_engine="exact", skip_pattern="f2", fast=False, preset="mixtral_8x7b"),
-    dict(preset="lm-100m"),
-    dict(dense_pattern="b$", backend="local", compressor="topk", preset="tiny"),
-    dict(skip_pattern="f2", preset="tiny"),
 ])
 def test_specs_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):

@@ -55,16 +55,14 @@ LOCAL = dict(preset="wordlstm", backend="local", clients=2, delay=2, batch=2, se
              sparsity=P, rounds=2, measure_wire=True)
 GSPMD = dict(preset="wordlstm", backend="gspmd", fast=True, batch=2, seq_len=8, sparsity=P,
              rounds=2, measure_wire=True)
-# the fields the reference's reduced() writes that the port's configs do
-# not carry (the decoder zoo's, ROADMAP A12 part 2)
-ZOO_FIELDS = {"d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "moe_experts",
-              "moe_top_k", "moe_capacity_factor", "window", "chunk_attn", "local_window",
-              "enc_layers", "n_prefix", "ssm_state", "fsdp", "dtype"}
+# the port's config carries every field of the reference's (since the
+# decoder zoo's part 2); the dtypes are each framework's own
+DTYPE_FIELDS = {"dtype", "residual_dtype"}
 
 
 def carried(cfg) -> dict:
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-            if f.name != "residual_dtype"}
+            if f.name not in DTYPE_FIELDS}
 
 
 @pytest.mark.parametrize("name", ["lenet5", "resnet32", "charlstm", "wordlstm"])
@@ -74,11 +72,11 @@ def test_config_and_reduced_are_the_reference(name):
     for full, ref in ((cfg, jcfg), (reduced(cfg), j_reduced(jcfg))):
         for k, v in carried(full).items():
             assert getattr(ref, k) == v, (name, k)
-    port_fields = set(carried(cfg)) | {"residual_dtype"}
+        for k in DTYPE_FIELDS:
+            assert str(getattr(full, k)) == "torch." + jnp.dtype(getattr(ref, k)).name
+    port_fields = set(carried(cfg)) | DTYPE_FIELDS
     ref_fields = {f.name for f in dataclasses.fields(jcfg)}
-    changed = {k for k in ref_fields
-               if getattr(j_reduced(jcfg), k) != getattr(jcfg, k)}
-    assert changed - port_fields <= ZOO_FIELDS
+    assert port_fields == ref_fields
     assert reduced(cfg, n_layers=1).n_layers == 1
 
 

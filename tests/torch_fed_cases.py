@@ -43,8 +43,9 @@ CHARLSTM = dict(preset="charlstm", backend="fed", batch=2, seq_len=16, sparsity=
 
 def np_batch(preset: str, batch: int, seq_len: int, step: int, client: int) -> dict:
     rng = np.random.default_rng([step, client, 17])
-    if preset == "charlstm":
-        toks = rng.integers(0, 98, (batch, seq_len + 1)).astype(np.int32)
+    vocab = {"charlstm": 98, "tiny": 97, "fed-tiny": 256}.get(preset)
+    if vocab:
+        toks = rng.integers(0, vocab, (batch, seq_len + 1)).astype(np.int32)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     return {"images": rng.standard_normal((batch, 28, 28, 1)).astype(np.float32),
             "labels": rng.integers(0, 10, (batch,)).astype(np.int32)}
