@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare SRC   # the last redesigned kernels only
     python3 chip_smoke.py --decoder       # phases 1 and 12 only
+    python3 chip_smoke.py --zoo           # phases 1 and 13 only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
@@ -260,7 +261,29 @@ Without arguments, phases, each of which fails the run:
      of a prefill of the 2,049 tokens, no hand kernel launched; prefill
      ms, decode ms a token, tokens/s, peak memory.
      ``python3 chip_smoke.py --decoder`` runs phases 1 and 12 alone;
-  13. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  13. the MoE and recurrent decoders (ROADMAP A12, part 3, items 1 and
+     2).  (a) mixtral-8x7b at full width cut to 1 of its 32 layers
+     (1,582,346,240 parameters; its expert stacks are 469,762,048-entry
+     segments), in the labelled variant ``MIXTRAL1_VARIANT`` (f32 leaves
+     and residual, which the hist engine needs; client mode "data", the
+     GSPMD backend's one, one client at world 1), on the GSPMD hist engine
+     (the markov task at vocabulary 32,000, batch 8 x 256, p = 0.001, SGD
+     at base_lr), 3 rounds and a profiled one: 2/1/1 + 1 launches a
+     round, one mu a segment, each hist kernel call bit-equal to its plain
+     version on the path's operands,
+     the largest bin beside 2^24, Eq. 1 bits the pinned reference's
+     (``MIXTRAL1_EQ1``), the held-out loss lower; round ms, busy share,
+     top device operations, peak memory.  (b) ``SERVE_ZOO``: mixtral (8
+     layers), llama4 (2: one dense, one MoE of 128 experts), jamba (one
+     superblock of 8) and rwkv6 (24, uncut) at full width in bf16 through
+     ``ServeEngine``, 32 new greedy tokens each: tokens equal in two runs and in range, no
+     hand kernel, the share of (token, expert) pairs the prefill drops at
+     capacity factor 1.25, and the decode at position P within 5% of a
+     prefill of P + 1 at capacity factor E/k (nothing dropped; llama4's
+     flat dispatch on one prompt, its C = T otherwise 8,196); prefill ms,
+     decode ms a token, tokens/s, peak memory.  ``python3 chip_smoke.py
+     --zoo`` runs phases 1 and 13 alone;
+  14. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -276,8 +299,9 @@ Without arguments, phases, each of which fails the run:
      ``launches_resnet32`` and ``launches_wordlstm``, and
      ``seg_select_pack`` the variance pack check's in
      ``launches_variance_pack_check``; every row holds phase 11's in
-     ``launches_broadcast``, and the rows phase 12a launches its counts in
-     ``launches_decoder``), then the card line,
+     ``launches_broadcast``, the rows phase 12a launches its counts in
+     ``launches_decoder``, and the rows phase 13a launches its counts in
+     ``launches_moe``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -400,6 +424,33 @@ GEMMA3_PARAMS = 999_812_736
 # divide it, and the reference asserts that it does)
 SERVE_REF_Q_CHUNK = 683
 DECODE_TOL = 0.05  # tests/test_arch_smoke.py::test_decode_matches_prefill's bound
+# phase 13a: mixtral-8x7b at full width (d 4,096, 32 heads / 8 KV, d_ff
+# 14,336, 8 experts top-2, window 4,096, vocabulary 32,000), cut in depth
+# from 32 layers to 1 (two would pass 2^31 entries in the flat buffer), on
+# the GSPMD hist engine at world 1, in a labelled variant: the hist engine
+# takes f32 leaves and an f32 residual only, and "data" is the GSPMD
+# backend's one client mode (one client at world 1, as pod mode would be)
+MIXTRAL1_VARIANT = dict(dtype="float32", residual_dtype="float32", client_mode="data")
+MIXTRAL1_ROUNDS = 3
+MIXTRAL1 = dict(preset="mixtral_8x7b", sparsity=0.001, batch=8, seq_len=256,
+                rounds=MIXTRAL1_ROUNDS)
+MIXTRAL1_PARAMS = 1_582_346_240  # cfg.param_count() leaves the final norm out: 1,582,342,144
+MIXTRAL1_SEGMENT = 469_762_048  # each of the expert stacks up, gate, down
+MIXTRAL1_LEAVES = 12
+# Eq. 1 bits a client a round, pinned to the reference's
+# (tests/test_torch_zoo_run.py::test_chip_smoke_mixtral_pin_is_the_references)
+MIXTRAL1_EQ1 = 18188887.14773302
+# phase 13b: each config serves at full width in bf16, cut in depth
+SERVE_ZOO = (
+    # (config, layers, prompts, prompt length, parameters)
+    ("mixtral_8x7b", 8, 4, 2048, 11_741_237_248),
+    ("llama4_maverick_400b_a17b", 2, 4, 2048, 17_392_952_320),
+    ("jamba_v01_52b", 8, 4, 512, 13_026_799_616),
+    ("rwkv6_1p6b", 24, 4, 512, 1_449_824_256),
+)
+SERVE_ZOO_NEW = 32
+# the leaves the reference keeps in f32 inside a bf16 model
+F32_LEAVES = ("router", "A_log", "D", "mix", "mix_w", "w0", "bonus", "ln_x", "cmix_k", "cmix_r")
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
 SOURCE = {name: SEG_SBC for name in KERNELS}
 SOURCE.update(seg_packbits="src/repro_torch/kernels/csrc/pack.cu",
@@ -573,7 +624,8 @@ def drive(run, exchange_name: str, per_round: dict, label: str, rounds: int = RO
 
     def observed_exchange(bodies, res_flat, **kw):
         out = exchange(bodies, res_flat, **kw)
-        last.update(bodies=[b.clone() for b in bodies], res=res_flat.clone(), out=out)
+        if len(metrics) == rounds - 1:  # the last round's: one copy of the flat buffers
+            last.update(bodies=[b.clone() for b in bodies], res=res_flat.clone(), out=out)
         return out
 
     step = run.fns.train_step
@@ -3195,6 +3247,242 @@ def decoder_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------- MoE and recurrent
+
+
+def mixtral_phase(dev) -> dict:
+    """Phase 13a: mixtral-8x7b at full width, one layer (``MIXTRAL1_PARAMS``
+    parameters, 469.8 M-entry expert segments), in the labelled variant
+    ``MIXTRAL1_VARIANT``, one client on the GSPMD hist engine at world 1
+    (the markov LM task at vocabulary 32,000, batch 8 x 256, p = 0.001, SGD
+    at the config's base_lr), 3 rounds and a profiled one: launches 2/1/1
+    + 1 a round, one mu a segment, each hist kernel call equal to its plain
+    version on the path's operands (whose histogram and moments run over
+    runs of blocks, so their temporaries fit beside the model), the largest
+    bin beside 2^24, Eq. 1 bits the
+    pinned reference's, finite losses and a lower held-out loss.  Returns
+    the path's launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import flat as core_flat
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import make_lm_task
+    from repro_torch.kernels import flat as kflat
+    from repro_torch.run import RunSpec
+
+    label = "mixtral-8x7b hist"
+    torch.cuda.reset_peak_memory_stats(dev)
+    variant = {k: getattr(torch, v) if k.endswith("dtype") else v
+               for k, v in MIXTRAL1_VARIANT.items()}
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"), n_layers=1, **variant)
+    print(f"{label}: the labelled variant {MIXTRAL1_VARIANT} of mixtral-8x7b, 1 of its "
+          f"{get_config('mixtral_8x7b').n_layers} layers (the hist engine takes f32 leaves and "
+          f"an f32 residual; 'data' is the GSPMD backend's one client mode, one client at "
+          f"world 1 as pod mode would be)")
+    task = make_lm_task(vocab=cfg.vocab_size, batch=MIXTRAL1["batch"],
+                        seq_len=MIXTRAL1["seq_len"], temperature=0.5, seed=0, device=dev)
+    run = library_gspmd_run(cfg, task, RunSpec(**MIXTRAL1, backend="gspmd", fast=True,
+                                               flat_engine="hist"), dev)
+    space = run.fns.flat_space
+    sizes = [s.global_size for s in space.segments]
+    check(sum(sizes) == MIXTRAL1_PARAMS and len(sizes) == MIXTRAL1_LEAVES
+          and max(sizes) == MIXTRAL1_SEGMENT and run.fns.bits_per_client == MIXTRAL1_EQ1,
+          f"{label}: layout {sum(sizes)}, {len(sizes)}, {max(sizes)} or Eq. 1 bits "
+          f"{run.fns.bits_per_client!r}")
+    print(f"{label}: {sum(sizes)} params in {len(sizes)} segments (the largest "
+          f"{max(sizes)}), {space.n_blocks} blocks, n_pad {space.n_pad} "
+          f"({space.n_pad / 2 ** 31:.3f} of 2^31); Eq. 1 {run.fns.bits_per_client!r} bits a "
+          f"client a round (the reference's, MIXTRAL1_EQ1)")
+    state = run.init()
+    before = heldout_loss(run.model, state["params"], task)
+    n_params = sum(v.numel() for v in tree_flatten(state["params"])[0])
+    check(n_params == MIXTRAL1_PARAMS, f"{label}: {n_params} params drawn")
+    del state
+    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, label, rounds=MIXTRAL1_ROUNDS)
+    _falls(cap["losses"], before, heldout_loss(run.model, cap["state"]["params"], task), label)
+    one_mu_per_segment(space, cap, label)
+    del cap["last"]
+    profiled_round(run, cap["state"], label)
+    print(f"{label}: round ms (rounds 2 on) {_rounds_ms(cap['step_ms'])}; the card's peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB (torch.cuda."
+          f"max_memory_allocated, the task's table included)")
+    del cap["state"]
+    torch.cuda.empty_cache()
+
+    # each kernel call of the pipeline on the last accumulator against its
+    # plain version on the same operands
+    acc = cap["acc"]
+    bounds = [(s.offset, s.rows * s.n_loc) for s in space.segments]
+    sob = torch.from_numpy(space.seg_of_block.astype("int64")).to(dev)
+    names = ("seg_hist2side", "seg_moments", "seg_binarize_apply")
+    calls: list = []
+    with swapped(core_flat, recording(core_flat, names, calls)):
+        out, res, stats = core_flat._hist_pipeline(
+            acc, bounds, [s.k for s in space.segments], [s.rate for s in space.segments], sob,
+            space.n_blocks, space.bm, space.lanes, 128)
+    check(torch.equal(res, acc - out), f"{label}: pipeline residual != acc - dW*")
+    del out, res
+    tops, bounds_ms = [], {}
+    for name, args, kwargs in calls:
+        xpad, params = args
+        out_bytes = 2 * 4 * xpad.numel() if name == "seg_binarize_apply" else 0
+        bounds_ms[name] = (4 * (xpad.numel() + params.numel()) + out_bytes) / HBM_BYTES_PER_S * 1e3
+        got = getattr(kflat, name)(*args, **kwargs)
+        want = getattr(kflat, f"{name}_plain")(*args, **kwargs)
+        torch.cuda.synchronize()
+        if name == "seg_binarize_apply":
+            check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                      for g, w in zip(got, want)), f"{label} {name}: not bit-equal")
+        else:
+            check(torch.equal(got, want), f"{label} {name}: != its plain version")
+        if name == "seg_hist2side":
+            tops.append(int(got.max()))
+        del got, want
+    check(sorted({c[0] for c in calls}) == sorted(names) and len(calls) == 4,
+          f"{label}: kernel calls {[c[0] for c in calls]}")
+    print(f"{label}: {len(calls)} kernel calls bit-equal to their plain versions on the "
+          f"path's {space.n_pad}-entry operands")
+    print(f"{label}: each kernel's bound at these operands (bytes over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in bounds_ms.items()))
+    print(f"{label}: the largest bin count of each pass {tops} (2^24 = {2 ** 24}); "
+          f"{'above' if max(tops) > 2 ** 24 else 'within'} f32's exact integers")
+    launches = cap["launches"]
+    del run, cap, acc, calls, task
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_zoo_phase(dev) -> dict:
+    """Phase 13b: each of ``SERVE_ZOO`` at full width in bf16, cut in depth,
+    through ``ServeEngine`` as ``repro_torch.launch.serve`` builds it (its
+    parameters drawn on the card from a generator seeded 0, the prompts from
+    a second): the prefill alone, then ``generate``
+    twice (greedy tokens equal and in range, ``SERVE_ZOO_NEW`` new), no
+    hand kernel; the MoE configs print the share of (token, expert) pairs
+    their prefill drops at the config's capacity factor; then the decode
+    step at position P against a prefill of P + 1 tokens within
+    ``DECODE_TOL`` of the largest logit, with ``moe_capacity_factor = E/k``
+    (C = S or T: nothing dropped, as the reference's test runs at
+    ``reduced``'s 8.0).  Prints prefill ms, decode ms a token, tokens/s and
+    the peak memory.  Returns each config's launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import path_str
+    from repro_torch.core.tree import tree_flatten, tree_flatten_with_path
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for name, layers, B, S, count in SERVE_ZOO:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name), n_layers=layers)
+        engine = ServeEngine(build_model(cfg))
+        params = engine.model.init(torch.Generator(device=dev).manual_seed(0))
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(0))}
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        dtypes = {path_str(p): v.dtype for p, v in tree_flatten_with_path(params)[0]}
+        n_params = sum(v.numel() for v in tree_flatten(params)[0])
+        f32 = sorted({k.split("/")[-1] for k, d in dtypes.items() if d == torch.float32})
+        check(n_params == count and set(f32) <= set(F32_LEAVES)
+              and all(d in (torch.bfloat16, torch.float32) for d in dtypes.values()),
+              f"serve {name}: {n_params} params; f32 leaves {f32}")
+        print(f"serve {name}: {layers} of {get_config(name).n_layers} layers, {n_params} "
+              f"params drawn on the card in {init_s:.2f} s, bf16 but the reference's f32 "
+              f"leaves {f32 or 'none'}; prompts {tuple(batch['tokens'].shape)}")
+        drops: list = []
+        apply = moe_lib.moe_apply
+
+        def observed_moe(p, x, c, **kw):
+            if not kw.get("full_capacity"):
+                drops.append(moe_lib.dropped_share(p, x, c))
+            return apply(p, x, c, **kw)
+
+        kernels.reset_launches()
+        with torch.no_grad(), swapped(moe_lib, {"moe_apply": observed_moe}):
+            engine.prefill(params, batch)  # warm-up
+            torch.cuda.synchronize()
+            drops.clear()
+            t0 = time.perf_counter()
+            engine.prefill(params, batch)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            first_drops = list(drops)
+            outs, gen_ms = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                outs.append(engine.generate(params, batch, max_new_tokens=SERVE_ZOO_NEW).cpu())
+                gen_ms.append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(outs[0], outs[1]), f"serve {name}: greedy tokens differ")
+        check(tuple(outs[0].shape) == (B, SERVE_ZOO_NEW) and int(outs[0].min()) >= 0
+              and int(outs[0].max()) < cfg.vocab_size, f"serve {name}: tokens out of range")
+        launches = kernels.launch_counts()
+        check(not any(launches.values()), f"serve {name}: hand kernels launched {launches}")
+        best = min(gen_ms)
+        decode_ms = (best - prefill_ms) / (SERVE_ZOO_NEW - 1)
+        print(f"serve {name}: prefill {B} x {S} tokens {prefill_ms:.3f} ms; generate "
+              f"{SERVE_ZOO_NEW} tokens {', '.join(f'{x:.3f}' for x in gen_ms)} ms; decode "
+              f"{decode_ms:.3f} ms a token (after the prefill), "
+              f"{B * SERVE_ZOO_NEW / (best / 1e3):.1f} tokens/s; greedy tokens equal in two "
+              f"runs, in range; no hand kernel ({launches}); sample {outs[0][0, :8].tolist()}")
+        if cfg.moe_experts:
+            E, k = cfg.moe_experts, cfg.moe_top_k
+            print(f"serve {name}: the prefill drops {', '.join(f'{d:.4f}' for d in first_drops)}"
+                  f" of its (token, expert) pairs in its {len(first_drops)} MoE layers at "
+                  f"capacity factor {cfg.moe_capacity_factor} ({cfg.moe_dispatch} dispatch, "
+                  f"{E} experts, top-{k})")
+        # decode at position S against a prefill of S + 1 tokens, nothing dropped
+        full = build_model(dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)) if cfg.moe_experts \
+            else engine.model
+        rows = 1 if cfg.moe_dispatch != "grouped" and cfg.moe_experts else B
+        toks = batch["tokens"][:rows]
+        nxt = outs[0][:rows, :1].to(dev)
+        q_chunk = SERVE_REF_Q_CHUNK if (S + 1) % SERVE_REF_Q_CHUNK == 0 else 0
+        with torch.no_grad():
+            _, caches = full.prefill(params, {"tokens": toks})
+            step_logits, _ = full.decode_step(params, nxt, caches, S)
+            del caches
+            hidden, _ = full.prefill(params, {"tokens": torch.cat([toks, nxt], dim=1)},
+                                     q_chunk=q_chunk)
+            emb = transformer.output_embedding(params, cfg)
+            ref = hidden[:, -1:, :].to(torch.float32) @ emb.to(torch.float32).T
+        rel = float((step_logits - ref).abs().max()) / (float(ref.abs().max()) + 1e-6)
+        check(bool(torch.isfinite(step_logits).all()) and rel < DECODE_TOL,
+              f"serve {name}: decode at {S} vs prefill of {S + 1}: {rel:.4f}")
+        print(f"serve {name}: decode at {S} vs prefill of {S + 1} on {rows} prompt(s)"
+              f"{' at capacity factor E/k = ' + str(cfg.moe_experts / cfg.moe_top_k) + ' (nothing dropped)' if cfg.moe_experts else ''}: "
+              f"{rel:.4e} of the largest logit (limit {DECODE_TOL}); the card's peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        out[f"serve {name}"] = launches
+        del engine, params, batch, full, hidden, emb, ref, step_logits, outs, toks, nxt
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(dev) -> dict:
+    """Phase 13: mixtral's training path and the four configs' serving.
+    Returns each path's launches."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = {"mixtral-8x7b hist": mixtral_phase(dev)}
+    out.update(serve_zoo_phase(dev))
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -3269,9 +3557,9 @@ def main(argv: list) -> int:
         return compare(Path(argv[1]))
     if argv[:1] == ["--rank-worker"] and len(argv) == 5:
         return rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
-    decoder_only = argv == ["--decoder"]
-    check(not argv or decoder_only,
-          f"usage: {Path(__file__).name} [--compare SRC | --decoder]; got {argv}")
+    decoder_only, zoo_only = argv == ["--decoder"], argv == ["--zoo"]
+    check(not argv or decoder_only or zoo_only,
+          f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo]; got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
     check((ROOT / "src" / "repro_torch").is_dir(),
@@ -3292,6 +3580,10 @@ def main(argv: list) -> int:
 
     if decoder_only:  # phase 12 alone
         print(json.dumps({"launches_decoder": decoder_phase(dev)}))
+        return 0
+    if zoo_only:  # phase 13 alone
+        print(json.dumps({"launches_moe": zoo_phase(dev)}))
+        print(card)
         return 0
 
     # ---- 2. to 7. the paths, one client
@@ -3356,7 +3648,15 @@ def main(argv: list) -> int:
         if any(counts.values()):
             rows[name]["launches_decoder"] = counts
 
-    # ---- 13. results
+    # ---- 13. the MoE and recurrent decoders: mixtral's training, the
+    # four configs' serving
+    moe = zoo_phase(dev)
+    for name in KERNELS:
+        counts = {path: c.get(name, 0) for path, c in moe.items()}
+        if any(counts.values()):
+            rows[name]["launches_moe"] = counts
+
+    # ---- 14. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,8 @@ import torch
 from repro_torch.core.golomb import expected_position_bits, golomb_bstar
 from repro_torch.core.stages import LeafCompressed, k_for
 from repro_torch.core.tree import tree_map
-from repro_torch.kernels.flat import seg_binarize_apply, seg_hist2side, seg_moments
+from repro_torch.kernels.flat import (check_flat_size, seg_binarize_apply, seg_hist2side,
+                                      seg_moments)
 from repro_torch.kernels.hist2side import SPAN_OCTAVES, bucket_lower_edges
 from repro_torch.kernels.ops import _side_threshold
 from repro_torch.kernels.pack import (bits_from_positions, golomb_decode_rows, pack_bit_rows,
@@ -41,10 +42,15 @@ from repro_torch.kernels.topk import _top_k, _two_sided_topk  # noqa: F401  (_to
 
 def _pad_maps(
     offsets: Sequence[int], sizes: Sequence[int], n_pad: int
-) -> Tuple[np.ndarray, np.ndarray]:
+) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
     """Padded-position → raw-concat position map + validity mask: turns
     flatten into ONE gather + ONE select instead of a pad+concat per
-    segment (pad slots gather position 0 and are masked to zero)."""
+    segment (pad slots gather position 0 and are masked to zero).  A
+    layout without pad (every leaf a whole number of blocks) flattens by a
+    concat alone and gets ``(None, None)``: at mixtral's 1.58 G entries
+    the int64 map alone would be 12.7 GB on the card."""
+    if n_pad == sum(sizes):
+        return None, None
     pad_to_raw = np.zeros((n_pad,), np.int64)
     pad_valid = np.zeros((n_pad,), bool)
     raw = 0
@@ -179,7 +185,7 @@ class FlatParamSpace:
     def __post_init__(self) -> None:
         per_block = self.bm * self.lanes
         self.n_blocks = sum(max(1, -(-s.size // per_block)) for s in self.segments)
-        self.n_pad = self.n_blocks * per_block
+        self.n_pad = check_flat_size(self.n_blocks * per_block)
         self.n_total = sum(s.size for s in self.segments)
         seg_of_block = np.zeros((self.n_blocks,), np.int32)
         res_mask = np.zeros((self.n_pad,), bool)
@@ -228,7 +234,7 @@ class FlatParamSpace:
         on ``device``, copied there once."""
         maps = self._maps.get(device)
         if maps is None:
-            maps = tuple(torch.from_numpy(a).to(device) for a in (
+            maps = tuple(None if a is None else torch.from_numpy(a).to(device) for a in (
                 self._pad_to_raw, self._pad_valid, self._res_mask, self._dense_mask,
                 self.seg_of_block.astype(np.int64)))
             self._maps[device] = maps
@@ -452,7 +458,7 @@ class ShardedFlatParamSpace:
         per_block = self.bm * self.lanes
         sizes = [s.rows * s.n_loc for s in self.segments]
         self.n_blocks = sum(max(1, -(-sz // per_block)) for sz in sizes)
-        self.n_pad = self.n_blocks * per_block
+        self.n_pad = check_flat_size(self.n_blocks * per_block)
         self.n_total = sum(sizes)
         seg_of_block = np.zeros((self.n_blocks,), np.int32)
         dense_mask = np.zeros((self.n_pad,), bool)
@@ -544,7 +550,7 @@ class ShardedFlatParamSpace:
         maps = self._maps.get(device)
         if maps is None:
             maps = tuple(
-                torch.from_numpy(a).to(device) for a in (
+                None if a is None else torch.from_numpy(a).to(device) for a in (
                     self._pad_to_raw, self._pad_valid,
                     self.seg_of_block.astype(np.int64),
                     self._pos_row.astype(np.int64),
@@ -678,7 +684,7 @@ class ShardedFlatParamSpace:
         if self.shards_per_client != 1:
             raise NotImplementedError(
                 "a \"model\" axis larger than 1 (shards_per_client > 1, fsdp) comes "
-                "with ROADMAP A12, part 3")
+                "with ROADMAP A12, part 3, item 6")
         if self.group.world != self.n_clients:
             raise ValueError(
                 f"the exchange over {self.n_clients} clients needs a ClientGroup of "

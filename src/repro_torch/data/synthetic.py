@@ -122,7 +122,7 @@ def make_lm_task(
     if extra_fields is not None:
         raise NotImplementedError(
             "make_lm_task(extra_fields=...) serves the encoder-decoder and vision "
-            "presets, which come with ROADMAP A12, part 3")
+            "presets, which come with ROADMAP A12, part 3, items 3 and 4")
     dev = resolve_device(device)
     floor = 0.0
     if kind == "markov":

@@ -64,6 +64,24 @@ _HIST_TICKET, _MOMENTS_TICKET, _HIST_COUNTS = 0, 1, 2
 
 # ------------------------------------------------------------------ checks
 
+# The largest flat buffer the engine can index: the exact engine's
+# positions and the per-leaf kernels' element counts are 32-bit ints
+# (``leaf_blocks(int n)``, ``idx.to(torch.int32)``), so a buffer of 2^31
+# entries or more would wrap.  Mixtral at one layer is 1,582,346,240
+# entries (74% of it); at two layers 3.0 G.
+MAX_FLAT_ENTRIES = 2 ** 31 - 1
+
+
+def check_flat_size(n_pad: int) -> int:
+    """``n_pad``, or ``ValueError`` when a flat buffer of ``n_pad`` entries
+    is past what the kernels' integer offsets can index."""
+    if n_pad > MAX_FLAT_ENTRIES:
+        raise ValueError(
+            f"a flat buffer of {n_pad:,} entries is past the {MAX_FLAT_ENTRIES:,} that the "
+            "kernels' 32-bit offsets and positions can index; cut the model's depth")
+    return n_pad
+
+
 
 def _check(xpad: torch.Tensor, params: torch.Tensor, ncols: int, bm: int,
            lanes: int) -> int:
@@ -77,6 +95,7 @@ def _check(xpad: torch.Tensor, params: torch.Tensor, ncols: int, bm: int,
             raise ValueError(f"{name} must be contiguous")
         if t.dim() != 2:
             raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+    check_flat_size(xpad.numel())
     if xpad.device != params.device:
         raise ValueError(f"xpad on {xpad.device} but params on {params.device}")
     if xpad.device.type not in ("cpu", "cuda"):
@@ -102,6 +121,15 @@ def _check(xpad: torch.Tensor, params: torch.Tensor, ncols: int, bm: int,
 # ------------------------------------------------------------- histogram
 
 
+# blocks a plain pass takes at once: its temporaries (an int64 index a
+# side, f64 moments) stay near 64 M entries whatever the buffer's size
+_RUN_BLOCKS = 1 << 16
+
+
+def _runs(nblocks: int):
+    return [(b, min(b + _RUN_BLOCKS, nblocks)) for b in range(0, nblocks, _RUN_BLOCKS)]
+
+
 def seg_hist2side_plain(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
                         nbins: int = 128, bm: int = 8,
                         lanes: int = 128) -> torch.Tensor:
@@ -111,14 +139,23 @@ def seg_hist2side_plain(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     entries, side 1 the magnitudes of negative ones, each within its own
     ``[lo, hi)``; ``bucket = clip(int((log₂ max(|x|, 1e-38) − log₂ lo) /
     (log₂ hi − log₂ lo) · nbins), 0, nbins − 1)`` with ``lo`` clamped to
-    ``1e-38`` and ``hi`` to ``2e-38`` inside the logs.
+    ``1e-38`` and ``hi`` to ``2e-38`` inside the logs.  Counted in int64
+    over runs of blocks and rounded to f32 once.
     """
     nblocks = xpad.shape[0] // bm
     x = xpad.reshape(nblocks, bm * lanes)
+    total = torch.zeros(nseg * 2 * nbins, dtype=torch.int64, device=xpad.device)
+    for b0, b1 in _runs(nblocks):
+        total += _hist_counts(x[b0:b1], params[b0:b1], nseg, nbins)
+    return total.reshape(nseg, 2, nbins).to(torch.float32)
+
+
+def _hist_counts(x: torch.Tensor, params: torch.Tensor, nseg: int, nbins: int) -> torch.Tensor:
+    """int64 ``(nseg·2·nbins,)`` counts of the blocks ``x`` (a row each)."""
     absx = x.abs()
     seg = params[:, 0].to(torch.int64)[:, None]
     log_abs = torch.log2(torch.clamp(absx, min=1e-38))
-    counts = []
+    total = torch.zeros(nseg * 2 * nbins, dtype=torch.int64, device=x.device)
     for side, sel in ((0, x > 0.0), (1, x < 0.0)):
         lo = params[:, 1 + 2 * side, None]
         hi = params[:, 2 + 2 * side, None]
@@ -128,9 +165,8 @@ def seg_hist2side_plain(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
         f = (log_abs - log_lo) / (log_hi - log_lo)
         bucket = torch.clamp((f * nbins).to(torch.int32), 0, nbins - 1)
         index = (seg * 2 + side) * nbins + bucket
-        counts.append(torch.bincount(index[in_range], minlength=nseg * 2 * nbins))
-    total = counts[0] + counts[1]
-    return total[: nseg * 2 * nbins].reshape(nseg, 2, nbins).to(torch.float32)
+        total += torch.bincount(index[in_range], minlength=nseg * 2 * nbins)
+    return total
 
 
 def seg_hist2side(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
@@ -234,7 +270,7 @@ def seg_moments_plain(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     """(nseg, 2, 2) f32 ``[[Σx·[x ≥ t⁺], n⁺], [Σx·[x ≤ −t⁻], n⁻]]``.
 
     params rows ``(seg, t⁺, t⁻)``.  Per-block partials first
-    (:func:`block_moments`), then each segment's partials
+    (:func:`block_moments`, over runs of blocks), then each segment's partials
     (:func:`fold_moments`), both in f64 and in the CUDA kernel's order,
     rounded to f32 once: the result equals the kernel's bit for bit and is
     the same from run to run (no atomics).  Pad zeros are never selected
@@ -242,8 +278,10 @@ def seg_moments_plain(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     """
     nblocks = xpad.shape[0] // bm
     x = xpad.reshape(nblocks, bm * lanes)
-    sums, counts = block_moments(x, x >= params[:, 1, None], x <= -params[:, 2, None])
-    return fold_moments(sums, counts, params[:, 0].to(torch.int64), nseg)
+    parts = [block_moments(x[b0:b1], x[b0:b1] >= params[b0:b1, 1, None],
+                           x[b0:b1] <= -params[b0:b1, 2, None]) for b0, b1 in _runs(nblocks)]
+    return fold_moments(torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+                        params[:, 0].to(torch.int64), nseg)
 
 
 def seg_moments(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,

@@ -17,8 +17,9 @@ per-leaf exchange (``fast=False``, or a non-f32 ``residual_dtype``).  A
 per-leaf policy maps each leaf to one of the exchange's three modes
 (:func:`dist_leaf_mode`: SBC, dense, skip); the hist engine takes all-SBC
 policies only (its flat space raises ``ValueError`` otherwise, as the
-reference's does).  ``client_mode="pod"`` (granite-20b, command-r-35b)
-and a "model" axis larger than 1 come with ROADMAP A12, part 3.
+reference's does).  ``client_mode="pod"`` (granite-20b, command-r-35b,
+mixtral, llama4, jamba) and a "model" axis larger than 1 come with ROADMAP
+A12, part 3, item 6.
 :func:`main` is the reference's launcher (``python -m
 repro_torch.launch.dist``, the ``tiny`` preset by default).
 
@@ -59,7 +60,8 @@ def client_topology(cfg: ModelConfig, group: ClientGroup) -> tuple[int, tuple[st
     if cfg.client_mode == "pod":
         raise NotImplementedError(
             "client_mode='pod' (one client per pod, dense all-reduce inside it) "
-            "comes with ROADMAP A12, part 3 (the ≥20B decoders' mode)")
+            "comes with ROADMAP A12, part 3, item 6 (the mode of the ≥20B decoders and "
+            "of mixtral, llama4 and jamba)")
     return group.world, ("data",)
 
 

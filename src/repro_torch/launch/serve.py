@@ -11,6 +11,8 @@ there, each leaf in its dtype), and the prompts from a second one.
       --batch 2 --prompt-len 64 --new-tokens 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --full-size --batch 4 --prompt-len 2048 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --batch 2 --prompt-len 64 --new-tokens 8 --device cpu
 
 ``--subscribers N`` also runs the delta-broadcast fan-out
 (:func:`repro_torch.serve.simulate_fanout`) on the same architecture's
@@ -21,8 +23,11 @@ subscribers with heterogeneous sync periods.
       --subscribers 10000 --broadcast-rounds 12
 
 Without ``--full-size`` the architecture is the reference's ``reduced``
-variant (f32).  MoE, SSM, encoder-decoder and vision architectures come
-with ROADMAP A12, part 3.
+variant (f32).  Every text decoder serves: dense, MoE (mixtral-8x7b,
+llama4) and recurrent (jamba-v0.1, rwkv6-1.6b), whose decode carries
+Mamba's ``{h, conv}`` and RWKV6's ``{s, tm_prev, cm_prev}`` states.  The
+encoder-decoder and vision architectures come with ROADMAP A12, part 3,
+items 3 and 4.
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ Kinds (``cfg.layer_kinds``): ``attn`` (full causal), ``attn_window``
 (``cfg.window``), ``attn_local`` (``cfg.local_window``), ``attn_chunk``
 (chunked-local, ``cfg.chunk_attn``) and ``attn_bidir`` (no causal mask).
 ``cross`` (encoder memory) comes with the encoder-decoder, ROADMAP A12,
-part 3.
+part 3, item 3.
 
 Two of the reference's behaviours are kept as they are:
 
@@ -45,7 +45,7 @@ NEG_INF = -1e30
 def _cross_refused() -> NotImplementedError:
     return NotImplementedError(
         "cross attention (encoder-decoder) is not ported yet; it comes with "
-        "ROADMAP A12, part 3")
+        "ROADMAP A12, part 3, item 3")
 
 
 def window_for(kind: str, cfg) -> int:

@@ -3,9 +3,9 @@ architecture.
 
 Counterpart of ``repro.models.model``; the port builds the paper's four
 models (the CNN family's LeNet5 and ResNet-32, the LSTM family's CharLSTM
-and WordLSTM) and the dense text decoders.  ``make_param_specs`` (the
-reference's sharding rules) comes with the "model" axis, ROADMAP A12,
-part 3.
+and WordLSTM) and the text decoders: dense, MoE and recurrent.
+``make_param_specs`` (the reference's sharding rules) comes with the
+"model" axis, ROADMAP A12, part 3, item 6.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ AUX_WEIGHT = 0.01  # MoE load-balance loss coefficient
 
 
 def _build_transformer(cfg: ModelConfig) -> Model:
-    transformer.check_dense(cfg)
+    transformer.check_text_decoder(cfg)
 
     def init(gen: torch.Generator) -> dict:
         return transformer.init_decoder_lm(gen, cfg)

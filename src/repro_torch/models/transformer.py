@@ -1,14 +1,15 @@
 """Decoder assembly (counterpart of ``repro.models.transformer``) for the
-dense text decoders: tiny, fed-tiny, lm-100m, gemma3, qwen1.5, granite
-and command-r.
+text decoders: tiny, fed-tiny, lm-100m, gemma3, qwen1.5, granite,
+command-r, mixtral, llama4, jamba and rwkv6.
 
 The parameter tree is the reference's, leaf for leaf::
 
     {"embed": {"embedding"}, "stack": {"scan": {"b0", …}, "rem": {…}},
      "final_norm": {…}, "head"?: {"embedding"}}
 
-One superblock is the smallest repeating layer pattern (gemma3: 5 local
-+ 1 global, period 6; homogeneous stacks: period 1).  The scanned
+One superblock is the smallest repeating layer pattern (jamba: 7 Mamba
++ 1 attention with MoE every second layer, period 8; gemma3: 5 local + 1
+global, period 6; homogeneous stacks: period 1).  The scanned
 superblocks are stacked on a leading axis of every leaf under
 ``stack/scan``; the remainder layers (26 = 4·6 + 2 for gemma3) sit
 unstacked under ``stack/rem``.  SBC's segments, its k a leaf, the SBW1
@@ -16,11 +17,18 @@ bytes and ``params_from_jax`` all depend on that layout.  The reference's
 ``lax.scan`` over superblocks is a loop over the leading index here; its
 ``jax.checkpoint`` changes no number and is not ported.
 
+Block kinds come from ``cfg.layer_kinds``: the attention kinds (an
+attention block and its MLP or MoE), ``mamba`` (a Mamba mixer, with an
+MLP or MoE after it where ``cfg.ssm_ffn``, as jamba) and ``rwkv6`` (a
+time-mix and channel-mix pair).  ``cfg.layer_moe`` says which layers'
+FFN is an MoE; the load-balance ``aux`` of every layer is summed from an
+f32 zero in layer order.
+
 Three modes share the block code: train (full sequence, no caches),
 prefill (full sequence, returns caches), decode (one token, carries
-caches).  Mamba, RWKV6, MoE and cross-attention blocks, the
-encoder-decoder and the modality prefix come with ROADMAP A12, part 3,
-and raise ``NotImplementedError`` until then.
+caches).  The encoder-decoder (cross attention) and the modality prefix
+come with ROADMAP A12, part 3, items 3 and 4, and raise
+``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -29,66 +37,128 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm
 from repro_torch.models.layers import (embed_lookup, gen_device, init_embed, init_mlp,
                                        init_norm, mlp_apply, norm_apply, scale_by)
 
 PyTree = Any
 
 
-def _part3(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with ROADMAP A12, part 3")
+def _part3(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; it comes with ROADMAP A12, part 3, "
+                               f"item {item}")
 
 
-def check_dense(cfg) -> None:
-    """Raise for the parts of the zoo this port does not carry yet."""
+def check_text_decoder(cfg) -> None:
+    """Raise for the parts of the zoo this port does not carry yet: the
+    encoder-decoder and the non-text modalities."""
     if cfg.family == "encdec" or cfg.enc_layers:
-        raise _part3("the encoder-decoder (seamless-m4t)")
-    if cfg.ssm_kind:
-        raise _part3(f"the {cfg.ssm_kind} block (models/ssm.py)")
-    if cfg.moe_experts:
-        raise _part3("the MoE MLP (models/moe.py)")
+        raise _part3("the encoder-decoder (seamless-m4t)", 3)
     if cfg.modality != "text":
-        raise _part3(f"the {cfg.modality} prefix")
+        raise _part3(f"the {cfg.modality} prefix", 4)
 
 
 # ------------------------------------------------------------------ blocks
 
 
-def init_block(gen: torch.Generator, cfg, kind: str) -> dict:
-    """One attention block of ``kind`` (``cfg`` passed :func:`check_dense`)."""
+def init_block(gen: torch.Generator, cfg, kind: str, use_moe: bool) -> dict:
+    """One block of ``kind`` (``cfg`` passed :func:`check_text_decoder`),
+    its FFN an MoE where ``use_moe``."""
     dev = gen_device(gen)
-    return {
-        "norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev),
-        "inner": attn.init_attention(gen, cfg),
-        "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, dtype=cfg.dtype),
-    }
+    p: dict = {"norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev)}
+
+    def ffn() -> None:
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev)
+        if use_moe:
+            p["moe"] = moe_lib.init_moe(gen, cfg)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                                dtype=cfg.dtype)
+
+    if kind == "mamba":
+        p["inner"] = ssm.init_mamba(gen, cfg)
+        if cfg.ssm_ffn:  # jamba: a Mamba mixer + an FFN or MoE (arXiv:2403.19887)
+            ffn()
+        return p
+    if kind == "rwkv6":
+        p["inner"] = ssm.init_rwkv6(gen, cfg)
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev)
+        return p  # the channel-mix lives inside the rwkv params
+    p["inner"] = attn.init_attention(gen, cfg)
+    ffn()
+    return p
 
 
-def _block_train(params, x, cfg, kind, positions, want_cache=False, q_chunk=0):
-    """Returns (x, cache_or_None)."""
+def _ffn(params, x, cfg, use_moe, full_capacity=False):
+    """The block's FFN on the residual ``x``: ``(x + ffn(norm2(x)), aux)``."""
+    h2 = norm_apply(params["norm2"], x, cfg.norm)
+    if use_moe:
+        y2, aux = moe_lib.moe_apply(params["moe"], h2, cfg, full_capacity=full_capacity)
+    else:
+        y2, aux = mlp_apply(params["mlp"], h2), _zero(x)
+    return x + y2, aux
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _block_train(params, x, cfg, kind, use_moe, positions, want_cache=False, q_chunk=0):
+    """Returns (x, aux, cache_or_None)."""
+    aux = _zero(x)
+    cache = None
     h = norm_apply(params["norm1"], x, cfg.norm)
+    if kind == "mamba":
+        y, h_final, conv_tail = ssm.mamba_train(params["inner"], h, cfg)
+        x = x + y
+        if "norm2" in params:  # jamba's FFN or MoE
+            x, aux = _ffn(params, x, cfg, use_moe)
+        if want_cache:  # decode carries on from the exact state and conv window
+            cache = {"h": h_final, "conv": conv_tail}
+        return x, aux, cache
+    if kind == "rwkv6":
+        st = ssm.rwkv6_init_state(cfg, x.shape[0], x.device)
+        y, s_final, tm_prev = ssm.rwkv6_time_mix(params["inner"], h, cfg, st["s"],
+                                                 st["tm_prev"])
+        x = x + y
+        h2 = norm_apply(params["norm2"], x, cfg.norm)
+        y2, cm_prev = ssm.rwkv6_channel_mix(params["inner"], h2, cfg, st["cm_prev"])
+        x = x + y2
+        if want_cache:
+            cache = {"s": s_final, "tm_prev": tm_prev, "cm_prev": cm_prev}
+        return x, aux, cache
     y, kv = attn.attn_train(params["inner"], h, cfg, kind, positions=positions,
                             q_chunk=q_chunk, return_cache_seq=want_cache)
-    x = x + y
-    h2 = norm_apply(params["norm2"], x, cfg.norm)
-    x = x + mlp_apply(params["mlp"], h2)
-    cache = None
+    x, aux = _ffn(params, x + y, cfg, use_moe)
     if want_cache:
         c = attn.init_cache(cfg, kind, x.shape[0], x.shape[1], cfg.dtype, x.device)
         cache = attn.fill_cache_from_prefill(c, kind, cfg, kv[0], kv[1])
-    return x, cache
+    return x, aux, cache
 
 
-def _block_decode(params, x, cfg, kind, cache, pos):
-    """One-token step.  Returns (x, new_cache)."""
+def _block_decode(params, x, cfg, kind, use_moe, cache, pos):
+    """One-token step.  Returns (x, new_cache).  An MoE runs at full
+    capacity (nothing dropped), as the reference's decode does."""
     h = norm_apply(params["norm1"], x, cfg.norm)
+    if kind == "mamba":
+        y, new_cache = ssm.mamba_decode(params["inner"], h, cfg, cache)
+        x = x + y
+        if "norm2" in params:
+            x, _ = _ffn(params, x, cfg, use_moe, full_capacity=True)
+        return x, new_cache
+    if kind == "rwkv6":
+        y, s_final, tm_prev = ssm.rwkv6_time_mix(params["inner"], h, cfg, cache["s"],
+                                                 cache["tm_prev"])
+        x = x + y
+        h2 = norm_apply(params["norm2"], x, cfg.norm)
+        y2, cm_prev = ssm.rwkv6_channel_mix(params["inner"], h2, cfg, cache["cm_prev"])
+        return x + y2, {"s": s_final, "tm_prev": tm_prev, "cm_prev": cm_prev}
     y, new_cache = attn.attn_decode(params["inner"], h, cfg, kind, cache, pos)
-    x = x + y
-    h2 = norm_apply(params["norm2"], x, cfg.norm)
-    return x + mlp_apply(params["mlp"], h2), new_cache
+    x, _ = _ffn(params, x + y, cfg, use_moe, full_capacity=True)
+    return x, new_cache
 
 
 # ------------------------------------------------------- stack organization
@@ -119,19 +189,39 @@ def _stack_trees(trees: list) -> PyTree:
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def layer_desc(cfg, i: int) -> tuple[str, bool]:
+    return cfg.layer_kinds[i], cfg.layer_moe[i]
+
+
 def init_stack(gen: torch.Generator, cfg) -> dict:
     """Stacked superblock params (+ remainder):
-    ``{'scan': {bj: stacked over superblocks}, 'rem': {bj: params}}``."""
+    ``{'scan': {bj: stacked over superblocks}, 'rem': {bj: params}}``.
+
+    Each superblock is drawn and copied into its slot of the preallocated
+    stacked leaves before the next is drawn, so the peak is the model and
+    one superblock, not two copies of the stack (one superblock, as
+    jamba's 8 layers, is only given its leading axis)."""
     period, n_scan, rem = stack_pattern(cfg)
     out: dict = {}
     if n_scan:
-        kinds = cfg.layer_kinds
-        blocks = [{f"b{j}": init_block(gen, cfg, kinds[sb * period + j])
-                   for j in range(period)} for sb in range(n_scan)]
-        out["scan"] = _stack_trees(blocks)
-        del blocks
+        def superblock(sb: int) -> dict:
+            return {f"b{j}": init_block(gen, cfg, *layer_desc(cfg, sb * period + j))
+                    for j in range(period)}
+
+        first = superblock(0)
+        if n_scan == 1:
+            out["scan"] = tree_map(lambda v: v[None], first)
+        else:
+            stacked = tree_map(lambda v: v.new_empty((n_scan,) + tuple(v.shape)), first)
+            for sb in range(n_scan):
+                block = first if sb == 0 else superblock(sb)
+                for dst, src in zip(tree_flatten(stacked)[0], tree_flatten(block)[0]):
+                    dst[sb].copy_(src)
+                del block
+                first = None
+            out["scan"] = stacked
     if rem:
-        out["rem"] = {f"b{j}": init_block(gen, cfg, cfg.layer_kinds[n_scan * period + j])
+        out["rem"] = {f"b{j}": init_block(gen, cfg, *layer_desc(cfg, n_scan * period + j))
                       for j in range(rem)}
     return out
 
@@ -141,8 +231,11 @@ def _index(tree: PyTree, i: int) -> PyTree:
 
 
 def _apply_stack_train(stack, x, cfg, positions, want_cache=False, q_chunk=0):
-    """Run all layers.  Returns (x, caches)."""
+    """Run all layers.  Returns (x, aux_total, caches); ``aux_total`` sums
+    every layer's aux from an f32 zero in layer order, as the reference's
+    scan carry does."""
     period, n_scan, rem = stack_pattern(cfg)
+    aux_total = _zero(x)
     caches: dict = {}
     if n_scan:
         per_sb = []
@@ -150,21 +243,23 @@ def _apply_stack_train(stack, x, cfg, positions, want_cache=False, q_chunk=0):
             sb_params = _index(stack["scan"], sb)
             cs = {}
             for j in range(period):
-                kind = cfg.layer_kinds[j]  # the pattern is period-invariant
-                x, cs[f"b{j}"] = _block_train(sb_params[f"b{j}"], x, cfg, kind, positions,
-                                              want_cache, q_chunk)
+                kind, use_moe = layer_desc(cfg, j)  # the pattern is period-invariant
+                x, a, cs[f"b{j}"] = _block_train(sb_params[f"b{j}"], x, cfg, kind, use_moe,
+                                                 positions, want_cache, q_chunk)
+                aux_total = aux_total + a
             per_sb.append(cs)
         if want_cache:
             caches["scan"] = _stack_trees(per_sb)
     if rem:
         rem_caches = {}
         for j in range(rem):
-            kind = cfg.layer_kinds[n_scan * period + j]
-            x, rem_caches[f"b{j}"] = _block_train(stack["rem"][f"b{j}"], x, cfg, kind,
-                                                  positions, want_cache, q_chunk)
+            kind, use_moe = layer_desc(cfg, n_scan * period + j)
+            x, a, rem_caches[f"b{j}"] = _block_train(stack["rem"][f"b{j}"], x, cfg, kind,
+                                                     use_moe, positions, want_cache, q_chunk)
+            aux_total = aux_total + a
         if want_cache:
             caches["rem"] = rem_caches
-    return x, caches
+    return x, aux_total, caches
 
 
 def _apply_stack_decode(stack, x, cfg, caches, pos):
@@ -176,17 +271,17 @@ def _apply_stack_decode(stack, x, cfg, caches, pos):
             sb_params, sb_caches = _index(stack["scan"], sb), _index(caches["scan"], sb)
             new_cs = {}
             for j in range(period):
-                kind = cfg.layer_kinds[j]
-                x, new_cs[f"b{j}"] = _block_decode(sb_params[f"b{j}"], x, cfg, kind,
+                kind, use_moe = layer_desc(cfg, j)
+                x, new_cs[f"b{j}"] = _block_decode(sb_params[f"b{j}"], x, cfg, kind, use_moe,
                                                    sb_caches[f"b{j}"], pos)
             per_sb.append(new_cs)
         new_caches["scan"] = _stack_trees(per_sb)
     if rem:
         new_caches["rem"] = {}
         for j in range(rem):
-            kind = cfg.layer_kinds[n_scan * period + j]
+            kind, use_moe = layer_desc(cfg, n_scan * period + j)
             x, new_caches["rem"][f"b{j}"] = _block_decode(
-                stack["rem"][f"b{j}"], x, cfg, kind, caches["rem"][f"b{j}"], pos)
+                stack["rem"][f"b{j}"], x, cfg, kind, use_moe, caches["rem"][f"b{j}"], pos)
     return x, new_caches
 
 
@@ -196,7 +291,7 @@ def _apply_stack_decode(stack, x, cfg, caches, pos):
 def init_decoder_lm(gen: torch.Generator, cfg) -> dict:
     """The decoder's parameters drawn from ``gen`` on its device (a CUDA
     generator draws on the card), each leaf in ``cfg.dtype``."""
-    check_dense(cfg)
+    check_text_decoder(cfg)
     p = {
         "embed": init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.dtype),
         "stack": init_stack(gen, cfg),
@@ -218,12 +313,11 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def decoder_hidden(params, tokens, cfg):
-    """(B,S) tokens → (final hidden (B,S,d), aux).  ``aux`` is the MoE
-    load-balance term, zero for the dense stacks."""
+    """(B,S) tokens → (final hidden (B,S,d), aux).  ``aux`` is the sum of
+    the MoE layers' load-balance terms (zero without MoE layers)."""
     x = _embed_inputs(params, tokens, cfg)
-    x, _ = _apply_stack_train(params["stack"], x, cfg, _positions(tokens))
-    x = norm_apply(params["final_norm"], x, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, _ = _apply_stack_train(params["stack"], x, cfg, _positions(tokens))
+    return norm_apply(params["final_norm"], x, cfg.norm), aux
 
 
 def output_embedding(params, cfg) -> torch.Tensor:
@@ -237,8 +331,8 @@ def decoder_prefill(params, tokens, cfg, *, q_chunk: int = 0):
     attn_train`); another value lets a sequence the rule's chunk does not
     divide run chunked."""
     x = _embed_inputs(params, tokens, cfg)
-    x, caches = _apply_stack_train(params["stack"], x, cfg, _positions(tokens),
-                                   want_cache=True, q_chunk=q_chunk)
+    x, _, caches = _apply_stack_train(params["stack"], x, cfg, _positions(tokens),
+                                      want_cache=True, q_chunk=q_chunk)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return x, caches
 
@@ -260,6 +354,10 @@ def init_decode_caches(params, cfg, batch: int, seq_len: int):
     dev = output_embedding(params, cfg).device
 
     def one(kind: str) -> dict:
+        if kind == "mamba":
+            return ssm.mamba_init_state(cfg, batch, dev)
+        if kind == "rwkv6":
+            return ssm.rwkv6_init_state(cfg, batch, dev)
         return attn.init_cache(cfg, kind, batch, seq_len, cfg.dtype, dev)
 
     caches: dict = {}

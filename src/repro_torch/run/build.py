@@ -28,8 +28,9 @@ compressors, on three backends:
           Under ``torchrun`` every rank calls ``build_run`` and takes its
           client from ``repro_torch.launch.mesh.group_from_env``; rank 0
           alone meters the wire into the ledger.  The pod-mode configs
-          (``granite_20b``, ``command_r_35b``) raise there: one client per
-          pod comes with ROADMAP A12, part 3.
+          (``granite_20b``, ``command_r_35b``, ``mixtral_8x7b``,
+          ``llama4_maverick_400b_a17b``, ``jamba_v01_52b``) raise there:
+          one client per pod comes with ROADMAP A12, part 3, item 6.
 
   fed     a :class:`~repro_torch.fed.scheduler.RoundScheduler` over a
           :class:`~repro_torch.core.channel.FedWireChannel`: a parameter
@@ -53,8 +54,9 @@ and ``run()`` records what the reference's traced loop records (one
 ``round`` span a round, the ``train/*`` and ``leaf/*`` gauges, the
 ledger's ``wire/*``).
 Every other combination raises ``NotImplementedError`` naming the
-ROADMAP item that brings it (the MoE, SSM, encoder-decoder and vision
-configs, ``non_iid`` on a decoder preset: A12, part 3); none runs a
+ROADMAP item that brings it (the encoder-decoder and vision configs:
+A12, part 3, items 3 and 4; ``non_iid`` on a decoder preset: item 5);
+none runs a
 different path in silence.  The run is on the CUDA card unless
 ``device="cpu"`` is passed; without a card ``build_run`` raises
 ``RuntimeError``.
@@ -79,14 +81,16 @@ from repro_torch.run.spec import RunSpec
 def _check_slice(spec: RunSpec) -> None:
     """Refuse every spec field this port does not carry yet.  The
     assigned architectures outside the port raise from ``get_config``
-    when the preset is built, naming ROADMAP A12, part 3."""
+    when the preset is built, naming the item of ROADMAP A12, part 3 that
+    brings them."""
     if spec.non_iid and spec.backend == "fed" and spec.preset not in PAPER_PRESETS:
         raise NotImplementedError(
             "not ported yet: non_iid (make_non_iid_lm_task, split_among_clients) "
-            "comes with ROADMAP A12, part 3. This port carries the paper's presets "
-            "(lenet5, charlstm, wordlstm), the decoder presets (tiny, fed-tiny, "
-            "lm-100m) and the reduced dense decoders (gemma3_1b, qwen15_4b, "
-            "granite_20b, command_r_35b) with every registered compressor on "
+            "comes with ROADMAP A12, part 3, item 5. This port carries the paper's "
+            "presets (lenet5, charlstm, wordlstm), the decoder presets (tiny, fed-tiny, "
+            "lm-100m) and the reduced decoders (gemma3_1b, qwen15_4b, granite_20b, "
+            "command_r_35b, mixtral_8x7b, llama4_maverick_400b_a17b, jamba_v01_52b, "
+            "rwkv6_1p6b) with every registered compressor on "
             "backend='local' (fast either way, measure_wire), on backend='gspmd' "
             "(one client per rank; fast=True with flat_engine='hist' or 'exact' "
             "(device_pack), or fast=False; measure_wire) and on backend='fed' "

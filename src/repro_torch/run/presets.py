@@ -9,11 +9,11 @@ Counterpart of ``repro.run.presets``:
   tiny                   2-layer d=64 decoder (test/parity-matrix scale)
   <arch id>              the reference's generic arm: ``reduced(cfg)`` on
                          the markov LM task of the config's vocabulary
-                         (wordlstm, resnet32 and the dense decoders)
+                         (wordlstm, resnet32, the dense, MoE and
+                         recurrent decoders)
 
-The assigned architectures outside the port (MoE, SSM, encoder-decoder,
-vision) raise ``NotImplementedError`` from ``get_config`` (ROADMAP A12,
-part 3).
+seamless-m4t and phi-3-vision raise ``NotImplementedError`` from
+``get_config`` (ROADMAP A12, part 3, items 3 and 4).
 """
 from __future__ import annotations
 

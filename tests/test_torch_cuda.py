@@ -1498,3 +1498,42 @@ def test_decoder_forward_and_greedy_tokens_on_the_card_equal_the_cpu(cuda):
                                     max_new_tokens=8).cpu()
                for dev in ("cpu", "cuda")}
         assert torch.equal(out["cuda"], out["cpu"]), cfg.name
+
+
+def test_moe_and_recurrent_decoders_on_the_card_equal_the_cpu(cuda):
+    """The reduced mixtral (grouped MoE, top-2), jamba (Mamba + attention +
+    MoE) and rwkv6 on the card against the same port on the CPU: the loss
+    (with the MoE aux) within ``rtol=1e-5`` and the final hidden state
+    within ``rtol=1e-4`` beside ``atol`` of 1e-5 of its scale (cuBLAS and
+    the CPU order a GEMM's adds differently; TF32 is off), and the greedy
+    tokens of the serving engine equal."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.device import full_f32_math
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+
+    full_f32_math()
+    for name in ("mixtral_8x7b", "jamba_v01_52b", "rwkv6_1p6b"):
+        cfg = reduced(get_config(name))
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 33))).long()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda v: v.to(dev), params)
+            b = tree_map(lambda v: v.to(dev), batch)
+            with torch.no_grad():
+                hidden, _ = transformer.decoder_hidden(p, b["tokens"], cfg)
+                loss = model.loss_fn(p, b)
+            gen = ServeEngine(model).generate(p, {"tokens": b["tokens"][:, :12]},
+                                              max_new_tokens=6)
+            out[dev] = (float(loss), hidden.cpu(), gen.cpu())
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5, err_msg=name)
+        ref = out["cpu"][1]
+        np.testing.assert_allclose(n(out["cuda"][1]), n(ref), rtol=1e-4,
+                                   atol=1e-5 * float(ref.abs().max()), err_msg=name)
+        assert torch.equal(out["cuda"][2], out["cpu"][2]), name

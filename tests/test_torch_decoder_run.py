@@ -64,7 +64,7 @@ from repro_torch.run.presets import lm_100m_config, tiny_config
 from repro_torch.train import TrainState
 from test_torch_local_run import _compressor, assert_eq1_bits, bits_equal
 from torch_fed_cases import capture_uploads, paired
-from torch_helpers import n, t
+from torch_helpers import n, one_thread, t
 
 SMALL = dict(batch=2, seq_len=16)
 
@@ -308,7 +308,19 @@ def test_pod_mode_decoders_run_locally_and_meet_the_pod_refusal_on_gspmd(preset)
     dict(preset="gemma3_1b", backend="fed", non_iid=True),
 ])
 def test_the_rest_of_the_zoo_still_raises(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3"):
+    """The MoE and recurrent presets (ROADMAP A12, part 3, items 1 and 2)
+    run one round now (held against the reference in
+    tests/test_torch_zoo_run.py); the encoder-decoder, the vision prefix
+    and ``non_iid`` still raise, naming items 3, 4 and 5."""
+    if spec["preset"] in ("mixtral_8x7b", "llama4_maverick_400b_a17b", "jamba_v01_52b",
+                          "rwkv6_1p6b"):
+        run_spec = {**spec, **SMALL, "rounds": 1, "clients": 2, "sparsity": 0.05}
+        with one_thread():  # a sort a leaf in the codec: no use contending for cores
+            _, hist = build_run(RunSpec(**run_spec), device="cpu").run()
+        assert len(hist["loss"]) == 1 and np.isfinite(hist["loss"][0])
+        return
+    item = {"seamless_m4t_medium": 3, "phi3_vision_4p2b": 4}.get(spec["preset"], 5)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP A12, part 3, item {item}"):
         build_run(RunSpec(**spec), device="cpu")
 
 

@@ -154,5 +154,11 @@ def test_serve_launcher_without_a_card_raises_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         main(["--new-tokens", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3"):
-        main(["--arch", "mixtral-8x7b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3, item 3"):
+        main(["--arch", "seamless-m4t-medium", "--device", "cpu"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):  # the MoE decoder serves now
+        toks = main(["--arch", "mixtral-8x7b", "--device", "cpu", "--batch", "2",
+                     "--prompt-len", "8", "--new-tokens", "3"])
+    assert out.getvalue().startswith("arch=mixtral-8x7b generated (2, 3) in ")
+    assert toks.shape == (2, 3) and int(toks.max()) < 512

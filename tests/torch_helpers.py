@@ -8,6 +8,8 @@ test run — never at import or collection time — whether a card exists.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,27 @@ from repro_torch.kernels.hist2side import SPAN_OCTAVES
 
 BM, LANES = 8, 128
 PER_BLOCK = BM * LANES
+
+
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """torch on one CPU thread for a module's tests, restored after them:
+    the suite runs six workers on the machine's cores, and torch's own
+    thread pool in each (a small op a time in the recurrences' loops, a
+    sort a leaf in the codec) only contends with the others."""
+    with one_thread():
+        yield
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one CPU thread for the block, then as it was."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 @pytest.fixture
