@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare SRC   # the last redesigned kernels only
     python3 chip_smoke.py --decoder       # phases 1 and 12 only
-    python3 chip_smoke.py --zoo           # phases 1 and 13 only
+    python3 chip_smoke.py --zoo           # phases 1, 13 and 14 only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
@@ -281,9 +281,31 @@ Without arguments, phases, each of which fails the run:
      capacity factor 1.25, and the decode at position P within 5% of a
      prefill of P + 1 at capacity factor E/k (nothing dropped; llama4's
      flat dispatch on one prompt, its C = T otherwise 8,196); prefill ms,
-     decode ms a token, tokens/s, peak memory.  ``python3 chip_smoke.py
-     --zoo`` runs phases 1 and 13 alone;
-  14. print one ``{"kernels": [...]}`` line with all nine kernels (the
+     decode ms a token, tokens/s, peak memory;
+  14. the rest of the zoo (ROADMAP A12, part 3, items 3-5).  (a)
+     seamless-m4t-medium at full width and depth (12 + 12 layers,
+     614,803,456 parameters in 31 leaves) and (b) phi-3-vision at full
+     width, 8 of 32 layers (1,004,522,496; full depth passes 2^31 entries
+     and its f32 Adam state one card), each in the labelled variant
+     ``STUB_VARIANT`` (f32 leaves), one client on the GSPMD hist engine
+     with phase 13a's checks (2/1/1 + 1 launches a round, each hist kernel
+     call bit-equal to its plain version and its byte bound, one mu a
+     segment, the largest bin beside 2^24, Eq. 1 bits the pinned
+     reference's, ``SEAMLESS_PINS``/``PHI3V_PINS``, a lower held-out loss;
+     step ms, busy share, peak memory): seamless on the markov task over
+     its first 32,000 token ids with 8 x 256 frames of 1,024, phi-3-vision
+     on the markov task at its vocabulary, batch 4 x 1,024 with a 576 x
+     3,072 prefix.  (c) ``SERVE_STUBS``: both at full
+     width and depth in bf16 through ``ServeEngine`` (seamless: 4 prompts of
+     256 tokens over 1,024 frames; phi-3-vision: 4 x 1,024 tokens, the first
+     576 the prefix), phase 13b's checks and prints.  (d) the reference's
+     ``TestNonIID`` statistics on tables drawn on the card, then the fed
+     launcher's non-IID run (``NONIID_ARGV``: fed-tiny, 16 clients, skew 2,
+     delay 5, p 0.01, a 5% downstream, 5 rounds) through phase 9's checks:
+     launches a round, the held-out loss over the clients' chains lower,
+     the host ms a round spent drawing batches.  ``python3 chip_smoke.py
+     --zoo`` runs phases 1, 13 and 14 alone;
+  15. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -300,8 +322,9 @@ Without arguments, phases, each of which fails the run:
      ``seg_select_pack`` the variance pack check's in
      ``launches_variance_pack_check``; every row holds phase 11's in
      ``launches_broadcast``, the rows phase 12a launches its counts in
-     ``launches_decoder``, and the rows phase 13a launches its counts in
-     ``launches_moe``), then the card line,
+     ``launches_decoder``, the rows phase 13a launches its counts in
+     ``launches_moe``, and the rows phase 14 launches its counts in
+     ``launches_encdec``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -329,6 +352,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -449,6 +473,50 @@ SERVE_ZOO = (
     ("rwkv6_1p6b", 24, 4, 512, 1_449_824_256),
 )
 SERVE_ZOO_NEW = 32
+# phase 14a: seamless-m4t-medium at full width and full depth (12 encoder +
+# 12 decoder layers, d 1,024, 16 heads, tied 256,206 vocabulary) on the
+# GSPMD hist engine at world 1 in the labelled variant STUB_VARIANT (f32
+# leaves: the hist engine's only input; the residual and the client mode
+# "data" are the config's own), with the preset's frames, 8 x 256 x 1,024
+# (0.1 x normal), Adam at base_lr, 3 rounds; its tokens are the markov
+# task's over the first SEAMLESS_TASK_VOCAB ids of the vocabulary (a table
+# of 256,206^2 f32 entries would be 263 GB; the affine kind, whose
+# successor map is a bijection, has no next-token marginal that a held-out
+# batch could share)
+STUB_VARIANT = dict(dtype="float32", residual_dtype="float32")
+SEAMLESS = dict(preset="seamless_m4t_medium", sparsity=0.001, batch=8, seq_len=256, rounds=3)
+SEAMLESS_TASK_VOCAB = 32_000
+# parameters (31 leaves; the tied embedding is the largest segment) and
+# Eq. 1 bits a client a round, pinned to the reference's from shapes by
+# tests/test_torch_encdec.py::test_chip_smoke_pins_are_the_references
+SEAMLESS_PINS = dict(params=614_803_456, leaves=31, segment=262_354_944,
+                     eq1=7077595.532298076)
+# phase 14b: phi-3-vision at full width, 8 of its 32 layers (at full depth
+# its 3,722,578,944 entries pass the kernels' 2^31 offsets, and its f32
+# Adam state would not fit on one card), the markov task at vocabulary
+# 32,064, batch 4 x 1,024 with a 576 x 3,072 prefix (0.1 x normal)
+PHI3V_LAYERS = 8
+PHI3V = dict(preset="phi3_vision_4p2b", sparsity=0.001, batch=4, seq_len=1024, rounds=3)
+PHI3V_PINS = dict(params=1_004_522_496, leaves=11, segment=201_326_592,
+                  eq1=11548974.57565877)
+# phase 14c: both serve at full width and full depth in bf16; seamless's
+# encoder reads SERVE_ENC_FRAMES frames a prompt, phi-3-vision's prompts
+# begin with its 576 patch embeddings
+SERVE_STUBS = (
+    # (config, layers, prompts, prompt length, parameters)
+    ("seamless_m4t_medium", 12, 4, 256, 614_803_456),
+    ("phi3_vision_4p2b", 32, 4, 1024, 3_722_578_944),
+)
+SERVE_ENC_FRAMES = 1024
+# phase 14d: the fed launcher's own non-IID settings (fed-tiny, 16 clients,
+# the dense-small rule, lr 0.05) with --non-iid --skew 2.0 --delay 5
+# --sparsity 0.01 --down-sparsity 0.05, 5 rounds: per leaf, 2 means for
+# each of the 8 SBC leaves of each of the 16 members, and 2 for each leaf
+# of the server's downstream
+NONIID_ARGV = ["--non-iid", "--skew", "2.0", "--delay", "5", "--sparsity", "0.01",
+               "--down-sparsity", "0.05", "--rounds", "5"]
+NONIID_ROUNDS = 5
+NONIID_PER_ROUND = per_call(f32_mean_xla=2 * 8 * 16 + 2 * 8)
 # the leaves the reference keeps in f32 inside a bf16 model
 F32_LEAVES = ("router", "A_log", "D", "mix", "mix_w", "w0", "bonus", "ln_x", "cmix_k", "cmix_r")
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
@@ -479,6 +547,11 @@ SPEC = dict(preset="lenet5", backend="gspmd", fast=True, sparsity=0.01, batch=12
             rounds=ROUNDS)
 
 
+# the device symbols of the hand kernels (csrc/*.cu), as the profiler names them
+HAND_KERNEL = re.compile(r"\b(seg_\w+|hist2side|masked_moments|binarize_apply|f32_mean_xla_\w+)"
+                         r"_kernel\b")
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -507,6 +580,14 @@ def _self_device_us(event) -> float:
         event, "self_cuda_time_total", 0.0)
 
 
+# torch.cuda._sleep's kernel, which opens and closes each window that
+# device_ms profiles: LEAD_IN of them before the timed calls, LEAD_OUT after
+SPIN_KERNEL = "spin_kernel"
+LEAD_IN, LEAD_OUT, SPIN_CYCLES = 32, 8, 1000
+# the most device records a retaken trace may hold, and the traces a timing may take
+RECORDS_PER_TRACE, TRACES = 6000, 5
+
+
 def device_ms(fn, operands, iters: int, label: str = "", ops: int | None = None,
               counted: list | None = None) -> float:
     """Mean device ms per call of ``fn(*operands[i % len(operands)])``,
@@ -518,31 +599,45 @@ def device_ms(fn, operands, iters: int, label: str = "", ops: int | None = None,
 
     Every call launches the same device operations, so each one's count
     is a whole multiple of ``iters``, its operations a call.  The trace
-    loses records now and then (seen on the card: one or a few of 240; a
-    kernel counted 0.70 times a call; no device record at all).  A count within ``iters // 50`` records (and one) of a
-    whole multiple is taken as that multiple, and the operation's time a
-    call as its mean time times the multiple, which a lost record does not
-    move; a trace with any other count is taken again, up to three times
-    in all, and then fails the run."""
+    loses records (seen on the card with torch 2.11): the first records of
+    a window, more of them the longer the process has run (1 to 3 of 240
+    one-kernel calls over a process's first 160 s; about 1,400 of a
+    32,000-record window late in a run), and in windows of tens of
+    thousands of records, runs of records inside them too.  So each window
+    opens with ``LEAD_IN`` spin kernels, which take the first loss and are
+    not counted, and closes with ``LEAD_OUT``.  A count within ``iters //
+    50`` records (and one) of a whole multiple is taken as that multiple,
+    and the operation's time a call as its mean time times the multiple,
+    which a lost record does not move; a trace with any other count is
+    taken again with at most ``RECORDS_PER_TRACE`` records, up to
+    ``TRACES`` in all, and then fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     _run(fn, operands, 5)
-    slack = max(1, iters // 50)
-    for attempt in range(3):
+    for attempt in range(TRACES):
+        slack = max(1, iters // 50)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(SPIN_CYCLES)
             _run(fn, operands, iters)
+            for _ in range(LEAD_OUT):
+                torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
+        events = [e for e in prof.key_averages()
+                  if _self_device_us(e) > 0 and SPIN_KERNEL not in e.key]
         mult = [round(e.count / iters) for e in events]
         if events and all(m >= 1 and abs(e.count - m * iters) <= slack
                           for e, m in zip(events, mult)):
             break
+        records = sum(e.count for e in events)
         print(f"  {label or 'plain'}: the trace lost records "
               f"({[e.count for e in events]} for {iters} calls); timing again")
+        iters = max(2, min(iters, RECORDS_PER_TRACE * iters // max(records, 1)))
     else:
-        raise SmokeFailure(f"{label or 'plain'}: the profiler lost records three times")
+        raise SmokeFailure(f"{label or 'plain'}: the profiler lost records in "
+                           f"{TRACES} traces")
     total_us = iters * sum(_self_device_us(e) / e.count * m for e, m in zip(events, mult))
     check(total_us > 0, "torch.profiler saw no device time")
     per_call = sum(mult)
@@ -691,6 +786,11 @@ def profiled_round(run, state, label: str) -> None:
           f"operations; top by device time:")
     for e in events[:12]:
         print(f"  {_self_device_us(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:100]}")
+    hand = [(m.group(0), e) for e in events if (m := HAND_KERNEL.search(e.key))]
+    if hand:
+        print(f"{label}: the hand kernels in that round: " + ", ".join(
+            f"{name} {_self_device_us(e) / 1e3 / e.count:.4f} ms a call x{e.count}"
+            for name, e in hand))
     # the data draw's share: the same round's batches drawn once more alone
     draw = getattr(run, "batch_fn", None) or run._batch
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2216,7 +2316,8 @@ def fed_state(sched) -> list:
         res = space.unflatten(torch.from_numpy(res), cast=False)
     return (tree_flatten(sched.server.params)[0]
             + [torch.as_tensor(x) for x in tree_flatten(res)[0]]
-            + [torch.as_tensor(x) for x in tree_flatten(tuple(st["opt"]))[0]])
+            + [torch.as_tensor(x) for x in tree_flatten(
+                tuple(st["opt"]) if isinstance(st["opt"], tuple) else st["opt"])[0]])
 
 
 def fed_phase(dev) -> tuple:
@@ -3255,22 +3356,13 @@ def mixtral_phase(dev) -> dict:
     parameters, 469.8 M-entry expert segments), in the labelled variant
     ``MIXTRAL1_VARIANT``, one client on the GSPMD hist engine at world 1
     (the markov LM task at vocabulary 32,000, batch 8 x 256, p = 0.001, SGD
-    at the config's base_lr), 3 rounds and a profiled one: launches 2/1/1
-    + 1 a round, one mu a segment, each hist kernel call equal to its plain
-    version on the path's operands (whose histogram and moments run over
-    runs of blocks, so their temporaries fit beside the model), the largest
-    bin beside 2^24, Eq. 1 bits the
-    pinned reference's, finite losses and a lower held-out loss.  Returns
+    at the config's base_lr), with :func:`hist_at_scale`'s checks.  Returns
     the path's launches."""
     import dataclasses
 
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.core import flat as core_flat
-    from repro_torch.core.tree import tree_flatten
     from repro_torch.data import make_lm_task
-    from repro_torch.kernels import flat as kflat
-    from repro_torch.run import RunSpec
 
     label = "mixtral-8x7b hist"
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3283,24 +3375,48 @@ def mixtral_phase(dev) -> dict:
           f"world 1 as pod mode would be)")
     task = make_lm_task(vocab=cfg.vocab_size, batch=MIXTRAL1["batch"],
                         seq_len=MIXTRAL1["seq_len"], temperature=0.5, seed=0, device=dev)
-    run = library_gspmd_run(cfg, task, RunSpec(**MIXTRAL1, backend="gspmd", fast=True,
+    pins = dict(params=MIXTRAL1_PARAMS, leaves=MIXTRAL1_LEAVES, segment=MIXTRAL1_SEGMENT,
+                eq1=MIXTRAL1_EQ1)
+    return hist_at_scale(dev, label, cfg, task, MIXTRAL1, pins)
+
+
+def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict) -> dict:
+    """One client of ``cfg`` on ``task`` on the GSPMD hist engine at world 1
+    (``spec``: sparsity, batch, sequence, rounds), the config's optimizer
+    at its base_lr: the layout and Eq. 1 bits against ``pins`` (parameters,
+    leaves, largest segment, bits a client a round), the rounds and a
+    profiled one (launches 2/1/1 + 1 a round, one mu a segment, the
+    residual ``acc - dW*`` bit for bit, finite losses and a lower held-out
+    loss), then each hist kernel call on the last accumulator bit-equal to
+    its plain version (whose histogram and moments run over runs of
+    blocks, so their temporaries fit beside the model), with its byte
+    bound at these operands, and the largest bin beside 2^24.  Prints
+    round ms, the busy share, top device operations and peak memory (since
+    the caller's reset). Returns the path's launches."""
+    import torch
+    from repro_torch.core import flat as core_flat
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import flat as kflat
+    from repro_torch.run import RunSpec
+
+    run = library_gspmd_run(cfg, task, RunSpec(**spec, backend="gspmd", fast=True,
                                                flat_engine="hist"), dev)
     space = run.fns.flat_space
     sizes = [s.global_size for s in space.segments]
-    check(sum(sizes) == MIXTRAL1_PARAMS and len(sizes) == MIXTRAL1_LEAVES
-          and max(sizes) == MIXTRAL1_SEGMENT and run.fns.bits_per_client == MIXTRAL1_EQ1,
+    check(sum(sizes) == pins["params"] and len(sizes) == pins["leaves"]
+          and max(sizes) == pins["segment"] and run.fns.bits_per_client == pins["eq1"],
           f"{label}: layout {sum(sizes)}, {len(sizes)}, {max(sizes)} or Eq. 1 bits "
           f"{run.fns.bits_per_client!r}")
     print(f"{label}: {sum(sizes)} params in {len(sizes)} segments (the largest "
           f"{max(sizes)}), {space.n_blocks} blocks, n_pad {space.n_pad} "
           f"({space.n_pad / 2 ** 31:.3f} of 2^31); Eq. 1 {run.fns.bits_per_client!r} bits a "
-          f"client a round (the reference's, MIXTRAL1_EQ1)")
+          f"client a round (the reference's, pinned)")
     state = run.init()
     before = heldout_loss(run.model, state["params"], task)
     n_params = sum(v.numel() for v in tree_flatten(state["params"])[0])
-    check(n_params == MIXTRAL1_PARAMS, f"{label}: {n_params} params drawn")
+    check(n_params == pins["params"], f"{label}: {n_params} params drawn")
     del state
-    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, label, rounds=MIXTRAL1_ROUNDS)
+    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, label, rounds=spec["rounds"])
     _falls(cap["losses"], before, heldout_loss(run.model, cap["state"]["params"], task), label)
     one_mu_per_segment(space, cap, label)
     del cap["last"]
@@ -3355,11 +3471,37 @@ def mixtral_phase(dev) -> dict:
     return launches
 
 
-def serve_zoo_phase(dev) -> dict:
-    """Phase 13b: each of ``SERVE_ZOO`` at full width in bf16, cut in depth,
+def prefill_chunk(n: int) -> int:
+    """The ``q_chunk`` of a prefill of ``n`` tokens: 0 (the reference's
+    rule) where the rule's chunk holds ``n`` or divides it, else the least
+    divisor of ``n`` from 128 up (2,049 = 3 x 683; 1,025 = 5 x 205)."""
+    rule = max(128, min(1024, (1 << 22) // n))
+    if n <= rule or n % rule == 0:
+        return 0
+    return next(c for c in range(128, n + 1) if n % c == 0)
+
+
+def stub_inputs(cfg, B: int, dev) -> dict:
+    """A served batch's modality stub as the config's preset draws it
+    (``repro_torch.run.presets.modality_fields``, from a host generator
+    seeded 1): an encoder-decoder's ``SERVE_ENC_FRAMES`` frames, a vision
+    config's ``n_prefix`` patch embeddings, else nothing."""
+    import torch
+    from repro_torch.run.presets import modality_fields
+
+    fields = modality_fields(cfg, B, SERVE_ENC_FRAMES)
+    if fields is None:
+        return {}
+    return {k: v.to(dev) for k, v in fields(torch.Generator().manual_seed(1)).items()}
+
+
+def serve_zoo_phase(dev, entries=SERVE_ZOO) -> dict:
+    """Phase 13b (and 14c with ``SERVE_STUBS``): each of ``entries`` at full
+    width in bf16, cut in depth where the entry says,
     through ``ServeEngine`` as ``repro_torch.launch.serve`` builds it (its
     parameters drawn on the card from a generator seeded 0, the prompts from
-    a second): the prefill alone, then ``generate``
+    a second, the modality stub's input from a third, :func:`stub_inputs`):
+    the prefill alone, then ``generate``
     twice (greedy tokens equal and in range, ``SERVE_ZOO_NEW`` new), no
     hand kernel; the MoE configs print the share of (token, expert) pairs
     their prefill drops at the config's capacity factor; then the decode
@@ -3381,14 +3523,15 @@ def serve_zoo_phase(dev) -> dict:
     from repro_torch.serve import ServeEngine
 
     out = {}
-    for name, layers, B, S, count in SERVE_ZOO:
+    for name, layers, B, S, count in entries:
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(name), n_layers=layers)
         engine = ServeEngine(build_model(cfg))
         params = engine.model.init(torch.Generator(device=dev).manual_seed(0))
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev,
-                                         generator=torch.Generator(device=dev).manual_seed(0))}
+                                         generator=torch.Generator(device=dev).manual_seed(0)),
+                 **stub_inputs(cfg, B, dev)}
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         dtypes = {path_str(p): v.dtype for p, v in tree_flatten_with_path(params)[0]}
@@ -3399,7 +3542,8 @@ def serve_zoo_phase(dev) -> dict:
               f"serve {name}: {n_params} params; f32 leaves {f32}")
         print(f"serve {name}: {layers} of {get_config(name).n_layers} layers, {n_params} "
               f"params drawn on the card in {init_s:.2f} s, bf16 but the reference's f32 "
-              f"leaves {f32 or 'none'}; prompts {tuple(batch['tokens'].shape)}")
+              f"leaves {f32 or 'none'}; prompts {tuple(batch['tokens'].shape)}"
+              + "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items() if k != "tokens"))
         drops: list = []
         apply = moe_lib.moe_apply
 
@@ -3446,15 +3590,15 @@ def serve_zoo_phase(dev) -> dict:
             cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)) if cfg.moe_experts \
             else engine.model
         rows = 1 if cfg.moe_dispatch != "grouped" and cfg.moe_experts else B
-        toks = batch["tokens"][:rows]
+        sub = {k: v[:rows] for k, v in batch.items()}
         nxt = outs[0][:rows, :1].to(dev)
-        q_chunk = SERVE_REF_Q_CHUNK if (S + 1) % SERVE_REF_Q_CHUNK == 0 else 0
         with torch.no_grad():
-            _, caches = full.prefill(params, {"tokens": toks})
+            _, caches = full.prefill(params, sub)
             step_logits, _ = full.decode_step(params, nxt, caches, S)
             del caches
-            hidden, _ = full.prefill(params, {"tokens": torch.cat([toks, nxt], dim=1)},
-                                     q_chunk=q_chunk)
+            hidden, _ = full.prefill(params, {**sub, "tokens": torch.cat([sub["tokens"], nxt],
+                                                                         dim=1)},
+                                     q_chunk=prefill_chunk(S + 1))
             emb = transformer.output_embedding(params, cfg)
             ref = hidden[:, -1:, :].to(torch.float32) @ emb.to(torch.float32).T
         rel = float((step_logits - ref).abs().max()) / (float(ref.abs().max()) + 1e-6)
@@ -3465,8 +3609,161 @@ def serve_zoo_phase(dev) -> dict:
               f"{rel:.4e} of the largest logit (limit {DECODE_TOL}); the card's peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
         out[f"serve {name}"] = launches
-        del engine, params, batch, full, hidden, emb, ref, step_logits, outs, toks, nxt
+        del engine, params, batch, full, hidden, emb, ref, step_logits, outs, sub, nxt
         torch.cuda.empty_cache()
+    return out
+
+
+def stub_variant(name: str, **changes):
+    """``name``'s config in ``STUB_VARIANT`` (f32 leaves and residual) with
+    ``changes``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(name), **{k: getattr(torch, v)
+                                                    for k, v in STUB_VARIANT.items()}, **changes)
+
+
+def encdec_train_phase(dev) -> dict:
+    """Phase 14a-b: seamless-m4t-medium at full width and depth (614.8 M
+    parameters) and phi-3-vision at full width, 8 of 32 layers (1.0 G), each
+    one client on the GSPMD hist engine with :func:`hist_at_scale`'s checks,
+    their samples carrying the preset's frames or prefix.  Returns each
+    path's launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import make_lm_task
+    from repro_torch.run.presets import modality_fields
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = stub_variant("seamless_m4t_medium")
+    label = "seamless-m4t-medium hist"
+    print(f"{label}: the labelled variant {STUB_VARIANT} of seamless-m4t-medium at full depth "
+          f"({cfg.enc_layers} + {cfg.n_layers} layers; the hist engine takes f32 leaves), the "
+          f"markov task over the first {SEAMLESS_TASK_VOCAB} of its {cfg.vocab_size} token ids "
+          f"(a table at the whole vocabulary would be {4 * cfg.vocab_size ** 2 / 1e9:.0f} GB), "
+          f"frames {SEAMLESS['batch']} x {SEAMLESS['seq_len']} x {cfg.d_model}")
+    task = make_lm_task(vocab=SEAMLESS_TASK_VOCAB, batch=SEAMLESS["batch"],
+                        seq_len=SEAMLESS["seq_len"], temperature=0.5, seed=0, device=dev,
+                        extra_fields=modality_fields(cfg, SEAMLESS["batch"], SEAMLESS["seq_len"]))
+    out[label] = hist_at_scale(dev, label, cfg, task, SEAMLESS, SEAMLESS_PINS)
+    del task
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = stub_variant("phi3_vision_4p2b", n_layers=PHI3V_LAYERS)
+    label = "phi-3-vision hist"
+    print(f"{label}: the labelled variant {STUB_VARIANT} of phi-3-vision-4.2b, {PHI3V_LAYERS} of "
+          f"its {get_config('phi3_vision_4p2b').n_layers} layers (at full depth its "
+          f"3,722,578,944 entries pass the kernels' 2^31 offsets and its f32 Adam state would "
+          f"not fit on one card), the markov task at vocabulary {cfg.vocab_size}, prefix "
+          f"{PHI3V['batch']} x {cfg.n_prefix} x {cfg.d_model}")
+    task = make_lm_task(vocab=cfg.vocab_size, batch=PHI3V["batch"], seq_len=PHI3V["seq_len"],
+                        temperature=0.5, seed=0, device=dev,
+                        extra_fields=modality_fields(cfg, PHI3V["batch"], PHI3V["seq_len"]))
+    out[label] = hist_at_scale(dev, label, cfg, task, PHI3V, PHI3V_PINS)
+    del task
+    torch.cuda.empty_cache()
+    return out
+
+
+def bigrams(task, client: int, steps, vocab: int):
+    """The empirical bigram distribution of one client's stream over
+    ``steps`` (the reference's ``tests/test_fed.py`` helper)."""
+    import numpy as np
+
+    h = np.zeros((vocab, vocab))
+    for step in steps:
+        tok = task.sample(step, client)["tokens"].cpu().numpy()
+        np.add.at(h, (tok[:, :-1].ravel(), tok[:, 1:].ravel()), 1)
+    return h / h.sum()
+
+
+def noniid_phase(dev) -> dict:
+    """Phase 14d: the reference's ``TestNonIID`` statistics on tables drawn
+    on the card (vocabulary 32, 4 clients, batch 8 x 64, temperature 0.3:
+    two clients' bigram distributions more than 0.3 apart in L1 at skew 5;
+    at skew 0 the distance across clients within 2 x the noise within one
+    client + 0.05), then the fed launcher's own non-IID run
+    (``NONIID_ARGV``) through :func:`fed_drive` (launches a round, every
+    ``f32_mean_xla`` call against its plain cascade, every upload decoded to
+    the member's ΔW*): the mean held-out loss over the 16 clients' chains
+    falls.  Prints the host ms a round spent drawing batches.  Returns the
+    path's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.data import make_non_iid_lm_task
+    from repro_torch.launch import fed
+    from repro_torch.run.build import build_run
+    from repro_torch.run.flags import spec_from_args
+
+    label = "fed-tiny non-IID"
+    skewed = make_non_iid_lm_task(vocab=32, batch=8, seq_len=64, n_clients=4, skew=5.0,
+                                  temperature=0.3, seed=0, device=dev)
+    apart = float(np.abs(bigrams(skewed, 0, [0], 32) - bigrams(skewed, 1, [0], 32)).sum())
+    shared = make_non_iid_lm_task(vocab=32, batch=8, seq_len=64, n_clients=4, skew=0.0,
+                                  temperature=0.3, seed=0, device=dev)
+    noise = float(np.abs(bigrams(shared, 0, [0, 1], 32) - bigrams(shared, 0, [2, 3], 32)).sum())
+    cross = float(np.abs(bigrams(shared, 0, [0, 1], 32) - bigrams(shared, 1, [0, 1], 32)).sum())
+    check(apart > 0.3 and cross < 2.0 * noise + 0.05,
+          f"{label}: L1 apart {apart} at skew 5; across {cross}, noise {noise} at skew 0")
+    print(f"{label}: tables drawn on the card; two clients' bigrams {apart:.4f} apart in L1 at "
+          f"skew 5 (> 0.3); at skew 0 across clients {cross:.4f}, within one client {noise:.4f} "
+          f"(limit {2.0 * noise + 0.05:.4f})")
+
+    args = fed.build_parser().parse_args(NONIID_ARGV + ["--device", str(dev)])
+    spec = spec_from_args(args, backend="fed")
+    run = build_run(spec, device=dev)
+    check(run.task.name == f"lm_markov_noniid{spec.clients}", f"{label}: task {run.task.name}")
+    sched = run.init()
+    draw_s: list = []
+    sample = run.task.sample
+
+    def timed_sample(step, client):
+        t0 = time.perf_counter()
+        try:
+            return sample(step, client)
+        finally:
+            draw_s.append(time.perf_counter() - t0)
+
+    sched.pool.task = dataclasses.replace(run.task, sample=timed_sample)
+
+    def heldout(params) -> float:  # a stream of each chain no client draws
+        with torch.no_grad():
+            return float(np.mean([float(run.model.loss_fn(params, sample(10 ** 6, c)))
+                                  for c in range(spec.clients)]))
+
+    before = heldout(sched.server.params)
+    cap = fed_drive(dev, None, NONIID_PER_ROUND, label, rounds=NONIID_ROUNDS, run=run)
+    after = heldout(sched.server.params)
+    _falls([m["loss"] for m in cap["metrics"]], before, after, label)
+    print(f"{label}: {spec.clients} clients, skew {spec.skew}, delay {spec.delay}, p "
+          f"{spec.sparsity}, downstream {spec.down_sparsity}; round ms "
+          f"{', '.join(f'{x:.3f}' for x in cap['step_ms'])}; host ms drawing batches "
+          f"{1e3 * sum(draw_s) / NONIID_ROUNDS:.3f} a round ({len(draw_s) // NONIID_ROUNDS} "
+          f"samples)")
+    launches = cap["launches"]
+    del run, sched, cap
+    return launches
+
+
+def encdec_phase(dev) -> dict:
+    """Phase 14: the rest of the zoo (ROADMAP A12, part 3, items 3-5):
+    seamless's and phi-3-vision's training, their serving, the non-IID fed
+    run.  Returns each path's launches."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = encdec_train_phase(dev)
+    out.update(serve_zoo_phase(dev, SERVE_STUBS))
+    out["fed-tiny non-IID"] = noniid_phase(dev)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3581,8 +3878,9 @@ def main(argv: list) -> int:
     if decoder_only:  # phase 12 alone
         print(json.dumps({"launches_decoder": decoder_phase(dev)}))
         return 0
-    if zoo_only:  # phase 13 alone
-        print(json.dumps({"launches_moe": zoo_phase(dev)}))
+    if zoo_only:  # phases 13 and 14 alone
+        moe = zoo_phase(dev)
+        print(json.dumps({"launches_moe": moe, "launches_encdec": encdec_phase(dev)}))
         print(card)
         return 0
 
@@ -3651,12 +3949,16 @@ def main(argv: list) -> int:
     # ---- 13. the MoE and recurrent decoders: mixtral's training, the
     # four configs' serving
     moe = zoo_phase(dev)
+    # ---- 14. the rest of the zoo: seamless's and phi-3-vision's training
+    # and serving, the non-IID fed run
+    encdec = encdec_phase(dev)
     for name in KERNELS:
-        counts = {path: c.get(name, 0) for path, c in moe.items()}
-        if any(counts.values()):
-            rows[name]["launches_moe"] = counts
+        for key, paths in (("launches_moe", moe), ("launches_encdec", encdec)):
+            counts = {path: c.get(name, 0) for path, c in paths.items()}
+            if any(counts.values()):
+                rows[name][key] = counts
 
-    # ---- 14. results
+    # ---- 15. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,12 @@ as the reference's ``jnp.bfloat16``), its derived properties
 ``param_count``, ``active_param_count``), :func:`reduced`,
 ``INPUT_SHAPES``, ``ASSIGNED_ARCHS`` and :func:`input_specs`.
 
-The port carries the paper's four models, the dense text decoders
-(gemma3-1b, qwen1.5-4b, granite-20b, command-r-35b), the MoE decoders
-(mixtral-8x7b, llama4-maverick) and the recurrent ones (jamba-v0.1,
-rwkv6-1.6b); :func:`get_config` of seamless-m4t (the encoder-decoder) or
-phi-3-vision (the vision prefix) raises ``NotImplementedError`` naming
-the item of ROADMAP A12, part 3 that brings it.
+The port carries the paper's four models and all ten assigned
+architectures: the dense text decoders (gemma3-1b, qwen1.5-4b,
+granite-20b, command-r-35b), the MoE decoders (mixtral-8x7b,
+llama4-maverick), the recurrent ones (jamba-v0.1, rwkv6-1.6b), the
+vision-prefix decoder (phi-3-vision) and the encoder-decoder
+(seamless-m4t).
 """
 from __future__ import annotations
 
@@ -279,10 +279,6 @@ PAPER_ARCHS = ["lenet5", "resnet32", "charlstm", "wordlstm"]
 DENSE_ARCHS = ["gemma3_1b", "qwen15_4b", "granite_20b", "command_r_35b"]
 # the MoE and recurrent decoders (ROADMAP A12, part 3, items 1 and 2)
 MOE_SSM_ARCHS = ["mixtral_8x7b", "llama4_maverick_400b_a17b", "jamba_v01_52b", "rwkv6_1p6b"]
-# the architectures still to port, each with the item of ROADMAP A12, part 3
-# that brings it
-LATER_ARCHS = {"seamless_m4t_medium": "item 3 (the encoder-decoder)",
-               "phi3_vision_4p2b": "item 4 (the vision prefix)"}
 
 
 def get_config(name: str, **overrides: Any) -> ModelConfig:
@@ -290,8 +286,7 @@ def get_config(name: str, **overrides: Any) -> ModelConfig:
 
     Accepts the module key (``qwen15_4b``) or the display id
     (``qwen1.5-4b``), with the reference's aliases and dot/dash
-    normalisations.  seamless-m4t and phi-3-vision raise
-    ``NotImplementedError`` naming the item that brings them."""
+    normalisations; an unknown name raises ``KeyError``."""
     aliases = {
         "phi-3-vision-4.2b": "phi3_vision_4p2b",
         "qwen1.5-4b": "qwen15_4b",
@@ -304,10 +299,6 @@ def get_config(name: str, **overrides: Any) -> ModelConfig:
     key = next((c for c in candidates if c in PAPER_ARCHS + ASSIGNED_ARCHS), None)
     if key is None:
         raise KeyError(f"no config module found for {name!r} (tried {candidates})")
-    if key in LATER_ARCHS:
-        raise NotImplementedError(
-            f"config {key!r} is not ported yet; it comes with ROADMAP A12, part 3, "
-            f"{LATER_ARCHS[key]}")
     cfg = importlib.import_module(f"repro_torch.configs.{key}").CONFIG
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)

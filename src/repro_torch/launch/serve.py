@@ -23,11 +23,17 @@ subscribers with heterogeneous sync periods.
       --subscribers 10000 --broadcast-rounds 12
 
 Without ``--full-size`` the architecture is the reference's ``reduced``
-variant (f32).  Every text decoder serves: dense, MoE (mixtral-8x7b,
-llama4) and recurrent (jamba-v0.1, rwkv6-1.6b), whose decode carries
-Mamba's ``{h, conv}`` and RWKV6's ``{s, tm_prev, cm_prev}`` states.  The
-encoder-decoder and vision architectures come with ROADMAP A12, part 3,
-items 3 and 4.
+variant (f32).  Every architecture serves: the dense, MoE (mixtral-8x7b,
+llama4) and recurrent decoders (jamba-v0.1, rwkv6-1.6b, whose decode
+carries Mamba's ``{h, conv}`` and RWKV6's ``{s, tm_prev, cm_prev}``
+states), phi-3-vision (the prompt's first ``n_prefix`` positions are
+patch embeddings) and the encoder-decoder seamless-m4t (the encoder reads
+``--prompt-len`` frames; the decoder's caches carry its memory):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium \
+      --batch 2 --prompt-len 16 --new-tokens 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b \
+      --batch 2 --prompt-len 16 --new-tokens 4 --device cpu
 """
 from __future__ import annotations
 
@@ -72,7 +78,10 @@ def build_engine(args: argparse.Namespace):
     """``(cfg, engine, params, batch)`` for the parsed flags: the config
     (reduced unless ``--full-size``), its parameters drawn on the device
     from a generator seeded 0, and a batch of prompts drawn from a second
-    generator seeded 0."""
+    generator seeded 0, then from it the modality stub's input as the
+    reference builds it: an audio encoder-decoder's ``enc_frames`` (batch,
+    prompt length, d), a text one's ``enc_tokens`` (the prompts), a vision
+    config's ``prefix`` (batch, n_prefix, d), each 0.1 × a normal draw."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full_size:
@@ -80,9 +89,18 @@ def build_engine(args: argparse.Namespace):
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     g = torch.Generator(device=dev).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=g,
-                           device=dev)
-    return cfg, ServeEngine(model), params, {"tokens": tokens}
+    B, S = args.batch, args.prompt_len
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)}
+    if cfg.family == "encdec":
+        if cfg.modality == "audio":
+            batch["enc_frames"] = 0.1 * torch.randn((B, S, cfg.d_model), generator=g,
+                                                    device=dev)
+        else:
+            batch["enc_tokens"] = batch["tokens"]
+    elif cfg.modality == "vision":
+        batch["prefix"] = 0.1 * torch.randn((B, cfg.n_prefix, cfg.d_model), generator=g,
+                                            device=dev)
+    return cfg, ServeEngine(model), params, batch
 
 
 def main(argv=None):

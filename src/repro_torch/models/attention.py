@@ -16,9 +16,9 @@ semantics and accumulation order are not the reference's.
 
 Kinds (``cfg.layer_kinds``): ``attn`` (full causal), ``attn_window``
 (``cfg.window``), ``attn_local`` (``cfg.local_window``), ``attn_chunk``
-(chunked-local, ``cfg.chunk_attn``) and ``attn_bidir`` (no causal mask).
-``cross`` (encoder memory) comes with the encoder-decoder, ROADMAP A12,
-part 3, item 3.
+(chunked-local, ``cfg.chunk_attn``), ``attn_bidir`` (no causal mask; the
+encoder's, roped) and ``cross`` (the decoder over the encoder's memory:
+no mask, no RoPE on q or k).
 
 Two of the reference's behaviours are kept as they are:
 
@@ -40,12 +40,6 @@ import torch
 from repro_torch.models.layers import dense, init_dense, rope
 
 NEG_INF = -1e30
-
-
-def _cross_refused() -> NotImplementedError:
-    return NotImplementedError(
-        "cross attention (encoder-decoder) is not ported yet; it comes with "
-        "ROADMAP A12, part 3, item 3")
 
 
 def window_for(kind: str, cfg) -> int:
@@ -70,7 +64,9 @@ def cache_len_for(kind: str, cfg, seq_len: int, margin: int = 8) -> int:
     return _round128(seq_len + margin)  # full / global
 
 
-def init_attention(gen: torch.Generator, cfg) -> dict:
+def init_attention(gen: torch.Generator, cfg, *, cross: bool = False) -> dict:
+    """q, k, v and output projections; a ``cross`` layer's are the same
+    leaves (its k and v read the encoder's memory)."""
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     bias = cfg.qkv_bias
@@ -110,37 +106,43 @@ def _masked_attention(q, k, v, mask, scale: float) -> torch.Tensor:
 
 
 def attn_train(params: dict, x: torch.Tensor, cfg, kind: str, *,
-               positions: Optional[torch.Tensor] = None, q_chunk: int = 0,
+               positions: Optional[torch.Tensor] = None,
+               kv_x: Optional[torch.Tensor] = None, q_chunk: int = 0,
                return_cache_seq: bool = False):
-    """Full-sequence attention.  x: (B, S, d).
+    """Full-sequence attention.  x: (B, S, d); ``kv_x`` (B, Sk, d) is the
+    encoder's memory of a ``cross`` layer, whose keys sit at ``arange(Sk)``
+    with no mask and no RoPE.
 
-    Returns ``(out, (k, v))`` with the roped K/V when
+    Returns ``(out, (k, v))`` with the K/V (roped but for ``cross``) when
     ``return_cache_seq`` (the serving engine builds a decode cache from
     them), else ``(out, None)``.  ``q_chunk`` 0 takes the reference's
-    rule, ``max(128, min(1024, 2²² // Sk))``; a sequence longer than the
-    chunk must be a multiple of it (the reference's assertion).
+    rule, ``max(128, min(1024, 2²² // Sk))``, from the keys' length; a
+    sequence longer than the chunk must be a multiple of it (the
+    reference's assertion).
     """
-    if kind == "cross":
-        raise _cross_refused()
     B, S, _ = x.shape
     hd, Hkv = cfg.head_dim, cfg.n_kv_heads
     G = cfg.n_heads // Hkv
     scale = 1.0 / math.sqrt(hd)
-    causal = kind != "attn_bidir"
+    cross = kind == "cross"
+    causal = kind not in ("cross", "attn_bidir")
 
     if positions is None:
         positions = torch.arange(S, device=x.device)
 
     q = _split_heads(dense(params["wq"], x), cfg.n_heads, hd)
-    Sk = S
+    src = kv_x if cross else x
+    Sk = src.shape[1]
     if q_chunk == 0:
         # the reference's bound on the (B, H, q_chunk, Sk) f32 score tile
         q_chunk = max(128, min(1024, (1 << 22) // max(Sk, 1)))
-    k = _split_heads(dense(params["wk"], x), Hkv, hd)
-    v = _split_heads(dense(params["wv"], x), Hkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = _split_heads(dense(params["wk"], src), Hkv, hd)
+    v = _split_heads(dense(params["wv"], src), Hkv, hd)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     q = q.reshape(B, S, Hkv, G, hd)
+    kj = torch.arange(Sk, device=x.device) if cross else positions
 
     window = window_for(kind, cfg)
     chunk = cfg.chunk_attn if kind == "attn_chunk" else 0
@@ -159,7 +161,7 @@ def attn_train(params: dict, x: torch.Tensor, cfg, kind: str, *,
         return m
 
     if S <= q_chunk:
-        mask = mask_fn(positions, positions)
+        mask = mask_fn(positions, kj)
         out = _masked_attention(q, k, v, mask[None, None, None], scale)
     else:
         n_chunks = S // q_chunk
@@ -168,7 +170,7 @@ def attn_train(params: dict, x: torch.Tensor, cfg, kind: str, *,
         for i in range(n_chunks):
             qch = q[:, i * q_chunk:(i + 1) * q_chunk]
             qi = positions[0] + i * q_chunk + torch.arange(q_chunk, device=x.device)
-            mask = mask_fn(qi, positions)
+            mask = mask_fn(qi, kj)
             outs.append(_masked_attention(qch, k, v, mask[None, None, None], scale))
         out = torch.cat(outs, dim=1)
 
@@ -220,21 +222,30 @@ def fill_cache_from_prefill(cache: dict, kind: str, cfg, k: torch.Tensor,
     return {"k": new_k, "v": new_v, "pos": new_pos}
 
 
-def attn_decode(params: dict, x: torch.Tensor, cfg, kind: str, cache: dict, pos: int):
+def attn_decode(params: dict, x: torch.Tensor, cfg, kind: str, cache: Optional[dict],
+                pos: int, *, cross_memory: Optional[tuple] = None):
     """One-token attention.  x: (B, 1, d); ``pos`` the current position (a
     host int).  Returns ``(out (B,1,d), new_cache)``; the cache passed in
     is left as it is.  A slot past the cache is clamped to its last one,
-    as ``lax.dynamic_update_slice`` does."""
-    if kind == "cross":
-        raise _cross_refused()
-    pos = int(pos)
+    as ``lax.dynamic_update_slice`` does.  For ``kind == "cross"``,
+    ``cross_memory`` is the ``(k, v)`` of the encoder's output, every slot
+    of it is attended and ``cache`` is returned as it came in."""
     B = x.shape[0]
     hd, Hkv = cfg.head_dim, cfg.n_kv_heads
     G = cfg.n_heads // Hkv
     scale = 1.0 / math.sqrt(hd)
-    p_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-
     q = _split_heads(dense(params["wq"], x), cfg.n_heads, hd)
+
+    if kind == "cross":
+        k, v = cross_memory
+        mask = torch.ones((1, k.shape[1]), dtype=torch.bool, device=x.device)
+        out = _masked_attention(q.reshape(B, 1, Hkv, G, hd), k, v, mask[None, None, None],
+                                scale)
+        out = dense(params["wo"], out.reshape(B, 1, cfg.n_heads * hd).to(x.dtype))
+        return out, cache
+
+    pos = int(pos)
+    p_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = rope(q, p_t, cfg.rope_theta).reshape(B, 1, Hkv, G, hd)
     k_new = rope(_split_heads(dense(params["wk"], x), Hkv, hd), p_t, cfg.rope_theta)
     v_new = _split_heads(dense(params["wv"], x), Hkv, hd)

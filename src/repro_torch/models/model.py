@@ -3,7 +3,9 @@ architecture.
 
 Counterpart of ``repro.models.model``; the port builds the paper's four
 models (the CNN family's LeNet5 and ResNet-32, the LSTM family's CharLSTM
-and WordLSTM) and the text decoders: dense, MoE and recurrent.
+and WordLSTM) and the transformers: the decoders (dense, MoE, recurrent,
+with a vision prefix) and the encoder-decoder.  A batch's ``prefix``,
+``enc_tokens`` and ``enc_frames`` reach the loss and the prefill.
 ``make_param_specs`` (the reference's sharding rules) comes with the
 "model" axis, ROADMAP A12, part 3, item 6.
 """
@@ -39,19 +41,21 @@ AUX_WEIGHT = 0.01  # MoE load-balance loss coefficient
 
 
 def _build_transformer(cfg: ModelConfig) -> Model:
-    transformer.check_text_decoder(cfg)
-
     def init(gen: torch.Generator) -> dict:
         return transformer.init_decoder_lm(gen, cfg)
 
+    def _kwargs(batch: dict) -> dict:
+        return {k: batch[k] for k in ("prefix", "enc_tokens", "enc_frames") if k in batch}
+
     def loss_fn(params: dict, batch: dict) -> torch.Tensor:
-        hidden, aux = transformer.decoder_hidden(params, batch["tokens"], cfg)
+        hidden, aux = transformer.decoder_hidden(params, batch["tokens"], cfg, **_kwargs(batch))
         emb = transformer.output_embedding(params, cfg)
         loss = chunked_softmax_xent(hidden, emb, batch["labels"])
         return loss + AUX_WEIGHT * aux
 
     def prefill(params: dict, batch: dict, q_chunk: int = 0):
-        return transformer.decoder_prefill(params, batch["tokens"], cfg, q_chunk=q_chunk)
+        return transformer.decoder_prefill(params, batch["tokens"], cfg, q_chunk=q_chunk,
+                                           **_kwargs(batch))
 
     def decode_step(params: dict, tokens, caches, pos):
         return transformer.decoder_decode_step(params, tokens, cfg, caches, pos)

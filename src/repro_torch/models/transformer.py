@@ -1,11 +1,16 @@
-"""Decoder assembly (counterpart of ``repro.models.transformer``) for the
-text decoders: tiny, fed-tiny, lm-100m, gemma3, qwen1.5, granite,
-command-r, mixtral, llama4, jamba and rwkv6.
+"""Decoder and encoder-decoder assembly (counterpart of
+``repro.models.transformer``) for every architecture of the zoo: tiny,
+fed-tiny, lm-100m, gemma3, qwen1.5, granite, command-r, mixtral, llama4,
+jamba, rwkv6, phi-3-vision and seamless-m4t.
 
 The parameter tree is the reference's, leaf for leaf::
 
-    {"embed": {"embedding"}, "stack": {"scan": {"b0", …}, "rem": {…}},
-     "final_norm": {…}, "head"?: {"embedding"}}
+    {"embed": {"embedding"}, "encoder"?: {"stack", "final_norm"},
+     "stack": {"scan": {"b0", …}, "rem": {…}}, "final_norm": {…},
+     "head"?: {"embedding"}}
+
+(the keys sorted, as JAX flattens them: ``encoder`` between ``embed`` and
+``final_norm``).
 
 One superblock is the smallest repeating layer pattern (jamba: 7 Mamba
 + 1 attention with MoE every second layer, period 8; gemma3: 5 local + 1
@@ -26,12 +31,21 @@ f32 zero in layer order.
 
 Three modes share the block code: train (full sequence, no caches),
 prefill (full sequence, returns caches), decode (one token, carries
-caches).  The encoder-decoder (cross attention) and the modality prefix
-come with ROADMAP A12, part 3, items 3 and 4, and raise
-``NotImplementedError`` until then.
+caches).
+
+The encoder-decoder (``family="encdec"``, seamless-m4t) adds an encoder
+of ``enc_layers`` bidirectional, roped attention blocks, and each decoder
+block a ``cross`` attention over the encoder's output (``norm_x`` and
+``cross`` between the self-attention and the FFN).  Its input is frames
+(float ``(B, S_enc, d)``, the audio frontend's stub: cast to the model's
+dtype, no embedding, no √d) or tokens (int, embedded as the decoder's).
+The modality prefix (phi-3-vision's 576 patch embeddings) replaces the
+first ``n_prefix`` token embeddings; the sequence keeps its length and
+the loss covers every position.  Decode steps carry no prefix.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -47,26 +61,14 @@ from repro_torch.models.layers import (embed_lookup, gen_device, init_embed, ini
 PyTree = Any
 
 
-def _part3(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with ROADMAP A12, part 3, "
-                               f"item {item}")
-
-
-def check_text_decoder(cfg) -> None:
-    """Raise for the parts of the zoo this port does not carry yet: the
-    encoder-decoder and the non-text modalities."""
-    if cfg.family == "encdec" or cfg.enc_layers:
-        raise _part3("the encoder-decoder (seamless-m4t)", 3)
-    if cfg.modality != "text":
-        raise _part3(f"the {cfg.modality} prefix", 4)
-
-
 # ------------------------------------------------------------------ blocks
 
 
-def init_block(gen: torch.Generator, cfg, kind: str, use_moe: bool) -> dict:
-    """One block of ``kind`` (``cfg`` passed :func:`check_text_decoder`),
-    its FFN an MoE where ``use_moe``."""
+def init_block(gen: torch.Generator, cfg, kind: str, use_moe: bool, *,
+               cross: bool = False) -> dict:
+    """One block of ``kind``, its FFN an MoE where ``use_moe``; an
+    attention block with ``cross`` also attends over the encoder's memory
+    (``norm_x``, ``cross``)."""
     dev = gen_device(gen)
     p: dict = {"norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev)}
 
@@ -88,6 +90,9 @@ def init_block(gen: torch.Generator, cfg, kind: str, use_moe: bool) -> dict:
         p["norm2"] = init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev)
         return p  # the channel-mix lives inside the rwkv params
     p["inner"] = attn.init_attention(gen, cfg)
+    if cross:
+        p["norm_x"] = init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev)
+        p["cross"] = attn.init_attention(gen, cfg, cross=True)
     ffn()
     return p
 
@@ -106,8 +111,10 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _block_train(params, x, cfg, kind, use_moe, positions, want_cache=False, q_chunk=0):
-    """Returns (x, aux, cache_or_None)."""
+def _block_train(params, x, cfg, kind, use_moe, positions, want_cache=False, q_chunk=0,
+                 enc_out=None):
+    """Returns (x, aux, cache_or_None); a block with ``cross`` attends over
+    ``enc_out`` and its cache carries that memory's ``cross_k``/``cross_v``."""
     aux = _zero(x)
     cache = None
     h = norm_apply(params["norm1"], x, cfg.norm)
@@ -132,10 +139,18 @@ def _block_train(params, x, cfg, kind, use_moe, positions, want_cache=False, q_c
         return x, aux, cache
     y, kv = attn.attn_train(params["inner"], h, cfg, kind, positions=positions,
                             q_chunk=q_chunk, return_cache_seq=want_cache)
-    x, aux = _ffn(params, x + y, cfg, use_moe)
+    x = x + y
+    if "cross" in params:
+        hx = norm_apply(params["norm_x"], x, cfg.norm)
+        yx, cross_kv = attn.attn_train(params["cross"], hx, cfg, "cross", kv_x=enc_out,
+                                       q_chunk=q_chunk, return_cache_seq=want_cache)
+        x = x + yx
+    x, aux = _ffn(params, x, cfg, use_moe)
     if want_cache:
         c = attn.init_cache(cfg, kind, x.shape[0], x.shape[1], cfg.dtype, x.device)
         cache = attn.fill_cache_from_prefill(c, kind, cfg, kv[0], kv[1])
+        if "cross" in params:
+            cache["cross_k"], cache["cross_v"] = cross_kv
     return x, aux, cache
 
 
@@ -157,7 +172,14 @@ def _block_decode(params, x, cfg, kind, use_moe, cache, pos):
         y2, cm_prev = ssm.rwkv6_channel_mix(params["inner"], h2, cfg, cache["cm_prev"])
         return x + y2, {"s": s_final, "tm_prev": tm_prev, "cm_prev": cm_prev}
     y, new_cache = attn.attn_decode(params["inner"], h, cfg, kind, cache, pos)
-    x, _ = _ffn(params, x + y, cfg, use_moe, full_capacity=True)
+    x = x + y
+    if "cross" in params:
+        hx = norm_apply(params["norm_x"], x, cfg.norm)
+        yx, _ = attn.attn_decode(params["cross"], hx, cfg, "cross", None, pos,
+                                 cross_memory=(cache["cross_k"], cache["cross_v"]))
+        x = x + yx
+        new_cache["cross_k"], new_cache["cross_v"] = cache["cross_k"], cache["cross_v"]
+    x, _ = _ffn(params, x, cfg, use_moe, full_capacity=True)
     return x, new_cache
 
 
@@ -193,9 +215,10 @@ def layer_desc(cfg, i: int) -> tuple[str, bool]:
     return cfg.layer_kinds[i], cfg.layer_moe[i]
 
 
-def init_stack(gen: torch.Generator, cfg) -> dict:
+def init_stack(gen: torch.Generator, cfg, *, cross: bool = False) -> dict:
     """Stacked superblock params (+ remainder):
-    ``{'scan': {bj: stacked over superblocks}, 'rem': {bj: params}}``.
+    ``{'scan': {bj: stacked over superblocks}, 'rem': {bj: params}}``,
+    every attention block with ``cross`` attention where ``cross``.
 
     Each superblock is drawn and copied into its slot of the preallocated
     stacked leaves before the next is drawn, so the peak is the model and
@@ -205,7 +228,8 @@ def init_stack(gen: torch.Generator, cfg) -> dict:
     out: dict = {}
     if n_scan:
         def superblock(sb: int) -> dict:
-            return {f"b{j}": init_block(gen, cfg, *layer_desc(cfg, sb * period + j))
+            return {f"b{j}": init_block(gen, cfg, *layer_desc(cfg, sb * period + j),
+                                        cross=cross)
                     for j in range(period)}
 
         first = superblock(0)
@@ -221,7 +245,8 @@ def init_stack(gen: torch.Generator, cfg) -> dict:
                 first = None
             out["scan"] = stacked
     if rem:
-        out["rem"] = {f"b{j}": init_block(gen, cfg, *layer_desc(cfg, n_scan * period + j))
+        out["rem"] = {f"b{j}": init_block(gen, cfg, *layer_desc(cfg, n_scan * period + j),
+                                          cross=cross)
                       for j in range(rem)}
     return out
 
@@ -230,10 +255,10 @@ def _index(tree: PyTree, i: int) -> PyTree:
     return tree_map(lambda v: v[i], tree)
 
 
-def _apply_stack_train(stack, x, cfg, positions, want_cache=False, q_chunk=0):
-    """Run all layers.  Returns (x, aux_total, caches); ``aux_total`` sums
-    every layer's aux from an f32 zero in layer order, as the reference's
-    scan carry does."""
+def _apply_stack_train(stack, x, cfg, positions, want_cache=False, q_chunk=0, enc_out=None):
+    """Run all layers (a decoder's ``cross`` blocks over ``enc_out``).
+    Returns (x, aux_total, caches); ``aux_total`` sums every layer's aux
+    from an f32 zero in layer order, as the reference's scan carry does."""
     period, n_scan, rem = stack_pattern(cfg)
     aux_total = _zero(x)
     caches: dict = {}
@@ -245,7 +270,7 @@ def _apply_stack_train(stack, x, cfg, positions, want_cache=False, q_chunk=0):
             for j in range(period):
                 kind, use_moe = layer_desc(cfg, j)  # the pattern is period-invariant
                 x, a, cs[f"b{j}"] = _block_train(sb_params[f"b{j}"], x, cfg, kind, use_moe,
-                                                 positions, want_cache, q_chunk)
+                                                 positions, want_cache, q_chunk, enc_out)
                 aux_total = aux_total + a
             per_sb.append(cs)
         if want_cache:
@@ -255,7 +280,8 @@ def _apply_stack_train(stack, x, cfg, positions, want_cache=False, q_chunk=0):
         for j in range(rem):
             kind, use_moe = layer_desc(cfg, n_scan * period + j)
             x, a, rem_caches[f"b{j}"] = _block_train(stack["rem"][f"b{j}"], x, cfg, kind,
-                                                     use_moe, positions, want_cache, q_chunk)
+                                                     use_moe, positions, want_cache, q_chunk,
+                                                     enc_out)
             aux_total = aux_total + a
         if want_cache:
             caches["rem"] = rem_caches
@@ -289,34 +315,84 @@ def _apply_stack_decode(stack, x, cfg, caches, pos):
 
 
 def init_decoder_lm(gen: torch.Generator, cfg) -> dict:
-    """The decoder's parameters drawn from ``gen`` on its device (a CUDA
-    generator draws on the card), each leaf in ``cfg.dtype``."""
-    check_text_decoder(cfg)
+    """The model's parameters drawn from ``gen`` on its device (a CUDA
+    generator draws on the card), each leaf in ``cfg.dtype``.  The
+    reference draws an encoder-decoder's stack twice and keeps the one with
+    cross attention; the port draws it once (the tree is the same)."""
+    encdec = cfg.family == "encdec"
+    dev = gen_device(gen)
     p = {
         "embed": init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.dtype),
-        "stack": init_stack(gen, cfg),
-        "final_norm": init_norm(cfg.d_model, cfg.norm, cfg.dtype, gen_device(gen)),
+        "stack": init_stack(gen, cfg, cross=encdec),
+        "final_norm": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev),
     }
     if not cfg.tie_embeddings:
         p["head"] = init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.dtype)
+    if encdec:
+        # the reference's init-time encoder config leaves family,
+        # bidirectional and local_window as they are; its tree is
+        # _enc_cfg's (period 1, attention blocks with an MLP)
+        p["encoder"] = {"stack": init_stack(gen, _enc_cfg(cfg)),
+                        "final_norm": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev)}
     return p
 
 
-def _embed_inputs(params, tokens, cfg):
+def _embed_inputs(params, tokens, cfg, prefix=None):
     # √d is rounded to the embedding's dtype first, as JAX's weak type does
     x = scale_by(embed_lookup(params["embed"], tokens), math.sqrt(cfg.d_model))
-    return x.to(cfg.dtype)
+    x = x.to(cfg.dtype)
+    if prefix is not None:
+        # the modality stub: precomputed patch embeddings take the first
+        # n_prefix positions (early fusion)
+        npre = prefix.shape[-2]
+        if tokens.shape[-1] < npre:
+            raise ValueError(f"a prompt of {tokens.shape[-1]} tokens is shorter than its "
+                             f"{npre}-position prefix")
+        x = torch.cat([prefix.to(cfg.dtype), x[..., npre:, :]], dim=-2)
+    return x
+
+
+def _enc_cfg(cfg):
+    """The encoder's config: ``enc_layers`` bidirectional attention blocks."""
+    return dataclasses.replace(
+        cfg, n_layers=cfg.enc_layers, ssm_kind="", moe_experts=0, family="decoder",
+        local_window=0, local_global_ratio=0, global_every=0, window=0,
+        bidirectional=True, attn_every=1)
+
+
+def _encode(params, enc_inp, cfg):
+    """Encoder forward.  ``enc_inp`` is int token ids (B, S) or, for the
+    audio stub, precomputed frame embeddings (B, S, d) taken as they are
+    (cast to ``cfg.dtype``: no embedding, no √d)."""
+    if enc_inp.is_floating_point():
+        x = enc_inp.to(cfg.dtype)
+    else:
+        x = _embed_inputs(params, enc_inp, cfg)
+    positions = torch.arange(x.shape[-2], dtype=torch.int32, device=x.device)
+    x, _, _ = _apply_stack_train(params["encoder"]["stack"], x, _enc_cfg(cfg), positions)
+    return norm_apply(params["encoder"]["final_norm"], x, cfg.norm)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(tokens.shape[-1], dtype=torch.int32, device=tokens.device)
 
 
-def decoder_hidden(params, tokens, cfg):
-    """(B,S) tokens → (final hidden (B,S,d), aux).  ``aux`` is the sum of
-    the MoE layers' load-balance terms (zero without MoE layers)."""
-    x = _embed_inputs(params, tokens, cfg)
-    x, aux, _ = _apply_stack_train(params["stack"], x, cfg, _positions(tokens))
+def _memory(params, cfg, enc_tokens, enc_frames):
+    """The encoder's output for an encoder-decoder (frames before tokens,
+    as the reference picks), else None."""
+    if cfg.family != "encdec":
+        return None
+    return _encode(params, enc_frames if enc_frames is not None else enc_tokens, cfg)
+
+
+def decoder_hidden(params, tokens, cfg, *, prefix=None, enc_tokens=None, enc_frames=None):
+    """(B,S) tokens → (final hidden (B,S,d), aux), running the encoder first
+    for an encoder-decoder.  ``aux`` is the sum of the MoE layers'
+    load-balance terms (zero without MoE layers)."""
+    enc_out = _memory(params, cfg, enc_tokens, enc_frames)
+    x = _embed_inputs(params, tokens, cfg, prefix)
+    x, aux, _ = _apply_stack_train(params["stack"], x, cfg, _positions(tokens),
+                                   enc_out=enc_out)
     return norm_apply(params["final_norm"], x, cfg.norm), aux
 
 
@@ -325,14 +401,17 @@ def output_embedding(params, cfg) -> torch.Tensor:
     return head["embedding"]
 
 
-def decoder_prefill(params, tokens, cfg, *, q_chunk: int = 0):
-    """Full-sequence forward that also returns decode caches.  ``q_chunk``
-    0 is the reference's rule (:func:`~repro_torch.models.attention.
-    attn_train`); another value lets a sequence the rule's chunk does not
-    divide run chunked."""
-    x = _embed_inputs(params, tokens, cfg)
+def decoder_prefill(params, tokens, cfg, *, q_chunk: int = 0, prefix=None, enc_tokens=None,
+                    enc_frames=None):
+    """Full-sequence forward that also returns decode caches (an
+    encoder-decoder's carry the encoder's length in ``cross_k``/
+    ``cross_v``).  ``q_chunk`` 0 is the reference's rule (:func:`~repro_torch.
+    models.attention.attn_train`); another value lets a sequence the
+    rule's chunk does not divide run chunked."""
+    enc_out = _memory(params, cfg, enc_tokens, enc_frames)
+    x = _embed_inputs(params, tokens, cfg, prefix)
     x, _, caches = _apply_stack_train(params["stack"], x, cfg, _positions(tokens),
-                                      want_cache=True, q_chunk=q_chunk)
+                                      want_cache=True, q_chunk=q_chunk, enc_out=enc_out)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return x, caches
 
@@ -349,7 +428,9 @@ def decoder_decode_step(params, tokens, cfg, caches, pos):
 
 def init_decode_caches(params, cfg, batch: int, seq_len: int):
     """Zero caches shaped for a ``seq_len``-deep decode session, on the
-    parameters' device."""
+    parameters' device; an encoder-decoder's ``cross_k``/``cross_v`` are
+    ``(batch, seq_len, Hkv, hd)``, sized by the session as the reference
+    sizes them."""
     period, n_scan, rem = stack_pattern(cfg)
     dev = output_embedding(params, cfg).device
 
@@ -358,7 +439,12 @@ def init_decode_caches(params, cfg, batch: int, seq_len: int):
             return ssm.mamba_init_state(cfg, batch, dev)
         if kind == "rwkv6":
             return ssm.rwkv6_init_state(cfg, batch, dev)
-        return attn.init_cache(cfg, kind, batch, seq_len, cfg.dtype, dev)
+        c = attn.init_cache(cfg, kind, batch, seq_len, cfg.dtype, dev)
+        if cfg.family == "encdec":
+            shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+            c["cross_k"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            c["cross_v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        return c
 
     caches: dict = {}
     if n_scan:

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.run.build``.  The port carries the paper's
 presets (``lenet5``, ``charlstm``, the reference's reduced ``wordlstm``),
-the decoder presets (``tiny``, ``fed-tiny``, ``lm-100m``) and the reduced
-dense decoders (``gemma3_1b``, ``qwen15_4b``, ``granite_20b``,
-``command_r_35b``), with ``sbc`` or any of the paper's baseline
+the decoder presets (``tiny``, ``fed-tiny``, ``lm-100m``) and every
+assigned architecture's reduced preset (the dense, MoE and recurrent
+decoders, ``phi3_vision_4p2b`` and the encoder-decoder
+``seamless_m4t_medium``), with ``sbc`` or any of the paper's baseline
 compressors, on three backends:
 
   local   :class:`~repro_torch.train.trainer.DSGDTrainer` over a
@@ -35,7 +36,10 @@ compressors, on three backends:
   fed     a :class:`~repro_torch.fed.scheduler.RoundScheduler` over a
           :class:`~repro_torch.core.channel.FedWireChannel`: a parameter
           server and a client pool on one card, real SBW1 bytes both
-          ways, cohorts, profiles, async rounds, faults and checkpoints:
+          ways, cohorts, profiles, async rounds, faults and checkpoints;
+          ``non_iid`` gives a decoder preset's clients their own chains
+          (:func:`~repro_torch.data.make_non_iid_lm_task`), and raises the
+          reference's ``ValueError`` for any other family:
 
               build_run(RunSpec(preset="lenet5", backend="fed", clients=8,
                                 cohort=4, sparsity=0.01))
@@ -53,11 +57,9 @@ enabled :class:`~repro_torch.obs.Telemetry` to the run and its channel,
 and ``run()`` records what the reference's traced loop records (one
 ``round`` span a round, the ``train/*`` and ``leaf/*`` gauges, the
 ledger's ``wire/*``).
-Every other combination raises ``NotImplementedError`` naming the
-ROADMAP item that brings it (the encoder-decoder and vision configs:
-A12, part 3, items 3 and 4; ``non_iid`` on a decoder preset: item 5);
-none runs a
-different path in silence.  The run is on the CUDA card unless
+Pod mode and the "model" axis raise ``NotImplementedError`` naming
+ROADMAP A12, part 3, item 6; none runs a different path in silence.  The
+run is on the CUDA card unless
 ``device="cpu"`` is passed; without a card ``build_run`` raises
 ``RuntimeError``.
 """
@@ -74,28 +76,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.dist import build_dist_train, client_topology
 from repro_torch.models.model import build_model
 from repro_torch.obs import NULL_TELEMETRY, make_telemetry
-from repro_torch.run.presets import PAPER_PRESETS, build_preset
+from repro_torch.run.presets import build_preset
 from repro_torch.run.spec import RunSpec
-
-
-def _check_slice(spec: RunSpec) -> None:
-    """Refuse every spec field this port does not carry yet.  The
-    assigned architectures outside the port raise from ``get_config``
-    when the preset is built, naming the item of ROADMAP A12, part 3 that
-    brings them."""
-    if spec.non_iid and spec.backend == "fed" and spec.preset not in PAPER_PRESETS:
-        raise NotImplementedError(
-            "not ported yet: non_iid (make_non_iid_lm_task, split_among_clients) "
-            "comes with ROADMAP A12, part 3, item 5. This port carries the paper's "
-            "presets (lenet5, charlstm, wordlstm), the decoder presets (tiny, fed-tiny, "
-            "lm-100m) and the reduced decoders (gemma3_1b, qwen15_4b, granite_20b, "
-            "command_r_35b, mixtral_8x7b, llama4_maverick_400b_a17b, jamba_v01_52b, "
-            "rwkv6_1p6b) with every registered compressor on "
-            "backend='local' (fast either way, measure_wire), on backend='gspmd' "
-            "(one client per rank; fast=True with flat_engine='hist' or 'exact' "
-            "(device_pack), or fast=False; measure_wire) and on backend='fed' "
-            "(broadcast_log too), with dense_pattern, skip_pattern and telemetry "
-            "on all three.")
 
 
 def policy_from_spec(spec: RunSpec) -> Union[Compressor, CompressionPolicy]:
@@ -476,10 +458,17 @@ class FedRun(Run):
 
 
 def _build_fed(spec: RunSpec, dev: torch.device) -> FedRun:
+    from repro_torch.data import make_non_iid_lm_task
+
     cfg, task = build_preset(spec.preset, batch=spec.batch, seq_len=spec.seq_len,
                              seed=spec.seed, device=dev)
-    if spec.non_iid:  # the reference's own refusal (decoders: _check_slice)
-        raise ValueError(f"non_iid needs an LM preset; {spec.preset!r} is {cfg.family}")
+    if spec.non_iid:
+        if cfg.family not in ("decoder",):
+            raise ValueError(f"non_iid needs an LM preset; {spec.preset!r} is {cfg.family}")
+        task = make_non_iid_lm_task(vocab=cfg.vocab_size, batch=spec.batch,
+                                    seq_len=spec.seq_len, n_clients=spec.clients,
+                                    skew=spec.skew, temperature=0.5, seed=spec.seed,
+                                    device=dev)
     return FedRun(spec=spec, cfg=cfg, model=build_model(cfg), task=task, device=dev)
 
 
@@ -511,7 +500,6 @@ def build_run(spec: RunSpec, device=None, group=None) -> Union[LocalRun, GspmdRu
 def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun, FedRun]:
     from repro_torch.launch.mesh import group_from_env, launched_by_torchrun, make_host_group
 
-    _check_slice(spec)
     if spec.backend == "gspmd" and group is None:
         if launched_by_torchrun():
             group = group_from_env(device)

@@ -9,11 +9,11 @@ Counterpart of ``repro.run.presets``:
   tiny                   2-layer d=64 decoder (test/parity-matrix scale)
   <arch id>              the reference's generic arm: ``reduced(cfg)`` on
                          the markov LM task of the config's vocabulary
-                         (wordlstm, resnet32, the dense, MoE and
-                         recurrent decoders)
-
-seamless-m4t and phi-3-vision raise ``NotImplementedError`` from
-``get_config`` (ROADMAP A12, part 3, items 3 and 4).
+                         (wordlstm, resnet32, every assigned
+                         architecture); an audio encoder-decoder's samples
+                         carry ``enc_frames`` (batch, seq_len, d) and a
+                         vision config's ``prefix`` (batch, n_prefix, d),
+                         both 0.1 × a standard normal draw
 """
 from __future__ import annotations
 
@@ -49,7 +49,6 @@ def tiny_config() -> ModelConfig:
     )
 
 
-PAPER_PRESETS = ("lenet5", "paper-lenet", "charlstm", "paper-lstm", "wordlstm", "resnet32")
 DECODER_PRESETS = {"lm-100m": lm_100m_config, "fed-tiny": fed_tiny_config,
                    "tiny": tiny_config}
 
@@ -81,5 +80,23 @@ def build_preset(name: str, *, batch: int, seq_len: int, seed: int = 0,
         raise ValueError(f"preset {name!r}: an LM task of vocabulary {cfg.vocab_size} "
                          f"for a {cfg.family} config has no tokens to draw")
     task = make_lm_task(vocab=cfg.vocab_size, batch=batch, seq_len=seq_len,
-                        temperature=0.5, seed=seed, device=device)
+                        temperature=0.5, seed=seed, device=device,
+                        extra_fields=modality_fields(cfg, batch, seq_len))
     return cfg, task
+
+
+def modality_fields(cfg: ModelConfig, batch: int, seq_len: int):
+    """``make_lm_task``'s ``extra_fields`` for ``cfg``'s modality stub, as
+    the reference's generic arm draws it (``g`` the sample's generator):
+    an audio encoder-decoder's ``enc_frames`` (batch, seq_len, d), a vision
+    config's ``prefix`` (batch, n_prefix, d), both 0.1 × a standard
+    normal; None for a text config."""
+    if cfg.family == "encdec":
+        if cfg.modality != "audio":
+            return lambda g: {}  # the reference's arm draws nothing for text
+        key, shape = "enc_frames", (batch, seq_len, cfg.d_model)
+    elif cfg.modality == "vision":
+        key, shape = "prefix", (batch, cfg.n_prefix, cfg.d_model)
+    else:
+        return None
+    return lambda g: {key: 0.1 * torch.randn(shape, generator=g)}

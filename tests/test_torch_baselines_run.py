@@ -45,7 +45,9 @@ from repro_torch.optim.optimizers import AdamState
 from repro_torch.run import RunSpec, build_run
 from repro_torch.train import TrainState
 from torch_fed_cases import LENET, bits_equal, capture_uploads, paired, trees_bits_equal
-from torch_helpers import load_chip_smoke, n, t
+from torch_helpers import load_chip_smoke, n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 BASELINES = ["none", "fedavg", "topk", "dgc", "dgc_policy", "signsgd", "onebit", "terngrad",
              "qsgd", "randomk", "variance"]

@@ -49,7 +49,9 @@ from repro_torch.core.stages import LeafCompressed
 from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.run import RunSpec, build_run, policy_from_spec
 from repro_torch.train import TrainState
-from torch_helpers import n, t
+from torch_helpers import n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 P = 0.01
 LOCAL = dict(preset="charlstm", backend="local", clients=2, delay=2, batch=2, seq_len=8,

@@ -26,7 +26,9 @@ from repro_torch.checkpoint import (
     save_train_state,
 )
 from repro_torch.run import RunSpec, build_run
-from torch_helpers import n
+from torch_helpers import n, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 
 def assert_same(a, b, what=""):

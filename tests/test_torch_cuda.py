@@ -1537,3 +1537,45 @@ def test_moe_and_recurrent_decoders_on_the_card_equal_the_cpu(cuda):
         np.testing.assert_allclose(n(out["cuda"][1]), n(ref), rtol=1e-4,
                                    atol=1e-5 * float(ref.abs().max()), err_msg=name)
         assert torch.equal(out["cuda"][2], out["cpu"][2]), name
+
+
+def test_encoder_decoder_and_vision_prefix_on_the_card_equal_the_cpu(cuda):
+    """The reduced seamless-m4t (an encoder over 24 frames, cross
+    attention) and phi-3-vision (8 prefix positions) on the card against
+    the same port on the CPU: the loss within ``rtol=1e-5``, the final
+    hidden state within ``rtol=1e-4`` beside ``atol`` of 1e-5 of its scale
+    (cuBLAS and the CPU order a GEMM's adds differently; TF32 is off), and
+    the greedy tokens of the serving engine equal."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.device import full_f32_math
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+
+    full_f32_math()
+    for name in ("seamless_m4t_medium", "phi3_vision_4p2b"):
+        cfg = reduced(get_config(name))
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 33))).long()
+        key, rows = ("enc_frames", 24) if cfg.family == "encdec" else ("prefix", cfg.n_prefix)
+        stub = torch.from_numpy((0.1 * rng.standard_normal((2, rows, cfg.d_model)))
+                                .astype(np.float32))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], key: stub}
+        out = {}
+        for dev in ("cpu", "cuda"):
+            b = tree_map(lambda v: v.to(dev), batch)
+            p = tree_map(lambda v: v.to(dev), params)
+            with torch.no_grad():
+                hidden, _ = transformer.decoder_hidden(p, b["tokens"], cfg, **{key: b[key]})
+                loss = model.loss_fn(p, b)
+            gen = ServeEngine(model).generate(p, {"tokens": b["tokens"][:, :12], key: b[key]},
+                                              max_new_tokens=6)
+            out[dev] = (float(loss), hidden.cpu(), gen.cpu())
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5, err_msg=name)
+        ref = out["cpu"][1]
+        np.testing.assert_allclose(n(out["cuda"][1]), n(ref), rtol=1e-4,
+                                   atol=1e-5 * float(ref.abs().max()), err_msg=name)
+        assert torch.equal(out["cuda"][2], out["cpu"][2]), name

@@ -43,7 +43,9 @@ from repro_torch.models import losses as tlosses
 from repro_torch.models import transformer as ttf
 from repro_torch.models.model import build_model
 from repro_torch.run.presets import fed_tiny_config, lm_100m_config, tiny_config
-from torch_helpers import n, t
+from torch_helpers import n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 DENSE = ["gemma3_1b", "qwen15_4b", "granite_20b", "command_r_35b"]
@@ -193,12 +195,21 @@ def test_decode_past_the_cache_clamps_to_its_last_slot():
 
 
 def test_cross_attention_belongs_to_part_3():
-    jcfg, tcfg, _, tp, x = attn_setup("attn")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3"):
-        tattn.attn_train(tp, t(x), tcfg, "cross")
+    """Cross attention (ROADMAP A12, part 3, item 3) runs now: over a
+    memory of 7 positions (GQA, 4 heads over 2), train and one decode step
+    equal the reference's; tests/test_torch_encdec.py holds the rest."""
+    jcfg, tcfg, jp, tp, x = attn_setup("attn")
+    mem = np.random.default_rng(8).standard_normal((2, 7, 32)).astype(np.float32)
+    jout, (jk, jv) = jattn.attn_train(jp, jnp.asarray(x), jcfg, "cross", kv_x=jnp.asarray(mem),
+                                      return_cache_seq=True)
+    tout, (tk, tv) = tattn.attn_train(tp, t(x), tcfg, "cross", kv_x=t(mem), return_cache_seq=True)
+    close(tout, jout, what="cross out")
     cache = tattn.init_cache(tcfg, "attn", 2, 4, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3"):
-        tattn.attn_decode(tp, t(x[:, :1]), tcfg, "cross", cache, 0)
+    jd, _ = jattn.attn_decode(jp, jnp.asarray(x[:, :1]), jcfg, "cross", None, jnp.asarray(0),
+                              cross_memory=(jk, jv))
+    td, same = tattn.attn_decode(tp, t(x[:, :1]), tcfg, "cross", cache, 0, cross_memory=(tk, tv))
+    close(td, jd, what="cross decode")
+    assert same is cache
 
 
 # -------------------------------------------------------------------- loss
@@ -293,23 +304,22 @@ def test_decoder_init_draws_on_the_generators_device_in_its_dtype():
 @pytest.mark.parametrize("arch", ["mixtral_8x7b", "llama4_maverick_400b_a17b", "jamba_v01_52b",
                                   "rwkv6_1p6b", "seamless_m4t_medium", "phi3_vision_4p2b"])
 def test_the_rest_of_the_zoo_belongs_to_part_3(arch):
-    """The MoE and recurrent decoders (ROADMAP A12, part 3, items 1 and 2)
-    build and run a forward: the config the reference's, a finite hidden
-    state (held against the reference in tests/test_torch_zoo_run.py);
-    seamless-m4t and phi-3-vision still raise, naming items 3 and 4."""
-    if arch in tbase.LATER_ARCHS:
-        item = "item 3" if arch == "seamless_m4t_medium" else "item 4"
-        with pytest.raises(NotImplementedError, match=f"ROADMAP A12, part 3, {item}"):
-            tbase.get_config(arch)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP A12, part 3, {item}"):
-            build_model(port_cfg(jbase.reduced(jbase.get_config(arch))))
-        return
+    """The MoE and recurrent decoders (ROADMAP A12, part 3, items 1 and 2),
+    seamless-m4t (item 3, over 8 frames) and phi-3-vision (item 4, its 8
+    prefix positions) build and run a forward: the config the reference's,
+    a finite hidden state (held against the reference in
+    tests/test_torch_zoo_run.py, test_torch_encdec.py and
+    test_torch_vision_prefix.py)."""
     assert tbase.get_config(arch) == port_cfg(jbase.get_config(arch))
     cfg = tbase.reduced(tbase.get_config(arch))
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8)))
-    hidden, aux = ttf.decoder_hidden(params, tok, cfg)
+    stub = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 8, cfg.d_model))
+                            .astype(np.float32))
+    extra = ({"enc_frames": stub} if cfg.family == "encdec"
+             else {"prefix": stub} if cfg.modality == "vision" else {})
+    hidden, aux = ttf.decoder_hidden(params, tok, cfg, **extra)
     assert hidden.shape == (2, 8, cfg.d_model) and bool(torch.isfinite(hidden).all())
     assert (float(aux) > 0) == bool(cfg.moe_experts)
 

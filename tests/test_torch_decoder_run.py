@@ -64,7 +64,9 @@ from repro_torch.run.presets import lm_100m_config, tiny_config
 from repro_torch.train import TrainState
 from test_torch_local_run import _compressor, assert_eq1_bits, bits_equal
 from torch_fed_cases import capture_uploads, paired
-from torch_helpers import n, one_thread, t
+from torch_helpers import n, one_thread, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SMALL = dict(batch=2, seq_len=16)
 
@@ -306,22 +308,27 @@ def test_pod_mode_decoders_run_locally_and_meet_the_pod_refusal_on_gspmd(preset)
     dict(preset="seamless_m4t_medium"), dict(preset="phi3_vision_4p2b"),
     dict(preset="fed-tiny", backend="fed", non_iid=True),
     dict(preset="gemma3_1b", backend="fed", non_iid=True),
+    dict(preset="seamless_m4t_medium", backend="fed", non_iid=True),
 ])
 def test_the_rest_of_the_zoo_still_raises(spec):
-    """The MoE and recurrent presets (ROADMAP A12, part 3, items 1 and 2)
-    run one round now (held against the reference in
-    tests/test_torch_zoo_run.py); the encoder-decoder, the vision prefix
-    and ``non_iid`` still raise, naming items 3, 4 and 5."""
-    if spec["preset"] in ("mixtral_8x7b", "llama4_maverick_400b_a17b", "jamba_v01_52b",
-                          "rwkv6_1p6b"):
-        run_spec = {**spec, **SMALL, "rounds": 1, "clients": 2, "sparsity": 0.05}
-        with one_thread():  # a sort a leaf in the codec: no use contending for cores
-            _, hist = build_run(RunSpec(**run_spec), device="cpu").run()
-        assert len(hist["loss"]) == 1 and np.isfinite(hist["loss"][0])
+    """The MoE and recurrent presets (ROADMAP A12, part 3, items 1 and 2),
+    the encoder-decoder and the vision prefix (items 3 and 4) and
+    ``non_iid`` on a decoder preset (item 5) run one round now (held
+    against the reference in tests/test_torch_zoo_run.py,
+    test_torch_encdec.py, test_torch_vision_prefix.py and
+    test_torch_noniid.py); ``non_iid`` on the encoder-decoder raises the
+    reference's ``ValueError``, word for word."""
+    run_spec = {**spec, **SMALL, "rounds": 1, "clients": 2, "sparsity": 0.05}
+    if spec.get("non_iid") and spec["preset"] == "seamless_m4t_medium":
+        with pytest.raises(ValueError, match="non_iid needs an LM preset") as got:
+            build_run(RunSpec(**run_spec), device="cpu")
+        with pytest.raises(ValueError) as want:
+            j_build_run(JRunSpec(**run_spec))
+        assert str(got.value) == str(want.value)
         return
-    item = {"seamless_m4t_medium": 3, "phi3_vision_4p2b": 4}.get(spec["preset"], 5)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP A12, part 3, item {item}"):
-        build_run(RunSpec(**spec), device="cpu")
+    with one_thread():  # a sort a leaf in the codec: no use contending for cores
+        _, hist = build_run(RunSpec(**run_spec), device="cpu").run()
+    assert len(hist["loss"]) == 1 and np.isfinite(hist["loss"][0])
 
 
 def test_lm_100m_is_the_train_launchers_default_and_dist_launcher_runs_tiny():

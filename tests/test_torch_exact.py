@@ -40,7 +40,9 @@ from repro_torch.core.golomb import encode_positions_packed, packed_words_to_byt
 from repro_torch.kernels import pack as tpack
 from repro_torch.launch.dist import build_dist_train
 from repro_torch.launch.mesh import make_host_group
-from torch_helpers import n, t
+from torch_helpers import n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 # (path, local shape, rows, kind, rate): ragged sizes, a scanned
 # three-row segment, and one segment that selects every slot (k = n)

@@ -27,7 +27,9 @@ from repro_torch.core.tree import tree_flatten
 from repro_torch.fed import restore_fed_state
 from repro_torch.run import RunSpec, build_run
 from torch_fed_cases import LENET, paired, tasks
-from torch_helpers import n
+from torch_helpers import n, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 # tests/test_broadcast.py's fed spec at lr 0, from a seeded residual
 SPEC = dict(LENET, batch=4, clients=4, cohort=2, rounds=3, lr=0.0, down_sparsity=0.05,

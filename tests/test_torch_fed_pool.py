@@ -25,6 +25,9 @@ from repro_torch.fed import CLIENT_STORES, ClientPool, ClientProfile, ServerKill
 from repro_torch.fed.clients import host_copy
 from repro_torch.run import RunSpec, build_run
 from torch_fed_cases import LENET, bits_equal, paired, trees_bits_equal
+from torch_helpers import torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 TWO_PROFILES = ((1, 0.01, 1.0), (2, 0.02, 2.0))
 

@@ -200,15 +200,19 @@ def test_fed_launcher_kills_checkpoints_restores_and_resumes():
 
 
 # broadcast_log runs now (tests/test_torch_fed_broadcast.py), and so do the
-# decoder presets (tests/test_torch_decoder_run.py); non_iid on a decoder
-# preset is ROADMAP A12, part 3
+# decoder presets (tests/test_torch_decoder_run.py) and non_iid on a decoder
+# preset (tests/test_torch_noniid.py): a spec with no error builds
 @pytest.mark.parametrize("change, error, match", [
-    (dict(non_iid=True, preset="fed-tiny"), NotImplementedError, "ROADMAP A12, part 3"),
+    (dict(non_iid=True, preset="fed-tiny"), None, None),
     (dict(non_iid=True), ValueError, "non_iid needs an LM preset"),
     (dict(non_iid=True, preset="charlstm"), ValueError, "non_iid needs an LM preset"),
 ])
 def test_fed_specs_outside_the_port_raise(change, error, match):
     spec = {**LENET, **change}
+    if error is None:
+        run = build_run(RunSpec(**spec), device="cpu")
+        assert run.task.name == f"lm_markov_noniid{run.spec.clients}"
+        return
     with pytest.raises(error, match=match) as got:
         build_run(RunSpec(**spec), device="cpu")
     if error is ValueError:  # the reference's own refusal, word for word

@@ -32,6 +32,9 @@ from repro_torch.fed import ClientUpdate, ParameterServer, staleness_weights
 from repro_torch.run import RunSpec
 from repro_torch.run.build import as_policy, policy_from_spec
 from torch_fed_cases import LENET, bits_equal, paired, trees_bits_equal
+from torch_helpers import torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SPEC = dict(LENET, batch=4, clients=6, cohort=4, fast=True,
             profiles=((1, 0.01, 1.0), (2, 0.02, 3.0)))

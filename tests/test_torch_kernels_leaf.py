@@ -55,7 +55,10 @@ from repro_torch.kernels.hist2side import (
     leaf_grid_blocks,
 )
 from repro_torch.kernels.moments import masked_moments, masked_moments_plain
-from torch_helpers import BM, LANES, assert_hist_close, n, segment_layout, t
+from torch_helpers import (BM, LANES, assert_hist_close, n, segment_layout, t,  # noqa: F401
+                           torch_one_thread)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SHAPES = [63, 1024, 4096, 100_000, 262_145]
 

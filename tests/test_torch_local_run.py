@@ -50,7 +50,9 @@ from repro_torch.data.synthetic import make_classification_task
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.run import RunSpec, build_run, policy_from_spec
 from repro_torch.train import DSGDTrainer, TrainState
-from torch_helpers import n, t
+from torch_helpers import n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 LENET = {"c1": (5, 5, 1, 4), "c2": (5, 5, 4, 8), "f1": (128, 50), "f1b": (50,),
          "f2": (50, 10), "f2b": (10,)}

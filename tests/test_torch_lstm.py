@@ -37,7 +37,9 @@ from repro_torch.models import lstm
 from repro_torch.models.layers import embed_lookup, init_embed
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import AdamState, get_optimizer
-from torch_helpers import n, t
+from torch_helpers import n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SMALL = dict(lstm_hidden=32)
 B, S = 2, 8

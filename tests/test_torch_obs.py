@@ -35,7 +35,9 @@ from repro_torch.obs import view as tview
 from repro_torch.obs.export import read_metrics_jsonl, render_table
 from repro_torch.run import RunSpec, build_run
 from repro_torch.train import TrainState
-from torch_helpers import t
+from torch_helpers import t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 LOCAL = dict(preset="charlstm", backend="local", clients=2, batch=2, seq_len=8,
              sparsity=0.01, rounds=2, measure_wire=True, telemetry=True)

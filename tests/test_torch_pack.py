@@ -22,7 +22,9 @@ from repro.core import golomb as jgolomb
 from repro.kernels import pack as jpack
 from repro_torch.core import golomb as tgolomb
 from repro_torch.kernels import pack as tpack
-from torch_helpers import n, t
+from torch_helpers import n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 P_GRID = (0.01, 0.05, 0.5)  # b* = 6, 4, 0
 

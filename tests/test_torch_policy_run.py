@@ -30,7 +30,9 @@ from repro_torch.configs.base import get_config
 from repro_torch.convert import state_from_jax
 from repro_torch.launch.dist import build_dist_train
 from repro_torch.run import RunSpec, build_run, policy_from_spec
-from torch_helpers import n, t
+from torch_helpers import n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SLICE = dict(preset="lenet5", backend="gspmd", fast=True, flat_engine="exact",
              sparsity=0.01)

@@ -61,7 +61,9 @@ from repro_torch.models import cnn
 from repro_torch.models.model import build_model
 from repro_torch.optim import get_optimizer
 from repro_torch.run import RunSpec, build_run
-from torch_helpers import load_chip_smoke, n, t
+from torch_helpers import load_chip_smoke, n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 PARAMS, LEAVES = 466_714, 97
 EQ1_BITS = 41_267.933283016355  # the reference's Eq. 1 bits a client at p = 0.01

@@ -35,7 +35,9 @@ from repro_torch.core.tree import tree_flatten_with_path
 from repro_torch.models.model import build_model
 from repro_torch.serve import ServeEngine
 from test_torch_decoder import DENSE, close, port_cfg
-from torch_helpers import n
+from torch_helpers import n, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 CONFIGS = {"tiny": j_tiny, **{a: (lambda a=a: jbase.reduced(jbase.get_config(a)))
                               for a in DENSE}}
@@ -154,11 +156,12 @@ def test_serve_launcher_without_a_card_raises_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         main(["--new-tokens", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3, item 3"):
-        main(["--arch", "seamless-m4t-medium", "--device", "cpu"])
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):  # the MoE decoder serves now
-        toks = main(["--arch", "mixtral-8x7b", "--device", "cpu", "--batch", "2",
-                     "--prompt-len", "8", "--new-tokens", "3"])
-    assert out.getvalue().startswith("arch=mixtral-8x7b generated (2, 3) in ")
-    assert toks.shape == (2, 3) and int(toks.max()) < 512
+    # the MoE decoder, the encoder-decoder (over --prompt-len frames) and
+    # the vision prefix serve now
+    for arch in ("mixtral-8x7b", "seamless-m4t-medium", "phi-3-vision-4.2b"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            toks = main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                         "--prompt-len", "8", "--new-tokens", "3"])
+        assert out.getvalue().startswith(f"arch={arch} generated (2, 3) in ")
+        assert toks.shape == (2, 3) and int(toks.max()) < 512

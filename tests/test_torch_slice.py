@@ -55,7 +55,9 @@ from repro_torch.kernels import flat as tflat
 from repro_torch.launch.dist import build_dist_train
 from repro_torch.launch.mesh import make_host_group
 from repro_torch.run import RunSpec, build_parser, build_preset, build_run
-from torch_helpers import n, near_edge_mask, t
+from torch_helpers import n, near_edge_mask, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SLICE = dict(preset="lenet5", backend="gspmd", fast=True, flat_engine="hist",

@@ -46,7 +46,9 @@ from repro_torch.models.model import build_model
 from repro_torch.run import RunSpec, build_run
 from repro_torch.run.presets import build_preset
 from repro_torch.train import TrainState
-from torch_helpers import n, t
+from torch_helpers import n, t, torch_one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 P = 0.01
 PARAMS = 19_765_200

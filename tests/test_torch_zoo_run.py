@@ -87,9 +87,12 @@ def test_one_local_dsgd_round_matches(name):
     one_round(name)
 
 
-def one_round(name: str) -> None:
+def one_round(name: str, extra: dict | None = None, mu_rtol: float = 0.0) -> None:
     """One local round of ``name``'s preset in both packages, from the
-    reference's parameters and the same batch, held as the module says."""
+    reference's parameters and the same batch (with the numpy fields of
+    ``extra``, as ``(clients, 1, batch, ...)`` arrays), held as the module
+    says; ``mu_rtol`` adds an absolute tolerance of that share of the
+    leaf's largest |ΔW*| (the noise μ carries from the gradients)."""
     spec = dict(preset=name, backend="local", clients=2, sparsity=0.02, rounds=1,
                 measure_wire=True, batch=BATCH, seq_len=SEQ)
     jrun, trun = j_build_run(JRunSpec(**spec)), build_run(RunSpec(**spec), device="cpu")
@@ -101,9 +104,11 @@ def one_round(name: str) -> None:
     tstate = TrainState(params, opt, trun.trainer.channel.init_state(params),
                         torch.zeros((), dtype=torch.int32))
     toks = np.random.default_rng(2).integers(0, trun.cfg.vocab_size, (2, 1, BATCH, SEQ + 1))
-    data = {"tokens": toks[..., :-1].astype(np.int32), "labels": toks[..., 1:].astype(np.int32)}
+    data = {"tokens": toks[..., :-1].astype(np.int32), "labels": toks[..., 1:].astype(np.int32),
+            **(extra or {})}
     jrun.batch_fn = lambda r: jax.tree.map(jnp.asarray, data)
-    trun.batch_fn = lambda r: {k: t(v).long() for k, v in data.items()}
+    trun.batch_fn = lambda r: {k: t(v) if v.dtype.kind == "f" else t(v).long()
+                               for k, v in data.items()}
     jstate2, jm = jrun.step(jstate, 0)
     tstate2, tm = trun.step(tstate, 0)
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
@@ -115,7 +120,8 @@ def one_round(name: str) -> None:
         moved_t, moved_j = n(v) != before[k], want[k] != before[k]
         assert moved_j.any() and int((moved_t != moved_j).sum()) <= 2, f"{name} {k}: survivors"
         agree = moved_t == moved_j
-        np.testing.assert_allclose(n(v)[agree], want[k][agree], rtol=1e-5, atol=1e-8,
+        atol = max(1e-8, mu_rtol * float(np.abs(want[k] - before[k]).max()))
+        np.testing.assert_allclose(n(v)[agree], want[k][agree], rtol=1e-5, atol=atol,
                                    err_msg=f"{name} {k}")
 
 
