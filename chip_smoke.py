@@ -5,6 +5,7 @@
     python3 chip_smoke.py --compare SRC   # the last redesigned kernels only
     python3 chip_smoke.py --decoder       # phases 1 and 12 only
     python3 chip_smoke.py --zoo           # phases 1, 13 and 14 only
+    python3 chip_smoke.py --pod           # phases 1 and 15 only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
@@ -305,7 +306,21 @@ Without arguments, phases, each of which fails the run:
      launches a round, the held-out loss over the clients' chains lower,
      the host ms a round spent drawing batches.  ``python3 chip_smoke.py
      --zoo`` runs phases 1, 13 and 14 alone;
-  15. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  15. pod mode and the "model" axis (``POD_PINS``, pinned to the
+     reference's by ``tests/test_torch_pod_run.py``): (a) granite-20b at
+     full width, 2 of 52 layers, one client of 256 shards on
+     ``SINGLE_POD`` in its f32 variant through phase 13a's checks (the
+     hist kernels over 3,328 (segment, device) segments, one mu a
+     (segment, device)); (b) two ranks on the card over gloo, ``POD_TWO``
+     = (2, 2, 2), 2 clients of 4 shards of a widened reduced granite, hist
+     and exact with the device pack through phase 8b's checks, every
+     device's packed ``nbits`` against the host encoder; (c) mixtral at its
+     own bf16, 1 layer, 256 shards, the per-leaf exchange with and without
+     ``lean_moe``, 3 timed rounds and an untimed one each (13
+     ``f32_mean_xla`` a round, each of the untimed round's bit-equal to
+     its plain version, the dropped pairs' share from the untimed round).  ``python3 chip_smoke.py --pod``
+     runs phases 1 and 15 alone;
+  16. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -324,7 +339,9 @@ Without arguments, phases, each of which fails the run:
      ``launches_broadcast``, the rows phase 12a launches its counts in
      ``launches_decoder``, the rows phase 13a launches its counts in
      ``launches_moe``, and the rows phase 14 launches its counts in
-     ``launches_encdec``), then the card line,
+     ``launches_encdec``, the rows phase 15 launches its counts in
+     ``launches_pod`` and the hist kernels their 256-shard byte bounds in
+     ``bound_ms_pod_256_shards``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -517,6 +534,45 @@ NONIID_ARGV = ["--non-iid", "--skew", "2.0", "--delay", "5", "--sparsity", "0.01
                "--down-sparsity", "0.05", "--rounds", "5"]
 NONIID_ROUNDS = 5
 NONIID_PER_ROUND = per_call(f32_mean_xla=2 * 8 * 16 + 2 * 8)
+# phase 15, pod mode and the "model" axis: one client a "pod" coordinate,
+# each leaf compressed per shard of its spec, all of a client's shards on
+# its rank.  (a) granite-20b at full width, 2 of its 52 layers, on the
+# single-pod layout (16, 16): 1 client of 256 shards, in a labelled f32
+# variant (the hist engine takes f32 leaves and an f32 residual; the config
+# is bf16), the config's SGD at base_lr, p = 0.001, batch 4 x 512 on the
+# markov task at its vocabulary, 3 rounds and a profiled one; (b) two pods
+# on the one card, (2, 2, 2): 2 clients (ranks, over gloo) of 4 shards, a
+# reduced granite widened until its embedding and MLP stacks shard (the
+# CPU tests' torch_dist_cases.WIDE), f32, on the hist engine and on the
+# exact engine with the device pack; (c) mixtral-8x7b at its own dtypes
+# (bf16 leaves and residual: the per-leaf exchange, a top-k and an
+# f32_mean_xla a leaf) on (16, 16), 1 of 32 layers, 3 timed rounds and an
+# untimed one with the launch option "lean_moe" and as many without.  Eq. 1 bits, parameters, rows (L x
+# shards, summed), one device's padded length and the devices a client are
+# pinned to the reference's by
+# tests/test_torch_pod_run.py::test_chip_smoke_pod_pins_are_the_references
+SINGLE_POD = {"data": 16, "model": 16}
+POD_TWO = {"pod": 2, "data": 2, "model": 2}
+POD_WIDE = dict(d_model=256, d_ff=1024, vocab_size=2048, head_dim=64)
+POD_PINS = {
+    "a": dict(preset="granite_20b", changes=dict(n_layers=2, dtype="float32",
+                                                 residual_dtype="float32"),
+              layout=SINGLE_POD, sparsity=0.001, fast=True, eq1=12289996.334429111,
+              params=1_060_171_776, leaves=13, rows=3_338, n_pad=4_202_496, shards=256),
+    "b": dict(preset="granite_20b", reduced=True,
+              changes=dict(POD_WIDE, fsdp=True, dtype="float32", residual_dtype="float32"),
+              layout=POD_TWO, sparsity=0.01, fast=True, eq1=155509.5309912474,
+              params=1_903_104, leaves=13, rows=38, n_pad=727_040, shards=4),
+    "c": dict(preset="mixtral_8x7b", changes=dict(n_layers=1), layout=SINGLE_POD,
+              sparsity=0.001, fast=False, eq1=18231540.95516018, params=1_582_346_240,
+              leaves=12, rows=1_332, n_pad=None, shards=None),
+}
+POD_A = dict(preset="granite_20b", sparsity=0.001, batch=4, seq_len=512, rounds=3)
+POD_B = dict(batch=4, seq_len=64, rounds=3)
+POD_B_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=13 + 1)  # one mean a segment
+POD_C = dict(batch=4, seq_len=512, task_vocab=32_000, rounds=3)  # and one untimed
+POD_C_PER_ROUND = per_call(f32_mean_xla=12 + 1)  # one a leaf, and the loss mean
+POD_TIMEOUT_S = 300
 # the leaves the reference keeps in f32 inside a bf16 model
 F32_LEAVES = ("router", "A_log", "D", "mix", "mix_w", "w0", "bonus", "ln_x", "cmix_k", "cmix_r")
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
@@ -837,16 +893,21 @@ def hist_path(dev) -> tuple:
 
 
 def one_mu_per_segment(space, cap: dict, label: str) -> None:
-    """The last round's ΔW* holds, per segment, 0 and that segment's μ."""
+    """The last round's ΔW* holds, per segment (and per device of the
+    client, with several), 0 and that segment's μ."""
     import torch
 
-    own = cap["last"]["out"][1]
+    own = cap["last"]["out"][1].reshape(space.shards_per_client, space.n_pad)
+    inf = torch.tensor(float("inf"), device=own.device)
     for s in space.segments:
-        vals = torch.unique(own[s.offset:s.offset + s.rows * s.n_loc])
-        nonzero = vals[vals != 0]
-        check(nonzero.numel() <= 1, f"{label} segment {s.path}: dW* holds {nonzero.numel()} "
-                                    f"values")
-    print(f"{label} last round: residual == acc - dW* bit for bit; dW* per segment is 0 or "
+        x = own[:, s.offset:s.offset + s.rows * s.n_loc]
+        hi = torch.where(x != 0, x, -inf).amax(dim=1)
+        lo = torch.where(x != 0, x, inf).amin(dim=1)
+        check(bool(((hi == lo) | (hi == -inf)).all()),
+              f"{label} segment {s.path}: a device's dW* holds more than one value")
+    per = "segment" if space.shards_per_client == 1 else (
+        f"(segment, device) of {space.shards_per_client} devices")
+    print(f"{label} last round: residual == acc - dW* bit for bit; dW* per {per} is 0 or "
           f"its mu; {int((own != 0).sum())} entries sent")
 
 
@@ -1897,26 +1958,26 @@ def nccl_world_one(dev) -> None:
             group.close()
 
 
-def multi_rank_phase(dev) -> dict:
-    """Phase 8b: MULTI_WORLD ranks on the one card (one process a rank, a
-    client each, over gloo), every path of ``MULTI_PATHS``; each rank's
-    checks are in :func:`multi_rank_path`.  Prints rank 0's report and
-    returns its launch counts of every path."""
+def spawn_ranks(flag: str, world: int, timeout_s: float, label: str) -> tuple:
+    """``world`` processes of this script (``flag RANK WORLD STORE OUT``) on
+    the one card, meeting at a ``file://`` store; waits for all of them
+    within ``timeout_s`` (killing the rest when one fails) and returns
+    their logs and their JSON results, one a rank."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--rank-worker", str(r),
-             str(MULTI_WORLD), f"{tmp}/store", f"{tmp}/rank{r}.json"],
+            [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+             str(world), f"{tmp}/store", f"{tmp}/rank{r}.json"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(MULTI_WORLD)]
-        deadline = time.monotonic() + MULTI_TIMEOUT_S
+            for r in range(world)]
+        deadline = time.monotonic() + timeout_s
         failed = None
         try:
             while failed is None and any(p.poll() is None for p in procs):
                 failed = next((p for p in procs if p.poll() not in (None, 0)), None)
                 check(time.monotonic() < deadline,
-                      f"multi-rank: the ranks outlived {MULTI_TIMEOUT_S} s")
+                      f"{label}: the ranks outlived {timeout_s} s")
                 time.sleep(0.2)
             failed = failed or next((p for p in procs if p.returncode != 0), None)
         finally:
@@ -1928,13 +1989,21 @@ def multi_rank_phase(dev) -> dict:
         for p in procs:
             p.stdout.close()
         if failed is not None:
-            raise SmokeFailure(f"multi-rank: rank {procs.index(failed)} exited "
+            raise SmokeFailure(f"{label}: rank {procs.index(failed)} exited "
                                f"{failed.returncode}:\n{logs[procs.index(failed)][-3000:]}")
-        results = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
-                   for r in range(MULTI_WORLD)]
+        results = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(world)]
     print(logs[0].rstrip())
-    print("\n".join(f"[rank {r}] {line}" for r in range(1, MULTI_WORLD)
+    print("\n".join(f"[rank {r}] {line}" for r in range(1, world)
                     for line in logs[r].splitlines() if "round" in line and "loss" in line))
+    return logs, results
+
+
+def multi_rank_phase(dev) -> dict:
+    """Phase 8b: MULTI_WORLD ranks on the one card (one process a rank, a
+    client each, over gloo), every path of ``MULTI_PATHS``; each rank's
+    checks are in :func:`multi_rank_path`.  Prints rank 0's report and
+    returns its launch counts of every path."""
+    _, results = spawn_ranks("--rank-worker", MULTI_WORLD, MULTI_TIMEOUT_S, "multi-rank")
     for label, _, per_round in MULTI_PATHS:
         for r, res in enumerate(results):
             check(res[label]["launches"] == {k: ROUNDS * v for k, v in per_round.items()},
@@ -2005,15 +2074,18 @@ def kernels_vs_plain_calls(calls: list, label: str) -> dict:
     return seen
 
 
-def multi_rank_path(group, label: str, spec: dict, per_round: dict) -> dict:
-    """Five rounds of one path on this rank, the launch counts set to 0
-    just before and read just after; then: every round's launches are
-    ``per_round``; the params are the same on every rank bit for bit;
-    the last round's mean equals the one recomputed from every client's
-    gathered ΔW* bit for bit (μ / C added in client order; dense and hist
-    leaves: the pmean); each kernel call of the last round equals its
-    plain version; one profiled round; the device pack's gathered words
-    decoded (``golomb_decode_rows``), timed."""
+def multi_rank_path(group, label: str, spec: dict, per_round: dict, run=None,
+                    rounds: int = ROUNDS, keep: dict | None = None) -> dict:
+    """``rounds`` rounds of one path on this rank (``build_run`` of
+    ``spec``, or ``run``), the launch counts set to 0 just before and read
+    just after; then: every round's launches are ``per_round``; the params
+    are the same on every rank bit for bit; the last round's mean equals
+    the one recomputed from every client's gathered ΔW* bit for bit (μ / C
+    added in client order; dense and hist leaves: the pmean); each kernel
+    call of the last round equals its plain version; one profiled round;
+    the device pack's gathered words decoded (``golomb_decode_rows``),
+    timed.  ``keep`` receives the last round's exchange outputs
+    (``"out"``)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import flat as core_flat
@@ -2024,7 +2096,7 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict) -> dict:
     from repro_torch.run import RunSpec, build_run
 
     tag = f"{label} [rank {group.rank}]"
-    run = build_run(RunSpec(**spec), group=group)
+    run = run or build_run(RunSpec(**spec), group=group)
     ch = run.channel
     check(run.n_clients == group.world and ch.n_clients == group.world,
           f"{tag}: {run.n_clients} clients, not the group's {group.world}")
@@ -2043,10 +2115,10 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict) -> dict:
         torch.cuda.synchronize()
         kernels.reset_launches()
         counts, step_ms, losses = [], [], []
-        for r in range(ROUNDS):
+        for r in range(rounds):
             before = kernels.launch_counts()
             with contextlib.ExitStack() as stack:
-                if r == ROUNDS - 1:
+                if r == rounds - 1:
                     for module, names in ((core_flat, flat_names), (ktopk, ("f32_mean_xla",)),
                                           (ldist, ("f32_mean_xla",))):
                         stack.enter_context(swapped(module, recording(module, names, calls)))
@@ -2064,6 +2136,8 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict) -> dict:
         del ch.round_exchange
     check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
     check(all(c == per_round for c in counts), f"{tag}: launches per round {counts}")
+    if keep is not None:
+        keep.update(last)
 
     # the same params on every rank, bit for bit
     rows = group.all_gather_rows(flat_bits(state["params"]))
@@ -2096,17 +2170,18 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict) -> dict:
     decode_us = decode_host_ms = None
     if ch.device_pack:
         space = ch.flat_space
-        words = last["out"][3][0][0, 0]
+        words = last["out"][3][0][0]  # (devices a client, n_pack_words)
         gw = group.all_gather_rows(words)
         gpos = space._decode_gathered(gw)
         own_all = group.all_gather_rows(
-            space.flatten_local([o[0] for o in tree_flatten(own_tree)[0]]))
+            space.flatten_local([o[0] for o in tree_flatten(own_tree)[0]])
+        ).reshape(group.world, -1)
         sel = torch.zeros_like(own_all, dtype=torch.bool)
         sel.scatter_(1, gpos, True)
         sparse = torch.zeros(space.n_pad, dtype=torch.bool, device=group.device)
         for s in space._sparse:
             sparse[s.offset:s.offset + s.rows * s.n_loc] = True
-        check(torch.equal(sel, (own_all != 0) & sparse),
+        check(torch.equal(sel, (own_all != 0) & sparse.repeat(space.shards_per_client)),
               f"{tag}: decoded positions != every client's survivors")
         copies = [(gw.clone(),) for _ in range(20)]
         counted: list = []
@@ -2583,24 +2658,28 @@ def library_local_run(cfg, task, spec, dev):
                     device=dev)
 
 
-def library_gspmd_run(cfg, task, spec, dev):
-    """A one-client :class:`~repro_torch.run.GspmdRun` of ``cfg`` on
-    ``task`` through ``build_dist_train``, the way the reference reaches
-    ResNet-32 (its preset has no image task)."""
+def library_gspmd_run(cfg, task, spec, dev, group=None, mesh_shape=None, opts=frozenset(),
+                      model=None, fast=True):
+    """A :class:`~repro_torch.run.GspmdRun` of ``cfg`` on ``task`` through
+    ``build_dist_train``, the way the reference reaches ResNet-32 (its
+    preset has no image task): one client on ``dev`` unless ``group`` is
+    given, on the layout ``mesh_shape`` with the launch ``opts``; the flat
+    path unless ``fast`` is False."""
     from repro_torch.launch.dist import build_dist_train
     from repro_torch.launch.mesh import make_host_group
     from repro_torch.models.model import build_model
     from repro_torch.run import GspmdRun
 
-    group = make_host_group(dev)
-    model = build_model(cfg)
+    group = group or make_host_group(dev)
+    model = model or build_model(cfg)
     with builder_turns_tf32_off("build_dist_train"):
         fns = build_dist_train(cfg, group=group, compressor=spec.compressor,
-                               sparsity=spec.sparsity, fast=True, flat_engine=spec.flat_engine,
-                               measure=spec.measure_wire, device_pack=spec.device_pack,
-                               model=model)
+                               sparsity=spec.sparsity, fast=fast,
+                               flat_engine=spec.flat_engine, measure=spec.measure_wire,
+                               device_pack=spec.device_pack, model=model,
+                               mesh_shape=mesh_shape, opts=opts)
     return GspmdRun(spec=spec, cfg=cfg, model=model, task=task, channel=fns.channel, fns=fns,
-                    n_clients=1, device=dev, group=group)
+                    n_clients=fns.channel.n_clients, device=group.device, group=group)
 
 
 def table2_phase(dev) -> dict:
@@ -3380,7 +3459,8 @@ def mixtral_phase(dev) -> dict:
     return hist_at_scale(dev, label, cfg, task, MIXTRAL1, pins)
 
 
-def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict) -> dict:
+def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
+                  mesh_shape=None) -> dict:
     """One client of ``cfg`` on ``task`` on the GSPMD hist engine at world 1
     (``spec``: sparsity, batch, sequence, rounds), the config's optimizer
     at its base_lr: the layout and Eq. 1 bits against ``pins`` (parameters,
@@ -3400,17 +3480,19 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict) -> dict:
     from repro_torch.run import RunSpec
 
     run = library_gspmd_run(cfg, task, RunSpec(**spec, backend="gspmd", fast=True,
-                                               flat_engine="hist"), dev)
+                                               flat_engine="hist"), dev, mesh_shape=mesh_shape)
     space = run.fns.flat_space
+    S = space.shards_per_client
     sizes = [s.global_size for s in space.segments]
-    check(sum(sizes) == pins["params"] and len(sizes) == pins["leaves"]
-          and max(sizes) == pins["segment"] and run.fns.bits_per_client == pins["eq1"],
-          f"{label}: layout {sum(sizes)}, {len(sizes)}, {max(sizes)} or Eq. 1 bits "
-          f"{run.fns.bits_per_client!r}")
+    got = dict(params=sum(sizes), leaves=len(sizes), segment=max(sizes),
+               eq1=run.fns.bits_per_client, rows=sum(s.rows * s.n_shards for s in space.segments),
+               n_pad=space.n_pad, shards=S)
+    check(all(got[k] == v for k, v in pins.items() if k in got),
+          f"{label}: layout or Eq. 1 bits {got} against the pins {pins}")
     print(f"{label}: {sum(sizes)} params in {len(sizes)} segments (the largest "
-          f"{max(sizes)}), {space.n_blocks} blocks, n_pad {space.n_pad} "
-          f"({space.n_pad / 2 ** 31:.3f} of 2^31); Eq. 1 {run.fns.bits_per_client!r} bits a "
-          f"client a round (the reference's, pinned)")
+          f"{max(sizes)}), {got['rows']} rows of {S} device(s) a client, {space.n_blocks} blocks "
+          f"and n_pad {space.n_pad} a device ({S * space.n_pad / 2 ** 31:.3f} of 2^31 in all); "
+          f"Eq. 1 {run.fns.bits_per_client!r} bits a client a round (the reference's, pinned)")
     state = run.init()
     before = heldout_loss(run.model, state["params"], task)
     n_params = sum(v.numel() for v in tree_flatten(state["params"])[0])
@@ -3428,7 +3510,7 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict) -> dict:
     torch.cuda.empty_cache()
 
     # each kernel call of the pipeline on the last accumulator against its
-    # plain version on the same operands
+    # plain version on the same operands (S device buffers: one call each)
     acc = cap["acc"]
     bounds = [(s.offset, s.rows * s.n_loc) for s in space.segments]
     sob = torch.from_numpy(space.seg_of_block.astype("int64")).to(dev)
@@ -3459,7 +3541,7 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict) -> dict:
     check(sorted({c[0] for c in calls}) == sorted(names) and len(calls) == 4,
           f"{label}: kernel calls {[c[0] for c in calls]}")
     print(f"{label}: {len(calls)} kernel calls bit-equal to their plain versions on the "
-          f"path's {space.n_pad}-entry operands")
+          f"path's {acc.numel()}-entry operands ({S * len(space.segments)} segments)")
     print(f"{label}: each kernel's bound at these operands (bytes over "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in bounds_ms.items()))
@@ -3468,7 +3550,8 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict) -> dict:
     launches = cap["launches"]
     del run, cap, acc, calls, task
     torch.cuda.empty_cache()
-    return launches
+    return launches if mesh_shape is None else {"launches": launches, "bound_ms": bounds_ms,
+                                                "largest_bins": tops}
 
 
 def prefill_chunk(n: int) -> int:
@@ -3780,6 +3863,252 @@ def zoo_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------- pod mode, "model" axis
+
+
+def pod_cfg(key: str):
+    """The port's config of a ``POD_PINS`` entry."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config, reduced
+
+    pin = POD_PINS[key]
+    cfg = get_config(pin["preset"])
+    if pin.get("reduced"):
+        cfg = reduced(cfg)
+    return dataclasses.replace(cfg, **{k: getattr(torch, v) if k.endswith("dtype") else v
+                                       for k, v in pin["changes"].items()})
+
+
+def pod_granite_phase(dev) -> dict:
+    """Phase 15a: granite-20b, 2 layers at full width, 1 client of 256
+    shards on ``SINGLE_POD``, the f32 variant, through
+    :func:`hist_at_scale` (launches 2/1/1 + 1 a round, one mu a (segment,
+    device), each hist kernel call bit-equal to its plain version with its
+    byte bound, the largest bin beside 2^24, Eq. 1 and the layout the
+    pinned reference's, a lower held-out loss; step ms, busy share, peak)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import make_lm_task
+
+    label = "granite-20b pod hist"
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = pod_cfg("a")
+    print(f"{label}: the labelled variant {POD_PINS['a']['changes']} of granite-20b, "
+          f"{cfg.n_layers} of its {get_config('granite_20b').n_layers} layers at full width (the "
+          f"hist engine takes f32 leaves and an f32 residual; the config is bf16), client mode "
+          f"{cfg.client_mode!r} on the layout {SINGLE_POD}: 1 client of 256 shards")
+    task = make_lm_task(vocab=cfg.vocab_size, batch=POD_A["batch"], seq_len=POD_A["seq_len"],
+                        temperature=0.5, seed=0, device=dev)
+    pins = {k: POD_PINS["a"][k] for k in ("eq1", "params", "leaves", "rows", "n_pad", "shards")}
+    return hist_at_scale(dev, label, cfg, task, POD_A, pins, mesh_shape=SINGLE_POD)
+
+
+POD_B_PATHS = (("hist", dict(flat_engine="hist", measure_wire=True), HIST_PER_ROUND),
+               ("exact", dict(flat_engine="exact", device_pack=True, measure_wire=True),
+                POD_B_EXACT_PER_ROUND))
+
+
+def pod_rank_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank (one pod, one client of 4 shards) of phase 15b
+    (``--pod-rank-worker``): every path of ``POD_B_PATHS`` through
+    :func:`multi_rank_path`, then the pins, each device's packed ``nbits``
+    against the host Golomb encoder, and the ledger; writes its results as
+    JSON to ``out``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.golomb import encode_positions
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import make_lm_task
+    from repro_torch.launch.mesh import ClientGroup
+    from repro_torch.run import RunSpec
+
+    dev = torch.device("cuda", 0)
+    group = ClientGroup.connect(rank=rank, world=world, device=dev, backend="gloo",
+                                init_method=f"file://{store}")
+    print(f"pod ranks: rank {rank} of {world} (pod {rank}) on {torch.cuda.get_device_name(dev)}, "
+          f"transport {group.backend}: NCCL refuses two ranks on one card, and NCCL with two "
+          f"ranks on two cards is still ROADMAP C3")
+    cfg = pod_cfg("b")
+    pin = POD_PINS["b"]
+    task = make_lm_task(vocab=cfg.vocab_size, batch=POD_B["batch"], seq_len=POD_B["seq_len"],
+                        temperature=0.5, seed=0, device=dev)
+    results = {}
+    try:
+        for engine, extra, per_round in POD_B_PATHS:
+            label = f"two pods {engine}"
+            spec = RunSpec(preset="granite_20b", backend="gspmd", fast=True,
+                           sparsity=pin["sparsity"], **extra)
+            run = library_gspmd_run(cfg, task, spec, dev, group=group, mesh_shape=POD_TWO)
+            space = run.fns.flat_space
+            got = dict(eq1=run.fns.bits_per_client, n_pad=space.n_pad,
+                       shards=space.shards_per_client,
+                       rows=sum(s.rows * s.n_shards for s in space.segments),
+                       params=sum(s.global_size for s in space.segments))
+            check(run.n_clients == world and all(got[k] == pin[k] for k in got),
+                  f"{label}: {run.n_clients} clients, layout {got} against the pins {pin}")
+            last: dict = {}
+            results[engine] = multi_rank_path(group, label, None, per_round, run=run,
+                                              rounds=POD_B["rounds"], keep=last)
+            if engine == "exact":
+                # each device's packed bit counts of the last counted round
+                # against the host Golomb encoder on its rows
+                words, nbits = last["out"][3]
+                own = space.flatten_local([o[0] for o in tree_flatten(last["out"][2])[0]])
+                host, row = [], 0
+                for s in space._sparse:
+                    x = own[:, s.offset:s.offset + s.rows * s.n_loc].reshape(
+                        space.shards_per_client, s.rows, s.n_loc).cpu()
+                    for d in range(space.shards_per_client):
+                        for r in range(s.rows):
+                            pos = torch.nonzero(x[d, r]).reshape(-1).numpy()
+                            host.append((d, row + r, int(encode_positions(pos, s.rate).size)))
+                    row += s.rows
+                nb = nbits[0].cpu()
+                check(all(int(nb[d, r]) == b for d, r, b in host),
+                      f"{label}: packed nbits != the host encoder's bits")
+                led = run.ledger.history()["up_bits_measured"] if rank == 0 else None
+                print(f"{label} [rank {rank}]: every (device, row)'s packed nbits == the host "
+                      f"Golomb encoder's ({len(host)} rows of {space.shards_per_client} "
+                      f"devices); Eq. 1 {got['eq1']!r} bits a client a round (the pinned "
+                      f"reference's)" + (f"; ledger measured bits {led}" if led else ""))
+            results[engine]["eq1"] = got["eq1"]
+            del run
+            torch.cuda.empty_cache()
+    finally:
+        group.close()
+    Path(out).write_text(json.dumps(results))
+    return 0
+
+
+def pod_ranks_phase(dev) -> dict:
+    """Phase 15b: two pods on the one card (``POD_TWO``: two ranks over
+    gloo, 2 clients of 4 shards), each path of ``POD_B_PATHS``; the mean
+    the same on both ranks bit for bit, and every check of
+    :func:`multi_rank_path`.  Returns rank 0's launches a path."""
+    _, results = spawn_ranks("--pod-rank-worker", 2, POD_TIMEOUT_S, "two pods")
+    for engine, _, per_round in POD_B_PATHS:
+        for r, res in enumerate(results):
+            check(res[engine]["launches"] == {k: POD_B["rounds"] * v
+                                              for k, v in per_round.items()},
+                  f"two pods {engine} rank {r}: launches {res[engine]['launches']}")
+    return {f"two pods {e}": results[0][e]["launches"] for e, _, _ in POD_B_PATHS}
+
+
+def pod_moe_phase(dev) -> dict:
+    """Phase 15c: mixtral-8x7b at its own dtypes (bf16 leaves and residual),
+    1 of 32 layers at full width, 1 client of 256 shards on
+    ``SINGLE_POD``: the per-leaf exchange (a top-k per shard and row, one
+    ``f32_mean_xla`` a leaf) without launch options and with
+    ``opts={"lean_moe"}``, each from the same drawn state:
+    ``POD_C["rounds"]`` timed rounds with nothing but the step in the
+    window, then one untimed round that measures the share of dropped
+    (token, expert) pairs of the MoE layer and records every
+    ``f32_mean_xla`` call.  Checks launches a round, finite losses, Eq. 1
+    the pinned reference's and every recorded call bit-equal to its plain
+    version; prints step ms (rounds 2 on), the dropped share and peak
+    memory under each.  Returns the launches of the rounds, read before
+    the comparison with the plain version."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import make_lm_task
+    from repro_torch.kernels import topk as ktopk
+    from repro_torch.launch import dist as ldist
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import build_model
+    from repro_torch.run import RunSpec
+
+    label = "mixtral-8x7b pod bf16"
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, pin = pod_cfg("c"), POD_PINS["c"]
+    task = make_lm_task(vocab=POD_C["task_vocab"], batch=POD_C["batch"],
+                        seq_len=POD_C["seq_len"], temperature=0.5, seed=0, device=dev)
+    model = build_model(cfg)
+    spec = RunSpec(preset="mixtral_8x7b", backend="gspmd", sparsity=pin["sparsity"])
+    out, state0 = {}, None
+    for opts in (frozenset(), frozenset({"lean_moe"})):
+        tag = f"{label} opts={sorted(opts)}"
+        run = library_gspmd_run(cfg, task, spec, dev, mesh_shape=SINGLE_POD, opts=opts,
+                                model=model, fast=False)
+        rows = sum((gl.global_shape[0] if gl.scanned else 1) * gl.n_shards
+                   for gl in run.channel.leaves)
+        check(run.fns.flat_space is None and run.fns.bits_per_client == pin["eq1"]
+              and rows == pin["rows"] and len(run.channel.leaves) == pin["leaves"],
+              f"{tag}: the per-leaf layout or Eq. 1 bits {run.fns.bits_per_client!r}")
+        if state0 is None:
+            state0 = run.init()
+            n_params = sum(v.numel() for v in tree_flatten(state0["params"])[0])
+            check(n_params == pin["params"], f"{label}: {n_params} params drawn")
+            print(f"{label}: {n_params} params in bf16 ({cfg.n_layers} of 32 layers, full "
+                  f"width), 1 client of 256 shards on {SINGLE_POD}; {rows} SBC rows (L x "
+                  f"shards); Eq. 1 {run.fns.bits_per_client!r} bits a client a round (the "
+                  f"pinned reference's); the per-leaf exchange (bf16 residual)")
+        drops: list = []
+        apply = moe_lib.moe_apply
+
+        def observed_moe(p, x, c, **kw):
+            with torch.no_grad():
+                drops.append(moe_lib.dropped_share(p, x.detach(), c))
+            return apply(p, x, c, **kw)
+
+        state, calls, counts, step_ms, losses = state0, [], [], [], []
+        kernels.reset_launches()
+        for r in range(POD_C["rounds"] + 1):
+            observed = r == POD_C["rounds"]
+            before = kernels.launch_counts()
+            with contextlib.ExitStack() as stack:
+                if observed:  # the untimed round: the dropped share and the recorder
+                    stack.enter_context(swapped(moe_lib, {"moe_apply": observed_moe}))
+                    for module in (ktopk, ldist):
+                        stack.enter_context(swapped(module, recording(
+                            module, ("f32_mean_xla",), calls)))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = run.step(state, r)
+                torch.cuda.synchronize()
+                if not observed:
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+            after = kernels.launch_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+            print(f"{tag} round {r + 1}: loss {losses[-1]:.6f}  "
+                  + (f"dropped pairs {drops[-1]:.6f} (untimed)" if observed
+                     else f"step {step_ms[-1]:.3f} ms")
+                  + f"  launches {counts[-1]}")
+        check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+        check(all(c == POD_C_PER_ROUND for c in counts), f"{tag}: launches a round {counts}")
+        out[tag] = {k: sum(c[k] for c in counts) for k in counts[0]}
+        kernels_vs_plain_calls(calls, tag)
+        print(f"{tag}: the capacity factor {cfg.moe_capacity_factor}"
+              f"{' capped at 1.0 (lean_moe)' if opts else ''}; dropped (token, expert) pairs "
+              f"{drops[-1]:.6f} (round {len(counts)}, untimed); step ms (rounds 2 to "
+              f"{POD_C['rounds']}) {_rounds_ms(step_ms)}; the card's peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        del run, state, calls
+        torch.cuda.empty_cache()
+    del state0, model, task
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_phase(dev) -> dict:
+    """Phase 15: pod mode and the "model" axis, (a) to (c).  Returns each
+    path's launches, and phase a's kernel bounds and largest bins."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    a = pod_granite_phase(dev)
+    out = {"granite-20b pod hist": a["launches"]}
+    out.update(pod_ranks_phase(dev))
+    out.update(pod_moe_phase(dev))
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": out, "bound_ms": a["bound_ms"], "largest_bins": a["largest_bins"]}
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -3854,9 +4183,11 @@ def main(argv: list) -> int:
         return compare(Path(argv[1]))
     if argv[:1] == ["--rank-worker"] and len(argv) == 5:
         return rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
-    decoder_only, zoo_only = argv == ["--decoder"], argv == ["--zoo"]
-    check(not argv or decoder_only or zoo_only,
-          f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo]; got {argv}")
+    if argv[:1] == ["--pod-rank-worker"] and len(argv) == 5:
+        return pod_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    decoder_only, zoo_only, pod_only = argv == ["--decoder"], argv == ["--zoo"], argv == ["--pod"]
+    check(not argv or decoder_only or zoo_only or pod_only,
+          f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo | --pod]; got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
     check((ROOT / "src" / "repro_torch").is_dir(),
@@ -3882,6 +4213,13 @@ def main(argv: list) -> int:
         moe = zoo_phase(dev)
         print(json.dumps({"launches_moe": moe, "launches_encdec": encdec_phase(dev)}))
         print(card)
+        return 0
+    if pod_only:  # phase 15 alone
+        print(json.dumps({"launches_pod": pod_phase(dev)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
 
     # ---- 2. to 7. the paths, one client
@@ -3958,7 +4296,17 @@ def main(argv: list) -> int:
             if any(counts.values()):
                 rows[name][key] = counts
 
-    # ---- 15. results
+    # ---- 15. pod mode and the "model" axis: granite on 256 shards, two pods
+    # on the card, mixtral at its own dtypes
+    pod = pod_phase(dev)
+    for name in KERNELS:
+        counts = {path: c.get(name, 0) for path, c in pod["launches"].items()}
+        if any(counts.values()):
+            rows[name]["launches_pod"] = counts
+        if name in pod["bound_ms"]:
+            rows[name]["bound_ms_pod_256_shards"] = pod["bound_ms"][name]
+
+    # ---- 16. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

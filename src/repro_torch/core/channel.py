@@ -27,13 +27,13 @@ buffer and the residual follow the reference's layout.
 from __future__ import annotations
 
 import dataclasses
-import itertools
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.api import Compressor
+from repro_torch.core.flat import shard_blocks, unshard_blocks
 from repro_torch.core.golomb import encode_positions, expected_position_bits
 from repro_torch.core.ledger import BandwidthLedger, RoundRecord
 from repro_torch.core.policy import CompressionPolicy, CompressorState, ResolvedPolicy
@@ -306,27 +306,23 @@ def leaf_rows(gl: GspmdLeaf) -> Tuple[int, int, int]:
     return L, n_loc, k_for(n_loc, gl.rate)
 
 
-def _iter_shard_blocks(arr: np.ndarray, grid: Tuple[int, ...]):
-    """Yield the GSPMD equal-block shards of a global array, in grid order."""
-    grid = tuple(grid) + (1,) * (arr.ndim - len(grid))
-    sizes = [d // g for d, g in zip(arr.shape, grid)]
-    for idx in itertools.product(*[range(g) for g in grid]):
-        yield arr[tuple(slice(i * s, (i + 1) * s) for i, s in zip(idx, sizes))]
-
-
-def _sbc_local(acc_flat: torch.Tensor, k: int, group, out_dtype=torch.float32) -> tuple:
+def _sbc_local(acc_flat: torch.Tensor, k: int, group, out_dtype=torch.float32,
+               client_grid: Tuple[int, ...] = ()) -> tuple:
     """Exact per-shard SBC (paper Alg. 2) and the sparse exchange of one
     leaf.
 
-    ``acc_flat`` (L, n_loc) is this client's residual-accumulated ΔW (any
-    float dtype; the math runs in f32), ``k`` the survivors a row
-    (:func:`leaf_rows`).  Each row's two-sided top-k and μ
+    ``acc_flat`` (rows, n_loc) is this client's residual-accumulated ΔW,
+    the L rows of each of the leaf's shards (any float dtype; the math
+    runs in f32), ``k`` the survivors a row (:func:`leaf_rows`).  Each
+    row's two-sided top-k and μ
     (:func:`~repro_torch.kernels.topk._two_sided_topk`: one
     ``f32_mean_xla`` launch for both sides of every row), then the gather
     of (idx, μ) over the group's C clients and, per row, every client's
     ``μ / C`` (``μ · (1/C)``, as XLA computes it under ``jit``) added at
-    its positions one client after the other in client order.  Returns
-    ``(mean (L, n_loc), own ΔW* (L, n_loc))`` in ``out_dtype``."""
+    its positions one client after the other, in the order of the
+    reference's gathers over the client axes of sizes ``client_grid``.
+    Returns ``(mean (rows, n_loc), own ΔW* (rows, n_loc))`` in
+    ``out_dtype``."""
     L, n_loc = acc_flat.shape
     idx, mu = _two_sided_topk(acc_flat.to(torch.float32), k)
     own = torch.zeros((L, n_loc), dtype=out_dtype, device=acc_flat.device)
@@ -337,15 +333,16 @@ def _sbc_local(acc_flat: torch.Tensor, k: int, group, out_dtype=torch.float32) -
     gidx, gmu = group.all_gather_rows(idx), group.all_gather_rows(mu)
     share = gmu * _reciprocal(C, gmu.device)  # μ / C as the jitted reference takes it
     dense = torch.zeros((L, n_loc), dtype=torch.float32, device=acc_flat.device)
-    for c in range(C):
+    for c in group.gather_order(client_grid):
         dense.scatter_add_(1, gidx[c], share[c][:, None].expand(L, k))
     return dense.to(out_dtype), own
 
 
-def _dense_local(acc_flat: torch.Tensor, group) -> tuple:
+def _dense_local(acc_flat: torch.Tensor, group, client_grid: Tuple[int, ...] = ()) -> tuple:
     """Dense baseline: the clients' mean of the full ΔW (the group's
-    ``pmean``; ΔW itself with one client)."""
-    return (group.pmean(acc_flat) if group.world > 1 else acc_flat), acc_flat
+    ``pmean``, an axis of ``client_grid`` at a time; ΔW itself with one
+    client)."""
+    return (group.pmean(acc_flat, client_grid) if group.world > 1 else acc_flat), acc_flat
 
 
 @dataclasses.dataclass(eq=False)
@@ -364,6 +361,13 @@ class ShardedGspmdChannel:
     the device.  Without one (``fast=False``, or a non-f32 residual) the
     per-leaf exchange runs, with the residual stored per leaf in
     ``residual_dtype``.
+
+    Every leaf is compressed per shard: the equal blocks of its
+    ``shard_grid`` (the reference's per-device shards), each with its own
+    k a row and μ.  A rank holds all of its client's shards, and one call
+    covers them all.  ``client_grid`` gives the sizes of the client axes
+    when there are several ("pod" and "data"): the gathers and means
+    follow the reference's order over them.
     """
 
     leaves: Tuple[GspmdLeaf, ...]
@@ -374,6 +378,7 @@ class ShardedGspmdChannel:
     flat_space: Any = None  # ShardedFlatParamSpace | None
     flat_engine: str = "exact"  # "exact" | "hist"
     device_pack: bool = False  # pack Golomb wire streams on the device (§11)
+    client_grid: Tuple[int, ...] = ()  # sizes of the client axes (() : one)
 
     def __post_init__(self) -> None:
         if self.flat_engine not in ("exact", "hist"):
@@ -419,7 +424,7 @@ class ShardedGspmdChannel:
         returns ``(mean_tree, new_residual, own_tree_or_None)``, and with
         ``device_pack`` a fourth item ``(words, nbits)``: this round's
         packed Golomb word buffers u32[1, shards, n_pack_words] and exact
-        per-row bit counts int32[1, shards, n_mu] of this client.
+        per-row bit counts int32[1, shards, n_mu] of this client's devices.
         ``need_own`` materializes the client's ΔW* (momentum masking,
         metering).
         """
@@ -440,23 +445,26 @@ class ShardedGspmdChannel:
         return mean_tree, new_residual, own_tree
 
     def exchange_per_leaf(self, leaves: Sequence[torch.Tensor], need_own: bool) -> tuple:
-        """Per-leaf exchange: compress this client's shard of each leaf
-        with the leaf's mode, exchange, and emit (mean ΔW, NEW residual =
-        acc − own, own); every output in the leaf's dtype, with the
-        leading client axis of 1."""
+        """Per-leaf exchange: compress each of this client's shards of each
+        leaf with the leaf's mode (the sparse shards of a leaf in one
+        call), exchange, and emit (mean ΔW, NEW residual = acc − own,
+        own); every output in the leaf's dtype, with the leading client
+        axis of 1."""
         means, residuals, owns = [], [], []
         for leaf, gl in zip(leaves, self.leaves):
             body = leaf[0]
-            L = body.shape[0] if gl.scanned and body.dim() > 1 else 1
-            flat = body.reshape(L, -1)
             if gl.mode == "sparse":
-                dense, own = _sbc_local(flat, leaf_rows(gl)[2], self.group,
-                                        out_dtype=leaf.dtype)
+                L, n_loc, k = leaf_rows(gl)
+                blocks = shard_blocks(body, gl.shard_grid)
+                dense, own = _sbc_local(blocks.reshape(gl.n_shards * L, n_loc), k, self.group,
+                                        out_dtype=leaf.dtype, client_grid=self.client_grid)
+                dense, own = (unshard_blocks(t.reshape(blocks.shape), gl.shard_grid)
+                              for t in (dense, own))
             elif gl.mode == "dense":
-                dense, own = _dense_local(flat.to(torch.float32), self.group)
+                dense, own = _dense_local(body.to(torch.float32), self.group, self.client_grid)
             else:  # skip: no traffic; the residual keeps the full update
-                dense = own = torch.zeros_like(flat)
-            new_res = (flat.to(torch.float32) - own.to(torch.float32)).to(self.residual_dtype)
+                dense = own = torch.zeros_like(body)
+            new_res = (body.to(torch.float32) - own.to(torch.float32)).to(self.residual_dtype)
             means.append(dense.reshape(body.shape).to(leaf.dtype)[None])
             residuals.append(new_res.reshape(body.shape).to(leaf.dtype)[None])
             owns.append(own.reshape(body.shape).to(leaf.dtype)[None] if need_own
@@ -466,20 +474,23 @@ class ShardedGspmdChannel:
 
     def exchange_flat(self, res: torch.Tensor, leaves: Sequence[torch.Tensor],
                       need_own: bool) -> tuple:
-        """Residual add + compression + exchange on ONE flat buffer, one
-        launch per pass.  ``leaves`` carry the leading client axis of 1."""
+        """Residual add + compression + exchange on ONE flat buffer a
+        device of the client, one launch per pass over all of them.
+        ``leaves`` carry the leading client axis of 1."""
         space = self.flat_space
         bodies = [leaf[0] for leaf in leaves]
+        S = space.shards_per_client
+        res_local = res[0].reshape(space.local_shape)
         packed = None
         if self.device_pack:
             mean_f, own_f, new_res_f, words, nbits = space.exchange_local(
-                bodies, res[0, 0], device_pack=True
+                bodies, res_local, device_pack=True
             )
-            packed = (words[None, None], nbits[None, None])
+            packed = (words.reshape(1, S, -1), nbits.reshape(1, S, -1))
         else:
             fn = (space.exchange_local if self.flat_engine == "exact"
                   else space.exchange_local_hist)
-            mean_f, own_f, new_res_f = fn(bodies, res[0, 0])
+            mean_f, own_f, new_res_f = fn(bodies, res_local)
         means = tuple(
             m.to(leaf.dtype)[None]
             for m, leaf in zip(space.unflatten_local(mean_f), leaves)
@@ -494,9 +505,10 @@ class ShardedGspmdChannel:
                 torch.zeros((1,) * leaf.dim(), dtype=leaf.dtype, device=leaf.device)
                 for leaf in leaves
             )
+        new_res = new_res_f.reshape(1, S, space.n_pad)
         if self.device_pack:
-            return means, new_res_f[None, None], owns, packed
-        return means, new_res_f[None, None], owns
+            return means, new_res, owns, packed
+        return means, new_res, owns
 
     # ------------------------------------------------------- bit accounting
 
@@ -527,13 +539,13 @@ class ShardedGspmdChannel:
         numpy over the client's dense ΔW*."""
         total = 0.0
         for gl, leaf in zip(self.leaves, tree_flatten(own_tree)[0]):
-            arr = leaf.detach().to(torch.float32).cpu().numpy()  # numpy has no bf16
+            x = leaf.detach().to(torch.float32).cpu()  # numpy has no bf16
             if gl.mode == "dense":
-                total += 32.0 * arr.size
+                total += 32.0 * x.numel()
                 continue
             if gl.mode == "skip":
                 continue
-            for block in _iter_shard_blocks(arr, gl.shard_grid):
+            for block in shard_blocks(x, gl.shard_grid).numpy():
                 L = block.shape[0] if gl.scanned and block.ndim > 1 else 1
                 for row in block.reshape(L, -1):
                     pos = np.flatnonzero(row)

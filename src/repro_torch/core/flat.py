@@ -94,17 +94,29 @@ def _hist_pipeline(
     pass writes ΔW* and the residual.  Returns ``(delta_star_flat,
     residual_flat, stats)`` with per-segment ``stats = {mu, count,
     nbits}``.  Everything stays on the device; nothing waits for it.
+
+    ``acc_flat`` of shape ``(S, n_pad)`` holds S devices' buffers of the
+    one layout (``bounds``, ``seg_of_block`` and ``n_blocks`` are one
+    device's): each pass is still one launch, over S × segments, device
+    d's segment i numbered ``d · nseg + i``, and the outputs keep that
+    shape.
     """
     nseg = len(bounds)
     dev = acc_flat.device
-    xpad = acc_flat.reshape(n_blocks * bm, lanes)
+    S = acc_flat.shape[0] if acc_flat.dim() == 2 else 1
+    rows2 = acc_flat.reshape(S, -1)
+    xpad = acc_flat.reshape(S * n_blocks * bm, lanes)
+    if S > 1:
+        seg_of_block = (seg_of_block[None, :]
+                        + nseg * torch.arange(S, device=dev)[:, None]).reshape(-1)
+        ks, rates = list(ks) * S, list(rates) * S
     sob = seg_of_block.to(torch.float32)[:, None]
 
     # per-segment |x| range for the coarse pass (max is order-independent
     # → exact)
     absmax = torch.stack([
-        torch.amax(torch.abs(acc_flat[off:off + size])) for off, size in bounds
-    ]) + 1e-30
+        torch.amax(torch.abs(rows2[:, off:off + size]), dim=1) for off, size in bounds
+    ], dim=1).reshape(-1) + 1e-30
     lo0 = absmax * 2.0 ** -SPAN_OCTAVES
     hi0 = absmax * 1.0001
 
@@ -116,20 +128,20 @@ def _hist_pipeline(
 
     kf = torch.tensor(ks, dtype=torch.float32, device=dev)
 
-    h1 = seg_hist2side(xpad, block_params(lo0, hi0, lo0, hi0), nseg=nseg,
+    h1 = seg_hist2side(xpad, block_params(lo0, hi0, lo0, hi0), nseg=S * nseg,
                        nbins=nbins, bm=bm, lanes=lanes)
     edges0 = bucket_lower_edges(lo0, hi0, nbins)
     lo_p, hi_p, above_p = _side_threshold(h1[:, 0], edges0, kf)
     lo_n, hi_n, above_n = _side_threshold(h1[:, 1], edges0, kf)
 
-    h2 = seg_hist2side(xpad, block_params(lo_p, hi_p, lo_n, hi_n), nseg=nseg,
+    h2 = seg_hist2side(xpad, block_params(lo_p, hi_p, lo_n, hi_n), nseg=S * nseg,
                        nbins=nbins, bm=bm, lanes=lanes)
     t_pos, _, _ = _side_threshold(h2[:, 0], bucket_lower_edges(lo_p, hi_p, nbins),
                                   kf - above_p)
     t_neg, _, _ = _side_threshold(h2[:, 1], bucket_lower_edges(lo_n, hi_n, nbins),
                                   kf - above_n)
 
-    mom = seg_moments(xpad, block_params(t_pos, t_neg), nseg=nseg, bm=bm,
+    mom = seg_moments(xpad, block_params(t_pos, t_neg), nseg=S * nseg, bm=bm,
                       lanes=lanes)
     mu_pos = mom[:, 0, 0] / torch.clamp(mom[:, 0, 1], min=1.0)
     mu_neg = -mom[:, 1, 0] / torch.clamp(mom[:, 1, 1], min=1.0)
@@ -145,7 +157,7 @@ def _hist_pipeline(
     ebits = torch.tensor([expected_position_bits(min(p, 1.0)) for p in rates],
                          dtype=torch.float32, device=dev)
     stats = {"mu": mu, "count": count, "nbits": count * ebits + 32.0}
-    return out_pad.reshape(-1), res_pad.reshape(-1), stats
+    return out_pad.reshape(acc_flat.shape), res_pad.reshape(acc_flat.shape), stats
 
 
 class Segment(NamedTuple):
@@ -411,12 +423,43 @@ def _map_fields(fn, comp: LeafCompressed) -> LeafCompressed:
 # ===================================================================== sharded
 
 
+def shard_blocks(x: torch.Tensor, grid: Sequence[int]) -> torch.Tensor:
+    """The GSPMD equal blocks of ``x`` under a per-dim shard ``grid``,
+    stacked in grid order (``itertools.product`` over the dims, the
+    reference's ``_iter_shard_blocks``): ``(Π grid, *local shape)``.  A
+    copy unless every dim has one shard."""
+    grid = tuple(grid) + (1,) * (x.dim() - len(grid))
+    if all(g == 1 for g in grid):
+        return x[None]
+    local = [d // g for d, g in zip(x.shape, grid)]
+    split = [v for pair in zip(grid, local) for v in pair]
+    n = len(grid)
+    perm = list(range(0, 2 * n, 2)) + list(range(1, 2 * n, 2))
+    return x.reshape(split).permute(perm).reshape([-1] + local)
+
+
+def unshard_blocks(blocks: torch.Tensor, grid: Sequence[int]) -> torch.Tensor:
+    """The inverse of :func:`shard_blocks`: grid-order blocks ``(Π grid,
+    *local shape)`` → the whole tensor."""
+    local = list(blocks.shape[1:])
+    grid = tuple(grid) + (1,) * (len(local) - len(grid))
+    if all(g == 1 for g in grid):
+        return blocks[0]
+    n = len(grid)
+    perm = [v for i in range(n) for v in (i, n + i)]
+    return blocks.reshape(list(grid) + local).permute(perm).reshape(
+        [g * d for g, d in zip(grid, local)])
+
+
 class DistSegment(NamedTuple):
     """Static per-(leaf, shard) slot in the per-device local flat buffer.
 
     ``shape`` is the LOCAL body shape of one shard of the leaf (no client
     dim).  The per-row survivor count ``k`` uses the dist backend's rule
-    ``max(1, min(n_loc, round(p · n_loc)))``.
+    ``max(1, min(n_loc, round(p · n_loc)))``.  ``grid`` is the leaf's
+    per-dim shard counts and ``dev_block`` the grid-order block each of
+    the client's devices holds (device d of ``shards_per_client``, row-major
+    over the shard axes).
     """
 
     path: str
@@ -429,6 +472,8 @@ class DistSegment(NamedTuple):
     k: int  # per-row survivors (0 for dense/skip)
     n_shards: int  # distinct shards of the GLOBAL leaf (for Eq. 1 bits)
     global_size: int
+    grid: Tuple[int, ...] = ()  # per-dim shard counts (() : one shard)
+    dev_block: Tuple[int, ...] = (0,)  # the block of each device of the client
 
 
 @dataclasses.dataclass(eq=False)
@@ -437,12 +482,21 @@ class ShardedFlatParamSpace:
     (DESIGN.md §11), holding every local leaf shard.
 
     The residual buffer has shape ``(n_clients, shards_per_client,
-    n_pad)``; each process holds its client's ``(1, 1, n_pad)`` row.  One client
-    runs per process (:mod:`repro_torch.launch.mesh`): ``group`` is the
-    :class:`~repro_torch.launch.mesh.ClientGroup` whose ranks are the
-    clients, and the exchange across them (the hist engine's ``pmean``,
-    the exact engine's ``all_gather``) goes through it.  With one client
-    the exchange is the identity and crosses no process.
+    n_pad)``.  One client runs per process (:mod:`repro_torch.launch.mesh`)
+    and holds its client's row, ``(1, shards_per_client, n_pad)``: the
+    buffers of all S = ``shards_per_client`` devices of its client, in the
+    reference's device order (row-major over the shard axes), each with
+    the leaves' blocks that device holds (``DistSegment.dev_block``).
+    ``group`` is the :class:`~repro_torch.launch.mesh.ClientGroup` whose
+    ranks are the clients, and the exchange across them (the hist
+    engine's ``pmean``, the exact engine's ``all_gather``) goes through
+    it; ``client_grid`` gives the sizes of the client axes, whose order
+    the reference's collectives follow (default: one axis).  With one
+    client the exchange is the identity and crosses no process.
+
+    The local flat layout of the methods is ``(n_pad,)`` with one device
+    a client and ``(S, n_pad)`` with S (:attr:`local_shape`); every pass
+    runs over all S devices at once.
     """
 
     segments: Tuple[DistSegment, ...]
@@ -453,12 +507,16 @@ class ShardedFlatParamSpace:
     group: Any  # ClientGroup of n_clients ranks
     bm: int = 8
     lanes: int = 128
+    client_grid: Tuple[int, ...] = ()
 
     def __post_init__(self) -> None:
         per_block = self.bm * self.lanes
+        S = self.shards_per_client
         sizes = [s.rows * s.n_loc for s in self.segments]
         self.n_blocks = sum(max(1, -(-sz // per_block)) for sz in sizes)
-        self.n_pad = check_flat_size(self.n_blocks * per_block)
+        self.n_pad = self.n_blocks * per_block
+        check_flat_size(S * self.n_pad)
+        self.local_shape = (self.n_pad,) if S == 1 else (S, self.n_pad)
         self.n_total = sum(sizes)
         seg_of_block = np.zeros((self.n_blocks,), np.int32)
         dense_mask = np.zeros((self.n_pad,), bool)
@@ -468,31 +526,37 @@ class ShardedFlatParamSpace:
             seg_of_block[blk0:blk0 + nblk] = i
             if s.kind == "dense":
                 dense_mask[s.offset:s.offset + sz] = True
+            if len(s.dev_block) != S:
+                raise ValueError(f"{s.path}: {len(s.dev_block)} device blocks for {S} devices")
         self.seg_of_block = seg_of_block
         self._pad_to_raw, self._pad_valid = _pad_maps(
             [s.offset for s in self.segments], sizes, self.n_pad
         )
-        self._dense_idx = np.flatnonzero(dense_mask).astype(np.int32)
-        # the exact engine's static maps: every (row, k-slot) of every
-        # sparse segment gets one position slot; ``_pos_row`` maps it to
-        # its row's slot in the μ stream
+        # the dense slots of all S device buffers of this rank
+        dense_one = np.flatnonzero(dense_mask).astype(np.int64)
+        self._dense_idx = (np.arange(S, dtype=np.int64)[:, None] * self.n_pad
+                           + dense_one[None, :]).reshape(-1)
+        # the exact engine's static maps: every (device, row, k-slot) of
+        # every sparse segment gets one position slot, segment by segment;
+        # ``_pos_row`` maps it to its row's slot in the μ stream.  ``n_mu``
+        # counts one device's rows, as in the reference
         self._sparse = tuple(s for s in self.segments if s.kind == "sparse")
         pos_row: List[np.ndarray] = []
         mu_slot = 0
         for s in self._sparse:
             pos_row.append(
-                np.repeat(np.arange(mu_slot, mu_slot + s.rows, dtype=np.int32), s.k)
+                np.repeat(np.arange(mu_slot, mu_slot + S * s.rows, dtype=np.int32), s.k)
             )
-            mu_slot += s.rows
-        self.n_mu = mu_slot
+            mu_slot += S * s.rows
+        self.n_mu = mu_slot // S
         self._pos_row = (
             np.concatenate(pos_row) if pos_row else np.zeros((0,), np.int32)
         )
-        self.n_pos = int(self._pos_row.shape[0])
+        self.n_pos = int(self._pos_row.shape[0]) // S
         # device-pack layout: one packed uint32 Golomb stream per (segment,
         # row), capacity-padded to whole words, so the concatenated word
-        # buffer and every row's slice of it are static.  ``(b*, words/row,
-        # word offset)`` per sparse segment.
+        # buffer of a device and every row's slice of it are static.
+        # ``(b*, words/row, word offset)`` per sparse segment.
         winfo: List[Tuple[int, int, int]] = []
         woff = 0
         for s in self._sparse:
@@ -518,10 +582,13 @@ class ShardedFlatParamSpace:
         group: Any,
         bm: int = 8,
         lanes: int = 128,
+        client_grid: Tuple[int, ...] = (),
     ) -> "ShardedFlatParamSpace":
         """``entries``: per-leaf dicts with keys ``path``, ``shape``
         (local body shape), ``rows``, ``kind``, ``rate``, ``n_shards``,
-        ``global_size``; ``group`` the clients' ClientGroup."""
+        ``global_size``, and with several devices a client ``grid`` and
+        ``dev_block`` (:class:`DistSegment`); ``group`` the clients'
+        ClientGroup."""
         per_block = bm * lanes
         segs: List[DistSegment] = []
         off = 0
@@ -535,44 +602,73 @@ class ShardedFlatParamSpace:
                 n_loc=n_loc, offset=off, kind=e["kind"],
                 rate=float(e["rate"]), k=k, n_shards=int(e["n_shards"]),
                 global_size=int(e["global_size"]),
+                grid=tuple(int(g) for g in e.get("grid", ())),
+                dev_block=tuple(int(b) for b in e.get("dev_block", (0,) * shards_per_client)),
             ))
             off += max(1, -(-size // per_block)) * per_block
         return cls(
             segments=tuple(segs), client_axes=tuple(client_axes),
             shard_axes=tuple(shard_axes), n_clients=int(n_clients),
             shards_per_client=int(shards_per_client), bm=bm, lanes=lanes,
-            group=group,
+            group=group, client_grid=tuple(client_grid),
         )
 
     def _device_maps(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """``(pad_to_raw, pad_valid, seg_of_block, pos_row, dense_idx)`` as
-        int64/bool tensors on ``device``, copied there once."""
+        """``(pad_to_raw, pad_valid, seg_of_block, pos_row, dense_idx,
+        dev_blocks, rep_devs)`` as int64/bool tensors on ``device``, copied
+        there once (the last two: each segment's device → block map and,
+        for each of its blocks, the first device holding it)."""
         maps = self._maps.get(device)
         if maps is None:
+            to = lambda a: None if a is None else torch.from_numpy(a).to(device)
+            dev_blocks = [np.asarray(s.dev_block, np.int64) for s in self.segments]
+            rep_devs = [np.asarray([list(s.dev_block).index(b) for b in range(s.n_shards)],
+                                   np.int64) if self.shards_per_client > 1 else None
+                        for s in self.segments]
             maps = tuple(
-                None if a is None else torch.from_numpy(a).to(device) for a in (
+                to(a) for a in (
                     self._pad_to_raw, self._pad_valid,
                     self.seg_of_block.astype(np.int64),
                     self._pos_row.astype(np.int64),
                     self._dense_idx.astype(np.int64),
                 )
-            )
+            ) + ([to(a) for a in dev_blocks], [to(a) for a in rep_devs])
             self._maps[device] = maps
         return maps
 
     # --------------------------------------------------------- flat plumbing
 
     def flatten_local(self, bodies: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Local leaf shards (in segment order) → one local flat buffer."""
-        pad_to_raw, pad_valid = self._device_maps(bodies[0].device)[:2]
-        return _flatten_padded(bodies, pad_to_raw, pad_valid,
-                               contiguous=self.n_pad == self.n_total)
+        """This client's leaves (in segment order) → its local flat
+        buffer(s), :attr:`local_shape`.  With one device a client a body is
+        the leaf; with several it is the whole leaf too, and each device's
+        buffer takes the leaf's block that device holds."""
+        maps = self._device_maps(bodies[0].device)
+        if self.shards_per_client == 1:
+            return _flatten_padded(bodies, maps[0], maps[1],
+                                   contiguous=self.n_pad == self.n_total)
+        S = self.shards_per_client
+        out = torch.zeros((S, self.n_pad), dtype=torch.float32, device=bodies[0].device)
+        for s, body, dev_block in zip(self.segments, bodies, maps[5]):
+            blocks = shard_blocks(body.to(torch.float32), s.grid).reshape(s.n_shards, -1)
+            out[:, s.offset:s.offset + s.rows * s.n_loc] = blocks[dev_block]
+        return out
 
     def unflatten_local(self, flat: torch.Tensor) -> List[torch.Tensor]:
-        """Local flat buffer → list of local body views (segment order)."""
+        """Local flat buffer(s) → this client's leaves (segment order):
+        views of the one device's buffer, or with several devices each
+        leaf put together from its blocks (each taken from the first
+        device that holds it)."""
+        if self.shards_per_client == 1:
+            return [
+                flat[s.offset:s.offset + s.rows * s.n_loc].reshape(s.shape)
+                for s in self.segments
+            ]
+        rep_devs = self._device_maps(flat.device)[6]
         return [
-            flat[s.offset:s.offset + s.rows * s.n_loc].reshape(s.shape)
-            for s in self.segments
+            unshard_blocks(flat[rep, s.offset:s.offset + s.rows * s.n_loc]
+                           .reshape((s.n_shards,) + s.shape), s.grid)
+            for s, rep in zip(self.segments, rep_devs)
         ]
 
     def zeros_residual(self, device) -> torch.Tensor:
@@ -607,53 +703,60 @@ class ShardedFlatParamSpace:
         *,
         device_pack: bool = False,
     ) -> tuple:
-        """Compress this client's shard of every leaf and exchange.
+        """Compress this client's shards of every leaf and exchange.
         Returns ``(mean_flat, own_flat, new_res_flat)``: the aggregated
         update, this client's ΔW*, and the new residual, all in the local
         flat layout.
 
-        Per-(segment, row) exact two-sided top-k (paper Alg. 2,
-        :func:`_two_sided_topk`); dense segments send their values, skip
-        segments nothing (their update stays in the residual).  The
-        exchange gathers every client's positions and μ stream over the
-        group, then adds each client's ``μ / n_clients`` (as the jitted
-        reference computes it: ``μ · (1/n_clients)``) at its positions,
-        one client after the other in client order (the reference's scan:
-        one scatter over every client at once would add colliding
-        positions in no fixed order on the card).  Dense segments take the
-        group's ``pmean``.  With one client the mean is ΔW*.
+        Per-(segment, device, row) exact two-sided top-k (paper Alg. 2,
+        :func:`_two_sided_topk`, one call a segment over all its devices'
+        rows); dense segments send their values, skip segments nothing
+        (their update stays in the residual).  The exchange gathers every
+        client's positions and μ stream over the group, then adds each
+        client's ``μ / n_clients`` (as the jitted reference computes it:
+        ``μ · (1/n_clients)``) at its positions, one client after the other
+        in the order of the reference's gathers (the reference's scan: one
+        scatter over every client at once would add colliding positions in
+        no fixed order on the card).  Dense segments take the group's
+        ``pmean``.  With one client the mean is ΔW*.
 
-        ``device_pack=True`` also Golomb-packs every (segment, row)'s
-        surviving positions on the device (:meth:`_pack_local`, one
+        ``device_pack=True`` also Golomb-packs every (segment, device,
+        row)'s surviving positions on the device (:meth:`_pack_local`, one
         :func:`~repro_torch.kernels.pack.pack_bit_rows` launch), gathers
         those words in place of the positions and decodes them
         (:meth:`_decode_gathered`); it returns two more outputs, ``(words
-        u32[n_pack_words], nbits int32[n_mu])``: this shard's packed
-        streams and exact per-row bit counts, byte-identical to the host
-        ``encode_positions_packed``.  The mean is the same either way.
+        u32[n_pack_words], nbits int32[n_mu])`` a device (with S devices,
+        ``(S, ·)``): each device's packed streams and exact per-row bit
+        counts, byte-identical to the host ``encode_positions_packed``.
+        The mean is the same either way.
         """
         group = self._client_group()
         acc = self.flatten_local(bodies)
         if res_flat is not None:
             acc = res_flat + acc
-        _, _, _, pos_row, dense_idx = self._device_maps(acc.device)
+        S, n_pad = self.shards_per_client, self.n_pad
+        maps = self._device_maps(acc.device)
+        pos_row, dense_idx = maps[3], maps[4]
+        acc2, flat = acc.reshape(S, n_pad), acc.reshape(-1)
+        dev_base = n_pad * torch.arange(S, device=acc.device)
 
         pos_parts, mu_parts, idx_parts = [], [], []
         for s in self._sparse:
-            x = acc[s.offset:s.offset + s.rows * s.n_loc].reshape(s.rows, s.n_loc)
+            x = acc2[:, s.offset:s.offset + s.rows * s.n_loc].reshape(S * s.rows, s.n_loc)
             idx, mu = _two_sided_topk(x, s.k)
-            base = s.offset + s.n_loc * torch.arange(s.rows, device=acc.device)
+            base = (dev_base[:, None] + s.offset
+                    + s.n_loc * torch.arange(s.rows, device=acc.device)[None, :]).reshape(-1)
             pos_parts.append((idx + base[:, None]).reshape(-1))
             mu_parts.append(mu)
             idx_parts.append(idx)
 
-        own = torch.zeros((self.n_pad,), dtype=torch.float32, device=acc.device)
+        own = torch.zeros(acc.shape, dtype=torch.float32, device=acc.device)
         if pos_parts:
             pos, mu = torch.cat(pos_parts), torch.cat(mu_parts)
-            own[pos] = mu[pos_row]
+            own.view(-1)[pos] = mu[pos_row]
         if self._dense_idx.size:
-            dvals = acc[dense_idx]
-            own[dense_idx] = dvals
+            dvals = flat[dense_idx]
+            own.view(-1)[dense_idx] = dvals
         if device_pack:
             words, nbits = self._pack_local(idx_parts, acc.device)
 
@@ -667,12 +770,12 @@ class ShardedFlatParamSpace:
             gmu = group.all_gather_rows(mu)
             # μ / C, which XLA computes as μ · (1/C) under jit
             inv = _reciprocal(C, acc.device)
-            mean = torch.zeros((self.n_pad,), dtype=torch.float32, device=acc.device)
-            for c in range(C):
-                mean.index_add_(0, gpos[c], gmu[c][pos_row] * inv)
+            mean = torch.zeros(acc.shape, dtype=torch.float32, device=acc.device)
+            for c in group.gather_order(self.client_grid):
+                mean.view(-1).index_add_(0, gpos[c], gmu[c][pos_row] * inv)
         if self.client_axes and C > 1 and self._dense_idx.size:
             mean = own.clone() if mean is own else mean
-            mean[dense_idx] = group.pmean(dvals)
+            mean.view(-1)[dense_idx] = group.pmean(dvals, self.client_grid)
         new_res = acc - own if res_flat is not None else None
         if device_pack:
             return mean, own, new_res, words, nbits
@@ -681,10 +784,6 @@ class ShardedFlatParamSpace:
     def _client_group(self):
         """The group the exchange crosses; raises unless its world is
         ``n_clients``."""
-        if self.shards_per_client != 1:
-            raise NotImplementedError(
-                "a \"model\" axis larger than 1 (shards_per_client > 1, fsdp) comes "
-                "with ROADMAP A12, part 3, item 6")
         if self.group.world != self.n_clients:
             raise ValueError(
                 f"the exchange over {self.n_clients} clients needs a ClientGroup of "
@@ -693,39 +792,51 @@ class ShardedFlatParamSpace:
         return self.group
 
     def _pack_local(self, idx_parts: List[torch.Tensor], device: torch.device) -> tuple:
-        """This shard's survivors → (packed u32 words, per-row bit counts).
+        """This client's survivors → (packed u32 words, per-row bit counts),
+        a device's (``(S, ·)`` with S devices).
 
         Builds every (segment, row)'s Golomb bit stream at its static
-        offset in one concatenated bit buffer, then folds the bits into
-        ``uint32`` words with ONE launch over the whole flat set
+        offset in each device's concatenated bit buffer, the devices one
+        after the other, then folds the bits into ``uint32`` words with
+        ONE launch over the whole set
         (:func:`~repro_torch.kernels.pack.pack_bit_rows`, in stream order:
-        no pad and no transpose).
+        no pad and no transpose; every row's stream is whole words, so each
+        device's words are its own).
         """
+        S = self.shards_per_client
         if not idx_parts:
-            return (torch.zeros((0,), dtype=torch.int32, device=device).view(torch.uint32),
-                    torch.zeros((0,), dtype=torch.int32, device=device))
+            shape = (0,) if S == 1 else (S, 0)
+            return (torch.zeros(shape, dtype=torch.int32, device=device).view(torch.uint32),
+                    torch.zeros(shape, dtype=torch.int32, device=device))
         chunks, nb_parts = [], []
         for (b, w, _), idx_s in zip(self._pack_info, idx_parts):
             bits_s, nb_s = bits_from_positions(torch.sort(idx_s, dim=1).values,
                                                bstar=b, cap32=32 * w)
-            chunks.append(bits_s.reshape(-1))
-            nb_parts.append(nb_s)
-        allbits = torch.cat(chunks)
-        return pack_bit_rows(allbits), torch.cat(nb_parts)
+            chunks.append(bits_s.reshape(S, -1))
+            nb_parts.append(nb_s.reshape(S, -1))
+        allbits = torch.cat(chunks, dim=1).reshape(-1)
+        words, nbits = pack_bit_rows(allbits), torch.cat(nb_parts, dim=1)
+        if S == 1:
+            return words, nbits.reshape(-1)
+        return words.reshape(S, self.n_pack_words), nbits
 
     def _decode_gathered(self, gw: torch.Tensor) -> torch.Tensor:
-        """Gathered word buffers u32[C, n_pack_words] → global positions
-        int64[C, n_pos] (:func:`~repro_torch.kernels.pack.golomb_decode_rows`,
-        segment by segment: each has its own k, b* and row stride).  Each
-        row's positions come out ascending; every position of a row takes
-        the row's μ, so the mean does not depend on their order."""
+        """Gathered word buffers u32[C, (S,) n_pack_words] → positions
+        int64[C, n_pos] in this rank's flat layout
+        (:func:`~repro_torch.kernels.pack.golomb_decode_rows`, segment by
+        segment: each has its own k, b* and row stride).  Each row's
+        positions come out ascending; every position of a row takes the
+        row's μ, so the mean does not depend on their order."""
         words = gw.view(torch.int32) if gw.dtype == torch.uint32 else gw
-        C = words.shape[0]
+        C, S = words.shape[0], self.shards_per_client
+        words = words.reshape(C, S, self.n_pack_words)
+        dev_base = self.n_pad * torch.arange(S, device=words.device)
         parts = []
         for s, (b, w, off) in zip(self._sparse, self._pack_info):
-            seg_w = words[:, off:off + s.rows * w].reshape(C, s.rows, w)
+            seg_w = words[:, :, off:off + s.rows * w].reshape(C, S * s.rows, w)
             ploc = golomb_decode_rows(seg_w, k=s.k, bstar=b).to(torch.int64)
-            base = s.offset + s.n_loc * torch.arange(s.rows, device=words.device)
+            base = (dev_base[:, None] + s.offset
+                    + s.n_loc * torch.arange(s.rows, device=words.device)[None, :]).reshape(-1)
             parts.append((ploc + base[None, :, None]).reshape(C, -1))
         return torch.cat(parts, 1)
 
@@ -739,12 +850,13 @@ class ShardedFlatParamSpace:
         nbins: int = 128,
     ) -> tuple:
         """The segment-aware passes (:mod:`repro_torch.kernels.flat`) over
-        this device's local flat buffer — one launch per pass.
+        this client's local flat buffer(s) — one launch per pass, over
+        every (device, segment).
 
-        Approximate survivor counts (histogram thresholds); the exchange
-        is the group's ``pmean`` of the binarized ΔW* (none with one
-        client).  Requires an all-sparse policy.
-        Returns ``(mean_flat, own_flat, new_res_flat)``.
+        Approximate survivor counts (histogram thresholds), one μ a
+        (segment, device); the exchange is the group's ``pmean`` of the
+        binarized ΔW* (none with one client).  Requires an all-sparse
+        policy.  Returns ``(mean_flat, own_flat, new_res_flat)``.
         """
         if any(s.kind != "sparse" for s in self.segments):
             raise ValueError(
@@ -766,6 +878,7 @@ class ShardedFlatParamSpace:
             lanes=self.lanes,
             nbins=nbins,
         )
-        mean = group.pmean(own) if self.client_axes and self.n_clients > 1 else own
+        mean = (group.pmean(own, self.client_grid) if self.client_axes and self.n_clients > 1
+                else own)
         new_res = res if res_flat is not None else None
         return mean, own, new_res

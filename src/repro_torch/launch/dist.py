@@ -1,25 +1,40 @@
 """The GSPMD backend's DSGD train step, one client per process.
 
 Counterpart of ``repro.launch.dist`` (DESIGN.md §4).  The reference builds
-its step on a mesh ``Mesh(devices.reshape(-1, 1), ("data", "model"))``:
-one client per device on the "data" axis and a size-1 "model" axis, the
-exchange inside ``shard_map``.  The port runs one client per process: a
+its step on a device mesh, by default ``Mesh(devices.reshape(-1, 1),
+("data", "model"))``, and runs the exchange inside ``shard_map``.  The
+port runs one client per process: a
 :class:`~repro_torch.launch.mesh.ClientGroup` gives the client index (its
 rank) and the number of clients (its world), and every round's exchange
 crosses the ranks over ``torch.distributed`` (NCCL on cards, gloo on the
-CPU).  Each rank holds the reference's shard-local state: the params
-(the same on every rank), its own row of the optimizer state and of the
-residual (a leading client axis of 1).
+CPU).  Each rank holds its client's state: the params (the same on every
+rank), its row of the optimizer state and of the residual (a leading
+client axis of 1).
+
+The mesh is a layout, a dict of axis sizes (``mesh_shape``; default the
+reference's ``(world, 1)``, ``{"data": world, "model": 1}``).  Its client
+axes (:func:`client_topology`: "pod" and "data" in the data mode, "pod"
+in pod mode, where the gradient is a dense mean inside the pod) map to the
+ranks; every other axis is a shard axis, and a rank holds ALL of its
+client's shards: the whole model, not one device's shard.  Each leaf is
+cut into the equal blocks its spec gives over the shard axes
+(:func:`~repro_torch.models.model.make_param_specs`), and compression
+runs per block, as the reference's per-device compression does: each
+block takes its own k a row and μ, Eq. 1 counts ``L · n_shards · (k_loc ·
+b̄ + 32)`` bits a leaf, and the flat engines keep one buffer a device of
+the client, ``(1, shards_per_client, n_pad)``.  A shard axis across ranks
+(each rank one device's shard) is ROADMAP A12, part 3, item 7.
 
 The exchange is the §11 flat fast path (``fast=True``: the exact engine,
 optionally with the device-packed Golomb wire, or the hist engine) or the
-per-leaf exchange (``fast=False``, or a non-f32 ``residual_dtype``).  A
-per-leaf policy maps each leaf to one of the exchange's three modes
-(:func:`dist_leaf_mode`: SBC, dense, skip); the hist engine takes all-SBC
-policies only (its flat space raises ``ValueError`` otherwise, as the
-reference's does).  ``client_mode="pod"`` (granite-20b, command-r-35b,
-mixtral, llama4, jamba) and a "model" axis larger than 1 come with ROADMAP
-A12, part 3, item 6.
+per-leaf exchange (``fast=False``, or a non-f32 ``residual_dtype``, as
+the five pod-mode configs' bf16 residual).  A per-leaf policy maps each
+leaf to one of the exchange's three modes (:func:`dist_leaf_mode`: SBC,
+dense, skip); the hist engine takes all-SBC policies only (its flat space
+raises ``ValueError`` otherwise, as the reference's does).  ``opts`` takes
+the reference's launch options ``"lean_moe"`` (bf16 MoE combine, capacity
+factor ≤ 1) and ``"seq_every2"``, installed through
+:func:`repro_torch.models.hints.activation_sharding` around the step.
 :func:`main` is the reference's launcher (``python -m
 repro_torch.launch.dist``, the ``tiny`` preset by default).
 
@@ -33,12 +48,17 @@ Behaviour of the reference that the step reproduces as it is:
     client's own ΔW* is non-zero;
   * the applied update is the mean's row of this client, which is client
     0's on every rank, and the loss metric is the mean over clients
-    (``jnp.mean`` of the gathered losses, in XLA's order).
+    (``jnp.mean`` of the gathered losses, in XLA's order);
+  * in pod mode each client takes its pod's whole batch: the reference
+    splits it over the pod's "data" devices, and GSPMD's gradient of the
+    mean loss is the same mean.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -49,20 +69,65 @@ from repro_torch.core.policy import CompressionPolicy, path_str
 from repro_torch.core.tree import tree_flatten, tree_flatten_with_path, tree_map
 from repro_torch.device import full_f32_math
 from repro_torch.kernels.reduce import f32_mean_xla
-from repro_torch.launch.mesh import ClientGroup, make_host_group
-from repro_torch.models.model import Model, build_model
+from repro_torch.launch.mesh import (ClientGroup, axis_sizes, check_clients, default_layout,
+                                     make_host_group)
+from repro_torch.models import hints
+from repro_torch.models.model import Model, build_model, make_param_specs
 from repro_torch.optim.optimizers import get_optimizer, map_states
 
+OPTS = frozenset({"lean_moe", "seq_every2"})
 
-def client_topology(cfg: ModelConfig, group: ClientGroup) -> tuple[int, tuple[str, ...]]:
-    """(n_clients, client axes): one client per rank of ``group`` on the
-    "data" axis."""
+
+def client_topology(cfg: ModelConfig, layout: dict) -> tuple[int, tuple[str, ...]]:
+    """(n_clients, client axes) of ``layout`` (axis name → size): in pod
+    mode one client a "pod" coordinate (one client without a "pod"
+    axis), else one a ("pod", "data") coordinate."""
+    sizes = axis_sizes(layout)
     if cfg.client_mode == "pod":
-        raise NotImplementedError(
-            "client_mode='pod' (one client per pod, dense all-reduce inside it) "
-            "comes with ROADMAP A12, part 3, item 6 (the mode of the ≥20B decoders and "
-            "of mixtral, llama4 and jamba)")
-    return group.world, ("data",)
+        return (sizes["pod"], ("pod",)) if "pod" in sizes else (1, ())
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    return math.prod(sizes[a] for a in axes), axes
+
+
+def _axes_of(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _shards_of(spec: tuple, sizes: dict) -> int:
+    """The distinct shards of a leaf under ``spec``."""
+    return math.prod(sizes.get(ax, 1) for entry in spec for ax in _axes_of(entry))
+
+
+def _shard_grid(shape, spec: tuple, sizes: dict) -> tuple[int, ...]:
+    """Per-dim shard counts of a leaf under ``spec`` (GSPMD equal blocks)."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+    return tuple(math.prod(sizes.get(a, 1) for a in _axes_of(e)) for e in entries)
+
+
+def _local_shape(shape, spec: tuple, sizes: dict) -> tuple[int, ...]:
+    """One shard's shape of a leaf under ``spec`` (GSPMD equal blocks)."""
+    return tuple(d // g for d, g in zip(shape, _shard_grid(shape, spec, sizes)))
+
+
+def _device_blocks(shape, spec: tuple, sizes: dict, shard_axes: tuple) -> tuple[int, ...]:
+    """For each device of a client (row-major over ``shard_axes``), the
+    grid-order block of the leaf it holds: a dim's block index is the
+    device's coordinate over that dim's axes, row-major."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+    grid = _shard_grid(shape, spec, sizes)
+    out = []
+    for coords in np.ndindex(*[sizes[a] for a in shard_axes]):
+        at = dict(zip(shard_axes, coords))
+        block = 0
+        for e, g in zip(entries, grid):
+            i = 0
+            for ax in _axes_of(e):
+                i = i * sizes[ax] + at.get(ax, 0)  # a client axis here has size 1
+            block = block * g + i
+        out.append(block)
+    return tuple(out)
 
 
 class DistTrainFns(NamedTuple):
@@ -105,12 +170,22 @@ def build_dist_train(
     device_pack: bool = False,
     model: Optional[Model] = None,
     device=None,
+    mesh_shape: Optional[dict] = None,
+    opts: frozenset = frozenset(),
 ) -> DistTrainFns:
     """Build this rank's DSGD train step for ``cfg``.
 
     ``group``: the :class:`~repro_torch.launch.mesh.ClientGroup` whose
     ranks are the clients (default: :func:`~repro_torch.launch.mesh.
     make_host_group` on ``device``, one client and no process group).
+
+    ``mesh_shape``: the layout, axis name → size, such as
+    ``production_layout()`` (``{"data": 16, "model": 16}``); default the
+    reference's ``{"data": world, "model": 1}``.  Its client axes
+    (:func:`client_topology`) must count ``group.world`` clients
+    (``ValueError`` otherwise; ``NotImplementedError`` for a shard axis
+    across ranks, ROADMAP A12, part 3, item 7).  The rank compresses each
+    of its client's shards on its own.
 
     ``policy``: an optional per-leaf :class:`CompressionPolicy` (path-regex
     rules): each leaf takes its plan's exchange mode
@@ -127,7 +202,12 @@ def build_dist_train(
     ("exact" or "hist"), False the per-leaf exchange, and None (the
     default, as in the reference) the policy's own flag: the per-leaf
     exchange for the default ``sbc`` policy.  A non-f32
-    ``cfg.residual_dtype`` takes the per-leaf exchange either way.
+    ``cfg.residual_dtype`` or leaf takes the per-leaf exchange either way.
+
+    ``opts``: the reference's launch options, a subset of :data:`OPTS`:
+    ``"lean_moe"`` (bf16 MoE combine, capacity factor ≤ 1) and
+    ``"seq_every2"`` (the sequence hint on every second block, which
+    places activations only and changes nothing here).
 
     State = ``{'params', 'opt', 'residual'}``; the batch is this client's,
     with a leading client axis of 1.  ``measure`` adds client 0's
@@ -141,10 +221,16 @@ def build_dist_train(
         group = make_host_group(device)
     elif device is not None and torch.device(device) != group.device:
         raise ValueError(f"device {device} is not the group's {group.device}")
+    if not set(opts) <= OPTS:
+        raise ValueError(f"unknown launch options {sorted(set(opts) - OPTS)}; "
+                         f"known {sorted(OPTS)}")
     device = group.device
     full_f32_math()
     model = model or build_model(cfg)
-    n_clients, client_axes = client_topology(cfg, group)
+    sizes = axis_sizes(mesh_shape) if mesh_shape is not None else default_layout(group.world)
+    n_clients, client_axes = client_topology(cfg, sizes)
+    shard_axes = tuple(a for a in sizes if a not in client_axes)
+    client_grid = tuple(sizes[a] for a in client_axes)
     opt_kw = {} if cfg.local_opt == "sgd" else {"state_dtype": cfg.residual_dtype}
     opt = get_optimizer(cfg.local_opt, **opt_kw)
 
@@ -152,12 +238,23 @@ def build_dist_train(
         default = "sbc" if compressor == "sbc" else "dense"
         policy = CompressionPolicy.single(make_codec(default), name=compressor)
 
-    # leaf plan from the parameter shapes (every leaf replicated: one
-    # shard), in JAX's leaf order with its "a/b" paths; drawn on the meta
-    # device, so nothing is allocated
+    # leaf plan and sharding specs from the parameter shapes, in JAX's leaf
+    # order with its "a/b" paths; drawn on the meta device, so nothing is
+    # allocated
     with torch.device("meta"):
-        flat_p, treedef = tree_flatten_with_path(model.init(torch.Generator()))
+        meta_params = model.init(torch.Generator())
+    flat_p, treedef = tree_flatten_with_path(meta_params)
+    specs = treedef.flatten_up_to(make_param_specs(
+        meta_params, sizes, fsdp=cfg.fsdp,
+        expert_parallel=cfg.moe_dispatch in ("flat_ep", "grouped")))
     keys = [path_str(path) for path, _ in flat_p]
+    for k, spec in zip(keys, specs):
+        used = {ax for entry in spec for ax in _axes_of(entry)
+                if ax in client_axes and sizes[ax] > 1}
+        if used:
+            raise ValueError(f"{k}: its spec {spec} cuts the leaf over the client axes "
+                             f"{sorted(used)}: a leaf is whole on every client")
+    check_clients(sizes, client_axes, group.world)
     plans = [policy.plan_for(k) for k in keys]
     scheduled = [pl.path for pl in plans if pl.schedule is not None]
     if scheduled:
@@ -168,27 +265,32 @@ def build_dist_train(
     leaves = tuple(
         GspmdLeaf(path=k, global_shape=tuple(v.shape), dtype=v.dtype,
                   scanned="stack/scan" in k, mode=dist_leaf_mode(pl.codec),
-                  rate=pl.rate(sparsity, 0), n_shards=1,
-                  shard_grid=(1,) * v.dim())
-        for k, (_, v), pl in zip(keys, flat_p, plans)
+                  rate=pl.rate(sparsity, 0), n_shards=_shards_of(spec, sizes),
+                  shard_grid=_shard_grid(tuple(v.shape), spec, sizes))
+        for k, (_, v), pl, spec in zip(keys, flat_p, plans, specs)
     )
     want_fast = policy.fast if fast is None else bool(fast)
     space = None
     if (want_fast and cfg.residual_dtype == torch.float32
             and all(gl.dtype == torch.float32 for gl in leaves)):
+        entries = []
+        for gl, spec in zip(leaves, specs):
+            local = _local_shape(gl.global_shape, spec, sizes)
+            entries.append(dict(
+                path=gl.path, shape=local,
+                rows=local[0] if gl.scanned and len(local) > 1 else 1,
+                kind=gl.mode, rate=gl.rate, n_shards=gl.n_shards,
+                global_size=int(torch.Size(gl.global_shape).numel()), grid=gl.shard_grid,
+                dev_block=_device_blocks(gl.global_shape, spec, sizes, shard_axes)))
         space = ShardedFlatParamSpace.build(
-            [dict(path=gl.path, shape=gl.global_shape,
-                  rows=gl.global_shape[0] if gl.scanned and len(gl.global_shape) > 1 else 1,
-                  kind=gl.mode, rate=gl.rate, n_shards=gl.n_shards,
-                  global_size=int(torch.Size(gl.global_shape).numel()))
-             for gl in leaves],
-            client_axes=client_axes, shard_axes=("model",), n_clients=n_clients,
-            shards_per_client=1, group=group,
+            entries, client_axes=client_axes, shard_axes=shard_axes, n_clients=n_clients,
+            shards_per_client=math.prod(sizes[a] for a in shard_axes), group=group,
+            client_grid=client_grid,
         )
     channel = ShardedGspmdChannel(
         leaves=leaves, client_axes=client_axes, n_clients=n_clients,
         residual_dtype=cfg.residual_dtype, flat_space=space, flat_engine=flat_engine,
-        device_pack=device_pack, group=group,
+        device_pack=device_pack, group=group, client_grid=client_grid,
     )
     bits = channel.bits()
 
@@ -203,7 +305,7 @@ def build_dist_train(
     need_mask = cfg.local_opt != "sgd"  # momentum masking needs ΔW*_i
     need_own = need_mask or measure
 
-    def train_step(state: dict, batch: dict) -> tuple:
+    def step(state: dict, batch: dict) -> tuple:
         params = state["params"]
         leaves_p = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
         loss = model.loss_fn(treedef.unflatten(leaves_p), tree_map(lambda v: v[0], batch))
@@ -238,12 +340,21 @@ def build_dist_train(
                     metrics["packed_words_client0"] = words[0]
         return {"params": new_params, "opt": opt_state, "residual": new_residual}, metrics
 
+    def train_step(state: dict, batch: dict) -> tuple:
+        with hints.activation_sharding(
+            sizes, batch_axes=("data",) if cfg.client_mode == "pod" else None,
+            seq_axis="model", expert_axis="data" if cfg.moe_dispatch == "flat_ep" else None,
+            seq_every=2 if "seq_every2" in opts else 1, lean_moe="lean_moe" in opts,
+        ):
+            return step(state, batch)
+
     residual_to_tree = None
     if space is not None:
         def residual_to_tree(flat_res: torch.Tensor) -> dict:
             """The flat residual as the per-leaf stacked tree the per-leaf
-            path stores (views, no copy)."""
-            return treedef.unflatten([b[None] for b in space.unflatten_local(flat_res[0, 0])])
+            path stores (views with one device a client, else copies)."""
+            local = flat_res[0].reshape(space.local_shape)
+            return treedef.unflatten([b[None] for b in space.unflatten_local(local)])
 
     return DistTrainFns(
         train_step=train_step, init_state=init_state,

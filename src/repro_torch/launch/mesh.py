@@ -16,6 +16,14 @@ exchange needs.
   * :meth:`ClientGroup.connect` joins a group whose size, rank and store
     the caller gives (tests, and several ranks on one card over gloo).
 
+A layout is the reference's mesh as a dict of axis sizes:
+:func:`production_layout` gives its two production meshes, (16, 16)
+("data", "model") and (2, 16, 16) ("pod", "data", "model"), and
+:func:`default_layout` the in-process one, ``(world, 1)``.  The client
+axes of a layout map to the ranks (their product is the group's world,
+:func:`check_clients`); every other axis is a shard axis, all of whose
+shards a rank holds (``repro_torch.launch.dist``).
+
 The transport follows the device (NCCL on a card, gloo on the CPU) unless
 the caller names one; it is never switched in silence.  NCCL refuses two
 ranks on one card, so several ranks on one card take gloo, whose
@@ -36,12 +44,59 @@ import datetime
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.reduce import _reciprocal
 
 TIMEOUT = datetime.timedelta(seconds=120)
+
+SINGLE_POD = {"data": 16, "model": 16}  # 256 chips, one pod
+MULTI_POD = {"pod": 2, "data": 16, "model": 16}  # 512 chips, two pods
+
+
+def production_layout(*, multi_pod: bool = False) -> dict[str, int]:
+    """The reference's production meshes (``repro.launch.mesh``) as axis
+    sizes."""
+    return dict(MULTI_POD if multi_pod else SINGLE_POD)
+
+
+def default_layout(world: int) -> dict[str, int]:
+    """The reference's in-process mesh: one "data" coordinate a device and
+    a size-1 "model" axis, here one "data" coordinate a rank."""
+    return {"data": int(world), "model": 1}
+
+
+def axis_sizes(layout: dict) -> dict[str, int]:
+    """Axis name → size of a layout, checked: every size a positive int."""
+    sizes = {str(k): int(v) for k, v in layout.items()}
+    if any(v < 1 for v in sizes.values()):
+        raise ValueError(f"layout {layout}: every axis needs a size of 1 or more")
+    return sizes
+
+
+def check_clients(layout: dict, client_axes: tuple, world: int) -> int:
+    """The number of clients, the product of ``layout``'s ``client_axes``;
+    ``ValueError`` unless it is ``world`` (one client a rank).  A layout
+    whose clients are fewer than the ranks, every device a rank, would put
+    a shard axis across ranks: that raises ``NotImplementedError`` (ROADMAP
+    A12, part 3, item 7)."""
+    n = 1
+    for ax in client_axes:
+        n *= layout[ax]
+    if n == world:
+        return n
+    total = 1
+    for size in layout.values():
+        total *= size
+    if world > n and world % n == 0 and total % world == 0:
+        raise NotImplementedError(
+            f"layout {layout} has {n} client(s) over {world} ranks: a shard axis across "
+            "ranks (each rank one device's shard, true FSDP memory) comes with ROADMAP "
+            "A12, part 3, item 7; here a rank holds a whole client")
+    raise ValueError(f"layout {layout} has {n} client(s) on the axes {client_axes}, but the "
+                     f"group has {world} rank(s): one client a rank")
 
 
 @dataclasses.dataclass(eq=False)
@@ -104,18 +159,34 @@ class ClientGroup:
         out = torch.stack(rows)
         return out.view(torch.uint32) if words else out
 
-    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+    def pmean(self, t: torch.Tensor, grid: Optional[tuple] = None) -> torch.Tensor:
         """``jax.lax.pmean`` over the clients as XLA's CPU backend computes
         it under ``jit``: the rows added left to right in rank order from
         row 0, the sum times the f32 reciprocal of the world size.  World
-        1 without a process group returns ``t``."""
+        1 without a process group returns ``t``.
+
+        ``grid`` gives the sizes of several client axes (ranks row-major
+        over them, product ``world``): the reference then takes one
+        ``pmean`` an axis, the first axis first, and so does this."""
         if self.backend is None:
             return t
         rows = self.all_gather_rows(t)
-        acc = rows[0]
-        for row in rows[1:]:
-            acc = acc + row
-        return acc * _reciprocal(self.world, acc.device)
+        grid = tuple(grid) if grid else (self.world,)
+        rows = rows.reshape(grid + tuple(t.shape))
+        for size in grid:  # the leading axis each time
+            acc = rows[0]
+            for row in rows[1:]:
+                acc = acc + row
+            rows = acc * _reciprocal(size, acc.device)
+        return rows
+
+    def gather_order(self, grid: Optional[tuple] = None) -> list:
+        """The ranks in the order of the reference's gathered rows: one
+        ``all_gather`` a client axis, the first axis first, stacks the
+        last axis outermost (rank order for one axis)."""
+        grid = tuple(grid) if grid else (self.world,)
+        order = np.arange(self.world).reshape(grid).transpose(tuple(reversed(range(len(grid)))))
+        return [int(r) for r in order.reshape(-1)]
 
     def close(self) -> None:
         """Leave the process group (no-op without one)."""

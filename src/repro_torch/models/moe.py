@@ -15,17 +15,20 @@ from the row's S); ``"flat"`` and ``"flat_ep"`` route all ``T = B·S``
 tokens at once (``C`` from T).  Decode passes ``full_capacity=True``:
 ``C = S`` (or T), nothing dropped.
 
-The reference's ``hints`` are identities without a launch context, and its
-``hints.lean_moe()`` (bf16 combine, capacity factor ≤ 1) is False there;
-the port runs exactly that: an f32 combine at the config's (or the
-caller's) capacity factor.  No port path sets ``lean_moe``: it comes with
-the launch options (ROADMAP A14) and the mesh (A12, part 3, item 6).
+The combine runs in f32 at the config's (or the caller's) capacity
+factor, unless :func:`repro_torch.models.hints.lean_moe` is on (the GSPMD
+backend's launch option ``"lean_moe"``, installed around its step by
+``build_dist_train(..., opts={"lean_moe"})``): then it runs in the
+activations' dtype and the capacity factor is at most 1.0, where the
+reference reads the same hint.  The reference's layout hints
+(``expert_grouped``, ``expert_flat``, ``act``) are identities in the port.
 
 Ties: ``lax.top_k`` breaks them by the lower index, which a stable
 descending sort reproduces (``torch.topk`` promises no order).  Dropped
 pairs write one slot past the buffer, which is cut, so no index leaves
-its tensor.  The combine adds at most k ≤ 2 gated rows into an f32 zero
-for every real token, which is exact in any order, so ``index_add_``
+its tensor.  The combine adds at most k ≤ 2 gated rows into a zero (f32,
+or bf16 under ``lean_moe``) for every real token, which rounds the same
+in any order, so ``index_add_``
 gives the reference's bits (the many adds into the discarded pad row
 aside).
 """
@@ -36,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import hints
 from repro_torch.models.layers import _randn, gen_device
 
 
@@ -85,10 +89,11 @@ def _positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
     return ((torch.cumsum(one_hot, dim=1) - 1) * one_hot).sum(dim=-1)
 
 
-def _dispatch(experts: torch.Tensor, gates: torch.Tensor, E: int, C: int, n_tok: int):
+def _dispatch(experts: torch.Tensor, gates: torch.Tensor, E: int, C: int, n_tok: int,
+              acc_dtype=torch.float32):
     """Per group (leading axis G) of ``n_tok`` tokens with k choices each:
     ``(buf (G, E·C) token ids, n_tok for an empty slot; gate_buf (G, E·C)
-    f32)``.  A pair's address is ``expert·C + position``; a dropped pair's
+    in acc_dtype)``.  A pair's address is ``expert·C + position``; a dropped pair's
     is ``E·C``, the slot past the end, which is cut."""
     G = experts.shape[0]
     k = experts.shape[-1]
@@ -101,8 +106,8 @@ def _dispatch(experts: torch.Tensor, gates: torch.Tensor, E: int, C: int, n_tok:
     addr = torch.where(keep, flat_e * C + pos, torch.full_like(pos, E * C))
     buf = torch.full((G, E * C + 1), n_tok, dtype=torch.int64, device=dev)
     buf.scatter_(1, addr, flat_tok)
-    gate_buf = torch.zeros((G, E * C + 1), dtype=torch.float32, device=dev)
-    gate_buf.scatter_(1, addr, torch.where(keep, flat_g, torch.zeros_like(flat_g)))
+    gate_buf = torch.zeros((G, E * C + 1), dtype=acc_dtype, device=dev)
+    gate_buf.scatter_(1, addr, torch.where(keep, flat_g, torch.zeros_like(flat_g)).to(acc_dtype))
     return buf[:, :E * C], gate_buf[:, :E * C]
 
 
@@ -122,12 +127,13 @@ def _experts(params: dict, gathered: torch.Tensor, lead: str) -> torch.Tensor:
 def _combine(expert_out: torch.Tensor, buf: torch.Tensor, gate_buf: torch.Tensor,
              n_tok: int) -> torch.Tensor:
     """Scatter-add each group's gated expert rows back to its tokens, in
-    f32: ``(G, E·C, d)`` → ``(G, n_tok, d)`` (row ``n_tok`` of each group,
-    the empty slots' pad row, is cut)."""
+    ``gate_buf``'s dtype: ``(G, E·C, d)`` → ``(G, n_tok, d)`` (row
+    ``n_tok`` of each group, the empty slots' pad row, is cut)."""
     G, EC, d = expert_out.shape
-    contrib = expert_out.to(torch.float32) * gate_buf[..., None]
+    acc_dtype = gate_buf.dtype
+    contrib = expert_out.to(acc_dtype) * gate_buf[..., None]
     index = (buf + torch.arange(G, device=buf.device)[:, None] * (n_tok + 1)).reshape(-1)
-    out = torch.zeros((G * (n_tok + 1), d), dtype=torch.float32, device=buf.device)
+    out = torch.zeros((G * (n_tok + 1), d), dtype=acc_dtype, device=buf.device)
     out.index_add_(0, index, contrib.reshape(-1, d))
     return out.reshape(G, n_tok + 1, d)[:, :n_tok]
 
@@ -141,7 +147,14 @@ def _gather(x: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
 def _capacity(n_tok: int, k: int, E: int, capacity_factor: float, full_capacity: bool) -> int:
     if full_capacity:
         return n_tok
+    if hints.lean_moe():
+        capacity_factor = min(capacity_factor, 1.0)
     return max(1, int(math.ceil(n_tok * k / E * capacity_factor)))
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The combine's dtype: the activations' under ``lean_moe``, else f32."""
+    return x.dtype if hints.lean_moe() else torch.float32
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg, *, capacity_factor: float = 0.0,
@@ -162,7 +175,7 @@ def _moe_grouped(params, x, cfg, capacity_factor, full_capacity):
     E, k = cfg.moe_experts, cfg.moe_top_k
     C = _capacity(S, k, E, capacity_factor or cfg.moe_capacity_factor, full_capacity)
     probs, gates, experts = _route(x, params["router"], k)  # (B, S, ·)
-    buf, gate_buf = _dispatch(experts, gates, E, C, S)
+    buf, gate_buf = _dispatch(experts, gates, E, C, S, _acc_dtype(x))
     gathered = _gather(x, buf).reshape(B, E, C, d)
     # the aux terms (Switch/Mixtral form): per row, then averaged over rows
     me = probs.mean(dim=1)
@@ -183,7 +196,7 @@ def _moe_flat(params, x, cfg, capacity_factor, full_capacity):
     me = probs[0].mean(dim=0)
     ce = F.one_hot(experts[0, :, 0], E).to(torch.float32).mean(dim=0)
     aux = E * torch.sum(me * ce)
-    buf, gate_buf = _dispatch(experts, gates, E, C, T)
+    buf, gate_buf = _dispatch(experts, gates, E, C, T, _acc_dtype(x))
     gathered = _gather(xt, buf)[0].reshape(E, C, d)
     expert_out = _experts(params, gathered, "").reshape(1, E * C, d)
     out = _combine(expert_out, buf, gate_buf, T)
@@ -192,7 +205,8 @@ def _moe_flat(params, x, cfg, capacity_factor, full_capacity):
 
 def dropped_share(params: dict, x: torch.Tensor, cfg, *, capacity_factor: float = 0.0) -> float:
     """The share of (token, expert) pairs that :func:`moe_apply` drops on
-    ``x`` at ``capacity_factor`` (default: the config's)."""
+    ``x`` at ``capacity_factor`` (default: the config's; at most 1.0 under
+    ``lean_moe``)."""
     B, S, d = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     grouped = getattr(cfg, "moe_dispatch", "grouped") == "grouped"

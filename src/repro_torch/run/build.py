@@ -28,10 +28,16 @@ compressors, on three backends:
 
           Under ``torchrun`` every rank calls ``build_run`` and takes its
           client from ``repro_torch.launch.mesh.group_from_env``; rank 0
-          alone meters the wire into the ledger.  The pod-mode configs
-          (``granite_20b``, ``command_r_35b``, ``mixtral_8x7b``,
-          ``llama4_maverick_400b_a17b``, ``jamba_v01_52b``) raise there:
-          one client per pod comes with ROADMAP A12, part 3, item 6.
+          alone meters the wire into the ledger.  ``mesh_shape=`` (keyword
+          only, the counterpart of the reference's ``mesh=``) gives the
+          layout, such as ``{"data": 16, "model": 16}``: the pod-mode
+          configs (``granite_20b``, ``command_r_35b``, ``mixtral_8x7b``,
+          ``llama4_maverick_400b_a17b``, ``jamba_v01_52b``) take one client
+          a "pod" coordinate, and every leaf is compressed per shard of
+          its spec, all of a client's shards on its rank:
+
+              build_run(RunSpec(preset="granite_20b", backend="gspmd"),
+                        mesh_shape={"data": 16, "model": 16})
 
   fed     a :class:`~repro_torch.fed.scheduler.RoundScheduler` over a
           :class:`~repro_torch.core.channel.FedWireChannel`: a parameter
@@ -57,9 +63,9 @@ enabled :class:`~repro_torch.obs.Telemetry` to the run and its channel,
 and ``run()`` records what the reference's traced loop records (one
 ``round`` span a round, the ``train/*`` and ``leaf/*`` gauges, the
 ledger's ``wire/*``).
-Pod mode and the "model" axis raise ``NotImplementedError`` naming
-ROADMAP A12, part 3, item 6; none runs a different path in silence.  The
-run is on the CUDA card unless
+A layout whose shard axis would cross ranks raises ``NotImplementedError``
+naming ROADMAP A12, part 3, item 7; none runs a different path in
+silence.  The run is on the CUDA card unless
 ``device="cpu"`` is passed; without a card ``build_run`` raises
 ``RuntimeError``.
 """
@@ -73,7 +79,7 @@ import torch
 from repro_torch.core.api import Compressor, make_compressor
 from repro_torch.core.policy import CompressionPolicy, PolicyRule
 from repro_torch.device import resolve_device
-from repro_torch.launch.dist import build_dist_train, client_topology
+from repro_torch.launch.dist import build_dist_train
 from repro_torch.models.model import build_model
 from repro_torch.obs import NULL_TELEMETRY, make_telemetry
 from repro_torch.run.presets import build_preset
@@ -476,7 +482,8 @@ TORCHRUN = ("torchrun --standalone --nproc-per-node {n} -m repro_torch.run --pre
             "--backend gspmd --fast --flat-engine exact --device-pack --measure-wire")
 
 
-def build_run(spec: RunSpec, device=None, group=None) -> Union[LocalRun, GspmdRun, FedRun]:
+def build_run(spec: RunSpec, device=None, group=None, *,
+              mesh_shape: Optional[dict] = None) -> Union[LocalRun, GspmdRun, FedRun]:
     """Construct the backend a spec names, on ``device`` (default: the CUDA
     card; an explicit ``"cuda:N"`` picks one of several cards).
 
@@ -485,11 +492,16 @@ def build_run(spec: RunSpec, device=None, group=None) -> Union[LocalRun, GspmdRu
     ranks ``torchrun`` started (:func:`~repro_torch.launch.mesh.
     group_from_env`, on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over
     gloo with ``device="cpu"``), else one client on ``device``.
+    ``mesh_shape`` is the gspmd layout (axis name → size; default
+    ``{"data": world, "model": 1}``), the reference's ``mesh=``; the
+    other backends take none.
     ``spec.telemetry`` attaches one enabled
     :class:`~repro_torch.obs.Telemetry` to the run and its channel (the
     fed run's channel and server get it when :meth:`FedRun.init` builds
     them); a disabled run keeps the shared no-op ``NULL_TELEMETRY``."""
-    run = _build(spec, device, group)
+    if mesh_shape is not None and spec.backend != "gspmd":
+        raise ValueError(f"mesh_shape is a layout of the gspmd backend, not of {spec.backend!r}")
+    run = _build(spec, device, group, mesh_shape)
     if spec.telemetry:
         run.telemetry = make_telemetry()
         if run.channel is not None:
@@ -497,7 +509,7 @@ def build_run(spec: RunSpec, device=None, group=None) -> Union[LocalRun, GspmdRu
     return run
 
 
-def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun, FedRun]:
+def _build(spec: RunSpec, device, group, mesh_shape) -> Union[LocalRun, GspmdRun, FedRun]:
     from repro_torch.launch.mesh import group_from_env, launched_by_torchrun, make_host_group
 
     if spec.backend == "gspmd" and group is None:
@@ -524,7 +536,6 @@ def _build(spec: RunSpec, device, group) -> Union[LocalRun, GspmdRun, FedRun]:
                            policy=None if isinstance(policy, Compressor) else as_policy(policy),
                            fast=True if spec.fast else None, flat_engine=spec.flat_engine,
                            measure=spec.measure_wire, device_pack=spec.device_pack,
-                           model=model)
-    n_clients, _ = client_topology(cfg, group)
+                           model=model, mesh_shape=mesh_shape)
     return GspmdRun(spec=spec, cfg=cfg, model=model, task=task, channel=fns.channel,
-                    fns=fns, n_clients=n_clients, device=dev, group=group)
+                    fns=fns, n_clients=fns.channel.n_clients, device=dev, group=group)

@@ -295,11 +295,31 @@ def test_reduced_dense_decoders_run_on_every_backend(preset, backend):
 
 @pytest.mark.parametrize("preset", ["granite_20b", "command_r_35b"])
 def test_pod_mode_decoders_run_locally_and_meet_the_pod_refusal_on_gspmd(preset):
+    """The pod-mode decoders run on every backend: on gspmd (ROADMAP A12,
+    part 3, item 6) as one client a pod, on the default layout (one shard)
+    and on a layout of 2 x 2 shards (the MLP stacks, 1 MiB, split over
+    "model"): the same first loss, and each layout's Eq. 1 bits the
+    reference's (``test_torch_pod_run.reference_bits``)."""
+    from repro.configs.base import reduced as j_reduced
+    from test_torch_pod_run import reference_bits
+
     spec = dict(preset=preset, rounds=1, sparsity=0.05, clients=2, **SMALL)
     _, hist = build_run(RunSpec(backend="local", **spec), device="cpu").run()
     assert np.isfinite(hist["loss"][0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3"):
-        build_run(RunSpec(backend="gspmd", **spec), device="cpu")
+    losses, bits = [], []
+    for mesh_shape in (None, {"pod": 1, "data": 2, "model": 2}):
+        run = build_run(RunSpec(backend="gspmd", **spec), device="cpu", mesh_shape=mesh_shape)
+        assert run.n_clients == 1 and run.fns.flat_space is None  # the bf16 residual
+        _, hist = run.run()
+        losses.append(hist["loss"][0])
+        bits.append(run.fns.bits_per_client)
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    jcfg = j_reduced(j_get_config(preset))
+    assert bits == [reference_bits(jcfg, layout, 0.05, fast=False)["eq1"] for layout in
+                    ({"data": 1, "model": 1}, {"pod": 1, "data": 2, "model": 2})]
+    assert bits[0] != bits[1]
+    with pytest.raises(ValueError, match="layout of the gspmd backend"):
+        build_run(RunSpec(backend="local", **spec), device="cpu", mesh_shape={"data": 1})
 
 
 @pytest.mark.parametrize("spec", [

@@ -11,8 +11,13 @@ at three clients, values where ``sum / 3`` and ``sum · (1/3)`` differ
 (under ``jit``, as the reference's train step always runs, XLA turns
 ``pmean``'s division by n into the product with the f32 1/n).
 
+Four ranks also take two client axes ("pod", "data") = (2, 2): one
+``pmean`` and one ``all_gather`` an axis, "pod" first, as the reference's
+channel takes them on the (2, 2, 2) layout in data mode.
+
 Tolerance: none.  ``pmean`` is bit for bit the reference's; the gathers
-return every rank's rows in rank order, bit for bit.
+return every rank's rows in rank order (two axes: in the reference's
+gathered order), bit for bit.
 """
 import numpy as np
 import pytest
@@ -99,23 +104,60 @@ def test_group_rejects_what_it_cannot_be():
 
 
 def test_pod_clients_and_model_axes_belong_to_a12():
-    """``client_mode="pod"`` and a "model" axis larger than 1 come with the
-    decoder and MoE configs."""
+    """``client_mode="pod"`` and a "model" axis larger than 1 (ROADMAP A12,
+    part 3, item 6) run: pod mode at world 1 is one client with one shard
+    on the default layout, as in the reference, and a space of two devices
+    a client compresses both in one pass.  A layout whose clients are not
+    the group's ranks raises ``ValueError``; one whose shard axis would
+    cross ranks raises ``NotImplementedError`` naming item 7."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.flat import ShardedFlatParamSpace
     from repro_torch.launch.dist import build_dist_train, client_topology
+    from repro_torch.launch.mesh import check_clients
 
     pod = dataclasses.replace(get_config("lenet5"), client_mode="pod", img_size=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        client_topology(pod, make_host_group("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        build_dist_train(pod, sparsity=0.01, device="cpu")
+    assert client_topology(pod, {"data": 1, "model": 1}) == (1, ())
+    assert client_topology(pod, {"pod": 2, "data": 16, "model": 16}) == (2, ("pod",))
+    assert client_topology(get_config("lenet5"), {"pod": 2, "data": 2, "model": 2}) == (
+        4, ("pod", "data"))
+    fns = build_dist_train(pod, sparsity=0.01, device="cpu")
+    assert fns.channel.n_clients == 1 and fns.channel.client_axes == ()
+    assert all(gl.n_shards == 1 for gl in fns.channel.leaves)
+    rng = np.random.default_rng(0)
+    batch = {"images": torch.from_numpy(rng.standard_normal((1, 4, 12, 12, 1)).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 10, (1, 4)))}
+    state, m = fns.train_step(fns.init_state(torch.Generator().manual_seed(0)), batch)
+    assert np.isfinite(float(m["loss"]))
+    with pytest.raises(ValueError, match="one client a rank"):
+        check_clients({"data": 2, "model": 1}, ("data",), 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3, item 7"):
+        check_clients({"data": 2, "model": 2}, (), 4)
     space = ShardedFlatParamSpace.build(
         [dict(path="w", shape=(64,), rows=1, kind="sparse", rate=0.1, n_shards=2,
-              global_size=128)],
+              global_size=128, grid=(2,), dev_block=(0, 1))],
         client_axes=("data",), shard_axes=("model",), n_clients=1, shards_per_client=2,
         group=make_host_group("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        space.exchange_local([torch.zeros(64)], None)
+    x = torch.from_numpy(rng.standard_normal(128).astype(np.float32))
+    mean, own, _ = space.exchange_local([x], None)
+    assert tuple(own.shape) == (2, space.n_pad)
+    for d in range(2):  # each device's 64 entries: k = 6 survivors and one μ
+        nz = own[d, :64][own[d, :64] != 0]
+        assert nz.numel() == 6 and torch.unique(nz).numel() == 1
+        assert torch.equal(own[d, :64], space.unflatten_local(own)[0][64 * d:64 * (d + 1)])
+
+
+def test_two_client_axes_are_the_references(outputs):
+    """``pmean(t, grid=(2, 2))`` and the rows in ``gather_order((2, 2))``
+    equal the reference's per-axis ``pmean`` and nested ``all_gather`` on a
+    ("pod", "data") = (2, 2) mesh, bit for bit; the gathered order is not
+    rank order."""
+    x, ref, ports = outputs
+    for r in range(4):
+        np.testing.assert_array_equal(ports[4][r]["g/2x2/pmean"].view(np.uint32),
+                                      ref["g/2x2/pmean"][r].view(np.uint32))
+        np.testing.assert_array_equal(ports[4][r]["g/2x2/gathered"],
+                                      ref["g/2x2/gathered"][r])
+    assert make_host_group("cpu").gather_order() == [0]
+    assert not np.array_equal(ref["g/2x2/gathered"][0], x["g/x"][:4])

@@ -260,15 +260,21 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 # resnet32's preset raises the reference's ValueError
 # (tests/test_torch_resnet32.py).  The fed broadcast_log cases run now
 # (tests/test_torch_fed_broadcast.py), and so do the decoder presets' cases
-# (tests/test_torch_decoder_run.py).  mixtral's reduced config builds now
-# (tests/test_torch_zoo_run.py), but it is a pod-mode config: gspmd refuses
-# it, one client per pod coming with ROADMAP A12, part 3, item 6
+# (tests/test_torch_decoder_run.py).  mixtral's reduced config builds
+# (tests/test_torch_zoo_run.py), and as a pod-mode config it runs on gspmd
+# now (ROADMAP A12, part 3, item 6): one client a pod, here one client
 @pytest.mark.parametrize("change", [
     dict(flat_engine="exact", skip_pattern="f2", fast=False, preset="mixtral_8x7b"),
 ])
 def test_specs_outside_the_slice_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3, item 6"):
-        build_run(RunSpec(**{**SLICE, **change}), device="cpu")
+    """A spec that the port once refused as outside its slice (a pod-mode
+    preset on gspmd) builds and runs a round: one client, the per-leaf
+    exchange, a finite loss.  It raises nothing now."""
+    spec =RunSpec(**{**SLICE, **change, "batch": 2, "seq_len": 8, "rounds": 1})
+    run = build_run(spec, device="cpu")
+    assert run.n_clients == 1 and run.channel.client_axes == () and run.fns.flat_space is None
+    _, hist = run.run()
+    assert np.isfinite(hist["loss"][0])
 
 
 @pytest.fixture(scope="module")

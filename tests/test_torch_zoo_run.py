@@ -129,21 +129,27 @@ def one_round(name: str, extra: dict | None = None, mu_rtol: float = 0.0) -> Non
                                     "jamba_v01_52b"])
 def test_gspmd_hist_runs_rwkv6_and_refuses_the_pod_configs(preset):
     """rwkv6 (``client_mode="data"``) runs a round on the GSPMD hist engine
-    with the reference's Eq. 1 bits; the three MoE configs are pod mode
-    and meet gspmd's refusal (ROADMAP A12, part 3, item 6), as granite-20b
-    does."""
+    with the reference's Eq. 1 bits.  The three MoE configs are pod mode,
+    which runs on gspmd now (ROADMAP A12, part 3, item 6): their bf16
+    residual keeps them off the flat engines, so the hist engine raises the
+    reference's ``ValueError``, and a round of the per-leaf exchange runs
+    with the reference's bits."""
     spec = RunSpec(preset=preset, backend="gspmd", fast=True, flat_engine="hist", rounds=1,
                    clients=1, sparsity=0.05, batch=BATCH, seq_len=16)
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    jcfg = jbase.reduced(jbase.get_config(preset))
     if preset != "rwkv6_1p6b":
-        with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3, item 6"):
-            build_run(spec, device="cpu")
-        return
+        for build in (lambda: build_run(spec, device="cpu"),
+                      lambda: j_build_dist_train(jcfg, mesh, compressor="sbc", sparsity=0.05,
+                                                 fast=True, flat_engine="hist")):
+            with pytest.raises(ValueError, match="flat_engine='hist' needs"):
+                build()
+        spec = dataclasses.replace(spec, fast=False, flat_engine="exact")
     run = build_run(spec, device="cpu")
     _, hist = run.run()
     assert len(hist["loss"]) == 1 and np.isfinite(hist["loss"][0])
-    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
-    jfns = j_build_dist_train(jbase.reduced(jbase.get_config(preset)), mesh, compressor="sbc",
-                              sparsity=0.05, fast=True, flat_engine="hist")
+    jfns = j_build_dist_train(jcfg, mesh, compressor="sbc", sparsity=0.05, fast=spec.fast or None,
+                              flat_engine=spec.flat_engine)
     assert run.fns.bits_per_client == jfns.bits_per_client
 
 

@@ -9,7 +9,7 @@ process makes every input with numpy from a seed (the initial parameters
 with the reference's ``model.init``, handed across) and writes one npz;
 each side writes its outputs, and the tests compare them.
 
-    python tests/torch_dist_cases.py reference N IN OUT
+    python tests/torch_dist_cases.py reference N IN OUT DEVICES
     python tests/torch_dist_cases.py port RANK N STORE IN OUT
 
 Cases (names are keys of the dicts below):
@@ -20,7 +20,15 @@ Cases (names are keys of the dicts below):
   * ``EQ1``: the static Eq. 1 bits of full-width presets;
   * ``RUNS``: three train steps from one carried-across state on the same
     batches, metered; CharLSTM through ``build_run``/``GspmdRun``;
-  * ``GROUP``: ``pmean`` and ``all_gather`` of the collectives themselves.
+  * ``GROUP``: ``pmean`` and ``all_gather`` of the collectives themselves;
+  * ``SHARDED``: ``round_exchange`` per shard on the (2, 2, 2) layout
+    ``("pod", "data", "model")`` of ``LAYOUT`` on 8 forced host devices,
+    given deltas and no model (the reference's model does not trace on a
+    mesh of several axes on this jax; its channel does): a reduced
+    granite-20b widened until its largest leaves pass the 1 MiB that
+    sharding needs (``WIDE``), in pod mode (2 clients of 4 shards, FSDP) or
+    in data mode (4 clients of 2 shards); the port runs 2 or 4 ranks with
+    ``mesh_shape=LAYOUT``.  ``make_inputs(..., sharded=mode)``.
 """
 from __future__ import annotations
 
@@ -62,6 +70,33 @@ RUNS = {
 }
 LM = dict(batch=2, seq_len=8)  # CharLSTM's run size
 LENET5_BATCH = 16
+LAYOUT = {"pod": 2, "data": 2, "model": 2}
+# a reduced granite-20b whose embedding and MLP stacks reach 1 MiB in bf16
+WIDE = dict(d_model=256, d_ff=1024, vocab_size=2048, head_dim=64)
+SHARDED = {
+    "pod-exact": dict(mode="pod", fast=True, flat_engine="exact"),
+    "pod-exact-pack": dict(mode="pod", fast=True, flat_engine="exact", device_pack=True),
+    "pod-hist": dict(mode="pod", fast=True, flat_engine="hist"),
+    "pod-leaf": dict(mode="pod", fast=False),
+    "pod-leaf-bf16": dict(mode="pod", fast=False, dtype="bfloat16"),
+    "data-exact-pack": dict(mode="data", fast=True, flat_engine="exact", device_pack=True),
+    "data-hist": dict(mode="data", fast=True, flat_engine="hist"),
+    "data-leaf": dict(mode="data", fast=False),
+}
+SHARDED_CLIENTS = {"pod": 2, "data": 4}
+
+
+def sharded_cases(mode: str) -> list:
+    return [name for name, case in SHARDED.items() if case["mode"] == mode]
+
+
+def wide_granite(case: dict) -> dict:
+    """The case's changes to either package's ``reduced(get_config(
+    "granite_20b"))``: ``WIDE``, the mode (FSDP in pod mode, as the
+    config's own; off in data mode, where "data" is a client axis), and the
+    leaves and residual in ``case["dtype"]`` (a dtype name, default f32)."""
+    return dict(**WIDE, client_mode=case["mode"], fsdp=case["mode"] == "pod",
+                dtype=case.get("dtype", "float32"), residual_dtype=case.get("dtype", "float32"))
 
 
 def _cfg_kw(case: dict) -> dict:
@@ -76,7 +111,7 @@ def _spec_kw(case: dict) -> dict:
 
 
 def make_inputs(path: Path, n: int, *, exchanges=(), runs=(), eq1=(), group=False,
-                seed: int = 0) -> None:
+                sharded: str = "", seed: int = 0) -> None:
     """Write every input of the named cases to ``path`` (an npz), made with
     numpy from ``seed``; the reference's ``model.init`` gives the initial
     parameters (in this process, on its one device)."""
@@ -89,7 +124,8 @@ def make_inputs(path: Path, n: int, *, exchanges=(), runs=(), eq1=(), group=Fals
 
     rng = np.random.default_rng(seed)
     arrays = {}
-    meta = dict(n=n, exchanges=list(exchanges), runs=list(runs), eq1=list(eq1), group=group)
+    meta = dict(n=n, exchanges=list(exchanges), runs=list(runs), eq1=list(eq1), group=group,
+                sharded=sharded)
 
     def shapes(case):
         cfg = dataclasses.replace(get_config(case.get("preset", "lenet5")), **_cfg_kw(case))
@@ -129,6 +165,25 @@ def make_inputs(path: Path, n: int, *, exchanges=(), runs=(), eq1=(), group=Fals
                                     ).astype(np.int32)
                 arrays[f"r/{name}/batch/{r}/tokens"] = toks[..., :-1]
                 arrays[f"r/{name}/batch/{r}/labels"] = toks[..., 1:]
+    if sharded:
+        from repro.configs.base import reduced
+
+        kw = wide_granite(dict(mode=sharded))
+        cfg = dataclasses.replace(reduced(get_config("granite_20b")), **{
+            k: v for k, v in kw.items() if k not in ("dtype", "residual_dtype")})
+        a = jax.eval_shape(build_model(cfg).init, jax.random.PRNGKey(0))
+        for p, v in jax.tree_util.tree_flatten_with_path(a)[0]:
+            leaf, shape = "/".join(str(k.key) for k in p), (n,) + tuple(v.shape)
+            arrays[f"s/res/{leaf}"] = (1e-3 * rng.standard_normal(shape)).astype(np.float32)
+            # positions every client selects (0.5% of each leaf, a spike of
+            # each client's own size), so the mean adds every client's μ at
+            # them and its order of adds shows
+            hot = rng.random(tuple(v.shape)) < 0.005
+            for r in range(EXCHANGE_ROUNDS):
+                spike = 0.05 * (1 + rng.random((n,) + (1,) * len(v.shape))) * hot
+                arrays[f"s/delta/{r}/{leaf}"] = (
+                    1e-3 * rng.standard_normal(shape)
+                    * np.exp(rng.standard_normal(shape)) + spike).astype(np.float32)
     if group:
         x = rng.standard_normal((n, 64)).astype(np.float32) * np.float32(1e3)
         # columns whose sum depends on the order of the adds
@@ -180,8 +235,8 @@ def _f32(a) -> np.ndarray:
 # ----------------------------------------------------------- the reference
 
 
-def reference_main(n: int, inp: str, out: str) -> None:
-    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n}"
+def reference_main(n: int, inp: str, out: str, devices: int) -> None:
+    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import dataclasses
 
@@ -278,6 +333,9 @@ def reference_main(n: int, inp: str, out: str) -> None:
         info[name] = dict(losses=losses, ledger=fns.channel.ledger.history(),
                           bits_per_client=fns.bits_per_client)
 
+    if meta["sharded"]:
+        reference_sharded(meta["sharded"], x, res_out, info)
+
     if meta["group"]:
         for w in range(2, n + 1):
             sub = Mesh(np.asarray(jax.devices()[:w]).reshape(w), ("data",))
@@ -287,9 +345,91 @@ def reference_main(n: int, inp: str, out: str) -> None:
             psum, pmean = fn(jnp.asarray(x["g/x"][:w]))
             res_out[f"g/{w}/psum"] = np.asarray(psum)
             res_out[f"g/{w}/pmean"] = np.asarray(pmean)
+        if n >= 4:
+            # two client axes ("pod", "data") = (2, 2): one pmean and one
+            # all_gather an axis, "pod" first, as the channel takes them
+            sub = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("pod", "data"))
+
+            def two_axes(v):
+                g = jax.lax.all_gather(jax.lax.all_gather(v, "pod"), "data")
+                return jax.lax.pmean(jax.lax.pmean(v, "pod"), "data"), g.reshape(1, 4, -1)
+
+            lead = PS(("pod", "data"))
+            pmean, gathered = jax.jit(shard_map(two_axes, mesh=sub, in_specs=lead,
+                                                out_specs=(lead, lead)))(jnp.asarray(x["g/x"][:4]))
+            res_out["g/2x2/pmean"] = np.asarray(pmean)
+            res_out["g/2x2/gathered"] = np.asarray(gathered)
 
     np.savez(out + ".npz", **res_out)
     Path(out + ".json").write_text(json.dumps(info))
+
+
+def reference_sharded(mode: str, x: dict, res_out: dict, info: dict) -> None:
+    """The reference's ``round_exchange`` per shard on ``LAYOUT`` (8 forced
+    host devices), two rounds, each metered as ``GspmdRun.step`` does."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as PS
+
+    from repro.configs.base import get_config, reduced
+    from repro.core.channel import shard_map
+    from repro.launch.dist import _lead_spec, build_dist_train, client_topology
+    from repro.models.model import build_model, make_param_specs
+
+    mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(tuple(LAYOUT.values())), tuple(LAYOUT))
+    for name in sharded_cases(mode):
+        case = SHARDED[name]
+        kw = wide_granite(case)
+        kw.update(dtype=getattr(jnp, kw["dtype"]),
+                  residual_dtype=getattr(jnp, kw["residual_dtype"]))
+        cfg = dataclasses.replace(reduced(get_config("granite_20b")), **kw)
+        fns = build_dist_train(cfg, mesh, compressor="sbc", sparsity=P, fast=case["fast"],
+                               flat_engine=case.get("flat_engine", "exact"), measure=True,
+                               device_pack=case.get("device_pack", False))
+        ch = fns.channel
+        a = jax.eval_shape(build_model(cfg).init, jax.random.PRNGKey(0))
+        specs = jax.tree.leaves(make_param_specs(a, mesh, fsdp=cfg.fsdp, expert_parallel=True),
+                                is_leaf=lambda v: isinstance(v, PS))
+        _, client_axes = client_topology(cfg, mesh)
+        lead = _lead_spec(client_axes)
+        in_specs = tuple(PS(lead, *sp) for sp in specs)
+        shard_axes = tuple(ax for ax in mesh.axis_names if ax not in client_axes)
+        res_spec = PS(lead, _lead_spec(shard_axes), None)
+        cast = lambda v: jnp.asarray(v).astype(cfg.residual_dtype)
+        res_tree = _tree(x, "s/res", cast)
+        if ch.flat_space is not None:
+            space = ch.flat_space
+            res = jax.jit(shard_map(
+                lambda *ls: space.flatten_local([v[0] for v in ls])[None, None], mesh=mesh,
+                in_specs=in_specs, out_specs=res_spec))(*jax.tree.leaves(res_tree))
+        else:
+            res = res_tree
+        step = jax.jit(lambda res, d: ch.round_exchange(
+            res, d, mesh=mesh, in_specs=in_specs, res_spec=res_spec, need_own=True))
+        for r in range(EXCHANGE_ROUNDS):
+            out_r = step(res, _tree(x, f"s/delta/{r}", cast))
+            mean, res, own = out_r[:3]
+            for what, tree in (("mean", mean), ("own", own)):
+                for path, v in zip(_paths(tree), jax.tree.leaves(tree)):
+                    res_out[f"{name}/{r}/{what}/{path}"] = _f32(v)
+            if ch.flat_space is not None:
+                res_out[f"{name}/{r}/res"] = np.asarray(res)
+            else:
+                for path, v in zip(_paths(res), jax.tree.leaves(res)):
+                    res_out[f"{name}/{r}/res/{path}"] = _f32(v)
+            packed_nbits = None
+            if case.get("device_pack"):
+                res_out[f"{name}/{r}/words"] = np.asarray(out_r[3][0])
+                res_out[f"{name}/{r}/nbits"] = np.asarray(out_r[3][1])
+                packed_nbits = out_r[3][1]
+            ch.record_round(r, own_client0=jax.tree.map(lambda o: o[0], own),
+                            packed_nbits=packed_nbits)
+        info[name] = dict(ledger=ch.ledger.history(), bits_per_client=fns.bits_per_client,
+                          bits_dense=fns.bits_dense,
+                          n_shards=[gl.n_shards for gl in ch.leaves])
 
 
 # ---------------------------------------------------------------- the port
@@ -406,6 +546,9 @@ def port_main(rank: int, n: int, store: str, inp: str, out: str) -> None:
             info[name] = dict(losses=losses, ledger=fns.channel.ledger.history(),
                               bits_per_client=fns.bits_per_client)
 
+        if meta["sharded"]:
+            port_sharded(meta["sharded"], group, rank, x, res_out, info)
+
         if meta["group"]:
             xr = torch.from_numpy(x["g/x"][rank])
             res_out["g/pmean"] = group.pmean(xr).numpy()
@@ -414,10 +557,69 @@ def port_main(rank: int, n: int, store: str, inp: str, out: str) -> None:
             res_out["g/words"] = group.all_gather_rows(words).view(torch.int32).numpy().view(
                 np.uint32)
             res_out["g/pos"] = group.all_gather_rows(torch.from_numpy(x["g/pos"][rank])).numpy()
+            if n == 4:
+                res_out["g/2x2/pmean"] = group.pmean(xr, (2, 2)).numpy()
+                res_out["g/2x2/gathered"] = group.all_gather_rows(xr)[
+                    group.gather_order((2, 2))].numpy()
     finally:
         group.close()
     np.savez(f"{out}.rank{rank}.npz", **res_out)
     Path(f"{out}.rank{rank}.json").write_text(json.dumps(info))
+
+
+def port_sharded(mode: str, group, rank: int, x: dict, res_out: dict, info: dict) -> None:
+    """This rank's client through the port's ``round_exchange`` per shard
+    with ``mesh_shape=LAYOUT``: every output in the reference's layout of
+    one client (a leading axis of 1)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.launch.dist import build_dist_train
+
+    for name in sharded_cases(mode):
+        case = SHARDED[name]
+        kw = wide_granite(case)
+        kw.update(dtype=getattr(torch, kw["dtype"]),
+                  residual_dtype=getattr(torch, kw["residual_dtype"]))
+        cfg = dataclasses.replace(reduced(get_config("granite_20b")), **kw)
+        fns = build_dist_train(cfg, group=group, sparsity=P, fast=case["fast"],
+                               flat_engine=case.get("flat_engine", "exact"), measure=True,
+                               device_pack=case.get("device_pack", False), mesh_shape=LAYOUT)
+        ch = fns.channel
+        cast = lambda a: torch.from_numpy(np.array(a[rank:rank + 1])).to(cfg.residual_dtype)
+        res_tree = _tree(x, "s/res", cast)
+        if ch.flat_space is not None:
+            space = ch.flat_space
+            res = space.flatten_local([v[0] for v in tree_flatten(res_tree)[0]]).reshape(
+                1, space.shards_per_client, space.n_pad)
+        else:
+            res = res_tree
+        for r in range(EXCHANGE_ROUNDS):
+            out_r = ch.round_exchange(res, _tree(x, f"s/delta/{r}", cast), need_own=True)
+            mean, res, own = out_r[:3]
+            for what, tree in (("mean", mean), ("own", own)):
+                for path, v in zip(_paths(tree), tree_flatten(tree)[0]):
+                    res_out[f"{name}/{r}/{what}/{path}"] = v.to(torch.float32).numpy()
+            if ch.flat_space is not None:
+                res_out[f"{name}/{r}/res"] = res.numpy()
+            else:
+                for path, v in zip(_paths(res), tree_flatten(res)[0]):
+                    res_out[f"{name}/{r}/res/{path}"] = v.to(torch.float32).numpy()
+            packed_nbits = None
+            if case.get("device_pack"):
+                words, nbits = out_r[3]
+                res_out[f"{name}/{r}/words"] = words.view(torch.int32).numpy().view(np.uint32)
+                res_out[f"{name}/{r}/nbits"] = nbits.numpy()
+                packed_nbits = group.all_gather_rows(nbits[0])
+            if rank == 0:
+                ch.record_round(r, own_client0=tree_map(lambda o: o[0], own),
+                                packed_nbits=packed_nbits)
+        info[name] = dict(ledger=ch.ledger.history(), bits_per_client=fns.bits_per_client,
+                          bits_dense=fns.bits_dense,
+                          n_shards=[gl.n_shards for gl in ch.leaves])
 
 
 # --------------------------------------------------- running both sides
@@ -430,10 +632,12 @@ def _env() -> dict:
     return env
 
 
-def start_reference(tmp: Path, inp: Path, n: int, tag: str = "ref") -> subprocess.Popen:
-    """The reference's process on ``n`` forced host devices."""
+def start_reference(tmp: Path, inp: Path, n: int, tag: str = "ref",
+                    devices: int = 0) -> subprocess.Popen:
+    """The reference's process on ``devices`` (default ``n``) forced host
+    devices."""
     return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "reference",
-                             str(n), str(inp), str(tmp / tag)], env=_env(),
+                             str(n), str(inp), str(tmp / tag), str(devices or n)], env=_env(),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -484,10 +688,12 @@ def load_outputs(tmp: Path, tag: str, ranks=None) -> tuple:
 def run_both(tmp: Path, n: int, timeout: float = 300.0, **cases) -> tuple:
     """Write the inputs of ``cases``, run the reference (one process) and
     the port (``n`` gloo ranks) at once within ``timeout`` seconds, and
-    return ``(ref arrays, ref info, [per-rank arrays], [per-rank info])``."""
+    return ``(ref arrays, ref info, [per-rank arrays], [per-rank info])``.
+    The sharded cases give the reference the 8 devices of ``LAYOUT``."""
     inp = tmp / "inputs.npz"
     make_inputs(inp, n, **cases)
-    finish([start_reference(tmp, inp, n)] + start_port(tmp, inp, n), timeout)
+    devices = int(np.prod(list(LAYOUT.values()))) if cases.get("sharded") else n
+    finish([start_reference(tmp, inp, n, devices=devices)] + start_port(tmp, inp, n), timeout)
     return load_outputs(tmp, "ref") + load_outputs(tmp, "port", n)
 
 
@@ -557,6 +763,6 @@ def check_same_on_every_rank(prefix: str, n: int, ports: list) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1] == "reference":
-        reference_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        reference_main(int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5]))
     else:
         port_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
