@@ -6,6 +6,7 @@
     python3 chip_smoke.py --decoder       # phases 1 and 12 only
     python3 chip_smoke.py --zoo           # phases 1, 13 and 14 only
     python3 chip_smoke.py --pod           # phases 1 and 15 only
+    python3 chip_smoke.py --fsdp          # phases 1 and 16 only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
@@ -320,7 +321,23 @@ Without arguments, phases, each of which fails the run:
      ``f32_mean_xla`` a round, each of the untimed round's bit-equal to
      its plain version, the dropped pairs' share from the untimed round).  ``python3 chip_smoke.py --pod``
      runs phases 1 and 15 alone;
-  16. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  16. one rank a device (``FSDP_PINS``, pinned to the reference's by
+     ``tests/test_torch_fsdp_run.py``): (a) phase 15a's granite variant on
+     ``FSDP_LAYOUT`` = (data 2, model 2), pod mode, 1 client of 4 devices,
+     first as one rank holding the 4 devices' buffers, then as 4 ranks
+     over gloo on the card, each holding one device's blocks (the model
+     gathers each leaf at its use, the backward leaves each block the
+     pod's mean gradient): each through phase 15a's checks (launches 2/1/1
+     + 1 a round on every rank, each hist kernel call bit-equal to its
+     plain version), Eq. 1 the same on both, rank 0's gathered params
+     after round 1 within ``rtol=1e-5, atol=1e-7`` of the one-rank run's
+     but 2 entries a row, and the peak memory of the rounds a rank beside
+     ``FSDP_PREDICTED_GIB``; (b) ``FSDP_TWO_PODS`` = (pod 2, data 2, model
+     1): 2 clients of 2 ranks of the widened reduced granite, the exchange
+     over the ranks of one device coordinate, hist and exact with the
+     device pack through phase 8b's checks.  ``python3 chip_smoke.py
+     --fsdp`` runs phases 1 and 16 alone;
+  17. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -341,7 +358,8 @@ Without arguments, phases, each of which fails the run:
      ``launches_moe``, and the rows phase 14 launches its counts in
      ``launches_encdec``, the rows phase 15 launches its counts in
      ``launches_pod`` and the hist kernels their 256-shard byte bounds in
-     ``bound_ms_pod_256_shards``), then the card line,
+     ``bound_ms_pod_256_shards``, the rows phase 16 launches its counts
+     in ``launches_fsdp``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -573,6 +591,39 @@ POD_B_EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=13 + 1)  # one mea
 POD_C = dict(batch=4, seq_len=512, task_vocab=32_000, rounds=3)  # and one untimed
 POD_C_PER_ROUND = per_call(f32_mean_xla=12 + 1)  # one a leaf, and the loss mean
 POD_TIMEOUT_S = 300
+# phase 16, one rank a device (a shard axis across ranks): (a) phase 15a's
+# granite-20b variant (2 of 52 layers at full width, f32, hist, SGD, p =
+# 0.001, batch 4 x 512, 3 rounds and a profiled fourth; the markov task
+# over FSDP_TASK_VOCAB ids) on FSDP_LAYOUT, pod mode (1 client of 4
+# devices), twice on the card: one rank holding the 4
+# devices' buffers, then 4 ranks over gloo of one device each; (b) the
+# widened reduced granite of phase 15b on FSDP_TWO_PODS, 2 clients of 2
+# ranks each (the exchange over the client ranks of one device
+# coordinate), hist and exact with the device pack.  Eq. 1 bits, the
+# parameters, leaves, rows (L x shards, summed) and one device's padded
+# length are pinned to the reference's by
+# tests/test_torch_fsdp_run.py::test_chip_smoke_fsdp_pins_are_the_references
+FSDP_LAYOUT = {"data": 2, "model": 2}
+FSDP_TWO_PODS = {"pod": 2, "data": 2, "model": 1}
+FSDP_PINS = {
+    "a": dict(POD_PINS["a"], layout=FSDP_LAYOUT, eq1=12188336.858037286, rows=62,
+              n_pad=265_089_024, shards=4),
+    "b": dict(POD_PINS["b"], layout=FSDP_TWO_PODS, eq1=155238.1784524112, rows=28,
+              n_pad=1_120_256, shards=2),
+}
+FSDP_RANKS = 4
+# phase 15a's 3 rounds (and its profiled fourth): gloo moves each rank's
+# gathers through the host, seconds a round at full width
+FSDP_A = dict(POD_A)
+# the markov task over the first 8,192 ids: each rank walks its own table
+# on the host, and four of 15a's 49,152² (9.7 GB each) pass the machine's
+# 96 GiB beside the ranks' gloo buffers
+FSDP_TASK_VOCAB = 8192
+# the one-rank run's params after round 1, a .npy a leaf, for the ranks
+FSDP_REF = ROOT / "build" / "fsdp_round1"
+FSDP_TIMEOUT_S = 600
+# the predicted peak of one rank (written before the first run), GiB
+FSDP_PREDICTED_GIB = (8.0, 16.0)
 # the leaves the reference keeps in f32 inside a bf16 model
 F32_LEAVES = ("router", "A_log", "D", "mix", "mix_w", "w0", "bonus", "ln_x", "cmix_k", "cmix_r")
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
@@ -759,10 +810,13 @@ def swapped(module, replacements):
             setattr(module, name, fn)
 
 
-def drive(run, exchange_name: str, per_round: dict, label: str, rounds: int = ROUNDS) -> dict:
-    """``rounds`` rounds of ``run`` with the launch counts set to 0 just before
-    and read just after; the space's ``exchange_name`` method is observed
-    so the last round's operands and outputs are kept.  Returns the
+def drive(run, exchange_name: str, per_round: dict, label: str, rounds: int = ROUNDS,
+          on_round=None, state=None) -> dict:
+    """``rounds`` rounds of ``run`` from ``state`` (default ``run.init()``)
+    with the launch counts set to 0 just before and read just after; the
+    space's ``exchange_name`` method is observed so the last round's
+    operands and outputs are kept; ``on_round(run, r, state)`` runs after
+    each round's clock and counts.  Returns the
     capture: ``launches`` (counts of the run), ``last`` (bodies, res, out
     of the last exchange), ``metrics`` (each round's train-step metrics,
     before the run's metering consumes them) and the run's ``state``."""
@@ -789,7 +843,7 @@ def drive(run, exchange_name: str, per_round: dict, label: str, rounds: int = RO
     setattr(space, exchange_name, observed_exchange)
     run.fns = run.fns._replace(train_step=observed_step)
     try:
-        state = run.init()
+        state = run.init() if state is None else state
         torch.cuda.synchronize()
         kernels.reset_launches()
         losses, counts, step_ms = [], [], []
@@ -805,6 +859,8 @@ def drive(run, exchange_name: str, per_round: dict, label: str, rounds: int = RO
             losses.append(loss)
             print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms[-1]:.3f} ms  "
                   f"launches {counts[-1]}")
+            if on_round is not None:
+                on_round(run, r, state)
         launches = kernels.launch_counts()
     finally:
         delattr(space, exchange_name)
@@ -2098,8 +2154,11 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict, run=None,
     tag = f"{label} [rank {group.rank}]"
     run = run or build_run(RunSpec(**spec), group=group)
     ch = run.channel
-    check(run.n_clients == group.world and ch.n_clients == group.world,
-          f"{tag}: {run.n_clients} clients, not the group's {group.world}")
+    # the ranks the exchange crosses: every rank, or with one rank a
+    # device the ranks of this device coordinate (one a client)
+    xg = run.fns.ranks.exchange if run.fns.ranks is not None else group
+    check(run.n_clients == xg.world and ch.n_clients == xg.world,
+          f"{tag}: {run.n_clients} clients, not the exchange group's {xg.world}")
     last: dict = {}
     exchange = ch.round_exchange
 
@@ -2139,16 +2198,16 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict, run=None,
     if keep is not None:
         keep.update(last)
 
-    # the same params on every rank, bit for bit
-    rows = group.all_gather_rows(flat_bits(state["params"]))
+    # the same params on every client's rank (of this device), bit for bit
+    rows = xg.all_gather_rows(flat_bits(state["params"]))
     check(all(torch.equal(rows[0], row) for row in rows[1:]),
           f"{tag}: params differ across ranks")
     # the mean recomputed from every client's ΔW*
     mean_tree, _, own_tree = last["out"][:3]
-    inv = kreduce._reciprocal(group.world, group.device)
+    inv = kreduce._reciprocal(xg.world, group.device)
     engine = ch.flat_engine if ch.flat_space is not None else "per-leaf"
     for gl, mean, own in zip(ch.leaves, tree_flatten(mean_tree)[0], tree_flatten(own_tree)[0]):
-        owns = group.all_gather_rows(own[0].to(torch.float32))
+        owns = xg.all_gather_rows(own[0].to(torch.float32))
         if gl.mode == "skip":
             want = torch.zeros_like(owns[0])
         elif gl.mode == "dense" or engine == "hist":  # the pmean
@@ -2162,7 +2221,7 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict, run=None,
                 want = want + o * inv
         check(bit_equal(mean[0].to(torch.float32), want),
               f"{tag} {gl.path}: the mean != the one recomputed from the gathered dW*")
-    print(f"{tag}: params identical on all {group.world} ranks; the mean == the one "
+    print(f"{tag}: params identical on all {xg.world} clients' ranks; the mean == the one "
           f"recomputed from the gathered dW* ({engine}), bit for bit")
     compared = kernels_vs_plain_calls(calls, tag)
     ops = profiled_round(run, state, tag)
@@ -2171,11 +2230,11 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict, run=None,
     if ch.device_pack:
         space = ch.flat_space
         words = last["out"][3][0][0]  # (devices a client, n_pack_words)
-        gw = group.all_gather_rows(words)
+        gw = xg.all_gather_rows(words)
         gpos = space._decode_gathered(gw)
-        own_all = group.all_gather_rows(
+        own_all = xg.all_gather_rows(
             space.flatten_local([o[0] for o in tree_flatten(own_tree)[0]])
-        ).reshape(group.world, -1)
+        ).reshape(xg.world, -1)
         sel = torch.zeros_like(own_all, dtype=torch.bool)
         sel.scatter_(1, gpos, True)
         sparse = torch.zeros(space.n_pad, dtype=torch.bool, device=group.device)
@@ -3460,7 +3519,7 @@ def mixtral_phase(dev) -> dict:
 
 
 def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
-                  mesh_shape=None) -> dict:
+                  mesh_shape=None, group=None, on_round=None, heldout: bool = True) -> dict:
     """One client of ``cfg`` on ``task`` on the GSPMD hist engine at world 1
     (``spec``: sparsity, batch, sequence, rounds), the config's optimizer
     at its base_lr: the layout and Eq. 1 bits against ``pins`` (parameters,
@@ -3472,7 +3531,12 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
     blocks, so their temporaries fit beside the model), with its byte
     bound at these operands, and the largest bin beside 2^24.  Prints
     round ms, the busy share, top device operations and peak memory (since
-    the caller's reset). Returns the path's launches."""
+    the caller's reset, and over the rounds alone).  ``group`` (one rank a
+    device of ``mesh_shape``) holds this rank's device; the held-out loss
+    and the parameter count (neither without ``heldout``) read the
+    gathered params.  ``on_round`` goes to :func:`drive`.  Returns the path's
+    launches (with ``mesh_shape``, a dict of them and the numbers the
+    caller reports)."""
     import torch
     from repro_torch.core import flat as core_flat
     from repro_torch.core.tree import tree_flatten
@@ -3480,7 +3544,8 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
     from repro_torch.run import RunSpec
 
     run = library_gspmd_run(cfg, task, RunSpec(**spec, backend="gspmd", fast=True,
-                                               flat_engine="hist"), dev, mesh_shape=mesh_shape)
+                                               flat_engine="hist"), dev, group=group,
+                            mesh_shape=mesh_shape)
     space = run.fns.flat_space
     S = space.shards_per_client
     sizes = [s.global_size for s in space.segments]
@@ -3489,23 +3554,34 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
                n_pad=space.n_pad, shards=S)
     check(all(got[k] == v for k, v in pins.items() if k in got),
           f"{label}: layout or Eq. 1 bits {got} against the pins {pins}")
+    eq1 = got["eq1"]
     print(f"{label}: {sum(sizes)} params in {len(sizes)} segments (the largest "
           f"{max(sizes)}), {got['rows']} rows of {S} device(s) a client, {space.n_blocks} blocks "
           f"and n_pad {space.n_pad} a device ({S * space.n_pad / 2 ** 31:.3f} of 2^31 in all); "
           f"Eq. 1 {run.fns.bits_per_client!r} bits a client a round (the reference's, pinned)")
-    state = run.init()
-    before = heldout_loss(run.model, state["params"], task)
-    n_params = sum(v.numel() for v in tree_flatten(state["params"])[0])
-    check(n_params == pins["params"], f"{label}: {n_params} params drawn")
-    del state
-    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, label, rounds=spec["rounds"])
-    _falls(cap["losses"], before, heldout_loss(run.model, cap["state"]["params"], task), label)
+    init = [run.init()]  # handed to drive, which keeps no other reference
+    before = None
+    if heldout:
+        whole = run.params_to_tree(init[0])
+        n_params = sum(v.numel() for v in tree_flatten(whole)[0])
+        check(n_params == pins["params"], f"{label}: {n_params} params drawn")
+        before = heldout_loss(run.model, whole, task)
+        del whole
+    peak_before = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, label, rounds=spec["rounds"],
+                on_round=on_round, state=init.pop())
+    rounds_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if heldout:
+        _falls(cap["losses"], before,
+               heldout_loss(run.model, run.params_to_tree(cap["state"]), task), label)
     one_mu_per_segment(space, cap, label)
     del cap["last"]
     profiled_round(run, cap["state"], label)
+    peak_gib = max(peak_before, torch.cuda.max_memory_allocated(dev)) / 2**30
     print(f"{label}: round ms (rounds 2 on) {_rounds_ms(cap['step_ms'])}; the card's peak "
-          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB (torch.cuda."
-          f"max_memory_allocated, the task's table included)")
+          f"memory {peak_gib:.3f} GiB (torch.cuda.max_memory_allocated, the task's table "
+          f"included), {rounds_gib:.3f} GiB over the {spec['rounds']} rounds alone (this process)")
     del cap["state"]
     torch.cuda.empty_cache()
 
@@ -3547,11 +3623,12 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
           + ", ".join(f"{k} {v:.3f} ms" for k, v in bounds_ms.items()))
     print(f"{label}: the largest bin count of each pass {tops} (2^24 = {2 ** 24}); "
           f"{'above' if max(tops) > 2 ** 24 else 'within'} f32's exact integers")
-    launches = cap["launches"]
+    launches, cap_ms = cap["launches"], cap["step_ms"]
     del run, cap, acc, calls, task
     torch.cuda.empty_cache()
-    return launches if mesh_shape is None else {"launches": launches, "bound_ms": bounds_ms,
-                                                "largest_bins": tops}
+    return launches if mesh_shape is None else {
+        "launches": launches, "bound_ms": bounds_ms, "largest_bins": tops,
+        "step_ms": cap_ms, "rounds_gib": rounds_gib, "peak_gib": peak_gib, "eq1": eq1}
 
 
 def prefill_chunk(n: int) -> int:
@@ -4109,6 +4186,182 @@ def pod_phase(dev) -> dict:
     return {"launches": out, "bound_ms": a["bound_ms"], "largest_bins": a["largest_bins"]}
 
 
+# ------------------------------------------- one rank a device (FSDP)
+
+
+def fsdp_pins(key: str, shards: int) -> dict:
+    """The pinned layout of ``FSDP_PINS[key]`` as :func:`hist_at_scale`
+    checks it, with ``shards`` device buffers a rank."""
+    pin = FSDP_PINS[key]
+    return dict({k: pin[k] for k in ("eq1", "params", "leaves", "rows", "n_pad")},
+                shards=shards)
+
+
+def fsdp_one_rank(dev) -> dict:
+    """Phase 16a, item 6's path: granite's 2 layers (``pod_cfg("a")``) as
+    one rank holding the 4 devices' buffers of ``FSDP_LAYOUT``, through
+    :func:`hist_at_scale`; the params after round 1 go to ``FSDP_REF``, one
+    ``.npy`` a leaf, for the ranks to compare."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import make_lm_task
+
+    label = "granite-20b one rank, 4 devices"
+    cfg = pod_cfg("a")
+    task = make_lm_task(vocab=FSDP_TASK_VOCAB, batch=FSDP_A["batch"],
+                        seq_len=FSDP_A["seq_len"], temperature=0.5, seed=0, device=dev)
+
+    def keep_round1(run, r, state):
+        if r == 0:
+            for i, v in enumerate(tree_flatten(state["params"])[0]):
+                np.save(FSDP_REF / f"{i}.npy", v.cpu().numpy())
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"{label}: the variant {POD_PINS['a']['changes']} of granite-20b on {FSDP_LAYOUT}, "
+          f"one rank a client (item 6's path)")
+    return hist_at_scale(dev, label, cfg, task, FSDP_A, fsdp_pins("a", 4),
+                         mesh_shape=FSDP_LAYOUT, on_round=keep_round1)
+
+
+def fsdp_rank_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank, one device, of phase 16 (``--fsdp-rank-worker``): (a) the
+    granite run of :func:`fsdp_one_rank` on ``FSDP_LAYOUT``, its gathered
+    params after round 1 against that run's (rank 0; a leaf gathered at a
+    time), then (b) ``POD_B_PATHS`` on ``FSDP_TWO_PODS`` through
+    :func:`multi_rank_path`; writes its results as JSON to ``out``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.data import make_lm_task
+    from repro_torch.launch.mesh import ClientGroup
+    from repro_torch.launch.shards import assemble
+    from repro_torch.run import RunSpec
+
+    dev = torch.device("cuda", 0)
+    group = ClientGroup.connect(rank=rank, world=world, device=dev, backend="gloo",
+                                init_method=f"file://{store}")
+    print(f"fsdp ranks: rank {rank} of {world} (one device of {FSDP_LAYOUT}) on "
+          f"{torch.cuda.get_device_name(dev)}, transport {group.backend}: NCCL refuses "
+          f"several ranks on one card, and NCCL across cards is still ROADMAP C3")
+    results: dict = {}
+    try:
+        label = f"granite-20b rank {rank} of {world}"
+        cfg = pod_cfg("a")
+        task = make_lm_task(vocab=FSDP_TASK_VOCAB, batch=FSDP_A["batch"],
+                            seq_len=FSDP_A["seq_len"], temperature=0.5, seed=0, device=dev)
+        compared: dict = {}
+
+        def against_one_rank(run, r, state):
+            """After round 1: each leaf gathered (a collective of every
+            rank), rank 0 holds it against the one-rank run's within the
+            CPU tests' tolerance but for swaps of a row's k-th entry."""
+            if r != 0:
+                return
+            fns = run.fns
+            off = total = 0
+            for i, (v, lb) in enumerate(zip(tree_flatten(state["params"])[0], fns.blocks)):
+                whole = (v if math.prod(lb.grid) == 1 else
+                         assemble(fns.ranks.client_ranks.gather_list(v), lb.grid, lb.dev_block))
+                if rank == 0:
+                    want = torch.from_numpy(np.load(FSDP_REF / f"{i}.npy")).to(dev)
+                    off += int((~torch.isclose(whole, want, rtol=1e-5, atol=1e-7)).sum())
+                    total += want.numel()
+                    del want
+                del whole
+            compared.update(off=off, entries=total)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        a = hist_at_scale(dev, label, cfg, task, FSDP_A, fsdp_pins("a", 1),
+                          mesh_shape=FSDP_LAYOUT, group=group, on_round=against_one_rank,
+                          heldout=False)
+        rows = FSDP_PINS["a"]["rows"]
+        if rank == 0:
+            check(compared["off"] <= 2 * rows,
+                  f"{label}: {compared['off']} params off the one-rank run's after round 1, "
+                  f"more than 2 a row ({rows} rows) allow")
+            print(f"{label}: the gathered params after round 1 within rtol 1e-5, atol 1e-7 of "
+                  f"the one-rank run's but {compared['off']} of {compared['entries']} entries "
+                  f"({2 * rows} swaps of a row's k-th entry allowed)")
+        results["granite"] = dict(a, compared=compared)
+        torch.cuda.empty_cache()
+
+        cfg_b, pin = pod_cfg("b"), FSDP_PINS["b"]
+        task_b = make_lm_task(vocab=cfg_b.vocab_size, batch=POD_B["batch"],
+                              seq_len=POD_B["seq_len"], temperature=0.5, seed=0, device=dev)
+        for engine, extra, per_round in POD_B_PATHS:
+            label = f"two pods of two ranks {engine}"
+            spec = RunSpec(preset="granite_20b", backend="gspmd", fast=True,
+                           sparsity=pin["sparsity"], **extra)
+            run = library_gspmd_run(cfg_b, task_b, spec, dev, group=group,
+                                    mesh_shape=FSDP_TWO_PODS)
+            space = run.fns.flat_space
+            got = dict(eq1=run.fns.bits_per_client, n_pad=space.n_pad,
+                       rows=sum(s.rows * s.n_shards for s in space.segments),
+                       params=sum(s.global_size for s in space.segments))
+            check(run.n_clients == 2 and space.shards_per_client == 1
+                  and all(got[k] == pin[k] for k in got),
+                  f"{label}: {run.n_clients} clients, layout {got} against the pins {pin}")
+            results[engine] = multi_rank_path(group, label, None, per_round, run=run,
+                                              rounds=POD_B["rounds"])
+            results[engine]["eq1"] = got["eq1"]
+            del run
+            torch.cuda.empty_cache()
+    finally:
+        group.close()
+    Path(out).write_text(json.dumps(results))
+    return 0
+
+
+def fsdp_phase(dev) -> dict:
+    """Phase 16: one rank a device.  (a) granite on ``FSDP_LAYOUT`` as one
+    rank of 4 devices' buffers, then as ``FSDP_RANKS`` ranks over gloo of
+    one device each (launches 2/1/1 + 1 a round on every rank, each hist
+    kernel call == plain, Eq. 1 the same, the params after round 1 within
+    tolerance, the rounds' peak memory a rank beside the prediction); (b)
+    two pods of two ranks, hist and exact with the device pack.  Returns
+    the launches of each path (rank 0's)."""
+    import shutil
+
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    FSDP_REF.mkdir(parents=True, exist_ok=True)
+    try:
+        one = fsdp_one_rank(dev)
+        torch.cuda.empty_cache()
+        print(f"fsdp: the one-rank run took {time.perf_counter() - t0:.1f} s")
+        _, results = spawn_ranks("--fsdp-rank-worker", FSDP_RANKS, FSDP_TIMEOUT_S, "fsdp ranks")
+    finally:
+        shutil.rmtree(FSDP_REF, ignore_errors=True)
+    want = {k: FSDP_A["rounds"] * v for k, v in HIST_PER_ROUND.items()}
+    for r, res in enumerate(results):
+        g = res["granite"]
+        check(g["launches"] == want and g["eq1"] == one["eq1"],
+              f"fsdp rank {r}: launches {g['launches']}, Eq. 1 {g['eq1']!r} (one rank's "
+              f"{one['eq1']!r})")
+        for engine, _, per_round in POD_B_PATHS:
+            check(res[engine]["launches"] == {k: POD_B["rounds"] * v
+                                              for k, v in per_round.items()},
+                  f"two pods of two ranks {engine} rank {r}: launches {res[engine]['launches']}")
+    lo, hi = FSDP_PREDICTED_GIB
+    print(f"fsdp: Eq. 1 {one['eq1']!r} bits a client a round on both paths; peak memory over "
+          f"the rounds: one rank of 4 devices {one['rounds_gib']:.3f} GiB, the 4 ranks "
+          + ", ".join(f"{res['granite']['rounds_gib']:.3f}" for res in results)
+          + f" GiB (predicted {lo:g}-{hi:g} GiB a rank); round ms (rounds 2 on) one rank "
+          f"{_rounds_ms(one['step_ms'])}, 4 ranks (rank 0) "
+          f"{_rounds_ms(results[0]['granite']['step_ms'])}")
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    out = {"granite one rank of 4 devices": one["launches"],
+           "granite 4 ranks (rank 0)": results[0]["granite"]["launches"]}
+    out.update({f"two pods of two ranks {e} (rank 0)": results[0][e]["launches"]
+                for e, _, _ in POD_B_PATHS})
+    return out
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -4185,9 +4438,13 @@ def main(argv: list) -> int:
         return rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--pod-rank-worker"] and len(argv) == 5:
         return pod_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--fsdp-rank-worker"] and len(argv) == 5:
+        return fsdp_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     decoder_only, zoo_only, pod_only = argv == ["--decoder"], argv == ["--zoo"], argv == ["--pod"]
-    check(not argv or decoder_only or zoo_only or pod_only,
-          f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo | --pod]; got {argv}")
+    fsdp_only = argv == ["--fsdp"]
+    check(not argv or decoder_only or zoo_only or pod_only or fsdp_only,
+          f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo | --pod | --fsdp]; "
+          f"got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
     check((ROOT / "src" / "repro_torch").is_dir(),
@@ -4214,8 +4471,9 @@ def main(argv: list) -> int:
         print(json.dumps({"launches_moe": moe, "launches_encdec": encdec_phase(dev)}))
         print(card)
         return 0
-    if pod_only:  # phase 15 alone
-        print(json.dumps({"launches_pod": pod_phase(dev)}))
+    if pod_only or fsdp_only:  # phase 15 or 16 alone
+        key, phase = ("launches_pod", pod_phase) if pod_only else ("launches_fsdp", fsdp_phase)
+        print(json.dumps({key: phase(dev)}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4306,7 +4564,15 @@ def main(argv: list) -> int:
         if name in pod["bound_ms"]:
             rows[name]["bound_ms_pod_256_shards"] = pod["bound_ms"][name]
 
-    # ---- 16. results
+    # ---- 16. one rank a device: granite's 2 layers over 4 ranks, two pods
+    # of two ranks
+    fsdp = fsdp_phase(dev)
+    for name in KERNELS:
+        counts = {path: c.get(name, 0) for path, c in fsdp.items()}
+        if any(counts.values()):
+            rows[name]["launches_fsdp"] = counts
+
+    # ---- 17. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

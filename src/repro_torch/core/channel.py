@@ -365,9 +365,12 @@ class ShardedGspmdChannel:
     Every leaf is compressed per shard: the equal blocks of its
     ``shard_grid`` (the reference's per-device shards), each with its own
     k a row and μ.  A rank holds all of its client's shards, and one call
-    covers them all.  ``client_grid`` gives the sizes of the client axes
-    when there are several ("pod" and "data"): the gathers and means
-    follow the reference's order over them.
+    covers them all; or, with ``rank_blocks`` (one rank a device), its
+    device's block of each leaf, and ``group`` is then the exchange's
+    sub-group, the ranks of this device coordinate in every client
+    (``repro_torch.launch.mesh.DeviceRanks.exchange``).  ``client_grid``
+    gives the sizes of the client axes when there are several ("pod" and
+    "data"): the gathers and means follow the reference's order over them.
     """
 
     leaves: Tuple[GspmdLeaf, ...]
@@ -379,6 +382,7 @@ class ShardedGspmdChannel:
     flat_engine: str = "exact"  # "exact" | "hist"
     device_pack: bool = False  # pack Golomb wire streams on the device (§11)
     client_grid: Tuple[int, ...] = ()  # sizes of the client axes (() : one)
+    rank_blocks: bool = False  # a leaf here is one device's block
 
     def __post_init__(self) -> None:
         if self.flat_engine not in ("exact", "hist"):
@@ -455,10 +459,11 @@ class ShardedGspmdChannel:
             body = leaf[0]
             if gl.mode == "sparse":
                 L, n_loc, k = leaf_rows(gl)
-                blocks = shard_blocks(body, gl.shard_grid)
-                dense, own = _sbc_local(blocks.reshape(gl.n_shards * L, n_loc), k, self.group,
+                grid = () if self.rank_blocks else gl.shard_grid
+                blocks = shard_blocks(body, grid)
+                dense, own = _sbc_local(blocks.reshape(-1, n_loc), k, self.group,
                                         out_dtype=leaf.dtype, client_grid=self.client_grid)
-                dense, own = (unshard_blocks(t.reshape(blocks.shape), gl.shard_grid)
+                dense, own = (unshard_blocks(t.reshape(blocks.shape), grid)
                               for t in (dense, own))
             elif gl.mode == "dense":
                 dense, own = _dense_local(body.to(torch.float32), self.group, self.client_grid)

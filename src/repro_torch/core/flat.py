@@ -488,9 +488,11 @@ class ShardedFlatParamSpace:
     reference's device order (row-major over the shard axes), each with
     the leaves' blocks that device holds (``DistSegment.dev_block``).
     ``group`` is the :class:`~repro_torch.launch.mesh.ClientGroup` whose
-    ranks are the clients, and the exchange across them (the hist
-    engine's ``pmean``, the exact engine's ``all_gather``) goes through
-    it; ``client_grid`` gives the sizes of the client axes, whose order
+    ranks are the clients (with one rank a device, the exchange's
+    sub-group: the ranks of this device coordinate, one a client, whose
+    space holds that one device, ``shards_per_client=1``), and the
+    exchange across them (the hist engine's ``pmean``, the exact engine's
+    ``all_gather``) goes through it; ``client_grid`` gives the sizes of the client axes, whose order
     the reference's collectives follow (default: one axis).  With one
     client the exchange is the identity and crosses no process.
 
@@ -504,7 +506,7 @@ class ShardedFlatParamSpace:
     shard_axes: Tuple[str, ...]
     n_clients: int
     shards_per_client: int
-    group: Any  # ClientGroup of n_clients ranks
+    group: Any  # the exchange's ClientGroup, n_clients ranks
     bm: int = 8
     lanes: int = 128
     client_grid: Tuple[int, ...] = ()
@@ -529,9 +531,9 @@ class ShardedFlatParamSpace:
             if len(s.dev_block) != S:
                 raise ValueError(f"{s.path}: {len(s.dev_block)} device blocks for {S} devices")
         self.seg_of_block = seg_of_block
-        self._pad_to_raw, self._pad_valid = _pad_maps(
-            [s.offset for s in self.segments], sizes, self.n_pad
-        )
+        # the pad maps (n_pad entries each) are made at the first use on a
+        # device: a plan of a full-depth layout needs none
+        self._sizes = sizes
         # the dense slots of all S device buffers of this rank
         dense_one = np.flatnonzero(dense_mask).astype(np.int64)
         self._dense_idx = (np.arange(S, dtype=np.int64)[:, None] * self.n_pad
@@ -621,13 +623,15 @@ class ShardedFlatParamSpace:
         maps = self._maps.get(device)
         if maps is None:
             to = lambda a: None if a is None else torch.from_numpy(a).to(device)
+            pad_to_raw, pad_valid = _pad_maps([s.offset for s in self.segments], self._sizes,
+                                              self.n_pad)
             dev_blocks = [np.asarray(s.dev_block, np.int64) for s in self.segments]
             rep_devs = [np.asarray([list(s.dev_block).index(b) for b in range(s.n_shards)],
                                    np.int64) if self.shards_per_client > 1 else None
                         for s in self.segments]
             maps = tuple(
                 to(a) for a in (
-                    self._pad_to_raw, self._pad_valid,
+                    pad_to_raw, pad_valid,
                     self.seg_of_block.astype(np.int64),
                     self._pos_row.astype(np.int64),
                     self._dense_idx.astype(np.int64),

@@ -14,16 +14,25 @@ client axis of 1).
 The mesh is a layout, a dict of axis sizes (``mesh_shape``; default the
 reference's ``(world, 1)``, ``{"data": world, "model": 1}``).  Its client
 axes (:func:`client_topology`: "pod" and "data" in the data mode, "pod"
-in pod mode, where the gradient is a dense mean inside the pod) map to the
-ranks; every other axis is a shard axis, and a rank holds ALL of its
-client's shards: the whole model, not one device's shard.  Each leaf is
-cut into the equal blocks its spec gives over the shard axes
+in pod mode, where the gradient is a dense mean inside the pod) count
+the clients; every other axis is a shard axis.  Each leaf is cut into the
+equal blocks its spec gives over the shard axes
 (:func:`~repro_torch.models.model.make_param_specs`), and compression
 runs per block, as the reference's per-device compression does: each
-block takes its own k a row and μ, Eq. 1 counts ``L · n_shards · (k_loc ·
-b̄ + 32)`` bits a leaf, and the flat engines keep one buffer a device of
-the client, ``(1, shards_per_client, n_pad)``.  A shard axis across ranks
-(each rank one device's shard) is ROADMAP A12, part 3, item 7.
+block takes its own k a row and μ, and Eq. 1 counts ``L · n_shards ·
+(k_loc · b̄ + 32)`` bits a leaf.  The ranks are either
+
+  * the clients (world = clients): a rank holds ALL of its client's
+    shards, the whole model, and the flat engines keep one buffer a device
+    of the client, ``(1, shards_per_client, n_pad)``; or
+  * the devices (world = every axis' product, one rank a device): a rank
+    holds its device's blocks of the params, the optimizer rows and the
+    residual (``(1, 1, n_pad)`` flat), the model gathers each leaf at its
+    use and the backward leaves each block the pod's mean gradient
+    (:mod:`repro_torch.launch.shards`), and the exchange crosses the ranks
+    of the same device coordinate in every client only
+    (:class:`~repro_torch.launch.mesh.DeviceRanks`).  Each rank's rows are
+    its "data" coordinate's share of its client's batch.
 
 The exchange is the §11 flat fast path (``fast=True``: the exact engine,
 optionally with the device-packed Golomb wire, or the hist engine) or the
@@ -48,10 +57,12 @@ Behaviour of the reference that the step reproduces as it is:
     client's own ΔW* is non-zero;
   * the applied update is the mean's row of this client, which is client
     0's on every rank, and the loss metric is the mean over clients
-    (``jnp.mean`` of the gathered losses, in XLA's order);
-  * in pod mode each client takes its pod's whole batch: the reference
-    splits it over the pod's "data" devices, and GSPMD's gradient of the
-    mean loss is the same mean.
+    (``jnp.mean`` of the gathered losses, in XLA's order; one rank a
+    device: each client's loss the mean over its "data" ranks first);
+  * in pod mode a client's rank takes its pod's whole batch (one rank a
+    device: its "data" share of it): the reference splits it over the
+    pod's "data" devices, and GSPMD's gradient of the mean loss is the
+    same mean.
 """
 from __future__ import annotations
 
@@ -71,6 +82,7 @@ from repro_torch.device import full_f32_math
 from repro_torch.kernels.reduce import f32_mean_xla
 from repro_torch.launch.mesh import (ClientGroup, axis_sizes, check_clients, default_layout,
                                      make_host_group)
+from repro_torch.launch.shards import LeafBlocks, RankShards, assemble_tree, block_of
 from repro_torch.models import hints
 from repro_torch.models.model import Model, build_model, make_param_specs
 from repro_torch.optim.optimizers import get_optimizer, map_states
@@ -138,6 +150,10 @@ class DistTrainFns(NamedTuple):
     flat_space: Any  # ShardedFlatParamSpace of the flat fast path, or None
     residual_to_tree: Optional[Callable]  # flat residual → the params' tree of (1,)+shape
     channel: Any  # the ShardedGspmdChannel driving the exchange
+    params_to_tree: Callable = None  # state params → the whole params (a collective)
+    client: int = 0  # this rank's client
+    ranks: Any = None  # DeviceRanks with one rank a device, else None
+    blocks: tuple = ()  # each leaf's LeafBlocks (its device → block map)
 
 
 def dist_leaf_mode(codec: Codec) -> str:
@@ -181,11 +197,13 @@ def build_dist_train(
 
     ``mesh_shape``: the layout, axis name → size, such as
     ``production_layout()`` (``{"data": 16, "model": 16}``); default the
-    reference's ``{"data": world, "model": 1}``.  Its client axes
-    (:func:`client_topology`) must count ``group.world`` clients
-    (``ValueError`` otherwise; ``NotImplementedError`` for a shard axis
-    across ranks, ROADMAP A12, part 3, item 7).  The rank compresses each
-    of its client's shards on its own.
+    reference's ``{"data": world, "model": 1}``.  ``group.world`` must be
+    its client count (one rank a client, holding all of its client's
+    shards) or its device count (one rank a device, holding that device's
+    blocks; the model gathers each leaf at its use, ``remat`` recomputes a
+    gathered block in the backward, and the exchange crosses the ranks of
+    this device coordinate only); ``ValueError`` otherwise.  Each shard is
+    compressed on its own.
 
     ``policy``: an optional per-leaf :class:`CompressionPolicy` (path-regex
     rules): each leaf takes its plan's exchange mode
@@ -209,8 +227,11 @@ def build_dist_train(
     ``"seq_every2"`` (the sequence hint on every second block, which
     places activations only and changes nothing here).
 
-    State = ``{'params', 'opt', 'residual'}``; the batch is this client's,
-    with a leading client axis of 1.  ``measure`` adds client 0's
+    State = ``{'params', 'opt', 'residual'}`` (one rank a device: this
+    device's blocks; ``params_to_tree`` and ``residual_to_tree`` give the
+    whole trees); the batch is this client's, with a leading client axis
+    of 1 (one rank a device: the step takes its "data" share of the
+    rows).  ``measure`` adds client 0's
     transmitted ΔW* to rank 0's metrics (``own_client0``) for wire
     metering; with ``device_pack`` too (exact engine) every rank's metrics
     also hold the packed bit counts of every (client, shard, row)
@@ -231,71 +252,56 @@ def build_dist_train(
     n_clients, client_axes = client_topology(cfg, sizes)
     shard_axes = tuple(a for a in sizes if a not in client_axes)
     client_grid = tuple(sizes[a] for a in client_axes)
+    n_dev = math.prod(sizes[a] for a in shard_axes)
     opt_kw = {} if cfg.local_opt == "sgd" else {"state_dtype": cfg.residual_dtype}
     opt = get_optimizer(cfg.local_opt, **opt_kw)
 
     if policy is None:
         default = "sbc" if compressor == "sbc" else "dense"
         policy = CompressionPolicy.single(make_codec(default), name=compressor)
-
-    # leaf plan and sharding specs from the parameter shapes, in JAX's leaf
-    # order with its "a/b" paths; drawn on the meta device, so nothing is
-    # allocated
-    with torch.device("meta"):
-        meta_params = model.init(torch.Generator())
-    flat_p, treedef = tree_flatten_with_path(meta_params)
-    specs = treedef.flatten_up_to(make_param_specs(
-        meta_params, sizes, fsdp=cfg.fsdp,
-        expert_parallel=cfg.moe_dispatch in ("flat_ep", "grouped")))
-    keys = [path_str(path) for path, _ in flat_p]
-    for k, spec in zip(keys, specs):
-        used = {ax for entry in spec for ax in _axes_of(entry)
-                if ax in client_axes and sizes[ax] > 1}
-        if used:
-            raise ValueError(f"{k}: its spec {spec} cuts the leaf over the client axes "
-                             f"{sorted(used)}: a leaf is whole on every client")
+    treedef, specs, leaves, blocks = _leaf_plan(cfg, model, sizes, client_axes, shard_axes,
+                                                policy, sparsity)
     check_clients(sizes, client_axes, group.world)
-    plans = [policy.plan_for(k) for k in keys]
-    scheduled = [pl.path for pl in plans if pl.schedule is not None]
-    if scheduled:
-        raise NotImplementedError(
-            "the GSPMD backend fixes per-leaf sparsity rates when the step is "
-            f"built; policy rules attach per-round schedules to {scheduled[:3]}…"
-        )
-    leaves = tuple(
-        GspmdLeaf(path=k, global_shape=tuple(v.shape), dtype=v.dtype,
-                  scanned="stack/scan" in k, mode=dist_leaf_mode(pl.codec),
-                  rate=pl.rate(sparsity, 0), n_shards=_shards_of(spec, sizes),
-                  shard_grid=_shard_grid(tuple(v.shape), spec, sizes))
-        for k, (_, v), pl, spec in zip(keys, flat_p, plans, specs)
-    )
+    sharded = group.world != n_clients  # one rank a device
+    ranks = group.device_ranks(sizes, client_axes) if sharded else None
+    xgroup = ranks.exchange if sharded else group  # the ranks the exchange crosses
     want_fast = policy.fast if fast is None else bool(fast)
     space = None
     if (want_fast and cfg.residual_dtype == torch.float32
             and all(gl.dtype == torch.float32 for gl in leaves)):
-        entries = []
-        for gl, spec in zip(leaves, specs):
-            local = _local_shape(gl.global_shape, spec, sizes)
-            entries.append(dict(
-                path=gl.path, shape=local,
-                rows=local[0] if gl.scanned and len(local) > 1 else 1,
-                kind=gl.mode, rate=gl.rate, n_shards=gl.n_shards,
-                global_size=int(torch.Size(gl.global_shape).numel()), grid=gl.shard_grid,
-                dev_block=_device_blocks(gl.global_shape, spec, sizes, shard_axes)))
-        space = ShardedFlatParamSpace.build(
-            entries, client_axes=client_axes, shard_axes=shard_axes, n_clients=n_clients,
-            shards_per_client=math.prod(sizes[a] for a in shard_axes), group=group,
-            client_grid=client_grid,
-        )
+        space = _flat_space(leaves, specs, blocks, sizes, client_axes, shard_axes, n_clients,
+                            xgroup, ranks.device if sharded else None)
     channel = ShardedGspmdChannel(
         leaves=leaves, client_axes=client_axes, n_clients=n_clients,
         residual_dtype=cfg.residual_dtype, flat_space=space, flat_engine=flat_engine,
-        device_pack=device_pack, group=group, client_grid=client_grid,
+        device_pack=device_pack, group=xgroup, client_grid=client_grid, rank_blocks=sharded,
     )
     bits = channel.bits()
 
+    by_path = {lb.path: lb for lb in blocks}
+
+    def cut(tree, at: str, scanned: bool):
+        """This rank's blocks of the leaves of ``tree``, drawn at ``at``."""
+        flat, tdef = tree_flatten_with_path(tree)
+        out = []
+        for path, v in flat:
+            lb = by_path["/".join(p for p in (at, path_str(path)) if p)]
+            out.append(block_of(v, lb.grid[1:] if scanned else lb.grid,
+                                lb.dev_block[ranks.device]))
+        return tdef.unflatten(out)
+
     def init_state(gen: torch.Generator) -> dict:
-        params = tree_map(lambda v: v.to(device), model.init(gen))
+        if sharded:  # this rank's blocks, cut as the model draws them (hints.drawn)
+            with hints.cut_params(cut):
+                params = model.init(gen)
+            for v, gl, lb in zip(tree_flatten(params)[0], leaves, blocks):
+                want = tuple(d // g for d, g in zip(gl.global_shape, lb.grid))
+                if tuple(v.shape) != want:
+                    raise ValueError(f"{gl.path}: drawn as {tuple(v.shape)}, not its block "
+                                     f"{want}: a sharded leaf passes hints.drawn in the init")
+        else:
+            params = model.init(gen)
+        params = tree_map(lambda v: v.to(device), params)
         return {
             "params": params,
             "opt": map_states(lambda v: v[0][None].clone(), [opt.init(params)]),
@@ -304,12 +310,28 @@ def build_dist_train(
 
     need_mask = cfg.local_opt != "sgd"  # momentum masking needs ΔW*_i
     need_own = need_mask or measure
+    n_data = sizes["data"] if "data" in shard_axes else 1
+
+    def rank_rows(v: torch.Tensor) -> torch.Tensor:
+        """This rank's "data" share of its client's rows (one rank a
+        device; the ranks along "model" take the same rows)."""
+        if v.shape[0] % n_data:
+            raise ValueError(f"a batch of {v.shape[0]} rows does not split over the "
+                             f"{n_data} 'data' ranks of a client")
+        n, d = v.shape[0] // n_data, ranks.coords["data"] if n_data > 1 else 0
+        return v[d * n:(d + 1) * n]
 
     def step(state: dict, batch: dict) -> tuple:
         params = state["params"]
         leaves_p = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
-        loss = model.loss_fn(treedef.unflatten(leaves_p), tree_map(lambda v: v[0], batch))
-        grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves_p)))
+        rows = tree_map(lambda v: v[0], batch)
+        shards = RankShards(ranks, leaves_p, blocks, remat=cfg.remat) if sharded else None
+        with hints.sharded_params(shards):
+            loss = model.loss_fn(treedef.unflatten(leaves_p),
+                                 tree_map(rank_rows, rows) if sharded else rows)
+            if sharded:
+                shards.check_every_leaf_used()
+            grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves_p)))
         with torch.no_grad():
             p2, opt_state = opt.apply(map_states(lambda v: v[0][0], [state["opt"]]),
                                       grads, params, cfg.base_lr, 0)
@@ -326,19 +348,39 @@ def build_dist_train(
             if need_mask:
                 transmitted = tree_map(lambda o: (o != 0).to(torch.float32), own_tree)
                 opt_state = opt.mask(opt_state, transmitted)
-            losses = group.all_gather_rows(loss.detach().reshape(()))
-            metrics = {"loss": f32_mean_xla(losses)}
-            if measure and device_pack:
-                # exact per-(client, shard, row) packed wire bits of every
-                # client (a collective: every rank takes part)
-                words, nbits = out[3]
-                metrics["packed_nbits"] = group.all_gather_rows(nbits[0])
-            if measure and group.rank == 0:
-                # client 0's transmitted ΔW* (and packed words), for wire metering
-                metrics["own_client0"] = tree_map(lambda o: o[0], own_tree)
-                if device_pack:
-                    metrics["packed_words_client0"] = words[0]
+            loss = loss.detach().reshape(())
+            if sharded:  # the client's loss: the mean over its "data" ranks
+                loss = ranks.data.pmean(loss)
+            metrics = {"loss": f32_mean_xla(xgroup.all_gather_rows(loss))}
+            if measure:
+                metrics.update(_metered(out, own_tree))
         return {"params": new_params, "opt": opt_state, "residual": new_residual}, metrics
+
+    def _metered(out, own_tree) -> dict:
+        """Rank 0's client-0 ΔW* (and packed words), whole; with
+        ``device_pack`` every rank's ``packed_nbits`` of every (client,
+        device, row).  Collectives: every rank calls this."""
+        got = {}
+        words = None
+        if device_pack:
+            words, nbits = out[3]
+            if sharded:  # every device's row, in (client, device) order
+                every = group.all_gather_rows(nbits[0, 0])
+                got["packed_nbits"] = every[list(ranks.world_order)].reshape(
+                    n_clients, n_dev, -1)
+            else:
+                got["packed_nbits"] = group.all_gather_rows(nbits[0])
+        own0 = tree_map(lambda o: o[0], own_tree)
+        if sharded and ranks.client == 0:  # client 0's blocks from its ranks
+            own0 = assemble_tree(ranks, own0, blocks)
+            if device_pack:
+                words = ranks.client_ranks.all_gather_rows(words[0, 0])[None]
+        if group.rank == 0:
+            # client 0's transmitted ΔW* (and packed words), for wire metering
+            got["own_client0"] = own0
+            if device_pack:
+                got["packed_words_client0"] = words[0]
+        return got
 
     def train_step(state: dict, batch: dict) -> tuple:
         with hints.activation_sharding(
@@ -348,19 +390,106 @@ def build_dist_train(
         ):
             return step(state, batch)
 
+    def params_to_tree(params: dict) -> dict:
+        """The whole params: gathered over the client's ranks with one rank
+        a device (a collective), else ``params`` itself."""
+        return assemble_tree(ranks, params, blocks) if sharded else params
+
     residual_to_tree = None
-    if space is not None:
-        def residual_to_tree(flat_res: torch.Tensor) -> dict:
-            """The flat residual as the per-leaf stacked tree the per-leaf
-            path stores (views with one device a client, else copies)."""
-            local = flat_res[0].reshape(space.local_shape)
-            return treedef.unflatten([b[None] for b in space.unflatten_local(local)])
+    if space is not None or sharded:
+        def residual_to_tree(res) -> dict:
+            """The residual as the per-leaf stacked tree the per-leaf path
+            stores (views with one device a client, else copies), whole
+            (gathered over the client's ranks with one rank a device)."""
+            if space is not None:
+                tree = treedef.unflatten(space.unflatten_local(res[0].reshape(space.local_shape)))
+            else:
+                tree = tree_map(lambda v: v[0], res)
+            return tree_map(lambda b: b[None], params_to_tree(tree))
 
     return DistTrainFns(
         train_step=train_step, init_state=init_state,
         bits_per_client=bits.per_client, bits_dense=bits.dense,
         flat_space=space, residual_to_tree=residual_to_tree, channel=channel,
+        params_to_tree=params_to_tree, client=ranks.client if sharded else group.rank,
+        ranks=ranks, blocks=blocks,
     )
+
+
+def _leaf_plan(cfg: ModelConfig, model: Model, sizes: dict, client_axes: tuple,
+               shard_axes: tuple, policy: CompressionPolicy, sparsity: float) -> tuple:
+    """``(treedef, specs, leaves, blocks)``: the params' tree, each leaf's
+    spec, :class:`GspmdLeaf` and :class:`LeafBlocks` (its device → block
+    map), in JAX's leaf order with its "a/b" paths; from the shapes drawn on
+    the meta device, so nothing is allocated."""
+    with torch.device("meta"):
+        meta_params = model.init(torch.Generator())
+    flat_p, treedef = tree_flatten_with_path(meta_params)
+    specs = treedef.flatten_up_to(make_param_specs(
+        meta_params, sizes, fsdp=cfg.fsdp,
+        expert_parallel=cfg.moe_dispatch in ("flat_ep", "grouped")))
+    keys = [path_str(path) for path, _ in flat_p]
+    for k, spec in zip(keys, specs):
+        used = {ax for entry in spec for ax in _axes_of(entry)
+                if ax in client_axes and sizes[ax] > 1}
+        if used:
+            raise ValueError(f"{k}: its spec {spec} cuts the leaf over the client axes "
+                             f"{sorted(used)}: a leaf is whole on every client")
+    plans = [policy.plan_for(k) for k in keys]
+    scheduled = [pl.path for pl in plans if pl.schedule is not None]
+    if scheduled:
+        raise NotImplementedError(
+            "the GSPMD backend fixes per-leaf sparsity rates when the step is "
+            f"built; policy rules attach per-round schedules to {scheduled[:3]}…"
+        )
+    leaves = tuple(
+        GspmdLeaf(path=k, global_shape=tuple(v.shape), dtype=v.dtype,
+                  scanned="stack/scan" in k, mode=dist_leaf_mode(pl.codec),
+                  rate=pl.rate(sparsity, 0), n_shards=_shards_of(spec, sizes),
+                  shard_grid=_shard_grid(tuple(v.shape), spec, sizes))
+        for k, (_, v), pl, spec in zip(keys, flat_p, plans, specs)
+    )
+    blocks = tuple(LeafBlocks(grid=gl.shard_grid, path=gl.path,
+                              dev_block=_device_blocks(gl.global_shape, spec, sizes, shard_axes))
+                   for gl, spec in zip(leaves, specs))
+    return treedef, specs, leaves, blocks
+
+
+def _flat_space(leaves, specs, blocks, sizes: dict, client_axes: tuple, shard_axes: tuple,
+                n_clients: int, group, device: Optional[int]) -> ShardedFlatParamSpace:
+    """The §11 flat space of a client's devices (``device`` None: all of
+    them, one rank a client) or of device ``device`` alone (one rank a
+    device)."""
+    entries = []
+    for gl, spec, lb in zip(leaves, specs, blocks):
+        local = _local_shape(gl.global_shape, spec, sizes)
+        entries.append(dict(
+            path=gl.path, shape=local,
+            rows=local[0] if gl.scanned and len(local) > 1 else 1,
+            kind=gl.mode, rate=gl.rate, n_shards=gl.n_shards,
+            global_size=int(torch.Size(gl.global_shape).numel()), grid=gl.shard_grid,
+            dev_block=lb.dev_block if device is None else (lb.dev_block[device],)))
+    return ShardedFlatParamSpace.build(
+        entries, client_axes=client_axes, shard_axes=shard_axes, n_clients=n_clients,
+        shards_per_client=math.prod(sizes[a] for a in shard_axes) if device is None else 1,
+        group=group, client_grid=tuple(sizes[a] for a in client_axes),
+    )
+
+
+def device_flat_space(cfg: ModelConfig, mesh_shape: dict, *, sparsity: float = 0.001,
+                      device: int = 0, model: Optional[Model] = None) -> ShardedFlatParamSpace:
+    """The flat space that the rank of device ``device`` holds with one
+    rank a device of ``mesh_shape`` (every leaf SBC at ``sparsity``), as a
+    plan: shapes from the meta device and no process group, for one
+    device's padded length and the Eq. 1 bits at any depth."""
+    sizes = axis_sizes(mesh_shape)
+    n_clients, client_axes = client_topology(cfg, sizes)
+    shard_axes = tuple(a for a in sizes if a not in client_axes)
+    policy = CompressionPolicy.single(make_codec("sbc"), name="sbc")
+    _, specs, leaves, blocks = _leaf_plan(cfg, model or build_model(cfg), sizes, client_axes,
+                                          shard_axes, policy, sparsity)
+    return _flat_space(leaves, specs, blocks, sizes, client_axes, shard_axes, n_clients,
+                       make_host_group("cpu"), device)
 
 
 # -------------------------------------------------------------- launcher
@@ -374,8 +503,8 @@ def build_parser():
     from repro_torch.run.flags import add_run_flags
 
     ap = argparse.ArgumentParser(
-        description="GSPMD DSGD launcher (one client per process; start N of "
-        "them with torchrun --nproc-per-node N)")
+        description="GSPMD DSGD launcher (one client per process, or one device of a pod-mode "
+        "preset's client; start N of them with torchrun --nproc-per-node N)")
     add_run_flags(ap, backend="gspmd", preset="tiny", rounds=10, log_every=5)
     ap.add_argument("--device", default=None,
                     help="cuda (default), cuda:N, or cpu for the plain versions")
@@ -395,7 +524,8 @@ def main(argv=None):
         if run.group.rank != 0:
             run.run()
             return None
-        print(f"gspmd: {run.n_clients} clients over {run.group.world} process(es), "
+        print(f"gspmd: {run.n_clients} clients over {run.group.world} process(es)"
+              + (" (one a device)" if run.fns.ranks is not None else "") + ", "
               f"p={spec.sparsity}, fast={spec.fast}, "
               f"bits/client/round={run.fns.bits_per_client:.3e} "
               f"(dense {run.fns.bits_dense:.3e}), device={run.device}")

@@ -20,14 +20,22 @@ A layout is the reference's mesh as a dict of axis sizes:
 :func:`production_layout` gives its two production meshes, (16, 16)
 ("data", "model") and (2, 16, 16) ("pod", "data", "model"), and
 :func:`default_layout` the in-process one, ``(world, 1)``.  The client
-axes of a layout map to the ranks (their product is the group's world,
-:func:`check_clients`); every other axis is a shard axis, all of whose
-shards a rank holds (``repro_torch.launch.dist``).
+axes of a layout count the clients; every other axis is a shard axis.
+:func:`check_clients` takes two worlds: one rank a client (the client
+axes' product; a rank holds all of its client's shards), or one rank a
+device (every axis' product; a rank holds one device's shard, FSDP).  In
+the second, rank r takes its coordinates row-major over the layout's
+axes in their order, as ``jax.make_mesh`` orders devices, and
+:meth:`ClientGroup.device_ranks` gives its :class:`DeviceRanks`: the
+sub-groups of the exchange (the ranks of the same device coordinate in
+every client), of the client (to gather a leaf's blocks) and of the
+client's "data" ranks (the gradient's mean).
 
 The transport follows the device (NCCL on a card, gloo on the CPU) unless
 the caller names one; it is never switched in silence.  NCCL refuses two
-ranks on one card, so several ranks on one card take gloo, whose
-``all_gather`` takes CUDA tensors: the compute stays on the card.
+ranks on one card, so several ranks on one card take gloo, which
+gathers CUDA tensors through host copies (a staging buffer a group, kept
+for its life): the compute stays on the card.
 
 :meth:`ClientGroup.pmean` adds the gathered rows left to right in rank
 order from row 0, then multiplies by the f32 reciprocal of the world
@@ -41,8 +49,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -77,26 +86,41 @@ def axis_sizes(layout: dict) -> dict[str, int]:
 
 
 def check_clients(layout: dict, client_axes: tuple, world: int) -> int:
-    """The number of clients, the product of ``layout``'s ``client_axes``;
-    ``ValueError`` unless it is ``world`` (one client a rank).  A layout
-    whose clients are fewer than the ranks, every device a rank, would put
-    a shard axis across ranks: that raises ``NotImplementedError`` (ROADMAP
-    A12, part 3, item 7)."""
-    n = 1
-    for ax in client_axes:
-        n *= layout[ax]
-    if n == world:
+    """The number of clients, the product of ``layout``'s ``client_axes``,
+    when ``world`` is that number (one client a rank) or the product of
+    every axis (one device a rank: the shard axes cross ranks);
+    ``ValueError`` otherwise."""
+    n = math.prod(layout[ax] for ax in client_axes)
+    if world in (n, math.prod(layout.values())):
         return n
-    total = 1
-    for size in layout.values():
-        total *= size
-    if world > n and world % n == 0 and total % world == 0:
-        raise NotImplementedError(
-            f"layout {layout} has {n} client(s) over {world} ranks: a shard axis across "
-            "ranks (each rank one device's shard, true FSDP memory) comes with ROADMAP "
-            "A12, part 3, item 7; here a rank holds a whole client")
-    raise ValueError(f"layout {layout} has {n} client(s) on the axes {client_axes}, but the "
-                     f"group has {world} rank(s): one client a rank")
+    raise ValueError(f"layout {layout} has {n} client(s) on the axes {client_axes} and "
+                     f"{math.prod(layout.values())} device(s), but the group has {world} "
+                     "rank(s): one client a rank, or one device a rank")
+
+
+@dataclasses.dataclass(eq=False)
+class DeviceRanks:
+    """One rank of a world of one rank a device, and its sub-groups.
+
+    ``client`` is its client index (row-major over the client axes),
+    ``device`` its device index inside the client (row-major over the
+    shard axes, the order of ``ShardedFlatParamSpace``'s devices) and
+    ``devices`` the devices a client.  ``exchange`` holds the ranks of this
+    device coordinate in every client, in client order (the exchange's
+    ``all_gather_rows``, ``pmean`` and ``gather_order``); ``client_ranks``
+    the client's ranks in device order (a leaf's blocks); ``data`` the client's
+    ranks that share this rank's other shard coordinates, in "data" order
+    (the gradient's mean; world 1 without a "data" shard axis)."""
+
+    client: int
+    device: int
+    devices: int
+    coords: dict
+    exchange: "ClientGroup"
+    client_ranks: "ClientGroup"
+    data: "ClientGroup"
+    data_devices: tuple  # the device index of each of ``data``'s ranks
+    world_order: tuple  # the global ranks in (client, device) order
 
 
 @dataclasses.dataclass(eq=False)
@@ -106,12 +130,15 @@ class ClientGroup:
     ``rank`` is this process's client index, ``world`` the number of
     clients, ``device`` where this client computes and ``backend`` the
     transport of the process group (``None``: world 1, no process
-    group)."""
+    group).  A sub-group (:meth:`device_ranks`) also holds its process
+    group handle ``pg``; its ``rank`` and ``world`` are inside it."""
 
     rank: int
     world: int
     device: torch.device
     backend: Optional[str] = None
+    pg: Any = None  # a sub-group's handle (None: the default group)
+    _host: Any = dataclasses.field(default=None, repr=False)  # gloo's staging buffer
 
     def __post_init__(self) -> None:
         if self.backend is None and (self.world, self.rank) != (1, 0):
@@ -150,14 +177,63 @@ class ClientGroup:
         view."""
         if self.backend is None:
             return t[None]
+        words = t.dtype == torch.uint32
+        out = torch.stack(self.gather_list(t.view(torch.int32) if words else t))
+        return out.view(torch.uint32) if words else out
+
+    def gather_list(self, t: torch.Tensor) -> list:
+        """Every rank's ``t`` in rank order, a tensor each (no stacked
+        copy); ``[t]`` without a process group.  Gloo takes a CUDA tensor
+        through :meth:`_staged` host copies."""
+        if self.backend is None:
+            return [t]
         import torch.distributed as dist
 
-        words = t.dtype == torch.uint32
-        src = (t.view(torch.int32) if words else t).contiguous()
+        src = t.contiguous()
+        if self.backend == "gloo" and src.is_cuda:
+            send, recv = self._staged(src, self.world)
+            dist.all_gather(list(recv.unbind(0)), send, group=self.pg)
+            return list(recv.to(src.device).unbind(0))
         rows = [torch.empty_like(src) for _ in range(self.world)]
-        dist.all_gather(rows, src)
-        out = torch.stack(rows)
-        return out.view(torch.uint32) if words else out
+        dist.all_gather(rows, src, group=self.pg)
+        return rows
+
+    def exchange_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """All to all: ``rows`` ``(world, ...)`` sends row j to rank j;
+        returns ``(world, ...)`` whose row i came from rank i (``rows``
+        itself without a process group).  Gloo takes a CUDA tensor through
+        :meth:`_staged` host copies."""
+        if self.backend is None:
+            return rows
+        import torch.distributed as dist
+
+        src = rows.contiguous()
+        if self.backend == "gloo" and src.is_cuda:
+            send, recv = self._staged(src, 1)
+            dist.all_to_all_single(recv[0], send, group=self.pg)
+            return recv[0].to(src.device)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.pg)
+        return out
+
+    def _staged(self, src: torch.Tensor, n_out: int) -> tuple:
+        """``(send, recv)``: host views of this group's staging buffer,
+        ``send`` a copy of the CUDA tensor ``src`` and ``recv`` room for
+        ``n_out`` of its shape, ``(n_out, *src.shape)``.  The buffer is
+        pageable and kept (grown to the largest call), so its pages are
+        touched once: gloo's own staging of a CUDA tensor takes pinned
+        blocks that torch's host allocator keeps cached by size (several
+        ranks gathering a model's leaves on one machine filled its host
+        memory), and a fresh host tensor a call faults its pages in on
+        every copy.  The views are good until the next call."""
+        n = src.numel() * src.element_size()
+        if self._host is None or self._host.numel() < n * (1 + n_out):
+            self._host = None
+            self._host = torch.empty(n * (1 + n_out), dtype=torch.uint8)
+        buf = self._host[:n * (1 + n_out)].view(src.dtype)
+        send = buf[:src.numel()].view(src.shape)
+        send.copy_(src)
+        return send, buf[src.numel():].view((n_out,) + tuple(src.shape))
 
     def pmean(self, t: torch.Tensor, grid: Optional[tuple] = None) -> torch.Tensor:
         """``jax.lax.pmean`` over the clients as XLA's CPU backend computes
@@ -188,9 +264,64 @@ class ClientGroup:
         order = np.arange(self.world).reshape(grid).transpose(tuple(reversed(range(len(grid)))))
         return [int(r) for r in order.reshape(-1)]
 
+    def device_ranks(self, layout: dict, client_axes: tuple) -> DeviceRanks:
+        """This rank's :class:`DeviceRanks` in a world of one rank a device
+        of ``layout`` (:func:`check_clients`).  Every rank makes every
+        sub-group, in the same order (``torch.distributed.new_group``
+        wants each of them made by all ranks); a sub-group of one rank is
+        world 1 without a process group."""
+        sizes = {str(k): int(v) for k, v in layout.items()}
+        if self.world != math.prod(sizes.values()):
+            raise ValueError(f"{self.world} ranks are not the {math.prod(sizes.values())} "
+                             f"devices of {layout}")
+        shard_axes = tuple(a for a in sizes if a not in client_axes)
+
+        def index(coords: dict, axes: tuple) -> int:
+            return int(np.ravel_multi_index(tuple(coords[a] for a in axes),
+                                            tuple(sizes[a] for a in axes))) if axes else 0
+
+        # row-major over the layout's axes in their order, jax.make_mesh's
+        coords = [dict(zip(sizes, np.unravel_index(r, tuple(sizes.values()))))
+                  for r in range(self.world)]
+        client = [index(c, tuple(client_axes)) for c in coords]
+        device = [index(c, shard_axes) for c in coords]
+        n_clients, n_dev = max(client) + 1, max(device) + 1
+        rank_of = {(client[r], device[r]): r for r in range(self.world)}
+        data_key = [(client[r], tuple(coords[r][a] for a in shard_axes if a != "data"))
+                    for r in range(self.world)]
+        groups = ([[rank_of[c, d] for c in range(n_clients)] for d in range(n_dev)]
+                  + [[rank_of[c, d] for d in range(n_dev)] for c in range(n_clients)]
+                  + [sorted((r for r in range(self.world) if data_key[r] == key),
+                            key=lambda r: coords[r].get("data", 0))
+                     for key in dict.fromkeys(data_key)])
+        mine = []
+        for ranks in groups:
+            pg = self._new_group(ranks)
+            if self.rank in ranks:
+                mine.append((ClientGroup(rank=ranks.index(self.rank), world=len(ranks),
+                                         device=self.device,
+                                         backend=self.backend if len(ranks) > 1 else None,
+                                         pg=pg), ranks))
+        return DeviceRanks(client=client[self.rank], device=device[self.rank], devices=n_dev,
+                           coords=coords[self.rank], exchange=mine[0][0],
+                           client_ranks=mine[1][0], data=mine[2][0],
+                           data_devices=tuple(device[r] for r in mine[2][1]),
+                           world_order=tuple(rank_of[c, d] for c in range(n_clients)
+                                             for d in range(n_dev)))
+
+    def _new_group(self, ranks: list):
+        """A process group of ``ranks`` (None for one rank: no collective
+        crosses it)."""
+        if len(ranks) == 1:
+            return None
+        import torch.distributed as dist
+
+        return dist.new_group(ranks, timeout=TIMEOUT, backend=self.backend)
+
     def close(self) -> None:
-        """Leave the process group (no-op without one)."""
-        if self.backend is None:
+        """Leave the process group (no-op without one, and on a sub-group:
+        the default group's owner leaves it)."""
+        if self.backend is None or self.pg is not None:
             return
         import torch.distributed as dist
 

@@ -5,25 +5,44 @@ installs an ambient (mesh, batch axes, sequence axis, expert axis) context
 around its jitted step, and the model calls :func:`act`,
 :func:`expert_flat` and :func:`expert_grouped` on its activations: each
 is a ``jax.lax.with_sharding_constraint`` that tells GSPMD how to lay the
-activation out over the mesh.  PyTorch has no GSPMD, and the port holds a
-client's whole model on one rank (a shard axis never crosses ranks), so
-those three hints are identities here, and the model does not call them.
-The layout (a dict of axis sizes, the port's mesh) still decides
-:func:`expert_mode`.
+activation out over the mesh.  PyTorch has no GSPMD, and the port never
+cuts an activation across ranks, so those three hints are identities
+here, and the model does not call them.  The layout (a dict of axis
+sizes, the port's mesh) still decides :func:`expert_mode`.
 
-One hint is not about layout: :func:`lean_moe` (the launch option
-``"lean_moe"``) makes the MoE layer combine in the activations' dtype
-and cap its capacity factor at 1.0 (``repro_torch.models.moe``), which
-changes the numbers.  Without a context every hint is a no-op and
-:func:`lean_moe` is False.
+These hints have readers:
+
+  * :func:`lean_moe` (the launch option ``"lean_moe"``) makes the MoE
+    layer combine in the activations' dtype and cap its capacity factor
+    at 1.0 (``repro_torch.models.moe``), which changes the numbers;
+  * :func:`params` is where the model takes its parameters: the
+    embedding and the head, each superblock's slice of the scanned stack,
+    each remainder block, the encoder and the final norms.  Inside a
+    rank-sharded step (one rank a device, ``repro_torch.launch.shards``)
+    it gathers the leaves from their blocks on the client's ranks, and
+    :func:`remat` says whether to recompute a gathered block in the
+    backward (``cfg.remat``, the reference's ``jax.checkpoint``);
+  * :func:`data_mean` is the mean of a per-batch statistic over the
+    client's "data" ranks in such a step (the MoE aux term's row means),
+    as GSPMD computes it over the whole pod batch, and
+    :func:`data_ranks` and :func:`data_before` let flat MoE dispatch size
+    its capacity and number its slots over the pod's batch;
+  * :func:`drawn` cuts parameters to this rank's blocks as the model's
+    init draws them, inside :func:`cut_params` (a rank-sharded
+    ``init_state``), so no rank holds the whole model.
+
+Without a context every hint is the identity (or a no-op), :func:`remat`
+and :func:`lean_moe` are False and :func:`data_ranks` is 1.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Any, Optional
 
+from repro_torch.core.tree import tree_map
+
 _CTX: dict[str, Any] = {"mesh": None, "batch": None, "seq": None, "expert": None,
-                        "seq_every": 1, "lean_moe": False}
+                        "seq_every": 1, "lean_moe": False, "shards": None, "cut": None}
 
 
 def lean_moe() -> bool:
@@ -49,6 +68,88 @@ def activation_sharding(mesh, *, batch_axes=None, seq_axis: Optional[str] = "mod
         yield
     finally:
         _CTX.update(old)
+
+
+@contextlib.contextmanager
+def sharded_params(shards):
+    """Install a rank-sharded step's
+    :class:`~repro_torch.launch.shards.RankShards` for :func:`params`,
+    :func:`remat` and :func:`data_mean`, around its forward and
+    backward."""
+    old = _CTX["shards"]
+    _CTX["shards"] = shards
+    try:
+        yield
+    finally:
+        _CTX["shards"] = old
+
+
+def params(tree, index: Optional[int] = None):
+    """The parameters ``tree`` at their point of use: with ``index``, each
+    leaf's ``index``-th slice of its leading (scanned superblock) dim.
+    Inside a rank-sharded step, the whole leaves gathered from their
+    blocks on the client's ranks; their gradients come back as this
+    rank's blocks of the pod's mean."""
+    shards = _CTX["shards"]
+    if shards is not None:
+        return shards.gather(tree, index)
+    if index is None:
+        return tree
+    return tree_map(lambda v: v[index], tree)
+
+
+def remat() -> bool:
+    """True inside a rank-sharded step whose config sets ``remat``: a
+    gathered block is recomputed in the backward, so a rank holds one
+    block's gathered weights at a time."""
+    shards = _CTX["shards"]
+    return shards is not None and shards.remat
+
+
+def data_mean(t):
+    """``t``, a statistic of this rank's rows, averaged over the client's
+    "data" ranks inside a rank-sharded step (differentiable); the identity
+    elsewhere."""
+    shards = _CTX["shards"]
+    return t if shards is None else shards.data_mean(t)
+
+
+def data_ranks() -> int:
+    """The client's "data" ranks inside a rank-sharded step (the pod's
+    batch is this rank's rows that many times); 1 elsewhere."""
+    shards = _CTX["shards"]
+    return 1 if shards is None else shards.ranks.data.world
+
+
+def data_before(counts):
+    """``counts`` (a count a class on this rank's rows) summed over the
+    client's "data" ranks before this one, whose rows come first in the
+    pod's batch, inside a rank-sharded step (a collective of those ranks);
+    zeros elsewhere."""
+    shards = _CTX["shards"]
+    return counts.new_zeros(counts.shape) if shards is None else shards.data_before(counts)
+
+
+@contextlib.contextmanager
+def cut_params(cut):
+    """Install ``cut(tree, path, scanned)``, which keeps this rank's blocks
+    of the leaves of ``tree`` at ``path``, for :func:`drawn`, around a
+    model's init."""
+    old = _CTX["cut"]
+    _CTX["cut"] = cut
+    try:
+        yield
+    finally:
+        _CTX["cut"] = old
+
+
+def drawn(tree, path: str, scanned: bool = False):
+    """Parameters just drawn, ``path`` their "a/b" place in the params'
+    tree (``scanned``: one superblock of the scanned stack, without its
+    leading dim): inside :func:`cut_params`, this rank's blocks of them, so
+    the whole leaves are freed as they are drawn; the identity elsewhere."""
+    cut = _CTX["cut"]
+    return tree if cut is None else cut(tree, path, scanned)
 
 
 def _fits(mesh: dict, axes, dim) -> bool:

@@ -28,7 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import path_str
 from repro_torch.core.tree import tree_flatten_with_path
-from repro_torch.models import cnn, lstm, transformer
+from repro_torch.models import cnn, hints, lstm, transformer
 from repro_torch.models.losses import chunked_softmax_xent, softmax_xent
 
 
@@ -179,7 +179,7 @@ def _build_cnn(cfg: ModelConfig) -> Model:
 
     def loss_fn(params: dict, batch: dict) -> torch.Tensor:
         apply = cnn.lenet5_apply if is_lenet else cnn.resnet32_apply
-        return softmax_xent(apply(params, batch["images"], cfg), batch["labels"])
+        return softmax_xent(apply(hints.params(params), batch["images"], cfg), batch["labels"])
 
     return Model(cfg, init, loss_fn, param_specs=_replicated)
 
@@ -189,7 +189,7 @@ def _build_lstm(cfg: ModelConfig) -> Model:
         return lstm.init_lstm_lm(gen, cfg)
 
     def loss_fn(params: dict, batch: dict) -> torch.Tensor:
-        logits = lstm.lstm_lm_apply(params, batch["tokens"], cfg)
+        logits = lstm.lstm_lm_apply(hints.params(params), batch["tokens"], cfg)
         return softmax_xent(logits, batch["labels"])
 
     return Model(cfg, init, loss_fn, param_specs=_replicated)

@@ -13,7 +13,12 @@ router and capacity-based gather dispatch.
 ``"grouped"`` routes, ranks, gathers and combines per batch row (``C``
 from the row's S); ``"flat"`` and ``"flat_ep"`` route all ``T = B·S``
 tokens at once (``C`` from T).  Decode passes ``full_capacity=True``:
-``C = S`` (or T), nothing dropped.
+``C = S`` (or T), nothing dropped.  In a rank-sharded step a rank holds
+its "data" share of the pod's rows, and flat dispatch routes the pod's
+whole batch as the reference does: ``C`` from the pod's T, and each
+expert's positions on this rank start after the pairs the lower "data"
+ranks send it (:func:`repro_torch.models.hints.data_before`), so a rank
+keeps and drops the pairs the pod's buffer would.
 
 The combine runs in f32 at the config's (or the caller's) capacity
 factor, unless :func:`repro_torch.models.hints.lean_moe` is on (the GSPMD
@@ -35,6 +40,7 @@ aside).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -90,11 +96,13 @@ def _positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
 
 
 def _dispatch(experts: torch.Tensor, gates: torch.Tensor, E: int, C: int, n_tok: int,
-              acc_dtype=torch.float32):
+              acc_dtype=torch.float32, before: Optional[torch.Tensor] = None):
     """Per group (leading axis G) of ``n_tok`` tokens with k choices each:
     ``(buf (G, E·C) token ids, n_tok for an empty slot; gate_buf (G, E·C)
     in acc_dtype)``.  A pair's address is ``expert·C + position``; a dropped pair's
-    is ``E·C``, the slot past the end, which is cut."""
+    is ``E·C``, the slot past the end, which is cut.  ``before`` (E,): the
+    pairs each expert took ahead of this group's (on lower "data" ranks), so
+    a pair is kept while ``before + position < C``."""
     G = experts.shape[0]
     k = experts.shape[-1]
     dev = experts.device
@@ -102,7 +110,7 @@ def _dispatch(experts: torch.Tensor, gates: torch.Tensor, E: int, C: int, n_tok:
     flat_g = gates.reshape(G, -1)
     flat_tok = torch.arange(n_tok, device=dev).repeat_interleave(k).expand(G, -1)
     pos = _positions(flat_e, E)
-    keep = pos < C
+    keep = pos < C if before is None else pos + before[flat_e] < C
     addr = torch.where(keep, flat_e * C + pos, torch.full_like(pos, E * C))
     buf = torch.full((G, E * C + 1), n_tok, dtype=torch.int64, device=dev)
     buf.scatter_(1, addr, flat_tok)
@@ -180,7 +188,8 @@ def _moe_grouped(params, x, cfg, capacity_factor, full_capacity):
     # the aux terms (Switch/Mixtral form): per row, then averaged over rows
     me = probs.mean(dim=1)
     ce = F.one_hot(experts[..., 0], E).to(torch.float32).mean(dim=1)
-    aux = E * torch.sum(me.mean(dim=0) * ce.mean(dim=0))
+    # over the pod's rows: a rank-sharded step averages over its "data" ranks
+    aux = E * torch.sum(hints.data_mean(me.mean(dim=0)) * hints.data_mean(ce.mean(dim=0)))
     expert_out = _experts(params, gathered, "b").reshape(B, E * C, d)
     out = _combine(expert_out, buf, gate_buf, S)
     return out.to(x.dtype), aux
@@ -191,12 +200,16 @@ def _moe_flat(params, x, cfg, capacity_factor, full_capacity):
     E, k = cfg.moe_experts, cfg.moe_top_k
     T = B * S
     xt = x.reshape(1, T, d)
-    C = _capacity(T, k, E, capacity_factor or cfg.moe_capacity_factor, full_capacity)
+    n_data = hints.data_ranks()  # the pod's batch: this rank's rows n_data times
+    C = _capacity(T * n_data, k, E, capacity_factor or cfg.moe_capacity_factor, full_capacity)
     probs, gates, experts = _route(xt, params["router"], k)  # (1, T, ·)
-    me = probs[0].mean(dim=0)
-    ce = F.one_hot(experts[0, :, 0], E).to(torch.float32).mean(dim=0)
+    me = hints.data_mean(probs[0].mean(dim=0))
+    ce = hints.data_mean(F.one_hot(experts[0, :, 0], E).to(torch.float32).mean(dim=0))
     aux = E * torch.sum(me * ce)
-    buf, gate_buf = _dispatch(experts, gates, E, C, T, _acc_dtype(x))
+    before = None
+    if n_data > 1:  # the lower "data" ranks' tokens come first in the pod's order
+        before = hints.data_before(torch.bincount(experts.reshape(-1), minlength=E))
+    buf, gate_buf = _dispatch(experts, gates, E, C, T, _acc_dtype(x), before)
     gathered = _gather(xt, buf)[0].reshape(E, C, d)
     expert_out = _experts(params, gathered, "").reshape(1, E * C, d)
     out = _combine(expert_out, buf, gate_buf, T)

@@ -20,7 +20,9 @@ superblocks are stacked on a leading axis of every leaf under
 unstacked under ``stack/rem``.  SBC's segments, its k a leaf, the SBW1
 bytes and ``params_from_jax`` all depend on that layout.  The reference's
 ``lax.scan`` over superblocks is a loop over the leading index here; its
-``jax.checkpoint`` changes no number and is not ported.
+``jax.checkpoint`` changes no number, and runs (``torch.utils.checkpoint``)
+only in a rank-sharded step, where it keeps one superblock's gathered
+weights at a time (:func:`~repro_torch.models.hints.params`).
 
 Block kinds come from ``cfg.layer_kinds``: the attention kinds (an
 attention block and its MLP or MoE), ``mamba`` (a Mamba mixer, with an
@@ -46,13 +48,16 @@ the loss covers every position.  Decode steps carry no prefix.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import hints
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.layers import (embed_lookup, gen_device, init_embed, init_mlp,
@@ -215,22 +220,25 @@ def layer_desc(cfg, i: int) -> tuple[str, bool]:
     return cfg.layer_kinds[i], cfg.layer_moe[i]
 
 
-def init_stack(gen: torch.Generator, cfg, *, cross: bool = False) -> dict:
+def init_stack(gen: torch.Generator, cfg, *, cross: bool = False, at: str = "stack") -> dict:
     """Stacked superblock params (+ remainder):
     ``{'scan': {bj: stacked over superblocks}, 'rem': {bj: params}}``,
-    every attention block with ``cross`` attention where ``cross``.
+    every attention block with ``cross`` attention where ``cross``; ``at``
+    is the stack's path in the params' tree.
 
     Each superblock is drawn and copied into its slot of the preallocated
     stacked leaves before the next is drawn, so the peak is the model and
     one superblock, not two copies of the stack (one superblock, as
-    jamba's 8 layers, is only given its leading axis)."""
+    jamba's 8 layers, is only given its leading axis).  Each superblock and
+    remainder block passes :func:`hints.drawn` as it is drawn (a
+    rank-sharded init keeps its blocks of them alone)."""
     period, n_scan, rem = stack_pattern(cfg)
     out: dict = {}
     if n_scan:
         def superblock(sb: int) -> dict:
-            return {f"b{j}": init_block(gen, cfg, *layer_desc(cfg, sb * period + j),
-                                        cross=cross)
-                    for j in range(period)}
+            return hints.drawn({f"b{j}": init_block(gen, cfg, *layer_desc(cfg, sb * period + j),
+                                                    cross=cross)
+                                for j in range(period)}, f"{at}/scan", scanned=True)
 
         first = superblock(0)
         if n_scan == 1:
@@ -245,9 +253,9 @@ def init_stack(gen: torch.Generator, cfg, *, cross: bool = False) -> dict:
                 first = None
             out["scan"] = stacked
     if rem:
-        out["rem"] = {f"b{j}": init_block(gen, cfg, *layer_desc(cfg, n_scan * period + j),
-                                          cross=cross)
-                      for j in range(rem)}
+        out["rem"] = {f"b{j}": hints.drawn(
+            init_block(gen, cfg, *layer_desc(cfg, n_scan * period + j), cross=cross),
+            f"{at}/rem/b{j}") for j in range(rem)}
     return out
 
 
@@ -255,36 +263,55 @@ def _index(tree: PyTree, i: int) -> PyTree:
     return tree_map(lambda v: v[i], tree)
 
 
+def _run_blocks(params_of, descs, x, aux_total, cfg, positions, want_cache, q_chunk,
+                enc_out):
+    """The blocks ``descs`` (``(name, kind, use_moe)`` each) in order on
+    ``x``, their params ``params_of()``; returns (x, aux_total, caches),
+    each block's aux added to ``aux_total`` in order."""
+    p = params_of()
+    caches = {}
+    for name, kind, use_moe in descs:
+        x, a, caches[name] = _block_train(p[name], x, cfg, kind, use_moe, positions,
+                                          want_cache, q_chunk, enc_out)
+        aux_total = aux_total + a
+    return x, aux_total, caches
+
+
 def _apply_stack_train(stack, x, cfg, positions, want_cache=False, q_chunk=0, enc_out=None):
     """Run all layers (a decoder's ``cross`` blocks over ``enc_out``).
     Returns (x, aux_total, caches); ``aux_total`` sums every layer's aux
-    from an f32 zero in layer order, as the reference's scan carry does."""
+    from an f32 zero in layer order, as the reference's scan carry does.
+
+    Each superblock and each remainder block takes its params through
+    :func:`~repro_torch.models.hints.params`; where
+    :func:`~repro_torch.models.hints.remat` holds (a rank-sharded step),
+    each runs under ``torch.utils.checkpoint``, so its gathered weights
+    are dropped after its forward and gathered again in the backward."""
     period, n_scan, rem = stack_pattern(cfg)
     aux_total = _zero(x)
     caches: dict = {}
+    units = []
     if n_scan:
-        per_sb = []
-        for sb in range(n_scan):
-            sb_params = _index(stack["scan"], sb)
-            cs = {}
-            for j in range(period):
-                kind, use_moe = layer_desc(cfg, j)  # the pattern is period-invariant
-                x, a, cs[f"b{j}"] = _block_train(sb_params[f"b{j}"], x, cfg, kind, use_moe,
-                                                 positions, want_cache, q_chunk, enc_out)
-                aux_total = aux_total + a
-            per_sb.append(cs)
-        if want_cache:
-            caches["scan"] = _stack_trees(per_sb)
-    if rem:
-        rem_caches = {}
-        for j in range(rem):
-            kind, use_moe = layer_desc(cfg, n_scan * period + j)
-            x, a, rem_caches[f"b{j}"] = _block_train(stack["rem"][f"b{j}"], x, cfg, kind,
-                                                     use_moe, positions, want_cache, q_chunk,
-                                                     enc_out)
-            aux_total = aux_total + a
-        if want_cache:
-            caches["rem"] = rem_caches
+        descs = [(f"b{j}", *layer_desc(cfg, j)) for j in range(period)]  # period-invariant
+        units += [(lambda sb=sb: hints.params(stack["scan"], sb), descs) for sb in range(n_scan)]
+    for j in range(rem):
+        name = f"b{j}"
+        units.append((lambda name=name: hints.params({name: stack["rem"][name]}),
+                      [(name, *layer_desc(cfg, n_scan * period + j))]))
+    per_unit = []
+    for params_of, descs in units:
+        fn = functools.partial(_run_blocks, params_of, descs, cfg=cfg, positions=positions,
+                               want_cache=want_cache, q_chunk=q_chunk, enc_out=enc_out)
+        if hints.remat():
+            x, aux_total, cs = checkpoint(fn, x, aux_total, use_reentrant=False)
+        else:
+            x, aux_total, cs = fn(x, aux_total)
+        per_unit.append(cs)
+    if want_cache:
+        if n_scan:
+            caches["scan"] = _stack_trees(per_unit[:n_scan])
+        if rem:
+            caches["rem"] = {k: v for cs in per_unit[n_scan:] for k, v in cs.items()}
     return x, aux_total, caches
 
 
@@ -322,24 +349,26 @@ def init_decoder_lm(gen: torch.Generator, cfg) -> dict:
     encdec = cfg.family == "encdec"
     dev = gen_device(gen)
     p = {
-        "embed": init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.dtype),
+        "embed": hints.drawn(init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.dtype), "embed"),
         "stack": init_stack(gen, cfg, cross=encdec),
-        "final_norm": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev),
+        "final_norm": hints.drawn(init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev),
+                                  "final_norm"),
     }
     if not cfg.tie_embeddings:
-        p["head"] = init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.dtype)
+        p["head"] = hints.drawn(init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.dtype), "head")
     if encdec:
         # the reference's init-time encoder config leaves family,
         # bidirectional and local_window as they are; its tree is
         # _enc_cfg's (period 1, attention blocks with an MLP)
-        p["encoder"] = {"stack": init_stack(gen, _enc_cfg(cfg)),
-                        "final_norm": init_norm(cfg.d_model, cfg.norm, cfg.dtype, dev)}
+        p["encoder"] = {"stack": init_stack(gen, _enc_cfg(cfg), at="encoder/stack"),
+                        "final_norm": hints.drawn(init_norm(cfg.d_model, cfg.norm, cfg.dtype,
+                                                            dev), "encoder/final_norm")}
     return p
 
 
 def _embed_inputs(params, tokens, cfg, prefix=None):
     # √d is rounded to the embedding's dtype first, as JAX's weak type does
-    x = scale_by(embed_lookup(params["embed"], tokens), math.sqrt(cfg.d_model))
+    x = scale_by(embed_lookup(hints.params(params["embed"]), tokens), math.sqrt(cfg.d_model))
     x = x.to(cfg.dtype)
     if prefix is not None:
         # the modality stub: precomputed patch embeddings take the first
@@ -370,7 +399,7 @@ def _encode(params, enc_inp, cfg):
         x = _embed_inputs(params, enc_inp, cfg)
     positions = torch.arange(x.shape[-2], dtype=torch.int32, device=x.device)
     x, _, _ = _apply_stack_train(params["encoder"]["stack"], x, _enc_cfg(cfg), positions)
-    return norm_apply(params["encoder"]["final_norm"], x, cfg.norm)
+    return norm_apply(hints.params(params["encoder"]["final_norm"]), x, cfg.norm)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -393,12 +422,12 @@ def decoder_hidden(params, tokens, cfg, *, prefix=None, enc_tokens=None, enc_fra
     x = _embed_inputs(params, tokens, cfg, prefix)
     x, aux, _ = _apply_stack_train(params["stack"], x, cfg, _positions(tokens),
                                    enc_out=enc_out)
-    return norm_apply(params["final_norm"], x, cfg.norm), aux
+    return norm_apply(hints.params(params["final_norm"]), x, cfg.norm), aux
 
 
 def output_embedding(params, cfg) -> torch.Tensor:
     head = params["head"] if "head" in params else params["embed"]
-    return head["embedding"]
+    return hints.params(head)["embedding"]
 
 
 def decoder_prefill(params, tokens, cfg, *, q_chunk: int = 0, prefix=None, enc_tokens=None,
@@ -412,7 +441,7 @@ def decoder_prefill(params, tokens, cfg, *, q_chunk: int = 0, prefix=None, enc_t
     x = _embed_inputs(params, tokens, cfg, prefix)
     x, _, caches = _apply_stack_train(params["stack"], x, cfg, _positions(tokens),
                                       want_cache=True, q_chunk=q_chunk, enc_out=enc_out)
-    x = norm_apply(params["final_norm"], x, cfg.norm)
+    x = norm_apply(hints.params(params["final_norm"]), x, cfg.norm)
     return x, caches
 
 

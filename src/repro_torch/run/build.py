@@ -34,7 +34,8 @@ compressors, on three backends:
           configs (``granite_20b``, ``command_r_35b``, ``mixtral_8x7b``,
           ``llama4_maverick_400b_a17b``, ``jamba_v01_52b``) take one client
           a "pod" coordinate, and every leaf is compressed per shard of
-          its spec, all of a client's shards on its rank:
+          its spec, all of a client's shards on its rank, or one device's
+          shard a rank when the world is the layout's device count:
 
               build_run(RunSpec(preset="granite_20b", backend="gspmd"),
                         mesh_shape={"data": 16, "model": 16})
@@ -63,9 +64,9 @@ enabled :class:`~repro_torch.obs.Telemetry` to the run and its channel,
 and ``run()`` records what the reference's traced loop records (one
 ``round`` span a round, the ``train/*`` and ``leaf/*`` gauges, the
 ledger's ``wire/*``).
-A layout whose shard axis would cross ranks raises ``NotImplementedError``
-naming ROADMAP A12, part 3, item 7; none runs a different path in
-silence.  The run is on the CUDA card unless
+A world that is neither the layout's clients nor its devices raises
+``ValueError``; none runs a different path in silence.  The run is on
+the CUDA card unless
 ``device="cpu"`` is passed; without a card ``build_run`` raises
 ``RuntimeError``.
 """
@@ -287,14 +288,21 @@ class GspmdRun(Run):
         return self.fns.init_state(gen)
 
     def _batch(self, round_idx: int) -> dict:
-        """This client's batch (a leading client axis of 1)."""
-        return {k: v[None] for k, v in self.task.sample(round_idx, self.group.rank).items()}
+        """This rank's client's batch (a leading client axis of 1); with one
+        rank a device the step takes this rank's "data" share of its rows,
+        as the reference's ``batch_shardings`` puts ``P(lead, "data")``."""
+        return {k: v[None] for k, v in self.task.sample(round_idx, self.fns.client).items()}
 
     @property
     def ledger(self):
         """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`
         (rank 0's holds every client's uploads)."""
         return self.channel.ledger
+
+    def params_to_tree(self, state: dict) -> dict:
+        """The whole params of ``state``: gathered over the client's ranks
+        with one rank a device (a collective of those ranks)."""
+        return self.fns.params_to_tree(state["params"])
 
     def step(self, state: dict, round_idx: int) -> tuple:
         """One communication round; returns ``(state, metrics)``.  With
@@ -493,8 +501,9 @@ def build_run(spec: RunSpec, device=None, group=None, *,
     group_from_env`, on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over
     gloo with ``device="cpu"``), else one client on ``device``.
     ``mesh_shape`` is the gspmd layout (axis name → size; default
-    ``{"data": world, "model": 1}``), the reference's ``mesh=``; the
-    other backends take none.
+    ``{"data": world, "model": 1}``), the reference's ``mesh=``: the
+    world is its client count or its device count (one rank a device);
+    the other backends take none.
     ``spec.telemetry`` attaches one enabled
     :class:`~repro_torch.obs.Telemetry` to the run and its channel (the
     fed run's channel and server get it when :meth:`FedRun.init` builds

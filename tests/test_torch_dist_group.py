@@ -107,9 +107,10 @@ def test_pod_clients_and_model_axes_belong_to_a12():
     """``client_mode="pod"`` and a "model" axis larger than 1 (ROADMAP A12,
     part 3, item 6) run: pod mode at world 1 is one client with one shard
     on the default layout, as in the reference, and a space of two devices
-    a client compresses both in one pass.  A layout whose clients are not
-    the group's ranks raises ``ValueError``; one whose shard axis would
-    cross ranks raises ``NotImplementedError`` naming item 7."""
+    a client compresses both in one pass.  A world of the layout's clients
+    or of its devices (item 7: one rank a device) returns the client count,
+    here 1 client over 4 device ranks; any other world raises
+    ``ValueError``."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -132,8 +133,9 @@ def test_pod_clients_and_model_axes_belong_to_a12():
     assert np.isfinite(float(m["loss"]))
     with pytest.raises(ValueError, match="one client a rank"):
         check_clients({"data": 2, "model": 1}, ("data",), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, part 3, item 7"):
-        check_clients({"data": 2, "model": 2}, (), 4)
+    assert check_clients({"data": 2, "model": 2}, (), 4) == 1
+    with pytest.raises(ValueError, match="one device a rank"):
+        check_clients({"data": 2, "model": 2}, (), 2)
     space = ShardedFlatParamSpace.build(
         [dict(path="w", shape=(64,), rows=1, kind="sparse", rate=0.1, n_shards=2,
               global_size=128, grid=(2,), dev_block=(0, 1))],

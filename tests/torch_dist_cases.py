@@ -28,7 +28,13 @@ Cases (names are keys of the dicts below):
     granite-20b widened until its largest leaves pass the 1 MiB that
     sharding needs (``WIDE``), in pod mode (2 clients of 4 shards, FSDP) or
     in data mode (4 clients of 2 shards); the port runs 2 or 4 ranks with
-    ``mesh_shape=LAYOUT``.  ``make_inputs(..., sharded=mode)``.
+    ``mesh_shape=LAYOUT``.  ``make_inputs(..., sharded=mode)``.  With one
+    rank a device (:func:`run_devices`) the port runs 8 ranks, each
+    holding its device's block of every leaf, on the inputs of both modes
+    at once, and :func:`client_rows` puts each client's row back together
+    from its ranks, so the same checks read it:
+
+    python tests/torch_dist_cases.py devices RANK STORE OUT IN_POD IN_DATA
 """
 from __future__ import annotations
 
@@ -88,6 +94,17 @@ SHARDED_CLIENTS = {"pod": 2, "data": 4}
 
 def sharded_cases(mode: str) -> list:
     return [name for name, case in SHARDED.items() if case["mode"] == mode]
+
+
+# the cases of run_devices (one rank a device): every pod-mode case and
+# data mode's exact engine with the device pack, in the reference's
+# processes (its compiles for 8 devices are the costliest part of the run)
+DEVICE_PARTS = {"pod": (("pod-exact", "pod-exact-pack", "pod-leaf"),
+                        ("pod-hist", "pod-leaf-bf16")),
+                "data": (("data-exact-pack",),)}
+DEVICE_CASES = {mode: sum(parts, ()) for mode, parts in DEVICE_PARTS.items()}
+
+
 
 
 def wide_granite(case: dict) -> dict:
@@ -235,7 +252,7 @@ def _f32(a) -> np.ndarray:
 # ----------------------------------------------------------- the reference
 
 
-def reference_main(n: int, inp: str, out: str, devices: int) -> None:
+def reference_main(n: int, inp: str, out: str, devices: int, only: str = "") -> None:
     os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import dataclasses
@@ -334,7 +351,8 @@ def reference_main(n: int, inp: str, out: str, devices: int) -> None:
                           bits_per_client=fns.bits_per_client)
 
     if meta["sharded"]:
-        reference_sharded(meta["sharded"], x, res_out, info)
+        reference_sharded(meta["sharded"], x, res_out, info,
+                          names=only.split(",") if only else None)
 
     if meta["group"]:
         for w in range(2, n + 1):
@@ -364,9 +382,10 @@ def reference_main(n: int, inp: str, out: str, devices: int) -> None:
     Path(out + ".json").write_text(json.dumps(info))
 
 
-def reference_sharded(mode: str, x: dict, res_out: dict, info: dict) -> None:
+def reference_sharded(mode: str, x: dict, res_out: dict, info: dict, names=None) -> None:
     """The reference's ``round_exchange`` per shard on ``LAYOUT`` (8 forced
-    host devices), two rounds, each metered as ``GspmdRun.step`` does."""
+    host devices), two rounds, each metered as ``GspmdRun.step`` does; the
+    mode's cases, or ``names``."""
     import dataclasses
 
     import jax
@@ -380,7 +399,7 @@ def reference_sharded(mode: str, x: dict, res_out: dict, info: dict) -> None:
     from repro.models.model import build_model, make_param_specs
 
     mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(tuple(LAYOUT.values())), tuple(LAYOUT))
-    for name in sharded_cases(mode):
+    for name in names or sharded_cases(mode):
         case = SHARDED[name]
         kw = wide_granite(case)
         kw.update(dtype=getattr(jnp, kw["dtype"]),
@@ -622,6 +641,97 @@ def port_sharded(mode: str, group, rank: int, x: dict, res_out: dict, info: dict
                           n_shards=[gl.n_shards for gl in ch.leaves])
 
 
+def port_devices_main(rank: int, store: str, out: str, inputs: list) -> None:
+    """One rank a device of ``LAYOUT`` (8 gloo ranks): each mode's cases of
+    ``SHARDED`` through ``round_exchange`` on this rank's device block of
+    its client's row of the inputs (``inputs``: the pod mode's npz, then the
+    data mode's), metered on rank 0 as ``GspmdRun.step`` meters; every
+    output this device's block (a leading axis of 1, and of 1 device on
+    the flat path)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.launch.dist import build_dist_train
+    from repro_torch.launch.mesh import ClientGroup
+    from repro_torch.launch.shards import block_slices
+
+    torch.set_num_threads(1)
+    world = int(np.prod(list(LAYOUT.values())))
+    group = ClientGroup.connect(rank=rank, world=world, device="cpu", backend="gloo",
+                                init_method=f"file://{store}")
+    res_out, info = {}, {}
+    try:
+        for mode, inp in zip(("pod", "data"), inputs):
+            _, x = _load(inp)
+            for name in DEVICE_CASES[mode]:
+                case = SHARDED[name]
+                kw = wide_granite(case)
+                kw.update(dtype=getattr(torch, kw["dtype"]),
+                          residual_dtype=getattr(torch, kw["residual_dtype"]))
+                cfg = dataclasses.replace(reduced(get_config("granite_20b")), **kw)
+                fns = build_dist_train(cfg, group=group, sparsity=P, fast=case["fast"],
+                                       flat_engine=case.get("flat_engine", "exact"),
+                                       measure=True, device_pack=case.get("device_pack", False),
+                                       mesh_shape=LAYOUT)
+                ch, ranks = fns.channel, fns.ranks
+                blocks = {lb.path: lb for lb in fns.blocks}
+
+                def tree_of(prefix):  # this device's block of its client's row, a leaf each
+                    out = {}
+                    for key, a in x.items():
+                        if key.startswith(prefix + "/"):
+                            lb, row = blocks[key[len(prefix) + 1:]], np.array(a[ranks.client])
+                            idx = block_slices(row.shape, lb.grid, lb.dev_block[ranks.device])
+                            out[key] = torch.from_numpy(np.ascontiguousarray(row[idx])[None]
+                                                        ).to(cfg.residual_dtype)
+                    return _tree(out, prefix)
+
+                res = tree_of("s/res")
+                if ch.flat_space is not None:
+                    res = ch.flat_space.flatten_local(
+                        [v[0] for v in tree_flatten(res)[0]])[None, None]
+                for r in range(EXCHANGE_ROUNDS):
+                    out_r = ch.round_exchange(res, tree_of(f"s/delta/{r}"), need_own=True)
+                    mean, res, own = out_r[:3]
+                    for what, tree in (("mean", mean), ("own", own)):
+                        for path, v in zip(_paths(tree), tree_flatten(tree)[0]):
+                            res_out[f"{name}/{r}/{what}/{path}"] = v.to(torch.float32).numpy()
+                    if ch.flat_space is not None:
+                        res_out[f"{name}/{r}/res"] = res.numpy()
+                    else:
+                        for path, v in zip(_paths(res), tree_flatten(res)[0]):
+                            res_out[f"{name}/{r}/res/{path}"] = v.to(torch.float32).numpy()
+                    packed_nbits = None
+                    if case.get("device_pack"):
+                        words, nbits = out_r[3]
+                        res_out[f"{name}/{r}/words"] = words.view(torch.int32).numpy().view(
+                            np.uint32)
+                        res_out[f"{name}/{r}/nbits"] = nbits.numpy()
+                        every = group.all_gather_rows(nbits[0, 0])
+                        packed_nbits = every[list(ranks.world_order)].reshape(
+                            ch.n_clients, ranks.devices, -1)
+                    own0 = tree_map(lambda o: o[0], own)
+                    if ranks.client == 0:  # client 0's blocks, whole, from its ranks
+                        own0 = fns.params_to_tree(own0)
+                    if rank == 0:
+                        ch.record_round(r, own_client0=own0, packed_nbits=packed_nbits)
+                info[name] = dict(ledger=ch.ledger.history(),
+                                  bits_per_client=fns.bits_per_client,
+                                  bits_dense=fns.bits_dense,
+                                  n_shards=[gl.n_shards for gl in ch.leaves],
+                                  client=ranks.client, device=ranks.device,
+                                  exchange_world=ch.group.world,
+                                  blocks={p: [list(lb.grid), list(lb.dev_block)]
+                                          for p, lb in blocks.items()})
+    finally:
+        group.close()
+    np.savez(f"{out}.rank{rank}.npz", **res_out)
+    Path(f"{out}.rank{rank}.json").write_text(json.dumps(info))
+
+
 # --------------------------------------------------- running both sides
 
 
@@ -633,11 +743,12 @@ def _env() -> dict:
 
 
 def start_reference(tmp: Path, inp: Path, n: int, tag: str = "ref",
-                    devices: int = 0) -> subprocess.Popen:
+                    devices: int = 0, only: tuple = ()) -> subprocess.Popen:
     """The reference's process on ``devices`` (default ``n``) forced host
-    devices."""
+    devices (``only``: these sharded cases of the input's mode)."""
     return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "reference",
-                             str(n), str(inp), str(tmp / tag), str(devices or n)], env=_env(),
+                             str(n), str(inp), str(tmp / tag), str(devices or n)]
+                            + ([",".join(only)] if only else []), env=_env(),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -674,6 +785,68 @@ def finish(procs: list, timeout: float) -> None:
                 p.kill()
             p.wait()
             p.stdout.close()
+
+
+def run_devices(tmp: Path, timeout: float = 300.0) -> tuple:
+    """Both modes' ``SHARDED`` inputs, their two reference processes (8
+    forced host devices each) and the port's 8 ranks of one device each,
+    all at once within ``timeout`` seconds.  Returns ``({mode: (ref
+    arrays, ref info)}, [per-rank arrays], [per-rank info])``."""
+    inputs = []
+    for mode in ("pod", "data"):
+        inp = tmp / f"inputs-{mode}.npz"
+        make_inputs(inp, SHARDED_CLIENTS[mode], sharded=mode)
+        inputs.append(inp)
+    world = int(np.prod(list(LAYOUT.values())))
+    procs = [start_reference(tmp, inp, SHARDED_CLIENTS[mode], tag=f"ref-{mode}-{i}",
+                             devices=world, only=part)
+             for mode, inp in zip(("pod", "data"), inputs)
+             for i, part in enumerate(DEVICE_PARTS[mode])]
+    procs += [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "devices",
+                                str(r), str(tmp / "devices.store"), str(tmp / "devices")]
+                               + [str(i) for i in inputs], env=_env(), stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    finish(procs, timeout)
+    refs = {}
+    for mode in ("pod", "data"):
+        parts = [load_outputs(tmp, f"ref-{mode}-{i}") for i in range(len(DEVICE_PARTS[mode]))]
+        refs[mode] = ({k: v for arrays, _ in parts for k, v in arrays.items()},
+                      {k: v for _, info in parts for k, v in info.items()})
+    return (refs,) + load_outputs(tmp, "devices", world)
+
+
+def client_rows(name: str, n: int, ports: list, infos: list) -> list:
+    """Each client's outputs of case ``name`` in the layout of one rank a
+    client, from its ranks of one device each: a leaf put together from
+    its blocks (every device holding a block holds it bit for bit), a flat
+    buffer, words and ``nbits`` stacked in device order."""
+    from repro_torch.launch.shards import block_slices
+
+    out = []
+    for c in range(n):
+        ranks = sorted((r for r in range(len(ports)) if infos[r][name]["client"] == c),
+                       key=lambda r: infos[r][name]["device"])
+        assert [infos[r][name]["device"] for r in ranks] == list(range(len(ranks))), c
+        row = {}
+        for key in (k for k in ports[ranks[0]] if k.startswith(name + "/")):
+            parts = [ports[r][key] for r in ranks]
+            if key.endswith(("/res", "/words", "/nbits")):
+                row[key] = np.concatenate(parts, axis=1)
+                continue
+            grid, dev_block = infos[ranks[0]][name]["blocks"][key.split("/", 3)[3]]
+            local = parts[0].shape[1:]
+            grid = tuple(grid) + (1,) * (len(local) - len(grid))
+            full = np.empty((1,) + tuple(g * d for g, d in zip(grid, local)), parts[0].dtype)
+            for d, b in enumerate(dev_block):
+                idx = (slice(None),) + block_slices(full.shape[1:], grid, b)
+                if d == dev_block.index(b):
+                    full[idx] = parts[d]
+                else:
+                    np.testing.assert_array_equal(bits(parts[d]), bits(full[idx]),
+                                                  err_msg=f"{key} block {b} on device {d}")
+            row[key] = full
+        out.append(row)
+    return out
 
 
 def load_outputs(tmp: Path, tag: str, ranks=None) -> tuple:
@@ -763,6 +936,9 @@ def check_same_on_every_rank(prefix: str, n: int, ports: list) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1] == "reference":
-        reference_main(int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5]))
+        reference_main(int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5]),
+                       *sys.argv[6:7])
+    elif sys.argv[1] == "devices":
+        port_devices_main(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5:])
     else:
         port_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
