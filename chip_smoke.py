@@ -7,6 +7,7 @@
     python3 chip_smoke.py --zoo           # phases 1, 13 and 14 only
     python3 chip_smoke.py --pod           # phases 1 and 15 only
     python3 chip_smoke.py --fsdp          # phases 1 and 16 only
+    python3 chip_smoke.py --dist-serve    # phases 1 and 17 only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
@@ -337,7 +338,29 @@ Without arguments, phases, each of which fails the run:
      over the ranks of one device coordinate, hist and exact with the
      device pack through phase 8b's checks.  ``python3 chip_smoke.py
      --fsdp`` runs phases 1 and 16 alone;
-  17. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  17. serving across ranks (``DIST_SERVE``): granite-20b (2 of 52 layers)
+     and rwkv6-1.6b (4 of 24) at full width in bf16, drawn on the card
+     from a generator seeded 0, first through the one-rank
+     ``ServeEngine`` on the whole params (a prefill of 4 prompts of 2,048
+     tokens, then 8 greedy tokens), then as 4 ranks over gloo on the card,
+     one device each of ``FSDP_LAYOUT`` = (data 2, model 2), through
+     ``make_dist_prefill`` and ``make_dist_serve`` (each rank holds its
+     device's blocks of the params and of the caches: granite's MQA cache
+     cut over its sequence, rwkv6's ``s`` over heads and its token shifts
+     over channels; 2 prompts a "data" rank), fed the one-rank run's
+     greedy tokens: over the steps the logits within
+     ``2 * 2^-8 * max|logits|`` of the one-rank run's, each rank's cache
+     blocks within the same bound of the one-rank caches' blocks, or
+     within the control where that is larger, ``pos`` equal.  The
+     one-rank run is held against the ranks on each "data" coordinate's 2
+     prompts alone (the GEMM shapes of that coordinate's ranks), and runs
+     the 4 prompts again, timed, fed the same tokens: the control, how far
+     one rank's own numbers move with the batch's shape alone (rwkv6's
+     bf16 token shifts move past the bound); the greedy tokens that
+     agree (a count, no gate), prefill ms, decode ms a token and peak
+     memory a rank beside the one-rank run's, and no hand kernel launched.  ``python3 chip_smoke.py --dist-serve``
+     runs phases 1 and 17 alone;
+  18. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -359,7 +382,8 @@ Without arguments, phases, each of which fails the run:
      ``launches_encdec``, the rows phase 15 launches its counts in
      ``launches_pod`` and the hist kernels their 256-shard byte bounds in
      ``bound_ms_pod_256_shards``, the rows phase 16 launches its counts
-     in ``launches_fsdp``), then the card line,
+     in ``launches_fsdp``, and every row phase 17's, all zero, in
+     ``launches_dist_serve``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -624,6 +648,15 @@ FSDP_REF = ROOT / "build" / "fsdp_round1"
 FSDP_TIMEOUT_S = 600
 # the predicted peak of one rank (written before the first run), GiB
 FSDP_PREDICTED_GIB = (8.0, 16.0)
+# phase 17, serving across ranks: (config, layers) at full width in bf16,
+# served on FSDP_LAYOUT by DIST_SERVE_RANKS ranks of one device each
+DIST_SERVE = (("granite_20b", 2), ("rwkv6_1p6b", 4))
+DIST_SERVE_RANKS = 4
+DIST_SERVE_BATCH, DIST_SERVE_PROMPT, DIST_SERVE_NEW = 4, 2048, 8
+DIST_SERVE_TOL = 2 * 2 ** -8  # of the largest |value|: tests/test_torch_decoder.py's bf16 bound
+# the one-rank run's prompts, greedy tokens, logits and caches, for the ranks
+DIST_SERVE_REF = ROOT / "build" / "dist_serve_one_rank"
+DIST_SERVE_TIMEOUT_S = 420
 # the leaves the reference keeps in f32 inside a bf16 model
 F32_LEAVES = ("router", "A_log", "D", "mix", "mix_w", "w0", "bonus", "ln_x", "cmix_k", "cmix_r")
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
@@ -4362,6 +4395,274 @@ def fsdp_phase(dev) -> dict:
     return out
 
 
+def dist_serve_one_rank(dev, name: str, layers: int) -> dict:
+    """Phase 17's one-rank run of ``name`` at ``layers`` layers through
+    ``ServeEngine`` on the whole params: on each "data" coordinate's
+    prompts alone (the prefill, then ``DIST_SERVE_NEW`` greedy steps),
+    then on the whole batch of ``DIST_SERVE_BATCH`` prompts fed the same
+    tokens, timed; every step's logits and caches go to
+    ``DIST_SERVE_REF / name`` for the ranks.  A rank of a coordinate runs
+    its GEMMs at that share's shapes, and the card's bf16 GEMMs round
+    otherwise at other shapes, so the ranks are held to the one-rank run
+    of their own prompts, and the whole batch's run against it is the
+    control.  Returns the timed run's times, peak and launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+
+    B, S, new = DIST_SERVE_BATCH, DIST_SERVE_PROMPT, DIST_SERVE_NEW
+    rows = B // FSDP_LAYOUT["data"]
+    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    engine = ServeEngine(build_model(cfg))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = engine.model.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    out = DIST_SERVE_REF / name
+    out.mkdir(parents=True, exist_ok=True)
+    kernels.reset_launches()
+    with torch.no_grad():
+        feed = []
+        for d in range(FSDP_LAYOUT["data"]):  # each "data" coordinate's prompts alone
+            logits, caches = engine.prefill(params, {"tokens": tokens[d * rows:(d + 1) * rows]})
+            torch.save({"caches": caches}, out / f"share{d}_prefill.pt")
+            fed = []
+            for i in range(new):
+                fed.append(torch.argmax(logits[:, -1], dim=-1))
+                logits, caches = engine.serve_step(params, fed[-1][:, None], caches, S + i)
+                torch.save({"logits": logits, "caches": caches}, out / f"share{d}_step{i}.pt")
+            feed.append(torch.stack(fed))
+        feed = torch.cat(feed, dim=1)
+        del caches
+        # the whole batch, timed, fed the same tokens: also the control, how far
+        # one rank's own numbers move with the GEMM shapes alone
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, caches = engine.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"caches": caches}, out / "whole_prefill.pt")
+        step_ms = []
+        for i in range(new):
+            t0 = time.perf_counter()
+            logits, caches = engine.serve_step(params, feed[i][:, None], caches, S + i)
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.save({"logits": logits, "caches": caches}, out / f"whole_step{i}.pt")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.save({"tokens": tokens, "feed": feed}, out / "inputs.pt")
+    launches = kernels.launch_counts()
+    check(not any(launches.values()), f"one-rank serve {name}: hand kernels {launches}")
+    return dict(prefill_ms=prefill_ms, step_ms=step_ms, peak_gib=peak, launches=launches,
+                params=sum(v.numel() for v in tree_flatten(params)[0]))
+
+
+def _ms(values) -> str:
+    return ", ".join(f"{x:.3f}" for x in values)
+
+
+def _block_err(got, want) -> float:
+    """``max|got - want|`` over ``max|want|`` (a 0 denominator counts as 1)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / (float(want.abs().max()) or 1.0)
+
+
+def serve_rank_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One rank, one device of ``FSDP_LAYOUT``, of phase 17
+    (``--serve-rank-worker``): each of ``DIST_SERVE`` through
+    ``make_dist_prefill`` and ``make_dist_serve``, its blocks of the params
+    drawn as the one-rank run's (seed 0) and cut as they are drawn, fed the
+    one-rank runs' greedy tokens; over the steps its logits and cache
+    blocks against the one-rank run of its "data" coordinate's prompts
+    within ``DIST_SERVE_TOL`` of the largest, or within the control (the
+    one-rank run of the whole batch against that of the prompts) where
+    that is larger, ``pos`` equal; writes its times, peak, errors and
+    launches as JSON to ``out``."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.policy import path_str
+    from repro_torch.core.tree import tree_flatten, tree_flatten_with_path
+    from repro_torch.device import full_f32_math
+    from repro_torch.launch.dist import make_dist_prefill, make_dist_serve
+    from repro_torch.launch.mesh import ClientGroup
+    from repro_torch.launch.shards import cut_tree
+    from repro_torch.models.model import build_model
+
+    dev = torch.device("cuda", 0)
+    full_f32_math()
+    group = ClientGroup.connect(rank=rank, world=world, device=dev, backend="gloo",
+                                init_method=f"file://{store}")
+    torch.cuda.synchronize(dev)
+    if rank == 0:
+        print(f"dist serve: rank {rank} of {world} (one device of {FSDP_LAYOUT}) on "
+              f"{torch.cuda.get_device_name(dev)}, transport {group.backend}: NCCL refuses "
+              f"several ranks on one card, and NCCL across cards is still ROADMAP C3")
+    results: dict = {}
+    B, S, new = DIST_SERVE_BATCH, DIST_SERVE_PROMPT, DIST_SERVE_NEW
+    try:
+        for name, layers in DIST_SERVE:
+            label = f"dist serve {name} rank {rank}"
+            cfg = dataclasses.replace(get_config(name), n_layers=layers)
+            model = build_model(cfg)
+            pf = make_dist_prefill(cfg, group=group, mesh_shape=FSDP_LAYOUT, model=model)
+            sv = make_dist_serve(cfg, group=group, batch=B, seq_len=S, mesh_shape=FSDP_LAYOUT,
+                                 model=model)
+            torch.cuda.reset_peak_memory_stats(dev)
+            params = sv.init_params(torch.Generator(device=dev).manual_seed(0))
+            mine = sum(v.numel() for v in tree_flatten(params)[0])
+            ref = DIST_SERVE_REF / name
+            inputs = torch.load(ref / "inputs.pt", map_location=dev)
+            errs: dict = {"logits": 0.0}  # the largest error of the logits and of each leaf
+            agree, step_ms = 0, []
+
+            # the one-rank run of this rank's "data" coordinate: its rows are all there
+            share = sv.ranks.coords["data"]
+            share_sizes = dict(FSDP_LAYOUT, data=1)
+            share_at = dict(sv.ranks.coords, data=0)
+
+            def one_rank(i: int, key: str):
+                return torch.load(ref / f"share{i}_{key}.pt", map_location=dev)
+
+            control: dict = {"logits": 0.0}  # the whole batch's one-rank run against the share's
+
+            def held(caches, want_tree, what: str, whole_tree) -> None:
+                want = cut_tree(want_tree, sv.cache_specs, share_sizes, share_at)
+                for (p, w), c in zip(tree_flatten_with_path(want)[0],
+                                     tree_flatten(sv.caches_from_tree(whole_tree))[0]):
+                    if not path_str(p).endswith("pos"):
+                        kind = f"{what.split()[0]} {path_str(p)}"
+                        control[kind] = max(control.get(kind, 0.0), _block_err(c, w))
+                for (p, got), w in zip(tree_flatten_with_path(caches)[0],
+                                       tree_flatten(want)[0]):
+                    key = path_str(p)
+                    check(tuple(got.shape) == tuple(w.shape),
+                          f"{label} {what} {key}: block {tuple(got.shape)}, not {tuple(w.shape)}")
+                    if key.endswith("pos"):
+                        check(torch.equal(got, w), f"{label} {what} {key}: pos differs")
+                        continue
+                    kind = f"{what.split()[0]} {key}"
+                    errs[kind] = max(errs.get(kind, 0.0), _block_err(got, w))
+
+            kernels.reset_launches()
+            with torch.no_grad():
+                pf.prefill(params, {"tokens": inputs["tokens"][:, :128]})  # warm-up
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                _, caches = pf.prefill(params, {"tokens": inputs["tokens"]})
+                torch.cuda.synchronize(dev)
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                held(caches, one_rank(share, "prefill")["caches"], "prefill",
+                     torch.load(ref / "whole_prefill.pt", map_location=dev)["caches"])
+                for i in range(new):
+                    t0 = time.perf_counter()
+                    logits, caches = sv.serve_step(params, inputs["feed"][i][:, None], caches,
+                                                   S + i)
+                    torch.cuda.synchronize(dev)
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    want = one_rank(share, f"step{i}")
+                    want["logits"] = torch.cat([one_rank(d, f"step{i}")["logits"]
+                                                for d in range(FSDP_LAYOUT["data"])])
+                    whole = torch.load(ref / f"whole_step{i}.pt", map_location=dev)
+                    control["logits"] = max(control["logits"],
+                                            _block_err(whole["logits"], want["logits"]))
+                    err = _block_err(logits, want["logits"])
+                    errs["logits"] = max(errs["logits"], err)
+                    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+                          and bool(torch.isfinite(logits).all()),
+                          f"{label} step {i}: logits {tuple(logits.shape)}, not all finite")
+                    held(caches, want["caches"], f"step {i}", whole["caches"])
+                    agree += int((torch.argmax(logits[:, -1], -1)
+                                  == torch.argmax(want["logits"][:, -1], -1)).sum())
+                    del want
+            # each within the bf16 bound, or within the control where one rank's
+            # own numbers move further than that with the batch's shape alone
+            over = [f"{k} {v:.3e} (control {control[k]:.3e})" for k, v in errs.items()
+                    if v > max(DIST_SERVE_TOL, control[k])]
+            if rank == 0 or over:
+                print(f"{label}: the largest error of the logits and of each cache leaf over "
+                      f"the steps, of the largest |value|: "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                      + "; the control (one rank on the whole batch against one rank on this "
+                      "rank's prompts): " + ", ".join(f"{k} {v:.3e}" for k, v in control.items()))
+            check(not over, f"{label}: past both {DIST_SERVE_TOL:.3e} of the largest and the "
+                  f"control: {over}")
+            launches = kernels.launch_counts()
+            check(not any(launches.values()), f"{label}: hand kernels launched {launches}")
+            results[name] = dict(prefill_ms=prefill_ms, step_ms=step_ms, errs=errs, agree=agree,
+                                 control=control,
+                                 params=mine, launches=launches,
+                                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            del params, caches, pf, sv
+            torch.cuda.empty_cache()
+    finally:
+        group.close()
+    Path(out).write_text(json.dumps(results))
+    return 0
+
+
+def dist_serve_phase(dev) -> dict:
+    """Phase 17: serving across ranks.  Each of ``DIST_SERVE`` first on one
+    rank (:func:`dist_serve_one_rank`), then on ``DIST_SERVE_RANKS`` ranks
+    over gloo of one device each of ``FSDP_LAYOUT``
+    (:func:`serve_rank_worker`, every check on every rank); prints the
+    greedy tokens that agree, prefill ms, decode ms a token and the peak
+    memory a rank beside the one-rank run's.  Returns each path's
+    launches (all zero)."""
+    import shutil
+
+    import torch
+    from repro_torch.device import full_f32_math
+
+    torch.cuda.synchronize(dev)  # the context, before the peak's reset
+    t0 = time.perf_counter()
+    full_f32_math()
+    one = {}
+    try:
+        for name, layers in DIST_SERVE:
+            one[name] = dist_serve_one_rank(dev, name, layers)
+            torch.cuda.empty_cache()
+        print(f"dist serve: the one-rank runs took {time.perf_counter() - t0:.1f} s")
+        _, results = spawn_ranks("--serve-rank-worker", DIST_SERVE_RANKS, DIST_SERVE_TIMEOUT_S,
+                                 "dist serve ranks")
+    finally:
+        shutil.rmtree(DIST_SERVE_REF, ignore_errors=True)
+    n_steps = DIST_SERVE_NEW * DIST_SERVE_BATCH
+    out = {}
+    for name, layers in DIST_SERVE:
+        o = one[name]
+        rs = [res[name] for res in results]
+        print(f"dist serve {name}: {layers} layers at full width in bf16, {o['params']} params "
+              f"({', '.join(str(r['params']) for r in rs)} a rank); prefill "
+              f"{DIST_SERVE_BATCH} x {DIST_SERVE_PROMPT} one rank {o['prefill_ms']:.3f} ms, 4 "
+              f"ranks {_ms(r['prefill_ms'] for r in rs)} ms; decode ms a token one rank "
+              f"{_ms(o['step_ms'])}, rank 0 {_ms(rs[0]['step_ms'])} (mean "
+              f"{sum(rs[0]['step_ms']) / len(rs[0]['step_ms']):.3f}); peak one rank "
+              f"{o['peak_gib']:.3f} GiB, the ranks {_ms(r['peak_gib'] for r in rs)} GiB; "
+              f"greedy tokens that agree "
+              f"with the one-rank run's: {', '.join(str(r['agree']) for r in rs)} of {n_steps} "
+              f"a rank; largest error over the steps (of the largest |value|, limit "
+              f"{DIST_SERVE_TOL:.3e}): logits {max(r['errs']['logits'] for r in rs):.3e}, "
+              f"caches {max(v for r in rs for k, v in r['errs'].items() if k != 'logits'):.3e}"
+              f" (the control: logits {max(r['control']['logits'] for r in rs):.3e}, caches "
+              f"{max(v for r in rs for k, v in r['control'].items() if k != 'logits'):.3e})"
+              f"; no hand kernel "
+              f"({rs[0]['launches']})")
+        out[f"{name} one rank"] = o["launches"]
+        out[f"{name} 4 ranks (rank 0)"] = rs[0]["launches"]
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -4440,11 +4741,13 @@ def main(argv: list) -> int:
         return pod_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     if argv[:1] == ["--fsdp-rank-worker"] and len(argv) == 5:
         return fsdp_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--serve-rank-worker"] and len(argv) == 5:
+        return serve_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     decoder_only, zoo_only, pod_only = argv == ["--decoder"], argv == ["--zoo"], argv == ["--pod"]
-    fsdp_only = argv == ["--fsdp"]
-    check(not argv or decoder_only or zoo_only or pod_only or fsdp_only,
-          f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo | --pod | --fsdp]; "
-          f"got {argv}")
+    fsdp_only, serve_only = argv == ["--fsdp"], argv == ["--dist-serve"]
+    check(not argv or decoder_only or zoo_only or pod_only or fsdp_only or serve_only,
+          f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo | --pod | --fsdp | "
+          f"--dist-serve]; got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
     check((ROOT / "src" / "repro_torch").is_dir(),
@@ -4471,8 +4774,10 @@ def main(argv: list) -> int:
         print(json.dumps({"launches_moe": moe, "launches_encdec": encdec_phase(dev)}))
         print(card)
         return 0
-    if pod_only or fsdp_only:  # phase 15 or 16 alone
-        key, phase = ("launches_pod", pod_phase) if pod_only else ("launches_fsdp", fsdp_phase)
+    if pod_only or fsdp_only or serve_only:  # phase 15, 16 or 17 alone
+        key, phase = (("launches_pod", pod_phase) if pod_only else
+                      ("launches_fsdp", fsdp_phase) if fsdp_only else
+                      ("launches_dist_serve", dist_serve_phase))
         print(json.dumps({key: phase(dev)}))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -4572,7 +4877,14 @@ def main(argv: list) -> int:
         if any(counts.values()):
             rows[name]["launches_fsdp"] = counts
 
-    # ---- 17. results
+    # ---- 17. serving across ranks: granite's and rwkv6's caches cut over 4
+    # ranks (no hand kernel: every row holds its zeros)
+    dist_serve = dist_serve_phase(dev)
+    for name in KERNELS:
+        rows[name]["launches_dist_serve"] = {path: c.get(name, 0)
+                                             for path, c in dist_serve.items()}
+
+    # ---- 18. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,14 @@ Behaviour of the reference that the step reproduces as it is:
     device: its "data" share of it): the reference splits it over the
     pod's "data" devices, and GSPMD's gradient of the mean loss is the
     same mean.
+
+The serve side is the reference's too (``repro.launch.dist``'s
+``cache_specs``, ``make_dist_serve`` and ``make_dist_prefill``), with one
+rank a device of the layout: a rank holds its device's blocks of the
+params (``Model.param_specs``, gathered at their use and dropped after
+it, forward only) and of the decode caches (:func:`cache_specs`), and its
+("pod", "data") rows of the batch; a cut cache is attended over its
+heads or its slots through :func:`repro_torch.models.hints.cache_cut`.
 """
 from __future__ import annotations
 
@@ -82,7 +90,8 @@ from repro_torch.device import full_f32_math
 from repro_torch.kernels.reduce import f32_mean_xla
 from repro_torch.launch.mesh import (ClientGroup, axis_sizes, check_clients, default_layout,
                                      make_host_group)
-from repro_torch.launch.shards import LeafBlocks, RankShards, assemble_tree, block_of
+from repro_torch.launch.shards import (CacheCut, LeafBlocks, RankShards, assemble_tree, block_of,
+                                       cut_tree)
 from repro_torch.models import hints
 from repro_torch.models.model import Model, build_model, make_param_specs
 from repro_torch.optim.optimizers import get_optimizer, map_states
@@ -278,21 +287,9 @@ def build_dist_train(
     )
     bits = channel.bits()
 
-    by_path = {lb.path: lb for lb in blocks}
-
-    def cut(tree, at: str, scanned: bool):
-        """This rank's blocks of the leaves of ``tree``, drawn at ``at``."""
-        flat, tdef = tree_flatten_with_path(tree)
-        out = []
-        for path, v in flat:
-            lb = by_path["/".join(p for p in (at, path_str(path)) if p)]
-            out.append(block_of(v, lb.grid[1:] if scanned else lb.grid,
-                                lb.dev_block[ranks.device]))
-        return tdef.unflatten(out)
-
     def init_state(gen: torch.Generator) -> dict:
         if sharded:  # this rank's blocks, cut as the model draws them (hints.drawn)
-            with hints.cut_params(cut):
+            with hints.cut_params(_cut_as_drawn(blocks, ranks.device)):
                 params = model.init(gen)
             for v, gl, lb in zip(tree_flatten(params)[0], leaves, blocks):
                 want = tuple(d // g for d, g in zip(gl.global_shape, lb.grid))
@@ -429,12 +426,7 @@ def _leaf_plan(cfg: ModelConfig, model: Model, sizes: dict, client_axes: tuple,
         meta_params, sizes, fsdp=cfg.fsdp,
         expert_parallel=cfg.moe_dispatch in ("flat_ep", "grouped")))
     keys = [path_str(path) for path, _ in flat_p]
-    for k, spec in zip(keys, specs):
-        used = {ax for entry in spec for ax in _axes_of(entry)
-                if ax in client_axes and sizes[ax] > 1}
-        if used:
-            raise ValueError(f"{k}: its spec {spec} cuts the leaf over the client axes "
-                             f"{sorted(used)}: a leaf is whole on every client")
+    _refuse_client_axes(keys, specs, sizes, client_axes)
     plans = [policy.plan_for(k) for k in keys]
     scheduled = [pl.path for pl in plans if pl.schedule is not None]
     if scheduled:
@@ -453,6 +445,34 @@ def _leaf_plan(cfg: ModelConfig, model: Model, sizes: dict, client_axes: tuple,
                               dev_block=_device_blocks(gl.global_shape, spec, sizes, shard_axes))
                    for gl, spec in zip(leaves, specs))
     return treedef, specs, leaves, blocks
+
+
+def _refuse_client_axes(keys: list, specs: list, sizes: dict, client_axes: tuple) -> None:
+    """``ValueError`` where a leaf's spec cuts it over a client axis of more
+    than one coordinate: a leaf is whole on every client."""
+    for k, spec in zip(keys, specs):
+        used = {ax for entry in spec for ax in _axes_of(entry)
+                if ax in client_axes and sizes[ax] > 1}
+        if used:
+            raise ValueError(f"{k}: its spec {spec} cuts the leaf over the client axes "
+                             f"{sorted(used)}: a leaf is whole on every client")
+
+
+def _cut_as_drawn(blocks, device: int) -> Callable:
+    """The cut of :func:`repro_torch.models.hints.cut_params`: device
+    ``device``'s blocks (:class:`LeafBlocks`, the params' leaves) of the
+    leaves of a tree just drawn at ``at``."""
+    by_path = {lb.path: lb for lb in blocks}
+
+    def cut(tree, at: str, scanned: bool):
+        flat, tdef = tree_flatten_with_path(tree)
+        out = []
+        for path, v in flat:
+            lb = by_path["/".join(p for p in (at, path_str(path)) if p)]
+            out.append(block_of(v, lb.grid[1:] if scanned else lb.grid, lb.dev_block[device]))
+        return tdef.unflatten(out)
+
+    return cut
 
 
 def _flat_space(leaves, specs, blocks, sizes: dict, client_axes: tuple, shard_axes: tuple,
@@ -490,6 +510,247 @@ def device_flat_space(cfg: ModelConfig, mesh_shape: dict, *, sparsity: float = 0
                                           shard_axes, policy, sparsity)
     return _flat_space(leaves, specs, blocks, sizes, client_axes, shard_axes, n_clients,
                        make_host_group("cpu"), device)
+
+
+# --------------------------------------------------------------- serve side
+
+
+def _lead_spec(axes: tuple):
+    """A spec entry over ``axes``: None, the one axis, or the tuple."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _batch_axes(sizes: dict) -> tuple:
+    """``(("pod", "data") present in the layout, their devices)``."""
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    return axes, math.prod(sizes[a] for a in axes)
+
+
+def cache_specs(cfg: ModelConfig, layout: dict, caches) -> Any:
+    """The decode caches' tree of specs on ``layout`` (axis name → size),
+    the reference's rules (``repro.launch.dist.cache_specs``), an entry a
+    dim (trailing ``None`` kept):
+
+      * ``k``/``v``/``cross_k``/``cross_v`` ``(B, L, Hkv, hd)``: the batch
+        over ("pod", "data") when it divides; the KV heads over "model"
+        when they divide, else the cache's sequence (flash-decoding);
+      * Mamba's ``h`` ``(B, di, N)``: the batch, then ``di`` over "model";
+      * ``conv``/``tm_prev``/``cm_prev`` ``(B, w, ch)``: the batch, the
+        channels (the last dim) over "model";
+      * RWKV6's ``s`` ``(B, H, hs, hs)``: the batch, the heads over "model";
+      * anything else (``pos``) replicated.
+
+    A ``scan/`` leaf's leading superblock dim is never cut.  The leaves
+    may live on the ``meta`` device: only shapes are read."""
+    sizes = axis_sizes(layout)
+    m = sizes.get("model", 1)
+    b_axes, b_total = _batch_axes(sizes)
+    b_spec = _lead_spec(b_axes)
+
+    def spec_for(path: str, shape: tuple) -> tuple:
+        off = 1 if path.startswith("scan/") else 0
+        dims: list = [None] * len(shape)
+        name = path.split("/")[-1]
+        batch = name in ("k", "v", "cross_k", "cross_v", "h", "conv", "tm_prev", "cm_prev", "s")
+        if batch and b_axes and shape[off] % b_total == 0:
+            dims[off] = b_spec
+        if name in ("k", "v", "cross_k", "cross_v"):
+            if shape[off + 2] % m == 0:
+                dims[off + 2] = "model"
+            elif shape[off + 1] % m == 0:
+                dims[off + 1] = "model"
+        elif name in ("h", "s") and shape[off + 1] % m == 0:
+            dims[off + 1] = "model"
+        elif name in ("conv", "tm_prev", "cm_prev") and shape[-1] % m == 0:
+            dims[-1] = "model"
+        return tuple(dims)
+
+    flat, treedef = tree_flatten_with_path(caches)
+    return treedef.unflatten([spec_for(path_str(p), tuple(v.shape)) for p, v in flat])
+
+
+class _RankParams(NamedTuple):
+    """One rank a device of a serving layout: its sub-groups and its blocks
+    of the params by ``Model.param_specs``."""
+
+    sizes: dict
+    ranks: Any  # DeviceRanks
+    treedef: Any
+    param_specs: Any  # the params' tree of specs
+    blocks: tuple  # each leaf's LeafBlocks, tree order
+    init_params: Callable
+    params_from_tree: Callable
+    rows: Callable  # a batch leaf → this rank's rows (whole where they do not divide)
+
+
+def _rank_params(cfg: ModelConfig, model: Model, group: Optional[ClientGroup],
+                 mesh_shape: Optional[dict], device) -> _RankParams:
+    if group is None:
+        group = make_host_group(device)
+    elif device is not None and torch.device(device) != group.device:
+        raise ValueError(f"device {device} is not the group's {group.device}")
+    sizes = axis_sizes(mesh_shape) if mesh_shape is not None else default_layout(group.world)
+    if group.world != math.prod(sizes.values()):
+        raise ValueError(f"serving on {sizes} takes one rank a device, "
+                         f"{math.prod(sizes.values())} ranks; the group has {group.world}")
+    _, client_axes = client_topology(cfg, sizes)
+    shard_axes = tuple(a for a in sizes if a not in client_axes)
+    with torch.device("meta"):
+        meta = model.init(torch.Generator())
+    flat, treedef = tree_flatten_with_path(meta)
+    specs = treedef.flatten_up_to(model.param_specs(meta, sizes))
+    _refuse_client_axes([path_str(p) for p, _ in flat], specs, sizes, client_axes)
+    blocks = tuple(LeafBlocks(grid=_shard_grid(tuple(v.shape), spec, sizes), path=path_str(p),
+                              dev_block=_device_blocks(tuple(v.shape), spec, sizes, shard_axes))
+                   for (p, v), spec in zip(flat, specs))
+    ranks = group.device_ranks(sizes, client_axes)
+
+    def init_params(gen: torch.Generator) -> dict:
+        """This rank's blocks of the params drawn from ``gen`` (the whole
+        model's draws, each leaf cut as it is drawn), on the group's
+        device."""
+        with hints.cut_params(_cut_as_drawn(blocks, ranks.device)):
+            params = model.init(gen)
+        return tree_map(lambda v: v.to(group.device), params)
+
+    def params_from_tree(params: dict) -> dict:
+        """This rank's blocks (copies) of the whole ``params``."""
+        return treedef.unflatten([block_of(v, lb.grid, lb.dev_block[ranks.device])
+                                  for v, lb in zip(treedef.flatten_up_to(params), blocks)])
+
+    b_axes, b_total = _batch_axes(sizes)
+    at = ranks.batch.rank  # the row-major ("pod", "data") coordinate
+
+    def rows(v: torch.Tensor) -> torch.Tensor:
+        if v.shape[0] % b_total:
+            return v
+        n = v.shape[0] // b_total
+        return v[at * n:(at + 1) * n]
+
+    return _RankParams(sizes=sizes, ranks=ranks, treedef=treedef,
+                       param_specs=treedef.unflatten(specs), blocks=blocks,
+                       init_params=init_params,
+                       params_from_tree=params_from_tree, rows=rows)
+
+
+def _serving(rp: _RankParams, params: dict, cut_rows: bool) -> RankShards:
+    """A step's forward-only :class:`RankShards` on this rank's blocks
+    ``params``; the MoE's statistics and slots cover the batch's ranks
+    where the rows are cut (``cut_rows``), this rank's rows elsewhere."""
+    rows = rp.ranks.batch if cut_rows else make_host_group(rp.ranks.batch.device)
+    return RankShards(rp.ranks, rp.treedef.flatten_up_to(params), rp.blocks, rows=rows)
+
+
+class DistServeFns(NamedTuple):
+    serve_step: Callable  # (params, tokens (B, 1), caches, pos) → (logits (B, 1, V) f32, caches)
+    init_params: Callable  # generator → this rank's blocks of the params
+    params_from_tree: Callable  # the whole params → this rank's blocks
+    caches_from_tree: Callable  # the whole caches → this rank's blocks
+    abstract_caches: Any  # the whole caches, on the meta device
+    cache_specs: Any  # their specs (:func:`cache_specs`)
+    param_specs: Any  # the params' (``Model.param_specs``)
+    ranks: Any  # this rank's DeviceRanks
+    rows: Callable  # a batch leaf → this rank's rows (whole where they do not divide)
+
+
+def make_dist_serve(cfg: ModelConfig, *, group: Optional[ClientGroup] = None, batch: int,
+                    seq_len: int, mesh_shape: Optional[dict] = None,
+                    model: Optional[Model] = None, device=None) -> DistServeFns:
+    """This rank's one-token decode step against ``seq_len``-deep caches of
+    ``batch`` rows, with one rank a device of ``mesh_shape`` (the group's
+    world must be its device count; ``ValueError`` otherwise; default
+    ``{"data": world, "model": 1}``).
+
+    Each rank holds its device's blocks of the params (``Model.
+    param_specs``, gathered at their use over the client's ranks, as the
+    train step's, and dropped after it) and of the caches
+    (:func:`cache_specs`), and steps its ("pod", "data") share of the rows;
+    a batch that does not divide over those axes is served whole on every
+    rank.  ``serve_step`` takes the whole ``(B, 1)`` tokens and returns
+    the whole ``(B, 1, V)`` f32 logits on every rank (the batch's rows
+    gathered over the ranks of this "model" coordinate), so every rank
+    picks the same next token, and this rank's blocks of the new caches.
+    The reference's ``activation_sharding(mesh, batch_axes=None,
+    seq_axis=None)`` is installed around the step."""
+    model = model or build_model(cfg)
+    rp = _rank_params(cfg, model, group, mesh_shape, device)
+    with torch.device("meta"):
+        abstract = model.init_caches(model.init(torch.Generator()), batch, seq_len)
+    c_specs = cache_specs(cfg, rp.sizes, abstract)
+    flat_c, c_def = tree_flatten_with_path(abstract)
+    cross_seq = any(path_str(p).endswith("cross_k") and "model" in _axes_of(spec[-3])
+                    for (p, _), spec in zip(flat_c, c_def.flatten_up_to(c_specs)))
+    cut = CacheCut(rp.ranks.model, cross_seq) if rp.sizes.get("model", 1) > 1 else None
+    whole_rows = batch % _batch_axes(rp.sizes)[1] != 0
+
+    def serve_step(params: dict, tokens: torch.Tensor, caches, pos: int) -> tuple:
+        shards = _serving(rp, params, not whole_rows)
+        with torch.no_grad(), hints.activation_sharding(rp.sizes, batch_axes=None,
+                                                        seq_axis=None):
+            with hints.sharded_params(shards), hints.sharded_caches(cut):
+                logits, new = model.decode_step(params, tokens if whole_rows else
+                                                rp.rows(tokens), caches, pos)
+            shards.check_every_leaf_used(unread=("encoder/",))
+            if not whole_rows:
+                logits = torch.cat(rp.ranks.batch.gather_list(logits), dim=0)
+        return logits, new
+
+    def caches_from_tree(caches):
+        return cut_tree(caches, c_specs, rp.sizes, rp.ranks.coords)
+
+    return DistServeFns(serve_step=serve_step, init_params=rp.init_params,
+                        params_from_tree=rp.params_from_tree, caches_from_tree=caches_from_tree,
+                        abstract_caches=abstract, cache_specs=c_specs,
+                        param_specs=rp.param_specs, ranks=rp.ranks, rows=rp.rows)
+
+
+class DistPrefillFns(NamedTuple):
+    prefill: Callable  # (params, batch) → (this rank's hidden rows, its blocks of the caches)
+    init_params: Callable
+    params_from_tree: Callable
+    param_specs: Any
+    ranks: Any
+    rows: Callable  # a batch leaf → this rank's rows (whole where they do not divide)
+
+
+def make_dist_prefill(cfg: ModelConfig, *, group: Optional[ClientGroup] = None,
+                      mesh_shape: Optional[dict] = None, model: Optional[Model] = None,
+                      device=None) -> DistPrefillFns:
+    """This rank's full-sequence prefill (the ``prefill_32k`` unit) with one
+    rank a device of ``mesh_shape``, as :func:`make_dist_serve`.
+    ``prefill`` takes the whole batch; every leaf (``tokens``, ``prefix``,
+    ``enc_frames``, ``enc_tokens``) is cut on its leading dim over ("pod",
+    "data") where it divides, as the reference's ``batch_shardings``.  It
+    returns this rank's rows of the final hidden state and its blocks of
+    the caches by :func:`cache_specs`: the cut :func:`make_dist_serve`
+    takes at the same depth.  The ranks of one ("pod", "data") coordinate
+    compute its rows whole, and each keeps its "model" blocks.  The
+    reference's ``activation_sharding(mesh, batch_axes=("pod", "data"),
+    seq_axis="model")`` is installed around it."""
+    model = model or build_model(cfg)
+    rp = _rank_params(cfg, model, group, mesh_shape, device)
+    b_axes, _ = _batch_axes(rp.sizes)
+    # the rows are this rank's already: the batch axes cut nothing more
+    flat_sizes = {a: 1 if a in b_axes else n for a, n in rp.sizes.items()}
+    flat_coords = {a: 0 if a in b_axes else c for a, c in rp.ranks.coords.items()}
+
+    def prefill(params: dict, batch: dict) -> tuple:
+        mine = tree_map(rp.rows, batch)
+        cut_rows = mine["tokens"].shape[0] != batch["tokens"].shape[0]
+        shards = _serving(rp, params, cut_rows)
+        with torch.no_grad(), hints.activation_sharding(rp.sizes, batch_axes=b_axes,
+                                                        seq_axis="model"):
+            with hints.sharded_params(shards):
+                hidden, caches = model.prefill(params, mine)
+            shards.check_every_leaf_used()
+            return hidden, cut_tree(caches, cache_specs(cfg, rp.sizes, caches), flat_sizes,
+                                    flat_coords)
+
+    return DistPrefillFns(prefill=prefill, init_params=rp.init_params,
+                          params_from_tree=rp.params_from_tree, param_specs=rp.param_specs,
+                          ranks=rp.ranks, rows=rp.rows)
 
 
 # -------------------------------------------------------------- launcher

@@ -110,7 +110,12 @@ class DeviceRanks:
     ``all_gather_rows``, ``pmean`` and ``gather_order``); ``client_ranks``
     the client's ranks in device order (a leaf's blocks); ``data`` the client's
     ranks that share this rank's other shard coordinates, in "data" order
-    (the gradient's mean; world 1 without a "data" shard axis)."""
+    (the gradient's mean; world 1 without a "data" shard axis).  Serving
+    reads two more: ``model`` holds the ranks that differ from this one in
+    the "model" coordinate alone, in "model" order (a cut cache's
+    attention; the client's ranks in data mode), and ``batch`` the ranks of
+    this "model" coordinate, row-major over ("pod", "data") (the rows of
+    the batch); each is world 1 without its axes."""
 
     client: int
     device: int
@@ -121,6 +126,8 @@ class DeviceRanks:
     data: "ClientGroup"
     data_devices: tuple  # the device index of each of ``data``'s ranks
     world_order: tuple  # the global ranks in (client, device) order
+    model: "ClientGroup"
+    batch: "ClientGroup"
 
 
 @dataclasses.dataclass(eq=False)
@@ -268,8 +275,9 @@ class ClientGroup:
         """This rank's :class:`DeviceRanks` in a world of one rank a device
         of ``layout`` (:func:`check_clients`).  Every rank makes every
         sub-group, in the same order (``torch.distributed.new_group``
-        wants each of them made by all ranks); a sub-group of one rank is
-        world 1 without a process group."""
+        wants each of them made by all ranks), one process group for each
+        distinct set of ranks; a sub-group of one rank is world 1 without
+        a process group."""
         sizes = {str(k): int(v) for k, v in layout.items()}
         if self.world != math.prod(sizes.values()):
             raise ValueError(f"{self.world} ranks are not the {math.prod(sizes.values())} "
@@ -289,25 +297,39 @@ class ClientGroup:
         rank_of = {(client[r], device[r]): r for r in range(self.world)}
         data_key = [(client[r], tuple(coords[r][a] for a in shard_axes if a != "data"))
                     for r in range(self.world)]
-        groups = ([[rank_of[c, d] for c in range(n_clients)] for d in range(n_dev)]
-                  + [[rank_of[c, d] for d in range(n_dev)] for c in range(n_clients)]
-                  + [sorted((r for r in range(self.world) if data_key[r] == key),
-                            key=lambda r: coords[r].get("data", 0))
-                     for key in dict.fromkeys(data_key)])
+
+        def alike(keep: tuple) -> list:
+            """The ranks that share the coordinates of ``keep``, a group
+            each, in rank order (row-major over the other axes)."""
+            key = [tuple(coords[r][a] for a in keep) for r in range(self.world)]
+            return [[r for r in range(self.world) if key[r] == k] for k in dict.fromkeys(key)]
+
+        # exchange, client, "data", "model" and batch groups, in that order
+        kinds = ([[rank_of[c, d] for c in range(n_clients)] for d in range(n_dev)],
+                 [[rank_of[c, d] for d in range(n_dev)] for c in range(n_clients)],
+                 [sorted((r for r in range(self.world) if data_key[r] == key),
+                         key=lambda r: coords[r].get("data", 0))
+                  for key in dict.fromkeys(data_key)],
+                 alike(tuple(a for a in sizes if a != "model")),
+                 alike(tuple(a for a in sizes if a not in ("pod", "data"))))
+        made: dict = {}
         mine = []
-        for ranks in groups:
-            pg = self._new_group(ranks)
-            if self.rank in ranks:
-                mine.append((ClientGroup(rank=ranks.index(self.rank), world=len(ranks),
-                                         device=self.device,
-                                         backend=self.backend if len(ranks) > 1 else None,
-                                         pg=pg), ranks))
+        for groups in kinds:
+            for ranks in groups:
+                if tuple(ranks) not in made:
+                    made[tuple(ranks)] = self._new_group(ranks)
+                if self.rank in ranks:
+                    mine.append((ClientGroup(rank=ranks.index(self.rank), world=len(ranks),
+                                             device=self.device,
+                                             backend=self.backend if len(ranks) > 1 else None,
+                                             pg=made[tuple(ranks)]), ranks))
         return DeviceRanks(client=client[self.rank], device=device[self.rank], devices=n_dev,
                            coords=coords[self.rank], exchange=mine[0][0],
                            client_ranks=mine[1][0], data=mine[2][0],
                            data_devices=tuple(device[r] for r in mine[2][1]),
                            world_order=tuple(rank_of[c, d] for c in range(n_clients)
-                                             for d in range(n_dev)))
+                                             for d in range(n_dev)),
+                           model=mine[3][0], batch=mine[4][0])
 
     def _new_group(self, ranks: list):
         """A process group of ``ranks`` (None for one rank: no collective

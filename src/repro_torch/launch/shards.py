@@ -27,6 +27,15 @@ mean.  :meth:`RankShards.data_mean` is the mean of a statistic of the
 rank's rows over the "data" ranks, differentiable, for the MoE aux term,
 and :meth:`RankShards.data_before` the counts of the lower "data" ranks,
 for flat MoE dispatch over the pod's batch.
+
+Serving (``repro_torch.launch.dist.make_dist_serve`` and
+``make_dist_prefill``) uses the same gather forward only, under
+``torch.no_grad``: each leaf is gathered whole at its use and dropped
+after it, and the rows whose statistics the MoE shares are the batch's
+ranks (``rows``).  :class:`CacheCut` is a decode step's cut of its caches
+over the "model" ranks, behind :func:`repro_torch.models.hints.cache_cut`,
+and :func:`cut_tree` cuts a tree to one device's blocks of its specs (the
+caches by ``cache_specs``).
 """
 from __future__ import annotations
 
@@ -60,6 +69,35 @@ def block_slices(shape, grid: Sequence[int], block: int) -> tuple:
 def block_of(full: torch.Tensor, grid: Sequence[int], block: int) -> torch.Tensor:
     """Block ``block`` of ``full`` as a tensor of its own (a copy)."""
     return full[block_slices(tuple(full.shape), grid, block)].clone()
+
+
+def spec_block(shape, spec: tuple, sizes: dict, coords: dict) -> tuple:
+    """``(grid, block)``: the per-dim block counts of a tensor of ``shape``
+    under ``spec`` (an entry a dim: an axis name, a tuple of them or None)
+    on a layout of axis ``sizes``, and the grid-order block that the device
+    at ``coords`` (axis name → coordinate) holds.  A dim's block index is
+    the device's coordinate over that dim's axes, row-major."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+    grid, block = [], 0
+    for e in entries:
+        g, i = 1, 0
+        for a in (() if e is None else e if isinstance(e, tuple) else (e,)):
+            g, i = g * sizes[a], i * sizes[a] + int(coords[a])
+        grid.append(g)
+        block = block * g + i
+    return tuple(grid), block
+
+
+def cut_tree(tree, specs, sizes: dict, coords: dict):
+    """This device's block (a copy) of every leaf of ``tree`` under its spec
+    in ``specs`` (a tree of spec tuples, such as
+    ``repro_torch.launch.dist.cache_specs``'), :func:`block_of` with the
+    grid the spec gives.  An axis given size 1 in ``sizes`` (coordinate 0)
+    cuts nothing: a tree already holding this rank's rows passes its batch
+    axes so."""
+    flat, treedef = tree_flatten(tree)
+    return treedef.unflatten([block_of(v, *spec_block(tuple(v.shape), spec, sizes, coords))
+                              for v, spec in zip(flat, treedef.flatten_up_to(specs))])
 
 
 def assemble(rows: Sequence[torch.Tensor], grid: Sequence[int], dev_block: Sequence[int]
@@ -124,11 +162,11 @@ class _DataMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, shards):
         ctx.shards = shards
-        return _mean_rows(shards.ranks.data.gather_list(t))
+        return _mean_rows(shards.rows.gather_list(t))
 
     @staticmethod
     def backward(ctx, grad):
-        return _mean_rows(ctx.shards.ranks.data.gather_list(grad)), None
+        return _mean_rows(ctx.shards.rows.gather_list(grad)), None
 
 
 class RankShards:
@@ -136,11 +174,14 @@ class RankShards:
     blocks, the tensors the model is given, in tree order) and their
     :class:`LeafBlocks`, ``ranks`` the rank's
     :class:`~repro_torch.launch.mesh.DeviceRanks`, ``remat`` the config's
-    (a gathered block is recomputed in the backward)."""
+    (a gathered block is recomputed in the backward), ``rows`` the group
+    whose ranks' rows make the batch that the MoE's statistics and slots
+    cover (default the client's "data" ranks: the pod's batch)."""
 
     def __init__(self, ranks: Any, leaves: Sequence[torch.Tensor],
-                 blocks: Sequence[LeafBlocks], remat: bool = False):
+                 blocks: Sequence[LeafBlocks], remat: bool = False, rows: Any = None):
         self.ranks, self.remat = ranks, bool(remat)
+        self.rows = ranks.data if rows is None else rows
         self._of = {id(v): b for v, b in zip(leaves, blocks)}
         self._leaves = list(leaves)
         self.seen: set = set()
@@ -169,18 +210,21 @@ class RankShards:
         return tree_map(one, tree)
 
     def data_mean(self, t: torch.Tensor) -> torch.Tensor:
-        return _DataMean.apply(t, self) if self.ranks.data.world > 1 else t
+        return _DataMean.apply(t, self) if self.rows.world > 1 else t
 
     def data_before(self, counts: torch.Tensor) -> torch.Tensor:
-        """``counts`` summed over the "data" ranks before this one, in
-        "data" order (the pod's row order)."""
-        rows = self.ranks.data.gather_list(counts)[:self.ranks.data.rank]
+        """``counts`` summed over the ``rows`` ranks before this one, in
+        their order (the batch's row order)."""
+        rows = self.rows.gather_list(counts)[:self.rows.rank]
         return sum(rows, torch.zeros_like(counts))
 
-    def check_every_leaf_used(self) -> None:
+    def check_every_leaf_used(self, unread: tuple = ()) -> None:
         """Raise unless the forward took every leaf through :meth:`gather`
-        (a leaf used as a block would be wrong in silence)."""
-        missed = [self._of[id(v)].path for v in self._leaves if id(v) not in self.seen]
+        (a leaf used as a block would be wrong in silence); leaves whose
+        path starts with one of ``unread`` may go unused (a decode step
+        reads no encoder: its memory is in the caches)."""
+        missed = [self._of[id(v)].path for v in self._leaves
+                  if id(v) not in self.seen and not self._of[id(v)].path.startswith(unread)]
         if missed:
             raise RuntimeError(f"the model used {missed[:3]}… without hints.params: in a "
                                "rank-sharded step each leaf must be gathered at its use")
@@ -195,3 +239,27 @@ def assemble_tree(ranks: Any, tree, blocks: Sequence[LeafBlocks]):
         v if math.prod(lb.grid) == 1 else
         assemble(ranks.client_ranks.gather_list(v), lb.grid, lb.dev_block)
         for v, lb in zip(flat, blocks)])
+
+
+class CacheCut:
+    """A decode step's caches cut over the "model" ranks (``group``: the
+    ranks of this rank's ("pod", "data") coordinate, in "model" order, its
+    rank this rank's "model" coordinate), read through
+    :func:`repro_torch.models.hints.cache_cut`.  A leaf's cut shows in its
+    shape (fewer KV heads, cache slots, channels or RWKV heads than the
+    whole); ``cross_seq`` says that the encoder memory's ``cross_k`` and
+    ``cross_v``, which carry no slot positions, are cut over their
+    sequence."""
+
+    def __init__(self, group: Any, cross_seq: bool = False):
+        self.group, self.cross_seq = group, bool(cross_seq)
+        self.world, self.rank = group.world, group.rank
+
+    def part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's equal share of ``t`` along ``dim``."""
+        n = t.shape[dim] // self.world
+        return t.narrow(dim, self.rank * n, n)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` put together along ``dim``, in "model" order."""
+        return torch.cat(self.group.gather_list(t), dim=dim)

@@ -20,6 +20,18 @@ Kinds (``cfg.layer_kinds``): ``attn`` (full causal), ``attn_window``
 encoder's, roped) and ``cross`` (the decoder over the encoder's memory:
 no mask, no RoPE on q or k).
 
+Inside a rank-sharded decode step (:func:`~repro_torch.models.hints.
+cache_cut`, ``repro_torch.launch.dist.make_dist_serve``) a cache may hold
+this rank's share of the KV heads or of the slots, as ``cache_specs`` cuts
+it over the "model" ranks.  Heads cut: the rank attends with its KV heads
+and their query heads, and the heads' outputs are gathered before ``wo``.
+Slots cut (flash-decoding): the rank attends over its slots alone and
+keeps the f32 row max, the sum of the exponentials and their weighted V;
+the "model" ranks' partials are merged (each rescaled to the largest max),
+only the slot's owner writes the new K/V, and every rank writes the
+replicated ``pos``.  The encoder memory of ``cross`` is cut the same ways,
+with no write.  With no cut the step is the one-rank step.
+
 Two of the reference's behaviours are kept as they are:
 
   * a rolling prefill fill scatters duplicate slots when the prompt is
@@ -37,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import hints
 from repro_torch.models.layers import dense, init_dense, rope
 
 NEG_INF = -1e30
@@ -103,6 +116,41 @@ def _masked_attention(q, k, v, mask, scale: float) -> torch.Tensor:
     probs = torch.where(torch.any(mask, dim=-1, keepdim=True), probs,
                         torch.zeros((), dtype=probs.dtype, device=probs.device))
     return _gqa_out(probs, v)
+
+
+def _partial_attention(q, k, v, mask, scale: float) -> tuple:
+    """One rank's share of :func:`_masked_attention` over its keys: the f32
+    row max ``(B,Hkv,G,Sq,1)``, the sum of the exponentials (the same
+    shape) and their product with V ``(B,Sq,Hkv,G,hd)``; masked keys add
+    nothing."""
+    scores = _gqa_scores(q, k) * scale
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, dtype=scores.dtype,
+                                                  device=scores.device))
+    mx = scores.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(scores - mx), torch.zeros((), dtype=scores.dtype,
+                                                              device=scores.device))
+    return mx, e.sum(dim=-1, keepdim=True), _gqa_out(e, v)
+
+
+def _merge_partials(cut, mx: torch.Tensor, s: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """The attention over every "model" rank's keys from their
+    :func:`_partial_attention` partials (one gather of the three): each
+    rescaled to the largest max, added in rank order; a row no rank has a
+    key for is zero, as :func:`_masked_attention` makes it."""
+    n_mx, n_s = mx.numel(), s.numel()
+    rows = cut.group.gather_list(torch.cat([mx.reshape(-1), s.reshape(-1), o.reshape(-1)]))
+    mxs = [r[:n_mx].view(mx.shape) for r in rows]
+    top = torch.stack(mxs).amax(dim=0)
+    total = out = None
+    for r, m in zip(rows, mxs):
+        w = torch.exp(m - top)  # (B,Hkv,G,Sq,1)
+        s_r = w * r[n_mx:n_mx + n_s].view(s.shape)
+        o_r = w.permute(0, 3, 1, 2, 4) * r[n_mx + n_s:].view(o.shape)
+        total, out = (s_r, o_r) if total is None else (total + s_r, out + o_r)
+    total = total.permute(0, 3, 1, 2, 4)  # (B,Sq,Hkv,G,1)
+    keyed = total > 0
+    return torch.where(keyed, out / torch.where(keyed, total, torch.ones_like(total)),
+                       torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def attn_train(params: dict, x: torch.Tensor, cfg, kind: str, *,
@@ -229,18 +277,29 @@ def attn_decode(params: dict, x: torch.Tensor, cfg, kind: str, cache: Optional[d
     is left as it is.  A slot past the cache is clamped to its last one,
     as ``lax.dynamic_update_slice`` does.  For ``kind == "cross"``,
     ``cross_memory`` is the ``(k, v)`` of the encoder's output, every slot
-    of it is attended and ``cache`` is returned as it came in."""
+    of it is attended and ``cache`` is returned as it came in.  A cache
+    cut over the "model" ranks (:func:`~repro_torch.models.hints.cache_cut`)
+    is attended as the module's docstring says."""
     B = x.shape[0]
     hd, Hkv = cfg.head_dim, cfg.n_kv_heads
     G = cfg.n_heads // Hkv
     scale = 1.0 / math.sqrt(hd)
+    cut = hints.cache_cut()
     q = _split_heads(dense(params["wq"], x), cfg.n_heads, hd)
 
     if kind == "cross":
         k, v = cross_memory
-        mask = torch.ones((1, k.shape[1]), dtype=torch.bool, device=x.device)
-        out = _masked_attention(q.reshape(B, 1, Hkv, G, hd), k, v, mask[None, None, None],
-                                scale)
+        q = q.reshape(B, 1, Hkv, G, hd)
+        heads = k.shape[2] < Hkv  # this rank's KV heads
+        if heads:
+            q = cut.part(q, 2)
+        mask = torch.ones((1, k.shape[1]), dtype=torch.bool, device=x.device)[None, None, None]
+        if cut is not None and cut.cross_seq and not heads:  # this rank's memory slots
+            out = _merge_partials(cut, *_partial_attention(q, k, v, mask, scale))
+        else:
+            out = _masked_attention(q, k, v, mask, scale)
+        if heads:
+            out = cut.gather(out, 2)
         out = dense(params["wo"], out.reshape(B, 1, cfg.n_heads * hd).to(x.dtype))
         return out, cache
 
@@ -249,12 +308,18 @@ def attn_decode(params: dict, x: torch.Tensor, cfg, kind: str, cache: Optional[d
     q = rope(q, p_t, cfg.rope_theta).reshape(B, 1, Hkv, G, hd)
     k_new = rope(_split_heads(dense(params["wk"], x), Hkv, hd), p_t, cfg.rope_theta)
     v_new = _split_heads(dense(params["wv"], x), Hkv, hd)
+    heads = cache["k"].shape[2] < Hkv  # this rank's KV heads
+    if heads:
+        q, k_new, v_new = cut.part(q, 2), cut.part(k_new, 2), cut.part(v_new, 2)
 
-    L = cache["k"].shape[1]
+    L, L_own = cache["pos"].shape[0], cache["k"].shape[1]
+    first = cut.rank * L_own if L_own < L else 0  # this rank's slots: first + [0, L_own)
     slot = min(max(cache_slot(kind, cfg, pos), 0), L - 1)
     new_cache = {"k": cache["k"].clone(), "v": cache["v"].clone(), "pos": cache["pos"].clone()}
-    new_cache["k"][:, slot:slot + 1] = k_new.to(new_cache["k"].dtype)
-    new_cache["v"][:, slot:slot + 1] = v_new.to(new_cache["v"].dtype)
+    if first <= slot < first + L_own:  # the slot's owner writes it
+        at = slot - first
+        new_cache["k"][:, at:at + 1] = k_new.to(new_cache["k"].dtype)
+        new_cache["v"][:, at:at + 1] = v_new.to(new_cache["v"].dtype)
     new_cache["pos"][slot] = pos
 
     cpos = new_cache["pos"]
@@ -265,7 +330,13 @@ def attn_decode(params: dict, x: torch.Tensor, cfg, kind: str, cache: Optional[d
     if kind == "attn_chunk":
         valid &= cpos >= (pos // cfg.chunk_attn) * cfg.chunk_attn
 
-    out = _masked_attention(q, new_cache["k"], new_cache["v"],
-                            valid[None, None, None, None, :], scale)
+    mask = valid[first:first + L_own][None, None, None, None, :]
+    if L_own < L:
+        out = _merge_partials(cut, *_partial_attention(q, new_cache["k"], new_cache["v"], mask,
+                                                       scale))
+    else:
+        out = _masked_attention(q, new_cache["k"], new_cache["v"], mask, scale)
+    if heads:
+        out = cut.gather(out, 2)
     out = dense(params["wo"], out.reshape(B, 1, cfg.n_heads * hd).to(x.dtype))
     return out, new_cache

@@ -29,10 +29,17 @@ These hints have readers:
     its capacity and number its slots over the pod's batch;
   * :func:`drawn` cuts parameters to this rank's blocks as the model's
     init draws them, inside :func:`cut_params` (a rank-sharded
-    ``init_state``), so no rank holds the whole model.
+    ``init_state``), so no rank holds the whole model;
+  * :func:`cache_cut` is the cut of the decode caches over the "model"
+    ranks in a rank-sharded decode step, inside :func:`sharded_caches`
+    (``repro_torch.launch.dist.make_dist_serve``): attention, Mamba and
+    RWKV6 read it to attend over this rank's heads or cache slots, or to
+    step this rank's channels of a state, and to put the whole back
+    together.
 
 Without a context every hint is the identity (or a no-op), :func:`remat`
-and :func:`lean_moe` are False and :func:`data_ranks` is 1.
+and :func:`lean_moe` are False, :func:`data_ranks` is 1 and
+:func:`cache_cut` is None.
 """
 from __future__ import annotations
 
@@ -42,7 +49,8 @@ from typing import Any, Optional
 from repro_torch.core.tree import tree_map
 
 _CTX: dict[str, Any] = {"mesh": None, "batch": None, "seq": None, "expert": None,
-                        "seq_every": 1, "lean_moe": False, "shards": None, "cut": None}
+                        "seq_every": 1, "lean_moe": False, "shards": None, "cut": None,
+                        "caches": None}
 
 
 def lean_moe() -> bool:
@@ -118,7 +126,7 @@ def data_ranks() -> int:
     """The client's "data" ranks inside a rank-sharded step (the pod's
     batch is this rank's rows that many times); 1 elsewhere."""
     shards = _CTX["shards"]
-    return 1 if shards is None else shards.ranks.data.world
+    return 1 if shards is None else shards.rows.world
 
 
 def data_before(counts):
@@ -141,6 +149,25 @@ def cut_params(cut):
         yield
     finally:
         _CTX["cut"] = old
+
+
+@contextlib.contextmanager
+def sharded_caches(cut):
+    """Install a decode step's
+    :class:`~repro_torch.launch.shards.CacheCut` (the caches' cut over
+    the "model" ranks) for :func:`cache_cut`."""
+    old = _CTX["caches"]
+    _CTX["caches"] = cut
+    try:
+        yield
+    finally:
+        _CTX["caches"] = old
+
+
+def cache_cut():
+    """The installed :class:`~repro_torch.launch.shards.CacheCut`, or None
+    (the caches are whole on this rank: the one-rank path)."""
+    return _CTX["caches"]
 
 
 def drawn(tree, path: str, scanned: bool = False):

@@ -15,6 +15,16 @@ Mamba's causal depthwise convolution (the reference's
 so no library convolution (and no TF32 or nondeterministic algorithm on
 the card) is involved.  ``softplus`` is ``logaddexp(x, 0)``, as
 ``jax.nn.softplus``.
+
+Inside a rank-sharded decode step (:func:`~repro_torch.models.hints.
+cache_cut`) a state may hold this rank's share over the "model" ranks, as
+``cache_specs`` cuts it: Mamba's ``h`` and ``conv`` their channels of
+``di`` (the conv output is gathered whole for ``x_proj``, which contracts
+over ``di``, and ``y`` before ``out_proj``); RWKV6's ``s`` its heads (the
+heads' outputs are gathered before the output projection) and
+``tm_prev``/``cm_prev`` their channels (gathered whole for the token
+shift; the rank keeps its channels of the new ones).  The projections
+run whole on every rank.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.models import hints
 from repro_torch.models.layers import dense, gen_device, init_dense
 
 # ===================================================================== Mamba
@@ -133,18 +144,28 @@ def mamba_init_state(cfg, batch: int, device=None) -> dict:
 
 
 def mamba_decode(params, x, cfg, state):
-    """x: (B, 1, d) one token.  state: {'h': (B, di, N), 'conv': (B, w−1, di)}."""
+    """x: (B, 1, d) one token.  state: {'h': (B, di, N), 'conv': (B, w−1, di)},
+    or this rank's channels of ``di`` of both (the module's docstring)."""
+    cut = hints.cache_cut()
+    own = state["h"].shape[1] < mamba_dims(cfg)[0]  # this rank's channels of di
+
+    def part(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return cut.part(t, dim) if own else t
+
     x_in, z = torch.chunk(dense(params["in_proj"], x), 2, dim=-1)  # (B, 1, di)
     # the causal conv over the carried window
-    win = torch.cat([state["conv"], x_in.to(torch.float32)], dim=1)  # (B, w, di)
-    w = params["conv_w"].to(torch.float32)  # (w, 1, di)
-    y = torch.sum(win * w[:, 0, :][None], dim=1) + params["conv_b"].to(torch.float32)
+    win = torch.cat([state["conv"], part(x_in).to(torch.float32)], dim=1)  # (B, w, di)
+    w = part(params["conv_w"].to(torch.float32))  # (w, 1, di)
+    y = torch.sum(win * w[:, 0, :][None], dim=1) + part(params["conv_b"].to(torch.float32))
     x_c = _silu(y)[:, None, :]  # (B, 1, di)
-    dt, Bs, Cs, A = mamba_ssm_params(params, x_c.to(x.dtype), cfg)
+    dt, Bs, Cs, A = mamba_ssm_params(params, (cut.gather(x_c, -1) if own else x_c).to(x.dtype),
+                                     cfg)
     xc0 = x_c[:, 0].to(torch.float32)
-    h, yt = _mamba_step(state["h"], xc0, dt[:, 0], Bs[:, 0], Cs[:, 0], A)
-    yt = yt + xc0 * params["D"][None]
-    yt = yt * _silu(z[:, 0].to(torch.float32))
+    h, yt = _mamba_step(state["h"], xc0, part(dt[:, 0]), Bs[:, 0], Cs[:, 0], part(A, 0))
+    yt = yt + xc0 * part(params["D"])[None]
+    yt = yt * _silu(part(z[:, 0]).to(torch.float32))
+    if own:
+        yt = cut.gather(yt, -1)
     out = dense(params["out_proj"], yt[:, None, :].to(x.dtype))
     return out, {"h": h, "conv": win[:, 1:]}
 
@@ -234,18 +255,34 @@ def _heads(x, H, hs):
     return x.reshape(x.shape[:-1] + (H, hs))
 
 
+def _shared_prev(prev_tok: torch.Tensor, d: int) -> tuple:
+    """``(the whole (B, 1, d) predecessor, whether this rank holds its
+    channels alone)``: a cut ``tm_prev``/``cm_prev`` gathered whole."""
+    own = prev_tok.shape[-1] < d
+    return (hints.cache_cut().gather(prev_tok, -1) if own else prev_tok), own
+
+
 def rwkv6_time_mix(params, x, cfg, state_s, prev_tok):
-    """x: (B, S, d); state_s: (B, H, hs, hs) wkv state; prev_tok: (B, 1, d).
+    """x: (B, S, d); state_s: (B, H, hs, hs) wkv state; prev_tok: (B, 1, d),
+    or this rank's heads and channels of them (the module's docstring).
 
     Returns (out, new state_s, new prev_tok)."""
     B, S, d = x.shape
     H, hs = rwkv_dims(cfg)
+    cut = hints.cache_cut()
+    prev_tok, own_prev = _shared_prev(prev_tok, d)
     r, k, v, g, w = _rwkv_projections(params, x, _shift(x, prev_tok), cfg)
-    rh = _heads(r.to(torch.float32), H, hs)
-    kh = _heads(k.to(torch.float32), H, hs)
-    vh = _heads(v.to(torch.float32), H, hs)
-    wh = _heads(w, H, hs)
-    u = params["bonus"][None]  # (1, H, hs)
+    heads = state_s.shape[1]
+    own = heads < H  # this rank's heads, and their channels
+
+    def part(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return cut.part(t, dim) if own else t
+
+    rh = _heads(part(r).to(torch.float32), heads, hs)
+    kh = _heads(part(k).to(torch.float32), heads, hs)
+    vh = _heads(part(v).to(torch.float32), heads, hs)
+    wh = _heads(part(w), heads, hs)
+    u = part(params["bonus"], 0)[None]  # (1, H, hs)
     s = state_s
     os = []
     for t in range(S):
@@ -258,14 +295,20 @@ def rwkv6_time_mix(params, x, cfg, state_s, prev_tok):
     oh = torch.stack(os, dim=1)  # (B, S, H, hs) f32
     # per-head group norm, then the gate
     oh = oh * torch.rsqrt(torch.mean(torch.square(oh), dim=-1, keepdim=True) + 1e-6)
-    o = oh.reshape(B, S, d) * params["ln_x"][None, None]
-    o = o * _silu(g.to(torch.float32))
+    o = oh.reshape(B, S, heads * hs) * part(params["ln_x"])[None, None]
+    o = o * _silu(part(g).to(torch.float32))
+    if own:
+        o = cut.gather(o, -1)
     out = dense(params["wo"], o.to(x.dtype))
-    return out, s, x[:, -1:, :]
+    last = x[:, -1:, :]
+    return out, s, (cut.part(last, -1) if own_prev else last)
 
 
 def rwkv6_channel_mix(params, x, cfg, prev_tok):
-    """The RWKV FFN with token shift.  Returns (out, new prev_tok)."""
+    """The RWKV FFN with token shift.  Returns (out, new prev_tok); a cut
+    ``prev_tok`` (this rank's channels) is gathered whole, and the rank
+    keeps its channels of the new one."""
+    prev_tok, own_prev = _shared_prev(prev_tok, x.shape[-1])
     xprev = _shift(x, prev_tok)
     xk = _lerp(x, xprev, params["cmix_k"])
     xr = _lerp(x, xprev, params["cmix_r"])
@@ -273,7 +316,8 @@ def rwkv6_channel_mix(params, x, cfg, prev_tok):
     k = torch.square(torch.relu(k)).to(x.dtype)
     r = torch.sigmoid(dense(params["cr"], xr).to(torch.float32))
     out = r * dense(params["cv"], k).to(torch.float32)
-    return out.to(x.dtype), x[:, -1:, :]
+    last = x[:, -1:, :]
+    return out.to(x.dtype), (hints.cache_cut().part(last, -1) if own_prev else last)
 
 
 def rwkv6_init_state(cfg, batch: int, device=None) -> dict:

@@ -316,12 +316,15 @@ def _apply_stack_train(stack, x, cfg, positions, want_cache=False, q_chunk=0, en
 
 
 def _apply_stack_decode(stack, x, cfg, caches, pos):
+    """One token through every layer; each superblock and remainder block
+    takes its params through :func:`~repro_torch.models.hints.params`."""
     period, n_scan, rem = stack_pattern(cfg)
     new_caches: dict = {}
     if n_scan:
         per_sb = []
         for sb in range(n_scan):
-            sb_params, sb_caches = _index(stack["scan"], sb), _index(caches["scan"], sb)
+            sb_params = hints.params(stack["scan"], sb)
+            sb_caches = _index(caches["scan"], sb)
             new_cs = {}
             for j in range(period):
                 kind, use_moe = layer_desc(cfg, j)
@@ -334,7 +337,8 @@ def _apply_stack_decode(stack, x, cfg, caches, pos):
         for j in range(rem):
             kind, use_moe = layer_desc(cfg, n_scan * period + j)
             x, new_caches["rem"][f"b{j}"] = _block_decode(
-                stack["rem"][f"b{j}"], x, cfg, kind, use_moe, caches["rem"][f"b{j}"], pos)
+                hints.params(stack["rem"][f"b{j}"]), x, cfg, kind, use_moe,
+                caches["rem"][f"b{j}"], pos)
     return x, new_caches
 
 
@@ -450,7 +454,7 @@ def decoder_decode_step(params, tokens, cfg, caches, pos):
     (B,1,V) f32, caches)."""
     x = _embed_inputs(params, tokens, cfg)
     x, new_caches = _apply_stack_decode(params["stack"], x, cfg, caches, pos)
-    x = norm_apply(params["final_norm"], x, cfg.norm)
+    x = norm_apply(hints.params(params["final_norm"]), x, cfg.norm)
     logits = x.to(torch.float32) @ output_embedding(params, cfg).to(torch.float32).T
     return logits, new_caches
 

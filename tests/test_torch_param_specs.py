@@ -13,6 +13,14 @@ and one shard's shape (``repro.launch.dist._shards_of``, ``_shard_grid``,
 ``_local_shape``).  The reference's own rule tests
 (``tests/test_hints_and_specs.py::TestParamSpecRules``) are ported too.
 Exact; no tolerance.
+
+The decode caches' specs (``repro_torch.launch.dist.cache_specs``, ROADMAP
+A12, part 4) too: every zoo config's caches at ``decode_32k`` and
+``long_500k`` (where the config serves that shape), the port's on the
+``meta`` device and the reference's from ``jax.eval_shape`` on
+``repro.scale.costs.StubMesh``, on both production layouts; each device's
+blocks divide the whole caches, and one device of (16, 16) holds 0.44 GB
+of granite-20b's 112.1 GB cache at ``decode_32k``.
 """
 import dataclasses
 import functools
@@ -25,17 +33,23 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from repro.configs.base import INPUT_SHAPES
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.configs.base import get_config as j_get_config
 from repro.launch import dist as jdist
 from repro.models.model import build_model as j_build_model
 from repro.models.model import make_param_specs as j_make_param_specs
+from repro.scale.costs import StubMesh
 from repro_torch.configs.base import ASSIGNED_ARCHS, PAPER_ARCHS, get_config
 from repro_torch.core.policy import path_str
 from repro_torch.core.tree import tree_flatten_with_path
 from repro_torch.launch import dist as tdist
+from repro_torch.launch.mesh import production_layout
+from repro_torch.launch.shards import spec_block
 from repro_torch.models.model import build_model, make_param_specs
 from test_torch_decoder import port_cfg
+from torch_dist_cases import _paths
+from torch_serve_cases import spec_json
 
 LAYOUTS = {
     "16x16": {"data": 16, "model": 16},
@@ -182,3 +196,58 @@ def test_a_spec_on_a_client_axis_is_refused():
                                  sparsity=0.01)
     assert fns.channel.client_axes == ("data",) and fns.channel.n_clients == 1
     assert max(gl.n_shards for gl in fns.channel.leaves) == 2
+
+
+# --------------------------------------------------- full size, shapes only
+
+SERVE_SHAPES = ("decode_32k", "long_500k")
+PRODUCTION = {"single": production_layout(), "multi": production_layout(multi_pod=True)}
+
+
+def _ref_specs(arch: str, shape: str, layout: dict) -> dict:
+    jm = trees(arch)[2]
+    s = INPUT_SHAPES[shape]
+    caches = jax.eval_shape(lambda: jm.init_caches(None, s["global_batch"], s["seq_len"]))
+    specs = jdist.cache_specs(jm.cfg, StubMesh(tuple(layout.values()), tuple(layout)), caches)
+    leaves = jax.tree.leaves(specs, is_leaf=lambda p: isinstance(p, P))
+    return {p: (spec_json(sp), tuple(v.shape))
+            for p, sp, v in zip(_paths(caches), leaves, jax.tree.leaves(caches))}
+
+
+@pytest.mark.parametrize("layout", list(PRODUCTION))
+@pytest.mark.parametrize("shape", SERVE_SHAPES)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_cache_specs_at_full_size_are_the_references(arch, shape, layout):
+    if j_get_config(arch).skip_reason(shape):
+        assert get_config(arch).skip_reason(shape) == j_get_config(arch).skip_reason(shape)
+        return
+    sizes = PRODUCTION[layout]
+    _, meta, _, tm = trees(arch)
+    s = INPUT_SHAPES[shape]
+    caches = tm.init_caches(meta, s["global_batch"], s["seq_len"])
+    flat, treedef = tree_flatten_with_path(caches)
+    specs = treedef.flatten_up_to(tdist.cache_specs(tm.cfg, sizes, caches))
+    got = {path_str(p): (spec_json(sp), tuple(v.shape)) for (p, v), sp in zip(flat, specs)}
+    assert got == _ref_specs(arch, shape, sizes)
+    coords = {a: n - 1 for a, n in sizes.items()}  # the last device
+    for (p, v), sp in zip(flat, specs):
+        grid, _ = spec_block(tuple(v.shape), sp, sizes, coords)
+        assert all(d % g == 0 for d, g in zip(v.shape, grid)), (path_str(p), sp)
+
+
+def test_one_devices_blocks_of_granites_decode_32k_cache():
+    """granite-20b at ``decode_32k`` (batch 128, 32,896 slots, one KV head)
+    on (16, 16): the whole cache is 112.1 GB, one device holds 0.44 GB
+    (the batch over "data", the sequence over "model"; ``pos`` whole)."""
+    sizes = production_layout()
+    _, meta, _, tm = trees("granite_20b")
+    s = INPUT_SHAPES["decode_32k"]
+    caches = tm.init_caches(meta, s["global_batch"], s["seq_len"])
+    flat, treedef = tree_flatten_with_path(caches)
+    specs = treedef.flatten_up_to(tdist.cache_specs(tm.cfg, sizes, caches))
+    whole = mine = 0
+    for (_, v), sp in zip(flat, specs):
+        grid, _ = spec_block(tuple(v.shape), sp, sizes, {"data": 0, "model": 0})
+        whole += v.numel() * v.element_size()
+        mine += v.numel() // int(np.prod(grid)) * v.element_size()
+    assert round(whole / 1e9, 1) == 112.1 and round(mine / 1e9, 2) == 0.44, (whole, mine)
