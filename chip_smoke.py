@@ -8,6 +8,7 @@
     python3 chip_smoke.py --pod           # phases 1 and 15 only
     python3 chip_smoke.py --fsdp          # phases 1 and 16 only
     python3 chip_smoke.py --dist-serve    # phases 1 and 17 only
+    python3 chip_smoke.py --scale         # phases 1 and 18 only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
@@ -360,7 +361,26 @@ Without arguments, phases, each of which fails the run:
      agree (a count, no gate), prefill ms, decode ms a token and peak
      memory a rank beside the one-rank run's, and no hand kernel launched.  ``python3 chip_smoke.py --dist-serve``
      runs phases 1 and 17 alone;
-  18. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  18. the scale planner (``repro_torch.scale``) and the dry run
+     (``repro_torch.launch.dryrun``): (a) ``plan_real`` of lenet5 and
+     charlstm on the card (the local backend per leaf, 4 clients, p =
+     0.01, 3 rounds): the cost model's f32 replay equal to the ledger bit
+     for bit, Eq. 1 bits and the ledger the pinned reference's
+     (``SCALE_PINS``), ``f32_mean_xla`` 48 and 64 launches a round, step
+     ms; (b) phase 15a's granite-20b variant (2 full-width layers, f32,
+     hist) on one device, batch 4 x 512: the dry run's prediction on the
+     ``meta`` device, printed before the card's run (argument + temp
+     bytes, kernel calls a step, the roofline's step time on the H100's
+     datasheet terms), then the card's first 2 steps: predicted / measured
+     peak (``torch.cuda.max_memory_allocated``) within ``SCALE_PEAK_RATIO``,
+     launches 2/1/1 + 1 a step equal to the dry run's, step ms beside the
+     estimate, and a third step's hist kernel calls bit-equal to their
+     plain versions; (c) ``python -m repro_torch.launch.dryrun --all --mesh
+     single`` in a subprocess started after phase 1 (records under
+     ``build/dryrun_torch``): each ok pair's memory and roofline terms,
+     the counts of ok, skip and error and the seconds; any error fails.
+     ``python3 chip_smoke.py --scale`` runs phases 1 and 18 alone;
+  19. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -382,8 +402,9 @@ Without arguments, phases, each of which fails the run:
      ``launches_encdec``, the rows phase 15 launches its counts in
      ``launches_pod`` and the hist kernels their 256-shard byte bounds in
      ``bound_ms_pod_256_shards``, the rows phase 16 launches its counts
-     in ``launches_fsdp``, and every row phase 17's, all zero, in
-     ``launches_dist_serve``), then the card line,
+     in ``launches_fsdp``, every row phase 17's, all zero, in
+     ``launches_dist_serve``, and every row phase 18's main paths' (18a
+     and 18b's first 2 steps) in ``launches_scale``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -407,6 +428,7 @@ operations too).
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
@@ -657,6 +679,32 @@ DIST_SERVE_TOL = 2 * 2 ** -8  # of the largest |value|: tests/test_torch_decoder
 # the one-rank run's prompts, greedy tokens, logits and caches, for the ranks
 DIST_SERVE_REF = ROOT / "build" / "dist_serve_one_rank"
 DIST_SERVE_TIMEOUT_S = 420
+# phase 18, the scale planner and the dry run (ROADMAP A13): (a)
+# repro_torch.scale.plan_real on the card for SCALE_REAL's configs (the
+# local backend per leaf, 4 clients, p = 0.01, 3 rounds), whose Eq. 1 bits
+# a step and ledger total are pinned to the reference by
+# tests/test_torch_scale.py, and f32_mean_xla's launches a round (2 an SBC
+# leaf and client); (b) phase 15a's granite-20b variant (2 full-width
+# layers, f32, hist) on SCALE_LAYOUT, one rank of one device: the dry
+# run's peak (argument + temp bytes, printed before the card's run) within
+# SCALE_PEAK_RATIO of torch.cuda.max_memory_allocated over the first 2
+# steps, its kernel calls a step equal to the card's launches; (c) the dry
+# run of every (arch, shape) on the single-pod layout in a subprocess,
+# started after phase 1 and read here, with no error
+SCALE_REAL = dict(rounds=3, sparsity=0.01)
+SCALE_PINS = {
+    "lenet5": dict(up_bits_per_step=102035.45994645605, up_bits_ledger=1224425.53125,
+                   means_per_round=2 * 6 * 4),
+    "charlstm": dict(up_bits_per_step=55454.652600547146, up_bits_ledger=665455.78125,
+                     means_per_round=2 * 8 * 4),
+}
+SCALE_LAYOUT = {"data": 1, "model": 1}
+SCALE_B = dict(batch=4, seq_len=512, steps=2, sparsity=0.001)
+SCALE_B_PER_STEP = per_call(seg_hist2side=2, seg_moments=1, seg_binarize_apply=1, f32_mean_xla=1)
+SCALE_PEAK_RATIO = (0.8, 1.25)  # predicted / measured peak
+SCALE_DRYRUN = ["--all", "--mesh", "single", "--jobs", "2"]
+SCALE_DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+SCALE_DRYRUN_TIMEOUT_S = 900
 # the leaves the reference keeps in f32 inside a bf16 model
 F32_LEAVES = ("router", "A_log", "D", "mix", "mix_w", "w0", "bonus", "ln_x", "cmix_k", "cmix_r")
 SEG_SBC = "src/repro_torch/kernels/csrc/seg_sbc.cu"
@@ -4663,6 +4711,193 @@ def dist_serve_phase(dev) -> dict:
     return out
 
 
+def start_dryrun() -> subprocess.Popen:
+    """Phase 18c's subprocess: ``python -m repro_torch.launch.dryrun`` with
+    ``SCALE_DRYRUN`` (CPU work on ``meta`` tensors), its records under
+    ``SCALE_DRYRUN_OUT`` and its output in a file there."""
+    import os
+
+    SCALE_DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    with open(SCALE_DRYRUN_OUT / "dryrun.log", "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                 *SCALE_DRYRUN, "--out-dir", str(SCALE_DRYRUN_OUT)],
+                                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    proc.started = time.perf_counter()
+    return proc
+
+
+def stop_dryrun(proc: subprocess.Popen) -> None:
+    """Kill :func:`start_dryrun`'s process and its workers (its session)."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def scale_real(dev) -> dict:
+    """Phase 18a: ``plan_real`` of each ``SCALE_PINS`` config on the card:
+    the reconcile bit-exact, Eq. 1 and the ledger the pinned reference's,
+    ``f32_mean_xla`` launches a round; step ms printed."""
+    from repro_torch import kernels
+    from repro_torch.scale import planner
+
+    out = {}
+    for name, pin in SCALE_PINS.items():
+        label = f"scale {name} real"
+        kernels.reset_launches()
+        rec, run = planner.plan_real(name, device=dev, **SCALE_REAL)
+        launches = kernels.launch_counts()
+        r = rec["real"]
+        check(rec["reconciles"] and r["up_bits_predicted"] == r["up_bits_ledger"],
+              f"{label}: predicted {r['up_bits_predicted']!r} != ledger {r['up_bits_ledger']!r}")
+        check(rec["up_bits_per_step"] == pin["up_bits_per_step"]
+              and r["up_bits_ledger"] == pin["up_bits_ledger"],
+              f"{label}: Eq. 1 {rec['up_bits_per_step']!r}, ledger {r['up_bits_ledger']!r} "
+              f"against the pins {pin}")
+        want = per_call(f32_mean_xla=pin["means_per_round"] * SCALE_REAL["rounds"])
+        check(launches == want, f"{label}: launches {launches} != {want}")
+        print(f"{label}: {r['executed_params']} params, {SCALE_REAL['rounds']} rounds on "
+              f"{r['device']}: Eq. 1 {rec['up_bits_per_step']!r} bits a client a step, ledger "
+              f"{r['up_bits_ledger']!r} == the f32 replay (bit-exact, the pinned reference's); "
+              f"measured/analytic x{r['measured_ratio']:.4f}; step ms {r['step_ms_warm']:.1f} "
+              f"(round 1), {r['step_ms_mean']:.1f} (rounds 2 on); f32_mean_xla "
+              f"{pin['means_per_round']} a round")
+        out[f"{name} real"] = launches
+        del run
+    return out
+
+
+def scale_dryrun_vs_card(dev) -> dict:
+    """Phase 18b: the dry run's prediction of granite's 2 full-width layers
+    (phase 15a's variant, hist, one rank of ``SCALE_LAYOUT``) against the
+    card's first ``SCALE_B["steps"]`` steps: peak memory, kernel launches a
+    step, step time against the roofline's estimate; then each hist kernel
+    call of a further step bit-equal to its plain version."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import flat as core_flat
+    from repro_torch.kernels import flat as kflat
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.dist import build_dist_train
+    from repro_torch.launch.mesh import make_host_group
+
+    label = "scale granite dry run"
+    cfg = pod_cfg("a")
+    B, S, steps = SCALE_B["batch"], SCALE_B["seq_len"], SCALE_B["steps"]
+    build = dict(sparsity=SCALE_B["sparsity"], fast=True, flat_engine="hist")
+    shape = (1, B, S)
+    meta = {k: torch.empty(shape, dtype=torch.int64, device="meta") for k in ("tokens", "labels")}
+    got = dryrun.dry_train(cfg, SCALE_LAYOUT, meta, **build)
+    rf = dryrun.summarize(got, cfg, "train_4k", SCALE_LAYOUT)["roofline"]
+    predicted = got["argument_bytes"] + got["temp_bytes"]
+    est_ms = 1e3 * (max(rf["compute_s"], rf["memory_s"]) + rf["collective_s"])
+    dry_calls = {k: v["launches"] for k, v in got["kernels"].items()}
+    print(f"{label}: prediction, written before the card's run: {cfg.n_layers} layers, "
+          f"batch {B} x {S} on {SCALE_LAYOUT}: argument {got['argument_bytes'] / 2**30:.3f} GiB "
+          f"+ temp {got['temp_bytes'] / 2**30:.3f} GiB = {predicted / 2**30:.3f} GiB peak; "
+          f"kernel calls a step {dry_calls}; roofline (H100 datasheet terms) compute "
+          f"{1e3 * rf['compute_s']:.2f} ms, memory {1e3 * rf['memory_s']:.2f} ms, collective "
+          f"{1e3 * rf['collective_s']:.2f} ms: {est_ms:.2f} ms a step ({got['run_s']:.1f} s on "
+          f"the host)")
+    check(dry_calls == {k: v for k, v in SCALE_B_PER_STEP.items() if v},
+          f"{label}: the dry run's kernel calls {dry_calls} != {SCALE_B_PER_STEP}")
+    del got
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    with builder_turns_tf32_off("build_dist_train"):
+        fns = build_dist_train(cfg, group=make_host_group(dev), mesh_shape=SCALE_LAYOUT, **build)
+    state = fns.init_state(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    step_ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = fns.train_step(state, batch)
+        torch.cuda.synchronize(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    launches = kernels.launch_counts()
+    measured = torch.cuda.max_memory_allocated(dev) - base
+    ratio = predicted / measured
+    print(f"{label}: the card's first {steps} steps: peak {measured / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated above the {base / 2**30:.3f} GiB held before the "
+          f"state), predicted / measured {ratio:.4f} (allowed {SCALE_PEAK_RATIO}); step ms "
+          f"{[round(t, 1) for t in step_ms]} against the roofline's {est_ms:.2f}; losses "
+          f"{losses}; launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    check(SCALE_PEAK_RATIO[0] <= ratio <= SCALE_PEAK_RATIO[1],
+          f"{label}: predicted / measured peak {ratio:.4f} outside {SCALE_PEAK_RATIO}")
+    want = {k: v * steps for k, v in SCALE_B_PER_STEP.items()}
+    check(launches == want, f"{label}: launches {launches} != {want} (the dry run's)")
+
+    # one more step, each hist kernel call held against its plain version
+    names = ("seg_hist2side", "seg_moments", "seg_binarize_apply")
+    calls: list = []
+    with swapped(core_flat, recording(core_flat, names, calls)):
+        state, _ = fns.train_step(state, batch)
+    del state
+    for name, args, kw in calls:
+        a = getattr(kflat, name)(*args, **kw)
+        b = getattr(kflat, f"{name}_plain")(*args, **kw)
+        same = (all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+                if name == "seg_binarize_apply" else torch.equal(a, b))
+        check(same, f"{label} {name}: != its plain version")
+        del a, b
+    check(sorted(c[0] for c in calls) == sorted(names + ("seg_hist2side",)),
+          f"{label}: kernel calls {[c[0] for c in calls]}")
+    print(f"{label}: a third step's {len(calls)} hist kernel calls bit-equal to their plain "
+          "versions")
+    del calls, fns, batch
+    torch.cuda.empty_cache()
+    return {"granite dry run vs card": launches}
+
+
+def scale_dryrun_all(proc: subprocess.Popen) -> None:
+    """Phase 18c: wait for :func:`start_dryrun`'s subprocess; its counts of
+    ok, skip and error, and its seconds; any error fails."""
+    try:
+        rc = proc.wait(timeout=max(1.0, SCALE_DRYRUN_TIMEOUT_S
+                                   - (time.perf_counter() - proc.started)))
+    except subprocess.TimeoutExpired:
+        stop_dryrun(proc)
+        raise SmokeFailure(f"the dry run outlived {SCALE_DRYRUN_TIMEOUT_S} s")
+    took = time.perf_counter() - proc.started
+    text = (SCALE_DRYRUN_OUT / "dryrun.log").read_text(errors="replace")
+    m = re.search(r"== dry-run: (\d+) ok / (\d+) skip / (\d+) error ==", text)
+    check(rc == 0 and m is not None, f"the dry run exited {rc}:\n{text[-3000:]}")
+    ok, skip, err = (int(g) for g in m.groups())
+    for path in sorted(SCALE_DRYRUN_OUT.glob("*.json")):
+        rec = json.loads(path.read_text())
+        if rec["status"] == "ok":
+            mem, rf = rec["memory"], rec["roofline"]
+            print(f"dry run {rec['arch']} {rec['shape']}: args {mem['argument_bytes'] / 2**30:.3f}"
+                  f" GiB, temp {mem['temp_bytes'] / 2**30:.3f} GiB, {rf['dominant']} "
+                  f"(C {rf['compute_s']:.4g} s, M {rf['memory_s']:.4g} s, X "
+                  f"{rf['collective_s']:.4g} s), kernels {rec['kernels']}, {rec['run_s']} s")
+    print(f"dry run {' '.join(SCALE_DRYRUN)}: {ok} ok / {skip} skip / {err} error in "
+          f"{took:.1f} s (records in {SCALE_DRYRUN_OUT.relative_to(ROOT)})")
+    check(err == 0 and ok > 0, f"the dry run: {err} errors")
+
+
+def scale_phase(dev, proc: subprocess.Popen) -> dict:
+    """Phase 18: (a) ``plan_real`` on the card, (b) the dry run against the
+    card, (c) the dry run of the zoo (``proc``, started after phase 1)."""
+    launches = scale_real(dev)
+    launches.update(scale_dryrun_vs_card(dev))
+    scale_dryrun_all(proc)
+    return launches
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -4745,9 +4980,11 @@ def main(argv: list) -> int:
         return serve_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     decoder_only, zoo_only, pod_only = argv == ["--decoder"], argv == ["--zoo"], argv == ["--pod"]
     fsdp_only, serve_only = argv == ["--fsdp"], argv == ["--dist-serve"]
-    check(not argv or decoder_only or zoo_only or pod_only or fsdp_only or serve_only,
+    scale_only = argv == ["--scale"]
+    check(not argv or decoder_only or zoo_only or pod_only or fsdp_only or serve_only
+          or scale_only,
           f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo | --pod | --fsdp | "
-          f"--dist-serve]; got {argv}")
+          f"--dist-serve | --scale]; got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
     check((ROOT / "src" / "repro_torch").is_dir(),
@@ -4766,6 +5003,13 @@ def main(argv: list) -> int:
     print(f"built {[str(p.relative_to(ROOT)) for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    # phase 18c's dry run of the zoo, CPU work on meta tensors, runs beside
+    # the card's phases from here and is read in phase 18
+    dry = None if (decoder_only or zoo_only or pod_only or fsdp_only or serve_only) else \
+        start_dryrun()
+    if dry is not None:  # a failing phase leaves no process behind
+        atexit.register(stop_dryrun, dry)
+
     if decoder_only:  # phase 12 alone
         print(json.dumps({"launches_decoder": decoder_phase(dev)}))
         return 0
@@ -4774,10 +5018,11 @@ def main(argv: list) -> int:
         print(json.dumps({"launches_moe": moe, "launches_encdec": encdec_phase(dev)}))
         print(card)
         return 0
-    if pod_only or fsdp_only or serve_only:  # phase 15, 16 or 17 alone
+    if pod_only or fsdp_only or serve_only or scale_only:  # phase 15, 16, 17 or 18 alone
         key, phase = (("launches_pod", pod_phase) if pod_only else
                       ("launches_fsdp", fsdp_phase) if fsdp_only else
-                      ("launches_dist_serve", dist_serve_phase))
+                      ("launches_dist_serve", dist_serve_phase) if serve_only else
+                      ("launches_scale", lambda dev: scale_phase(dev, dry)))
         print(json.dumps({key: phase(dev)}))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -4884,7 +5129,13 @@ def main(argv: list) -> int:
         rows[name]["launches_dist_serve"] = {path: c.get(name, 0)
                                              for path, c in dist_serve.items()}
 
-    # ---- 18. results
+    # ---- 18. the scale planner's real runs, the dry run against the card,
+    # the dry run of the zoo
+    scale = scale_phase(dev, dry)
+    for name in KERNELS:
+        rows[name]["launches_scale"] = {path: c.get(name, 0) for path, c in scale.items()}
+
+    # ---- 19. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

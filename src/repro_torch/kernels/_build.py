@@ -18,6 +18,13 @@ and the per-leaf ``masked_moments``, ``seg_select_pack``, ``f32_mean_xla``)
 share:
 the size of a one-wave persistent grid (:func:`persistent_grid`) and the
 self-cleaning scratch they count in (:class:`Workspace`).
+
+A wrapper given tensors on the ``meta`` device (the dry run of
+``repro_torch.launch.dryrun``) launches nothing: it returns its plain
+version's shapes and dtypes and calls :func:`meta_launch`, which adds
+one call and the bytes its bound counts (each input read once, each
+output written once) to :data:`META_TALLY`.  Its ``launches`` count, the
+card's, is left as it is.
 """
 from __future__ import annotations
 
@@ -154,6 +161,28 @@ def library() -> types.SimpleNamespace:
             fn.restype = ctypes.c_int
             entries[name] = fn
     return types.SimpleNamespace(_libs=tuple(loaded), **entries)
+
+
+# kernel name → [calls, bytes] on meta tensors since the last reset
+META_TALLY: dict = {}
+
+
+def meta_launch(name: str, nbytes: int) -> None:
+    """Count one call of kernel ``name`` on ``meta`` tensors, moving
+    ``nbytes``."""
+    got = META_TALLY.setdefault(name, [0, 0])
+    got[0] += 1
+    got[1] += int(nbytes)
+
+
+def reset_meta() -> None:
+    META_TALLY.clear()
+
+
+def check_device(t: torch.Tensor) -> None:
+    """``ValueError`` unless ``t`` is on the CPU, a card or ``meta``."""
+    if t.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"unsupported device {t.device}")
 
 
 def check(err: int, name: str) -> None:

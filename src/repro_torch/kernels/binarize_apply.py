@@ -48,6 +48,9 @@ def binarize_apply(flat: torch.Tensor, t_pos, t_neg, mu, pos_wins, *,
     check_tile(bm, lanes)
     tp, tn, m, side = (scalar_operand(v, x.device, name=nm) for v, nm in (
         (t_pos, "t_pos"), (t_neg, "t_neg"), (mu, "mu"), (pos_wins, "pos_wins")))
+    if x.is_meta:
+        _build.meta_launch("binarize_apply", 4 * (3 * x.numel() + 4))
+        return torch.empty_like(x), torch.empty_like(x)
     if not x.is_cuda:
         return binarize_apply_plain(x, tp, tn, m, side)
     out = torch.empty_like(x)

@@ -98,8 +98,7 @@ def _check(xpad: torch.Tensor, params: torch.Tensor, ncols: int, bm: int,
     check_flat_size(xpad.numel())
     if xpad.device != params.device:
         raise ValueError(f"xpad on {xpad.device} but params on {params.device}")
-    if xpad.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {xpad.device}")
+    _build.check_device(xpad)
     if xpad.shape[1] != lanes or xpad.shape[0] % bm:
         raise ValueError(
             f"xpad shape {tuple(xpad.shape)} is not (nblocks*{bm}, {lanes})"
@@ -177,6 +176,10 @@ def seg_hist2side(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     one launch, which writes the f32 result itself.
     """
     nblocks = _check(xpad, params, 5, bm, lanes)
+    if xpad.is_meta:
+        _build.meta_launch("seg_hist2side",
+                           4 * (xpad.numel() + params.numel() + nseg * 2 * nbins))
+        return xpad.new_empty((nseg, 2, nbins))
     if not xpad.is_cuda:
         return seg_hist2side_plain(xpad, params, nseg=nseg, nbins=nbins, bm=bm,
                                    lanes=lanes)
@@ -293,6 +296,9 @@ def seg_moments(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     folds them per segment in a fixed order.
     """
     nblocks = _check(xpad, params, 3, bm, lanes)
+    if xpad.is_meta:
+        _build.meta_launch("seg_moments", 4 * (xpad.numel() + params.numel() + nseg * 4))
+        return xpad.new_empty((nseg, 2, 2))
     if not xpad.is_cuda:
         return seg_moments_plain(xpad, params, nseg=nseg, bm=bm, lanes=lanes)
     dev = xpad.device
@@ -341,6 +347,9 @@ def seg_binarize_apply(xpad: torch.Tensor, params: torch.Tensor, *,
     Replaces the Pallas ``repro.kernels.flat.seg_binarize_apply``.
     """
     nblocks = _check(xpad, params, 4, bm, lanes)
+    if xpad.is_meta:
+        _build.meta_launch("seg_binarize_apply", 4 * (3 * xpad.numel() + params.numel()))
+        return torch.empty_like(xpad), torch.empty_like(xpad)
     if not xpad.is_cuda:
         return seg_binarize_apply_plain(xpad, params, bm=bm, lanes=lanes)
     out = torch.empty_like(xpad)

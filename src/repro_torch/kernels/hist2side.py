@@ -51,8 +51,7 @@ def leaf_operand(flat, name: str = "flat") -> torch.Tensor:
     """Validate a per-leaf operand; return it as f32 (no copy when it is)."""
     if not isinstance(flat, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(flat)}")
-    if flat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {flat.device}")
+    _build.check_device(flat)
     if not flat.is_floating_point():
         raise TypeError(f"{name} must be a float tensor, got {flat.dtype}")
     if flat.dim() != 1 or not 1 <= flat.numel() <= MAX_N:
@@ -140,6 +139,9 @@ def hist2side(flat: torch.Tensor, lo, hi, *, nbins: int = 128, bm: int = DEFAULT
     """
     x = leaf_operand(flat)
     check_tile(bm, lanes)
+    if x.is_meta:
+        _build.meta_launch("hist2side", 4 * (x.numel() + 4 + 2 * nbins))
+        return x.new_empty((2, nbins))
     if not x.is_cuda:
         return hist2side_plain(x, lo, hi, nbins=nbins)
     if not 1 <= nbins <= MAX_NBINS:

@@ -73,6 +73,9 @@ def masked_moments(flat: torch.Tensor, t_pos, t_neg, *, bm: int = DEFAULT_BM,
     span = check_tile(bm, lanes)
     tp = scalar_operand(t_pos, x.device, name="t_pos")
     tn = scalar_operand(t_neg, x.device, name="t_neg")
+    if x.is_meta:
+        _build.meta_launch("masked_moments", 4 * (x.numel() + 2 + 4))
+        return x.new_empty((2, 2))
     if not x.is_cuda:
         return masked_moments_plain(x, tp, tn, bm=bm, lanes=lanes)
     dev = x.device

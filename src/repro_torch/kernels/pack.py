@@ -153,11 +153,6 @@ def bits_from_mask(mask: torch.Tensor, *, k: int, bstar: int, cap32: int) -> tup
 # ------------------------------------------------------------------ checks
 
 
-def _check_device(t: torch.Tensor) -> None:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-
-
 def _check_words_operand(name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Validate an int32/uint32 operand; return its int32 view."""
     if not isinstance(t, torch.Tensor):
@@ -168,7 +163,7 @@ def _check_words_operand(name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    _check_device(t)
+    _build.check_device(t)
     return t.view(torch.int32)
 
 
@@ -203,6 +198,9 @@ def seg_packbits(planes: torch.Tensor, *, lanes: int = 128) -> torch.Tensor:
     nwords = p32.shape[1]
     if lanes <= 0 or nwords % lanes:
         raise ValueError(f"nwords {nwords} is not a multiple of lanes {lanes}")
+    if p32.is_meta:
+        _build.meta_launch("seg_packbits", 4 * (32 * nwords + nwords))
+        return p32.new_empty((nwords,)).view(torch.uint32)
     if not p32.is_cuda:
         return seg_packbits_plain(p32, lanes=lanes)
     words = torch.empty((nwords,), dtype=torch.int32, device=p32.device)
@@ -239,6 +237,9 @@ def seg_packbits_stream(bits: torch.Tensor) -> torch.Tensor:
     nbits = b32.shape[0]
     if nbits >= 2 ** 31 - 32:
         raise ValueError(f"{nbits} bits are past the kernel's 32-bit positions")
+    if b32.is_meta:
+        _build.meta_launch("seg_packbits", 4 * (nbits + -(-nbits // 32)))
+        return b32.new_empty((-(-nbits // 32),)).view(torch.uint32)
     if not b32.is_cuda:
         return seg_packbits_stream_plain(b32)
     words = torch.empty((-(-nbits // 32),), dtype=torch.int32, device=b32.device)
@@ -325,7 +326,7 @@ def seg_select_pack(mask: torch.Tensor, *, k: int, bstar: int) -> tuple:
         raise ValueError(f"mask must be 2-D, got shape {tuple(mask.shape)}")
     if not mask.is_contiguous():
         raise ValueError("mask must be contiguous")
-    _check_device(mask)
+    _build.check_device(mask)
     rows, n = mask.shape
     if not 0 <= k <= n:
         raise ValueError(f"k={k} outside [0, n={n}]")
@@ -335,6 +336,9 @@ def seg_select_pack(mask: torch.Tensor, *, k: int, bstar: int) -> tuple:
     if 32 * nw >= 2 ** 31 or n >= 2 ** 31 - 2 ** 16:
         raise ValueError(f"a row of {n} slots or {nw} words is past the kernel's "
                          "32-bit positions")
+    if mask.is_meta:
+        _build.meta_launch("seg_select_pack", 4 * (rows * n + rows * nw + rows))
+        return mask.new_empty((rows, nw)).view(torch.uint32), mask.new_empty((rows,))
     if not mask.is_cuda:
         return seg_select_pack_plain(mask, k=k, bstar=bstar)
     dev = mask.device

@@ -140,8 +140,10 @@ def f32_mean_xla(vals: torch.Tensor, *, sum_only: bool = False) -> torch.Tensor:
     if vals.dim() < 1 or not 1 <= vals.shape[-1] < 2 ** 31 - WINDOW:
         raise ValueError(f"vals must have 1 to 2**31 - 33 entries on its last axis, got "
                          f"shape {tuple(vals.shape)}")
-    if vals.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {vals.device}")
+    _build.check_device(vals)
+    if vals.is_meta:
+        _build.meta_launch("f32_mean_xla", 4 * (vals.numel() + vals.numel() // vals.shape[-1]))
+        return vals.new_empty(vals.shape[:-1])
     if not vals.is_cuda:
         return f32_mean_xla_plain(vals, sum_only=sum_only)
     n = vals.shape[-1]

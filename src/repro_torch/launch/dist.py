@@ -639,7 +639,8 @@ def _serving(rp: _RankParams, params: dict, cut_rows: bool) -> RankShards:
     """A step's forward-only :class:`RankShards` on this rank's blocks
     ``params``; the MoE's statistics and slots cover the batch's ranks
     where the rows are cut (``cut_rows``), this rank's rows elsewhere."""
-    rows = rp.ranks.batch if cut_rows else make_host_group(rp.ranks.batch.device)
+    rows = rp.ranks.batch if cut_rows else ClientGroup(rank=0, world=1,
+                                                        device=rp.ranks.batch.device)
     return RankShards(rp.ranks, rp.treedef.flatten_up_to(params), rp.blocks, rows=rows)
 
 
@@ -744,7 +745,7 @@ def make_dist_prefill(cfg: ModelConfig, *, group: Optional[ClientGroup] = None,
                                                         seq_axis="model"):
             with hints.sharded_params(shards):
                 hidden, caches = model.prefill(params, mine)
-            shards.check_every_leaf_used()
+            shards.check_every_leaf_used(unread=("head/",))  # an untied head makes no hidden
             return hidden, cut_tree(caches, cache_specs(cfg, rp.sizes, caches), flat_sizes,
                                     flat_coords)
 

@@ -145,6 +145,8 @@ class ClientGroup:
     device: torch.device
     backend: Optional[str] = None
     pg: Any = None  # a sub-group's handle (None: the default group)
+    members: tuple = ()  # a sub-group's global ranks, in its rank order
+    timeout: datetime.timedelta = TIMEOUT  # the longest wait for the other ranks
     _host: Any = dataclasses.field(default=None, repr=False)  # gloo's staging buffer
 
     def __post_init__(self) -> None:
@@ -156,14 +158,15 @@ class ClientGroup:
 
     @classmethod
     def connect(cls, *, rank: int, world: int, device=None,
-                backend: Optional[str] = None,
-                init_method: str = "env://") -> "ClientGroup":
+                backend: Optional[str] = None, init_method: str = "env://",
+                timeout: datetime.timedelta = TIMEOUT) -> "ClientGroup":
         """Join a process group of ``world`` ranks as ``rank``.
         ``backend`` defaults to NCCL on a card and gloo on the CPU;
         ``init_method`` is a ``torch.distributed`` URL (``env://``,
-        ``file://<path>``, ``tcp://host:port``).  Every collective waits
-        at most ``TIMEOUT`` for the other ranks, so a rank that failed
-        does not leave the others blocked for good."""
+        ``file://<path>``, ``tcp://host:port``).  Joining and every
+        collective, of the group and of its sub-groups, wait at most
+        ``timeout`` (default ``TIMEOUT``) for the other ranks, so a rank
+        that failed does not leave the others blocked for good."""
         import torch.distributed as dist
 
         device = resolve_device(device)
@@ -175,8 +178,8 @@ class ClientGroup:
                 device = torch.device("cuda", torch.cuda.current_device())
             torch.cuda.set_device(device)
         dist.init_process_group(backend, init_method=init_method, rank=rank,
-                                world_size=world, timeout=TIMEOUT)
-        return cls(rank=rank, world=world, device=device, backend=backend)
+                                world_size=world, timeout=timeout)
+        return cls(rank=rank, world=world, device=device, backend=backend, timeout=timeout)
 
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked in rank order: ``(world, *t.shape)``.
@@ -319,10 +322,7 @@ class ClientGroup:
                 if tuple(ranks) not in made:
                     made[tuple(ranks)] = self._new_group(ranks)
                 if self.rank in ranks:
-                    mine.append((ClientGroup(rank=ranks.index(self.rank), world=len(ranks),
-                                             device=self.device,
-                                             backend=self.backend if len(ranks) > 1 else None,
-                                             pg=made[tuple(ranks)]), ranks))
+                    mine.append((self._sub(ranks, made[tuple(ranks)]), ranks))
         return DeviceRanks(client=client[self.rank], device=device[self.rank], devices=n_dev,
                            coords=coords[self.rank], exchange=mine[0][0],
                            client_ranks=mine[1][0], data=mine[2][0],
@@ -331,6 +331,13 @@ class ClientGroup:
                                              for d in range(n_dev)),
                            model=mine[3][0], batch=mine[4][0])
 
+    def _sub(self, ranks: list, pg) -> "ClientGroup":
+        """This rank's view of the sub-group of ``ranks`` (global ranks, in
+        the sub-group's order) whose process group is ``pg``."""
+        return ClientGroup(rank=ranks.index(self.rank), world=len(ranks), device=self.device,
+                           backend=self.backend if len(ranks) > 1 else None, pg=pg,
+                           members=tuple(ranks), timeout=self.timeout)
+
     def _new_group(self, ranks: list):
         """A process group of ``ranks`` (None for one rank: no collective
         crosses it)."""
@@ -338,7 +345,7 @@ class ClientGroup:
             return None
         import torch.distributed as dist
 
-        return dist.new_group(ranks, timeout=TIMEOUT, backend=self.backend)
+        return dist.new_group(ranks, timeout=self.timeout, backend=self.backend)
 
     def close(self) -> None:
         """Leave the process group (no-op without one, and on a sub-group:

@@ -215,12 +215,12 @@ def attn_train(params: dict, x: torch.Tensor, cfg, kind: str, *,
         n_chunks = S // q_chunk
         assert S % q_chunk == 0, f"seq {S} not divisible by q_chunk {q_chunk}"
         outs = []
-        for i in range(n_chunks):
+        for i in hints.steps(n_chunks):  # every chunk attends over all Sk keys
             qch = q[:, i * q_chunk:(i + 1) * q_chunk]
             qi = positions[0] + i * q_chunk + torch.arange(q_chunk, device=x.device)
             mask = mask_fn(qi, kj)
             outs.append(_masked_attention(qch, k, v, mask[None, None, None], scale))
-        out = torch.cat(outs, dim=1)
+        out = torch.cat(hints.every_step(outs, n_chunks), dim=1)
 
     out = out.reshape(B, S, cfg.n_heads * hd).to(x.dtype)
     out = dense(params["wo"], out)

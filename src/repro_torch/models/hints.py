@@ -35,7 +35,13 @@ These hints have readers:
     (``repro_torch.launch.dist.make_dist_serve``): attention, Mamba and
     RWKV6 read it to attend over this rank's heads or cache slots, or to
     step this rank's channels of a state, and to put the whole back
-    together.
+    together;
+  * :func:`steps` and :func:`every_step` run a host loop over sequence
+    positions (the Mamba and RWKV6 recurrences) or query chunks
+    (attention): ``range(n)`` and the step outputs as they are, unless
+    the dry run samples loops
+    (:func:`sampled_loops`, ``repro_torch.launch.roofline.LoopSampler``),
+    where two steps run and the second counts for all but the first.
 
 Without a context every hint is the identity (or a no-op), :func:`remat`
 and :func:`lean_moe` are False, :func:`data_ranks` is 1 and
@@ -50,7 +56,7 @@ from repro_torch.core.tree import tree_map
 
 _CTX: dict[str, Any] = {"mesh": None, "batch": None, "seq": None, "expert": None,
                         "seq_every": 1, "lean_moe": False, "shards": None, "cut": None,
-                        "caches": None}
+                        "caches": None, "loops": None}
 
 
 def lean_moe() -> bool:
@@ -211,3 +217,32 @@ def expert_flat(x):
 def expert_grouped(x):
     """A grouped-dispatch ``(B, E, C, d)`` buffer: the identity."""
     return x
+
+
+@contextlib.contextmanager
+def sampled_loops(sampler):
+    """Inside, :func:`steps` and :func:`every_step` go through ``sampler``
+    (a ``repro_torch.launch.roofline.LoopSampler``)."""
+    old = _CTX["loops"]
+    _CTX["loops"] = sampler
+    try:
+        yield
+    finally:
+        _CTX["loops"] = old
+
+
+def steps(n: int):
+    """The positions of a host loop of ``n`` steps: ``range(n)``, or under
+    :func:`sampled_loops` steps 0 and 1, the second standing for steps 1
+    to n − 1."""
+    sampler = _CTX["loops"]
+    return range(n) if sampler is None or n <= 2 else sampler.steps(n)
+
+
+def every_step(outs: list, n: int, *carries) -> list:
+    """The loop's per-step outputs ``outs``, one a position: as they are,
+    or under :func:`sampled_loops` the one step's output for each of the
+    ``n`` (``carries``: the state it carries on, for the backward's
+    count and the memory's)."""
+    sampler = _CTX["loops"]
+    return outs if sampler is None else sampler.every_step(outs, n, carries)

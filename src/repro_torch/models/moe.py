@@ -208,7 +208,10 @@ def _moe_flat(params, x, cfg, capacity_factor, full_capacity):
     aux = E * torch.sum(me * ce)
     before = None
     if n_data > 1:  # the lower "data" ranks' tokens come first in the pod's order
-        before = hints.data_before(torch.bincount(experts.reshape(-1), minlength=E))
+        ids = experts.reshape(-1)  # the count of each expert: bincount's, with a meta kernel
+        counts = torch.zeros(E, dtype=torch.int64, device=ids.device).index_add_(
+            0, ids, torch.ones_like(ids, dtype=torch.int64))
+        before = hints.data_before(counts)
     buf, gate_buf = _dispatch(experts, gates, E, C, T, _acc_dtype(x), before)
     gathered = _gather(xt, buf)[0].reshape(E, C, d)
     expert_out = _experts(params, gathered, "").reshape(1, E * C, d)

@@ -126,10 +126,10 @@ def mamba_train(params, x, cfg):
     dt, Bs, Cs, A = mamba_ssm_params(params, x_in.to(x.dtype), cfg)
     h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
     ys = []
-    for t in range(S):
+    for t in hints.steps(S):
         h, y = _mamba_step(h, x_in[:, t], dt[:, t], Bs[:, t], Cs[:, t], A)
         ys.append(y)
-    y = torch.stack(ys, dim=1) + x_in * params["D"][None, None, :]
+    y = torch.stack(hints.every_step(ys, S, h), dim=1) + x_in * params["D"][None, None, :]
     y = y * _silu(z.to(torch.float32))
     out = dense(params["out_proj"], y.to(x.dtype))
     return out, h, conv_tail
@@ -285,14 +285,14 @@ def rwkv6_time_mix(params, x, cfg, state_s, prev_tok):
     u = part(params["bonus"], 0)[None]  # (1, H, hs)
     s = state_s
     os = []
-    for t in range(S):
+    for t in hints.steps(S):
         rt, kt, vt, wt = rh[:, t], kh[:, t], vh[:, t], wh[:, t]  # (B, H, hs) each
         # o_j = Σ_i r_i s_ij + (Σ_i r_i u_i k_i) v_j
         o = (torch.einsum("bhi,bhij->bhj", rt, s)
              + torch.einsum("bhi,bhi->bh", rt, u * kt)[..., None] * vt)
         s = wt[..., None] * s + kt[..., None] * vt[..., None, :]
         os.append(o)
-    oh = torch.stack(os, dim=1)  # (B, S, H, hs) f32
+    oh = torch.stack(hints.every_step(os, S, s), dim=1)  # (B, S, H, hs) f32
     # per-head group norm, then the gate
     oh = oh * torch.rsqrt(torch.mean(torch.square(oh), dim=-1, keepdim=True) + 1e-6)
     o = oh.reshape(B, S, heads * hs) * part(params["ln_x"])[None, None]

@@ -44,11 +44,12 @@ import torch
 
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.launch import dist as tdist
+from repro_torch.launch import dryrun
 from repro_torch.models.model import build_model
 from repro_torch.serve import ServeEngine
-from torch_dist_cases import _tree
+from torch_dist_cases import _tree, call_keys
 from torch_helpers import one_thread
-from torch_serve_cases import CASES, LAYOUT, PROMPT, STEPS, WORLD, block, run_both
+from torch_serve_cases import CASES, LAYOUT, PROMPT, STEPS, WORLD, _batch, block, run_both
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 REF_LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -78,12 +79,35 @@ def one_rank(x: dict) -> dict:
     return out
 
 
+def dry_runs(x: dict) -> dict:
+    """``{case: [each rank's dry run]}``: its prefill and step-0 decode on
+    the ``meta`` device (``repro_torch.launch.dryrun``) with a recording
+    group of the layout in place of the ranks: the calls it records and its
+    ``argument_bytes``."""
+    out = {}
+    for name, case in CASES.items():
+        cfg = reduced(get_config(case["arch"]))
+        batch = _batch(x, name, torch.from_numpy)
+        batch["tokens"] = batch["tokens"].long()
+        out[name] = []
+        for r in range(WORLD):
+            pf = dryrun.dry_prefill(cfg, LAYOUT, batch, rank=r)
+            dc = dryrun.dry_decode(cfg, LAYOUT, batch=case["batch"], seq_len=PROMPT, pos=PROMPT,
+                                   rank=r, tokens_dtype=torch.int64)
+            out[name].append({"prefill": call_keys(pf["log"].calls),
+                              "decode": call_keys(dc["log"].calls),
+                              "prefill_args": pf["argument_bytes"],
+                              "decode_args": dc["argument_bytes"]})
+    return out
+
+
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    """``(inputs, ref arrays, ref info, [rank arrays], [rank info], one rank's logits)``."""
+    """``(inputs, ref arrays, ref info, [rank arrays], [rank info], (one
+    rank's logits, the ranks' dry runs))``."""
     def during(x):
         with one_thread():
-            return one_rank(x)
+            return one_rank(x), dry_runs(x)
 
     return run_both(tmp_path_factory.mktemp("serve"), timeout=240.0, during=during)
 
@@ -145,7 +169,7 @@ def test_cache_specs_are_the_references(served, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_prefill_rows_and_cache_blocks(served, name):
-    _, ref, _, ports, infos, one = served
+    _, ref, _, ports, infos, (one, _) = served
     for r in range(WORLD):
         a, b = infos[r][name]["rows"]
         got = ports[r][f"{name}/prefill/hidden"]
@@ -178,11 +202,28 @@ def test_greedy_tokens_agree_on_every_rank_and_with_the_reference(served, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_logits_are_the_one_rank_ports(served, name):
-    _, _, _, ports, _, one = served
+    _, _, _, ports, _, (one, _) = served
     for s in range(STEPS):
         for r in range(WORLD):
             np.testing.assert_allclose(ports[r][f"{name}/step{s}/logits"], one[name][1][s], **TOL,
                                        err_msg=f"{name} step {s} rank {r}")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_the_dry_run_makes_each_ranks_calls_and_holds_its_bytes(served, name):
+    """Each rank's collectives in the prefill and in every decode step,
+    recorded on its gloo group, are those its dry run's recording group
+    makes, in order (kind, shape, dtype, the group's ranks); the dry
+    run's ``argument_bytes`` are the bytes of the rank's params, batch,
+    tokens and caches."""
+    _, _, _, _, infos, (_, dry) = served
+    for r in range(WORLD):
+        got, want = infos[r][name], dry[name][r]
+        assert got["calls"]["prefill"] == want["prefill"], r
+        assert want["prefill"] and want["decode"], r
+        for s in range(STEPS):
+            assert got["calls"]["steps"][s] == want["decode"], (r, s)
+        assert got["args"] == {"prefill": want["prefill_args"], "decode": want["decode_args"]}, r
 
 
 def test_a_world_that_is_not_the_layouts_devices_is_refused():

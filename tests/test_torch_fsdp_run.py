@@ -47,11 +47,12 @@ import torch
 from repro.configs.base import get_config as j_get_config
 from repro_torch.configs.base import get_config
 from repro_torch.kernels.flat import MAX_FLAT_ENTRIES
+from repro_torch.launch import dryrun
 from repro_torch.launch.dist import device_flat_space
 from repro_torch.launch.mesh import production_layout
 from test_torch_pod_run import _pin_cfg, reference_bits
-from torch_dist_cases import finish
-from torch_fsdp_cases import CASES, MOE, PEAK, load, run_case, start_ranks
+from torch_dist_cases import call_keys, finish
+from torch_fsdp_cases import CASES, LAYOUT, MOE, PEAK, case_cfg, load, run_case, start_ranks
 from torch_helpers import load_chip_smoke, one_thread
 
 GRANITE = [name for name in CASES if name not in MOE]
@@ -62,8 +63,8 @@ SBC = ("exact-pack", "hist", "leaf-momentum")
 def runs(tmp_path_factory):
     """``(one rank's {case: (arrays, info)}, 4 ranks' [...], 2 ranks' [...])``."""
     tmp = tmp_path_factory.mktemp("fsdp")
-    procs = (start_ranks(tmp, 4, [PEAK] + GRANITE, "granite")
-             + start_ranks(tmp, 2, list(MOE), "moe"))
+    procs = (start_ranks(tmp, 4, [PEAK] + GRANITE, "granite", wait_s=240.0)
+             + start_ranks(tmp, 2, list(MOE), "moe", wait_s=240.0))
     try:
         with one_thread():
             one = {name: run_case(name) for name in CASES}
@@ -107,6 +108,30 @@ def test_each_rank_holds_its_device_blocks(runs, name):
             for whole, block, s in zip(one["residual"], got["residual"], info["n_shards"]):
                 assert math.prod(whole) == s * math.prod(block)
         assert max(info["n_shards"]) == (2 if name in MOE else 4)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_the_dry_run_makes_each_ranks_calls_and_holds_its_bytes(runs, name):
+    """Each rank's collectives in round 1's train step, recorded on its
+    gloo group, are those of the dry run's recording group at that rank
+    (``repro_torch.launch.dryrun.dry_train`` on the ``meta`` device, the
+    case's build options): the same calls in the same order (kind, shape,
+    dtype, the group's ranks); and its ``argument_bytes`` are the bytes of
+    the rank's params, optimizer rows, residual and batch."""
+    case = CASES[name]
+    ranks = _ranks_of(runs, name)
+    for r, rank in enumerate(ranks):
+        info = rank[name][1]
+        batch = {k: torch.empty(shape, dtype=getattr(torch, dt.replace("torch.", "")),
+                                device="meta") for k, (shape, dt) in info["batch"].items()}
+        got = dryrun.dry_train(case_cfg(case), case.get("layout", LAYOUT), batch, rank=r,
+                               compressor=case.get("compressor", "sbc"), sparsity=0.01,
+                               fast=case["fast"], flat_engine=case.get("flat_engine", "exact"),
+                               measure=case.get("measure", False),
+                               device_pack=case.get("device_pack", False))
+        assert call_keys(got["log"].calls) == info["calls0"], (name, r)
+        assert info["calls0"], name
+        assert got["argument_bytes"] == info["args0"], (name, r)
 
 
 def test_init_host_peak_is_a_ranks_blocks(runs):

@@ -38,6 +38,7 @@ Cases (names are keys of the dicts below):
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -495,7 +496,7 @@ def port_main(rank: int, n: int, store: str, inp: str, out: str) -> None:
             device_pack=case.get("device_pack", False))
 
     group = ClientGroup.connect(rank=rank, world=n, device="cpu", backend="gloo",
-                                init_method=f"file://{store}")
+                                init_method=f"file://{store}", timeout=gloo_timeout())
     try:
         for name in meta["exchanges"]:
             case = EXCHANGES[name]
@@ -661,7 +662,7 @@ def port_devices_main(rank: int, store: str, out: str, inputs: list) -> None:
     torch.set_num_threads(1)
     world = int(np.prod(list(LAYOUT.values())))
     group = ClientGroup.connect(rank=rank, world=world, device="cpu", backend="gloo",
-                                init_method=f"file://{store}")
+                                init_method=f"file://{store}", timeout=gloo_timeout())
     res_out, info = {}, {}
     try:
         for mode, inp in zip(("pod", "data"), inputs):
@@ -735,36 +736,109 @@ def port_devices_main(rank: int, store: str, out: str, inputs: list) -> None:
 # --------------------------------------------------- running both sides
 
 
-def _env() -> dict:
+@contextlib.contextmanager
+def recorded_calls(log: list):
+    """Inside, every collective of a ``ClientGroup`` of this process (of
+    more than one rank) appends ``[kind, shape, dtype, the group's global
+    ranks]`` to ``log``: what ``repro_torch.launch.dryrun.RecordingGroup``
+    records of the same call (:func:`call_keys`)."""
+    from repro_torch.launch.mesh import ClientGroup
+
+    gather, exchange = ClientGroup.gather_list, ClientGroup.exchange_rows
+
+    def key(kind, t, group):
+        return [kind, list(t.shape), str(t.dtype).replace("torch.", ""), list(group.members)]
+
+    def gather_list(self, t):
+        if self.backend is not None:
+            log.append(key("all-gather", t, self))
+        return gather(self, t)
+
+    def exchange_rows(self, rows):
+        if self.backend is not None:
+            log.append(key("all-to-all", rows, self))
+        return exchange(self, rows)
+
+    ClientGroup.gather_list, ClientGroup.exchange_rows = gather_list, exchange_rows
+    try:
+        yield log
+    finally:
+        ClientGroup.gather_list, ClientGroup.exchange_rows = gather, exchange
+
+
+def call_keys(calls: list) -> list:
+    """A dry run's recorded calls as :func:`recorded_calls` writes them."""
+    return [[c["kind"], c["shape"], c["dtype"], c["members"]] for c in calls]
+
+
+# the environment variable that hands the workers the seconds a gloo rank
+# may wait for the others: the caller's deadline for the whole run, so the
+# deadline, not gloo's default of 120 s, decides when a slow run fails
+WAIT_ENV = "REPRO_TORCH_GLOO_TIMEOUT_S"
+
+
+def _env(wait_s: float = None) -> dict:
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(SRC), str(HERE)]),
            "OMP_NUM_THREADS": "1"}
     env.pop("XLA_FLAGS", None)
+    if wait_s is not None:
+        env[WAIT_ENV] = str(float(wait_s))
     return env
+
+
+def gloo_timeout():
+    """The wait a worker's gloo group takes (:data:`WAIT_ENV`, else the
+    port's default ``TIMEOUT``)."""
+    import datetime
+
+    from repro_torch.launch.mesh import TIMEOUT
+
+    wait = os.environ.get(WAIT_ENV)
+    return TIMEOUT if wait is None else datetime.timedelta(seconds=float(wait))
+
+
+def spawn(args: list, log: Path, env: dict) -> subprocess.Popen:
+    """A worker process whose output goes to the file ``log``, never to a
+    pipe: a pipe that nobody reads while the worker runs stops the worker
+    once it holds 64 KiB (an XLA compile slowed down by a loaded machine
+    prints long warnings), and the run then outlives its deadline."""
+    with open(log, "w") as out:
+        p = subprocess.Popen(args, env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
+    p.log = Path(log)
+    return p
+
+
+def _tail(p: subprocess.Popen, n: int) -> str:
+    """The last ``n`` characters a worker wrote."""
+    log = getattr(p, "log", None)
+    if log is not None:
+        return log.read_text(errors="replace")[-n:]
+    return p.stdout.read()[-n:] if p.stdout else ""
 
 
 def start_reference(tmp: Path, inp: Path, n: int, tag: str = "ref",
                     devices: int = 0, only: tuple = ()) -> subprocess.Popen:
     """The reference's process on ``devices`` (default ``n``) forced host
     devices (``only``: these sharded cases of the input's mode)."""
-    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "reference",
-                             str(n), str(inp), str(tmp / tag), str(devices or n)]
-                            + ([",".join(only)] if only else []), env=_env(),
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return spawn([sys.executable, str(Path(__file__).resolve()), "reference",
+                  str(n), str(inp), str(tmp / tag), str(devices or n)]
+                 + ([",".join(only)] if only else []), tmp / f"{tag}.log", _env())
 
 
-def start_port(tmp: Path, inp: Path, n: int, tag: str = "port") -> list:
+def start_port(tmp: Path, inp: Path, n: int, tag: str = "port", wait_s: float = None) -> list:
     """The port's ``n`` gloo ranks, one process each, meeting at a
-    ``file://`` store under ``tmp``."""
-    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "port",
-                              str(r), str(n), str(tmp / f"{tag}.store"), str(inp),
-                              str(tmp / tag)], env=_env(), stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    ``file://`` store under ``tmp``; each waits ``wait_s`` seconds at most
+    for the others (default ``TIMEOUT``)."""
+    return [spawn([sys.executable, str(Path(__file__).resolve()), "port", str(r), str(n),
+                   str(tmp / f"{tag}.store"), str(inp), str(tmp / tag)],
+                  tmp / f"{tag}.rank{r}.log", _env(wait_s)) for r in range(n)]
 
 
 def finish(procs: list, timeout: float) -> None:
     """Wait for every process within ``timeout`` seconds of wall clock;
     kill them all after it, or when one fails (the others would wait in
-    a collective), and raise with the failing one's output."""
+    a collective), and raise with the failing one's output (after the
+    deadline, each killed process's last output)."""
     deadline = time.monotonic() + timeout
     pending = list(procs)
     try:
@@ -775,16 +849,22 @@ def finish(procs: list, timeout: float) -> None:
                 pending.remove(p)
                 if p.returncode != 0:
                     raise AssertionError(f"{' '.join(p.args[2:4])} exited {p.returncode}:\n"
-                                         f"{p.stdout.read()[-4000:]}")
+                                         f"{_tail(p, 4000)}")
             if time.monotonic() > deadline:
-                raise AssertionError(f"{len(pending)} processes outlived {timeout:.0f} s")
+                for p in pending:
+                    p.kill()
+                    p.wait()
+                tails = "".join(f"\n--- {' '.join(p.args[2:4])}:\n{_tail(p, 1000)}"
+                                for p in pending)
+                raise AssertionError(f"{len(pending)} processes outlived {timeout:.0f} s{tails}")
             time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
-            p.stdout.close()
+            if p.stdout:
+                p.stdout.close()
 
 
 def run_devices(tmp: Path, timeout: float = 300.0) -> tuple:
@@ -802,10 +882,9 @@ def run_devices(tmp: Path, timeout: float = 300.0) -> tuple:
                              devices=world, only=part)
              for mode, inp in zip(("pod", "data"), inputs)
              for i, part in enumerate(DEVICE_PARTS[mode])]
-    procs += [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "devices",
-                                str(r), str(tmp / "devices.store"), str(tmp / "devices")]
-                               + [str(i) for i in inputs], env=_env(), stdout=subprocess.PIPE,
-                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    procs += [spawn([sys.executable, str(Path(__file__).resolve()), "devices", str(r),
+                     str(tmp / "devices.store"), str(tmp / "devices")] + [str(i) for i in inputs],
+                    tmp / f"devices.rank{r}.log", _env(timeout)) for r in range(world)]
     finish(procs, timeout)
     refs = {}
     for mode in ("pod", "data"):
@@ -866,7 +945,8 @@ def run_both(tmp: Path, n: int, timeout: float = 300.0, **cases) -> tuple:
     inp = tmp / "inputs.npz"
     make_inputs(inp, n, **cases)
     devices = int(np.prod(list(LAYOUT.values()))) if cases.get("sharded") else n
-    finish([start_reference(tmp, inp, n, devices=devices)] + start_port(tmp, inp, n), timeout)
+    finish([start_reference(tmp, inp, n, devices=devices)]
+           + start_port(tmp, inp, n, wait_s=timeout), timeout)
     return load_outputs(tmp, "ref") + load_outputs(tmp, "port", n)
 
 

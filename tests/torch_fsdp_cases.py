@@ -28,7 +28,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
-from torch_dist_cases import WIDE, _env  # noqa: E402
+from torch_dist_cases import WIDE, _env, gloo_timeout, recorded_calls, spawn  # noqa: E402
 
 LAYOUT = {"data": 2, "model": 2}
 BATCH, SEQ = 4, 8
@@ -70,6 +70,7 @@ def run_case(name: str, group=None) -> tuple:
     from repro_torch.core.tree import tree_flatten
     from repro_torch.data import make_lm_task
     from repro_torch.launch.dist import build_dist_train
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.shards import block_of
     from repro_torch.models import moe as moe_lib
 
@@ -96,7 +97,18 @@ def run_case(name: str, group=None) -> tuple:
     moe_lib.moe_apply = observed
     try:
         for r in range(case.get("rounds", 2)):
-            state, m = fns.train_step(state, {k: v[None] for k, v in task.sample(r, 0).items()})
+            batch = {k: v[None] for k, v in task.sample(r, 0).items()}
+            if r == 0 and group is not None:  # what the dry run holds against this rank
+                info["batch"] = {k: [list(v.shape), str(v.dtype)] for k, v in batch.items()}
+                # the state's storages and the batch's tensors (its rows are
+                # views of one storage here; a dry run's are tensors of their own)
+                info["args0"] = tree_bytes(state) + sum(v.numel() * v.element_size()
+                                                        for v in batch.values())
+                with recorded_calls([]) as calls:
+                    state, m = fns.train_step(state, batch)
+                info["calls0"] = calls
+            else:
+                state, m = fns.train_step(state, batch)
             info["losses"].append(float(m["loss"]))
             whole = fns.params_to_tree(state["params"])
             for i, v in enumerate(tree_flatten(whole)[0]):
@@ -166,15 +178,14 @@ def init_peak(group) -> dict:
                                                      if not k.startswith("stack/scan/")]))
 
 
-def start_ranks(tmp: Path, world: int, names: list, tag: str) -> list:
-    """``world`` gloo ranks of the cases ``names``, one process each."""
-    import subprocess
-
-    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), str(r), str(world),
-                              str(tmp / f"{tag}.store"), str(tmp / tag)] + list(names),
-                             env=dict(_env(), MALLOC_MMAP_THRESHOLD_=str(1 << 20)),
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True) for r in range(world)]
+def start_ranks(tmp: Path, world: int, names: list, tag: str, wait_s: float = None) -> list:
+    """``world`` gloo ranks of the cases ``names``, one process each, each
+    waiting ``wait_s`` seconds at most for the others (default the port's
+    ``TIMEOUT``)."""
+    return [spawn([sys.executable, str(Path(__file__).resolve()), str(r), str(world),
+                   str(tmp / f"{tag}.store"), str(tmp / tag)] + list(names),
+                  tmp / f"{tag}.rank{r}.log",
+                  dict(_env(wait_s), MALLOC_MMAP_THRESHOLD_=str(1 << 20))) for r in range(world)]
 
 
 def load(tmp: Path, tag: str, world: int) -> list:
@@ -196,7 +207,7 @@ def main(rank: int, world: int, store: str, out: str, names: list) -> None:
 
     torch.set_num_threads(1)
     group = ClientGroup.connect(rank=rank, world=world, device="cpu", backend="gloo",
-                                init_method=f"file://{store}")
+                                init_method=f"file://{store}", timeout=gloo_timeout())
     arrays, info = {}, {}
     try:
         for name in names:

@@ -26,13 +26,13 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 
-from torch_dist_cases import _env, _f32, _load, _paths, _tree, finish
+from torch_dist_cases import (_env, _f32, _load, _paths, _tree, finish, gloo_timeout,
+                              recorded_calls, spawn)
 
 LAYOUT = {"pod": 2, "data": 2, "model": 2}
 WORLD = 8
@@ -140,13 +140,14 @@ def port_main(rank: int, store: str, inp: str, out: str) -> None:
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.core.tree import tree_flatten
     from repro_torch.launch.dist import make_dist_prefill, make_dist_serve
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.mesh import ClientGroup
     from repro_torch.models.model import build_model
 
     torch.set_num_threads(1)
     _, x = _load(inp)
     group = ClientGroup.connect(rank=rank, world=WORLD, device="cpu",
-                                init_method=f"file://{store}")
+                                init_method=f"file://{store}", timeout=gloo_timeout())
     res, info = {}, {}
 
     def put(prefix, tree):
@@ -163,17 +164,26 @@ def port_main(rank: int, store: str, inp: str, out: str) -> None:
             params = sv.params_from_tree(_tree(x, f"{name}/params", torch.from_numpy))
             batch = _batch(x, name, torch.from_numpy)
             batch["tokens"] = batch["tokens"].long()
-            hidden, caches = pf.prefill(params, batch)
+            calls = {"prefill": [], "steps": []}
+            args = {"prefill": tree_bytes((params, batch))}
+            with recorded_calls(calls["prefill"]):
+                hidden, caches = pf.prefill(params, batch)
             res[f"{name}/prefill/hidden"] = hidden.numpy()
             put(f"{name}/prefill/caches", caches)
             for s in range(STEPS):
                 tokens = torch.from_numpy(x[f"{name}/step{s}/tokens"]).long()
-                logits, caches = sv.serve_step(params, tokens, caches, PROMPT + s)
+                if s == 0:
+                    args["decode"] = tree_bytes((params, tokens, caches))
+                with recorded_calls([]) as step_calls:
+                    logits, caches = sv.serve_step(params, tokens, caches, PROMPT + s)
+                calls["steps"].append(step_calls)
                 res[f"{name}/step{s}/logits"] = logits.numpy()
                 put(f"{name}/step{s}/caches", caches)
             rows = sv.rows(torch.arange(case["batch"]))
             ranks = sv.ranks
             info[name] = {
+                "calls": calls,  # each collective this rank made (recorded_calls)
+                "args": args,  # the bytes of the prefill's and step 0's arguments
                 "coords": {a: int(c) for a, c in ranks.coords.items()},
                 "rows": [int(rows[0]), int(rows[-1]) + 1],
                 "model": [ranks.model.rank, ranks.model.world],
@@ -203,12 +213,10 @@ def run_both(tmp: Path, timeout: float = 240.0, during=None) -> tuple:
     make_inputs(inp)
     _, x = _load(inp)
     me = str(Path(__file__).resolve())
-    procs = [subprocess.Popen([sys.executable, me, "reference", str(inp), str(tmp / "ref")],
-                              env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)]
-    procs += [subprocess.Popen([sys.executable, me, "port", str(r), str(tmp / "port.store"),
-                                str(inp), str(tmp / "port")], env=_env(),
-                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = [spawn([sys.executable, me, "reference", str(inp), str(tmp / "ref")],
+                   tmp / "ref.log", _env())]
+    procs += [spawn([sys.executable, me, "port", str(r), str(tmp / "port.store"), str(inp),
+                     str(tmp / "port")], tmp / f"port.rank{r}.log", _env(timeout))
               for r in range(WORLD)]
     try:
         got = during(x) if during is not None else None
