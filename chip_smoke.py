@@ -9,6 +9,7 @@
     python3 chip_smoke.py --fsdp          # phases 1 and 16 only
     python3 chip_smoke.py --dist-serve    # phases 1 and 17 only
     python3 chip_smoke.py --scale         # phases 1 and 18 only
+    python3 chip_smoke.py --surface       # phases 1 and 19 only
 
 It imports nothing of JAX or of the JAX package, and fails (exit code 1,
 no result printed) without a CUDA card or without ``src/repro_torch``
@@ -380,7 +381,22 @@ Without arguments, phases, each of which fails the run:
      ``build/dryrun_torch``): each ok pair's memory and roofline terms,
      the counts of ok, skip and error and the seconds; any error fails.
      ``python3 chip_smoke.py --scale`` runs phases 1 and 18 alone;
-  19. print one ``{"kernels": [...]}`` line with all nine kernels (the
+  19. the public surface (``--surface`` runs phases 1 and 19 alone):
+     (a) lm-100m at full width (4 clients, batch 4 x 128, p = 0.001, 3
+     rounds) through the legacy ``DSGDTrainer(fast=True)``, whose params,
+     residuals and Eq. 1 bits must equal ``build_run(RunSpec(
+     backend="local", fast=True))``'s on the same batches bit for bit, then
+     ``fast=False`` and ``residual_dtype=torch.bfloat16`` (per leaf), each
+     with its ``f32_mean_xla`` launches a round (11 flat, 88 per leaf) and
+     step ms; (b) lm-100m on the GSPMD hist engine, one rank, 3 rounds
+     (2/1/1 + 1, each hist kernel call == plain), ``evaluate`` finite,
+     ``checkpoint`` to ``build/`` and restored into a fresh state, whose
+     4th round must equal the live run's bit for bit; (c)
+     ``FedRun.evaluate`` after 2 rounds of phase 9's LeNet5 fed spec; (d)
+     each of the five ``examples/torch_*.py`` in a subprocess on the card
+     (``torch_train_lm_100m`` at ``--rounds 3``), each exiting 0 with its
+     ✓ lines, and its seconds;
+  20. print one ``{"kernels": [...]}`` line with all nine kernels (the
      ``seg_packbits`` row times the stream-order entry, which the path
      launches, and holds the planes entry's times in its ``planes_*``
      fields; ``seg_select_pack`` and ``f32_mean_xla`` count the codec +
@@ -404,7 +420,8 @@ Without arguments, phases, each of which fails the run:
      ``bound_ms_pod_256_shards``, the rows phase 16 launches its counts
      in ``launches_fsdp``, every row phase 17's, all zero, in
      ``launches_dist_serve``, and every row phase 18's main paths' (18a
-     and 18b's first 2 steps) in ``launches_scale``), then the card line,
+     and 18b's first 2 steps) in ``launches_scale``, and the rows phase
+     19a-c launches its counts in ``launches_surface``), then the card line,
      then the last line ``{"ok": true, "device": {...}}``.
 
 After each path's five rounds one more round runs under ``torch.profiler``
@@ -4898,6 +4915,251 @@ def scale_phase(dev, proc: subprocess.Popen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 19
+
+SURFACE_ROUNDS = 3
+SURFACE_LOCAL = dict(preset="lm-100m", backend="local", clients=4, batch=4, seq_len=128,
+                     sparsity=0.001, rounds=SURFACE_ROUNDS)
+# f32_mean_xla a round: flat, one a segment; per leaf (fast off, or a bf16
+# residual, which the flat path does not take), two a leaf and client
+SURFACE_LOCAL_PER_ROUND = {"fast": per_call(f32_mean_xla=LM100M_LEAVES),
+                           "per_leaf": per_call(f32_mean_xla=2 * LM100M_LEAVES * 4),
+                           "bf16": per_call(f32_mean_xla=2 * LM100M_LEAVES * 4)}
+SURFACE_GSPMD = dict(SURFACE_LOCAL, backend="gspmd", fast=True, flat_engine="hist")
+SURFACE_FED = dict(FED, fast=True, rounds=2)
+SURFACE_CKPT = ROOT / "build" / "surface_ckpt.npz"
+SURFACE_EXAMPLES = (("torch_quickstart", []), ("torch_federated_wire", []),
+                    ("torch_sparsity_tradeoff", []), ("torch_serve_batched", []),
+                    ("torch_train_lm_100m", ["--rounds", "3"]))
+SURFACE_EXAMPLE_TIMEOUT_S = 300
+
+
+def _leaves_of(tree) -> list:
+    """A tree's tensors in key order, through dicts, NamedTuples (Adam's
+    state), tuples and lists."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_of(v)]
+    return [tree]
+
+
+def _same_leaves(a, b) -> bool:
+    """Two trees' leaves equal bit for bit, dtype and shape included."""
+    import torch
+
+    la, lb = _leaves_of(a), _leaves_of(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _counted_rounds(step, state, rounds: int, label: str, per_round: dict) -> tuple:
+    """``rounds`` rounds of ``step(state, r) -> (state, metrics)`` with the
+    launch counts set to 0 just before and read just after; every round's
+    counts must be ``per_round``.  Returns ``(state, metrics, step ms,
+    launches)``."""
+    import torch
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    metrics, step_ms, counts = [], [], []
+    for r in range(rounds):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, r)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = kernels.launch_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+        metrics.append(m)
+        print(f"{label} round {r + 1}: loss {loss:.6f}  step {step_ms[-1]:.3f} ms  "
+              f"launches {counts[-1]}")
+    check(all(math.isfinite(float(m["loss"])) for m in metrics), f"{label}: a loss not finite")
+    check(all(c == per_round for c in counts), f"{label}: launches per round {counts}")
+    return state, metrics, step_ms, kernels.launch_counts()
+
+
+def surface_legacy(dev) -> dict:
+    """Phase 19a: lm-100m at full width through the legacy
+    ``DSGDTrainer(fast=True)`` (4 clients, batch 4 x 128, p = 0.001, 3
+    rounds) beside ``build_run(RunSpec(backend="local", fast=True))`` on
+    the same batches: params, residuals and each round's Eq. 1 bits bit
+    for bit (the reference's shim contract); then the trainer with
+    ``fast=False`` and with ``residual_dtype=torch.bfloat16`` (per leaf,
+    as the reference's flat residual is f32 only).  Prints each path's
+    ``f32_mean_xla`` launches a round and step ms.  Returns each path's
+    launches."""
+    import warnings
+
+    import torch
+    from repro_torch.core.api import make_compressor
+    from repro_torch.optim import get_optimizer
+    from repro_torch.run import RunSpec, build_run, lr_schedule
+    from repro_torch.train import DSGDTrainer
+
+    spec = RunSpec(**SURFACE_LOCAL, fast=True)
+    run = build_run(spec, device=dev)
+    out = {}
+
+    def trainer(**fields):
+        with warnings.catch_warnings():  # the legacy surface warns; that is its contract
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return DSGDTrainer(model=run.model, compressor=make_compressor(spec.compressor),
+                               optimizer=get_optimizer(run.cfg.local_opt),
+                               n_clients=spec.clients, lr=lr_schedule(run.cfg.base_lr),
+                               device=dev, **fields)
+
+    def steps(tr):
+        return lambda state, r: tr.step(state, run.batch_fn(r), r, n_delay=spec.delay,
+                                        sparsity=spec.sparsity)
+
+    want, want_m, want_ms, _ = _counted_rounds(run.step, run.init(), spec.rounds,
+                                               "19a build_run(fast=True)",
+                                               SURFACE_LOCAL_PER_ROUND["fast"])
+    for path, fields in (("fast", dict(fast=True)), ("per_leaf", dict(fast=False)),
+                         ("bf16", dict(fast=True, residual_dtype=torch.bfloat16))):
+        tr = trainer(**fields)
+        label = f"19a DSGDTrainer({', '.join(f'{k}={v}' for k, v in fields.items())})"
+        state, metrics, step_ms, out[path] = _counted_rounds(
+            steps(tr), tr.init(None, spec.seed), spec.rounds, label,
+            SURFACE_LOCAL_PER_ROUND[path])
+        flat = isinstance(state.comp_state.residual, torch.Tensor)
+        check(flat == (path == "fast"), f"{label}: the flat residual is {flat}")
+        if path == "bf16":
+            check(all(v.dtype == torch.bfloat16
+                      for v in tr.resolved(state.params)._leaves_of(state.comp_state.residual)),
+                  f"{label}: the residual is not bf16")
+        if path == "fast":
+            check(_same_leaves(state.params, want.params)
+                  and _same_leaves(state.comp_state.residual, want.comp_state.residual)
+                  and [float(m["bits_per_client"]) for m in metrics]
+                  == [float(m["bits_per_client"]) for m in want_m],
+                  f"{label}: params, residuals or Eq. 1 bits != build_run's")
+            print(f"{label}: params, residuals and Eq. 1 bits "
+                  f"{float(metrics[0]['bits_per_client'])!r} a client a round == "
+                  f"build_run(RunSpec(fast=True))'s, bit for bit")
+        print(f"{label}: f32_mean_xla {out[path]['f32_mean_xla'] // spec.rounds} a round; "
+              f"step ms (rounds 2 on) {_rounds_ms(step_ms)} (build_run's "
+              f"{_rounds_ms(want_ms)})")
+        del tr, state, metrics
+        torch.cuda.empty_cache()
+    del run, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def surface_gspmd(dev) -> dict:
+    """Phase 19b: lm-100m at full width on the GSPMD hist engine, one rank,
+    through ``build_run`` (batch 4 x 128, p = 0.001), 3 rounds (2/1/1 + 1
+    a round, each hist kernel call == its plain version on the path's
+    operands); ``evaluate`` finite; ``checkpoint`` to ``build/``, restored
+    into a fresh state; a 4th round from the restored state == the live
+    run's 4th round bit for bit.  Prints the checkpoint's ms and bytes,
+    then profiles one more round.  Returns the 3 rounds' launches."""
+    import torch
+    from repro_torch.checkpoint.io import load_pytree
+    from repro_torch.run import RunSpec, build_run
+
+    label = "19b lm-100m gspmd hist"
+    run = build_run(RunSpec(**SURFACE_GSPMD), device=dev)
+    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, label, rounds=SURFACE_ROUNDS)
+    hist_kernels_vs_plain(cap["acc"], run.fns.flat_space, dev, label)
+    state, launches = cap["state"], cap["launches"]
+    del cap
+    t0 = time.perf_counter()
+    ev = run.evaluate(state)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(ev["loss"]), f"{label}: evaluate gave {ev}")
+    SURFACE_CKPT.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    run.checkpoint(state, str(SURFACE_CKPT))
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    size = SURFACE_CKPT.stat().st_size
+    t0 = time.perf_counter()
+    restored = load_pytree(str(SURFACE_CKPT), like=run.init())
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    SURFACE_CKPT.unlink()
+    check(_same_leaves(restored, state), f"{label}: the restored state != the live state")
+    live, live_m = run.step(state, SURFACE_ROUNDS)
+    del state
+    back, back_m = run.step(restored, SURFACE_ROUNDS)
+    check(_same_leaves(back, live) and float(back_m["loss"]) == float(live_m["loss"]),
+          f"{label}: round {SURFACE_ROUNDS + 1} from the checkpoint != the live run's")
+    print(f"{label}: evaluate {ev['loss']:.6f} (held-out, {eval_ms:.1f} ms); checkpoint "
+          f"{size} bytes in {ckpt_ms:.1f} ms, restored in {load_ms:.1f} ms; round "
+          f"{SURFACE_ROUNDS + 1} from it == the live run's (params, Adam state, residual, "
+          f"loss {float(live_m['loss']):.6f}), bit for bit")
+    del back, restored
+    profiled_round(run, live, label)
+    del run, live
+    torch.cuda.empty_cache()
+    return launches
+
+
+def surface_fed(dev) -> dict:
+    """Phase 19c: ``FedRun.evaluate`` after phase 9's LeNet5 fed spec (8
+    clients, cohorts of 4, flat) for 2 rounds through ``build_run``: a
+    finite held-out loss, and the server's params are what it evaluates.
+    Returns the rounds' launches."""
+    from repro_torch.run import RunSpec, build_run
+
+    label = "19c fed LeNet5"
+    run = build_run(RunSpec(**SURFACE_FED), device=dev)
+    state, metrics, step_ms, launches = _counted_rounds(run.step, run.init(),
+                                                        SURFACE_FED["rounds"], label,
+                                                        FED_PER_ROUND[True])
+    ev = run.evaluate(state)
+    check(math.isfinite(ev["loss"]), f"{label}: evaluate gave {ev}")
+    check(run.params_of(state) is state.server.params, f"{label}: params_of is not the server's")
+    print(f"{label}: evaluate {ev['loss']:.6f} (held-out) after {len(metrics)} rounds; round "
+          f"ms {', '.join(f'{x:.3f}' for x in step_ms)}")
+    return launches
+
+
+def surface_examples() -> dict:
+    """Phase 19d: each of the five ``examples/torch_*.py`` in a subprocess
+    on the card (the default device), ``torch_train_lm_100m`` at
+    ``--rounds 3``: each exits 0 and prints its ✓ lines.  Returns each
+    example's seconds."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    seconds = {}
+    for name, argv in SURFACE_EXAMPLES:
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py"), *argv],
+                                 capture_output=True, text=True, env=env, cwd=str(ROOT),
+                                 timeout=SURFACE_EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"19d {name}: outlived {SURFACE_EXAMPLE_TIMEOUT_S} s")
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        ticks = [line.strip() for line in out.stdout.splitlines() if "✓" in line]
+        check(out.returncode == 0 and ticks,
+              f"19d {name}: exit {out.returncode}, no ✓ line:\n{out.stdout[-2000:]}\n"
+              f"{out.stderr[-3000:]}")
+        print(f"19d {name} {' '.join(argv)}: exit 0 in {seconds[name]} s; " + "; ".join(ticks))
+    return seconds
+
+
+def surface_phase(dev) -> dict:
+    """Phase 19, the public surface: 19a-d.  Returns each path's launches
+    (19a's three trainer paths, 19b's hist rounds, 19c's fed rounds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {f"legacy_{k}": v for k, v in surface_legacy(dev).items()}
+    out["gspmd_hist"] = surface_gspmd(dev)
+    out["fed_evaluate"] = surface_fed(dev)
+    torch.cuda.empty_cache()
+    seconds = surface_examples()
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s (examples {seconds})")
+    return out
+
+
 def compare(src: Path) -> int:
     """``--compare SRC``: the kernels redesigned last, timed with the
     package under ``SRC`` (the ``src`` of another checkout, such as the
@@ -4980,11 +5242,11 @@ def main(argv: list) -> int:
         return serve_rank_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
     decoder_only, zoo_only, pod_only = argv == ["--decoder"], argv == ["--zoo"], argv == ["--pod"]
     fsdp_only, serve_only = argv == ["--fsdp"], argv == ["--dist-serve"]
-    scale_only = argv == ["--scale"]
+    scale_only, surface_only = argv == ["--scale"], argv == ["--surface"]
     check(not argv or decoder_only or zoo_only or pod_only or fsdp_only or serve_only
-          or scale_only,
+          or scale_only or surface_only,
           f"usage: {Path(__file__).name} [--compare SRC | --decoder | --zoo | --pod | --fsdp | "
-          f"--dist-serve | --scale]; got {argv}")
+          f"--dist-serve | --scale | --surface]; got {argv}")
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: no CUDA card")
     check((ROOT / "src" / "repro_torch").is_dir(),
@@ -5005,8 +5267,8 @@ def main(argv: list) -> int:
 
     # phase 18c's dry run of the zoo, CPU work on meta tensors, runs beside
     # the card's phases from here and is read in phase 18
-    dry = None if (decoder_only or zoo_only or pod_only or fsdp_only or serve_only) else \
-        start_dryrun()
+    dry = None if (decoder_only or zoo_only or pod_only or fsdp_only or serve_only
+                   or surface_only) else start_dryrun()
     if dry is not None:  # a failing phase leaves no process behind
         atexit.register(stop_dryrun, dry)
 
@@ -5018,10 +5280,12 @@ def main(argv: list) -> int:
         print(json.dumps({"launches_moe": moe, "launches_encdec": encdec_phase(dev)}))
         print(card)
         return 0
-    if pod_only or fsdp_only or serve_only or scale_only:  # phase 15, 16, 17 or 18 alone
+    if pod_only or fsdp_only or serve_only or scale_only or surface_only:
+        # phase 15, 16, 17, 18 or 19 alone
         key, phase = (("launches_pod", pod_phase) if pod_only else
                       ("launches_fsdp", fsdp_phase) if fsdp_only else
                       ("launches_dist_serve", dist_serve_phase) if serve_only else
+                      ("launches_surface", surface_phase) if surface_only else
                       ("launches_scale", lambda dev: scale_phase(dev, dry)))
         print(json.dumps({key: phase(dev)}))
         print(card)
@@ -5135,7 +5399,15 @@ def main(argv: list) -> int:
     for name in KERNELS:
         rows[name]["launches_scale"] = {path: c.get(name, 0) for path, c in scale.items()}
 
-    # ---- 19. results
+    # ---- 19. the public surface: the legacy trainer and the run verbs at
+    # lm-100m's width, FedRun.evaluate, the five examples
+    surface = surface_phase(dev)
+    for name in KERNELS:
+        counts = {path: c.get(name, 0) for path, c in surface.items()}
+        if any(counts.values()):
+            rows[name]["launches_surface"] = counts
+
+    # ---- 20. results
     print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

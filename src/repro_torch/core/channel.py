@@ -27,7 +27,8 @@ buffer and the residual follow the reference's layout.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, NamedTuple, Optional, Protocol, Sequence, Tuple, Union,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -52,6 +53,28 @@ class ChannelBits(NamedTuple):
 
     per_client: float  # upstream bits one client sends per round
     dense: float  # the 32-bit dense equivalent
+
+
+@runtime_checkable
+class CommChannel(Protocol):
+    """The compress → exchange → aggregate → account surface every
+    backend's channel shares: where the exchange runs differs (the mean
+    over a leading client axis, the collectives of a ``ClientGroup``, real
+    bytes through a server), these four members do not."""
+
+    ledger: BandwidthLedger
+
+    def init_state(self, *args: Any, **kw: Any) -> Any:
+        """Allocate this backend's per-client compressor state."""
+        ...
+
+    def round_exchange(self, *args: Any, **kw: Any) -> Any:
+        """One communication round's compress + exchange + aggregate."""
+        ...
+
+    def bits(self, *args: Any, **kw: Any) -> ChannelBits:
+        """Static Eq. 1/Eq. 5 analytic accounting for one round."""
+        ...
 
 
 # ------------------------------------------------------- policy resolution
@@ -119,9 +142,13 @@ def mean_over_clients(x: torch.Tensor) -> torch.Tensor:
     XLA's CPU reduce adds the C rows in order from +0.0 and multiplies by
     the f32 reciprocal of C; with C = 1 it returns the row itself (−0.0
     kept).  Checked against ``jnp.mean`` under ``jit`` for C = 1 to 8
-    (``tests/test_torch_local_run.py``)."""
+    (``tests/test_torch_local_run.py``).  A bf16 or f16 ``x`` is summed
+    and scaled in f32 and rounded once, as ``jnp.mean`` upcasts it
+    (``tests/test_torch_legacy_api.py``)."""
     if x.shape[0] == 1:
         return x[0]
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return mean_over_clients(x.to(torch.float32)).to(x.dtype)
     acc = torch.zeros_like(x[0])
     for row in x:
         acc = acc + row
@@ -199,10 +226,16 @@ class LocalVmapChannel:
     are compressed in one :meth:`FlatParamSpace.compress_rows` call (each
     SBC segment's C rows in one top-k and one ``f32_mean_xla`` launch);
     otherwise the per-leaf path runs client by client.  Both give the
-    same bits."""
+    same bits.
+
+    ``residual_dtype`` is the dtype of each client's residual (the
+    trainer casts each ΔW to it before compression): a residual that is
+    not f32 takes the per-leaf path whatever the policy's flag, and is
+    rounded to its dtype every round, as in the reference."""
 
     compressor: Compressor
     n_clients: int
+    residual_dtype: Any = torch.float32
 
     def __post_init__(self) -> None:
         self.ledger = BandwidthLedger()
@@ -220,7 +253,8 @@ class LocalVmapChannel:
     def init_state(self, params: PyTree, seed: int = 0) -> CompressorState:
         """Per-client state with a leading C axis; the residual is in the
         §10 flat layout ``(C, n_pad)`` when the fast path is taken."""
-        comp = self.resolved(params).init_state(params)
+        comp = self.resolved(params).init_state(
+            tree_map(lambda x: x.to(self.residual_dtype), params))
         C = self.n_clients
         residual = tree_map(lambda x: x.expand((C,) + tuple(x.shape)).clone(), comp.residual)
         return CompressorState(residual=residual, rng=client_seeds(seed, C),

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.golomb import expected_position_bits, golomb_bstar
+from repro_torch.core.policy import supports  # noqa: F401  (the reference's name for it here)
 from repro_torch.core.stages import LeafCompressed, k_for
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels.flat import (check_flat_size, seg_binarize_apply, seg_hist2side,
@@ -38,6 +39,8 @@ from repro_torch.kernels.pack import (bits_from_positions, golomb_decode_rows, p
                                       row_words)
 from repro_torch.kernels.reduce import _reciprocal
 from repro_torch.kernels.topk import _top_k, _two_sided_topk  # noqa: F401  (_top_k re-exported)
+
+PyTree = Any  # a nested dict of tensors, as the reference's pytrees
 
 
 def _pad_maps(
@@ -232,7 +235,7 @@ class FlatParamSpace:
             if kind is None:
                 raise ValueError(
                     f"leaf {plan.path!r} codec {plan.codec.spec!r} has no flat fast "
-                    "path; guard with repro_torch.core.policy.supports()")
+                    "path; guard with repro_torch.core.flat.supports()")
             shape = tuple(leaf.shape)
             size = int(np.prod(shape)) if shape else 1
             segs.append(Segment(path=plan.path, shape=shape, dtype=leaf.dtype, size=size,

@@ -23,11 +23,13 @@ same, and parity tests hand both packages the same numpy draws instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
+
+PyTree = Any  # a nested dict of tensors, as the reference's pytrees
 
 _MASK64 = (1 << 64) - 1
 
@@ -45,13 +47,30 @@ def _seed_of(*parts: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Task:
-    """A data source: ``sample(step, client) -> dict`` plus metadata."""
+    """A data source: ``sample(step, client) -> dict`` plus metadata.
+
+    ``sample_many(steps, clients)``, where set, gives the batches of many
+    (step, client) pairs with a leading pair axis, equal to per-pair
+    ``sample`` calls (:func:`stacked_sampler`; the reference's draws them
+    in one dispatch)."""
 
     name: str
     sample: Callable[[int, int], dict]  # (step, client) -> batch dict
     vocab_size: int = 0
     n_classes: int = 0
     entropy_floor: float = 0.0  # achievable loss (nats/token) for LM tasks
+    sample_many: Optional[Callable] = None  # (steps[N], clients[N]) -> dict
+
+
+def stacked_sampler(sample: Callable[[int, int], dict]) -> Callable:
+    """``sample_many(steps, clients)`` over ``sample``: each pair's batch
+    stacked along a new leading axis.  Every pair draws from its own
+    generator, so this is one draw a pair, not one dispatch."""
+    def sample_many(steps, clients) -> dict:
+        per = [sample(int(s), int(c)) for s, c in zip(steps, clients)]
+        return {k: torch.stack([b[k] for b in per]) for k in per[0]}
+
+    return sample_many
 
 
 def make_classification_task(
@@ -82,7 +101,8 @@ def make_classification_task(
         )
         return {"images": imgs, "labels": labels}
 
-    return Task(name="blobs", sample=sample, n_classes=n_classes)
+    return Task(name="blobs", sample=sample, n_classes=n_classes,
+                sample_many=stacked_sampler(sample))
 
 
 def markov_transition(vocab: int, temperature: float = 1.0, seed: int = 0,
@@ -153,7 +173,8 @@ def make_lm_task(
             out.update({k: v.to(dev) for k, v in extra_fields(g).items()})
         return out
 
-    return Task(name=f"lm_{kind}", sample=sample, vocab_size=vocab, entropy_floor=floor)
+    return Task(name=f"lm_{kind}", sample=sample, vocab_size=vocab, entropy_floor=floor,
+                sample_many=stacked_sampler(sample))
 
 
 def _entropy_floor(probs: torch.Tensor) -> float:
@@ -233,7 +254,7 @@ def make_non_iid_lm_task(
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     return Task(name=f"lm_markov_noniid{n_clients}", sample=sample, vocab_size=vocab,
-                entropy_floor=floor)
+                entropy_floor=floor, sample_many=stacked_sampler(sample))
 
 
 def _stack(samples: list) -> dict:

@@ -75,6 +75,7 @@ heads or its slots through :func:`repro_torch.models.hints.cache_cut`.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -90,11 +91,13 @@ from repro_torch.device import full_f32_math
 from repro_torch.kernels.reduce import f32_mean_xla
 from repro_torch.launch.mesh import (ClientGroup, axis_sizes, check_clients, default_layout,
                                      make_host_group)
-from repro_torch.launch.shards import (CacheCut, LeafBlocks, RankShards, assemble_tree, block_of,
-                                       cut_tree)
+from repro_torch.launch.shards import (CacheCut, LeafBlocks, RankShards, assemble,
+                                       assemble_tree, block_of, cut_tree)
 from repro_torch.models import hints
 from repro_torch.models.model import Model, build_model, make_param_specs
-from repro_torch.optim.optimizers import get_optimizer, map_states
+from repro_torch.optim.optimizers import AdamState, get_optimizer, map_states
+
+PyTree = Any  # a nested dict of tensors, as the reference's pytrees
 
 OPTS = frozenset({"lean_moe", "seq_every2"})
 
@@ -163,6 +166,8 @@ class DistTrainFns(NamedTuple):
     client: int = 0  # this rank's client
     ranks: Any = None  # DeviceRanks with one rank a device, else None
     blocks: tuple = ()  # each leaf's LeafBlocks (its device → block map)
+    eval_loss: Callable = None  # (state params, batch) -> the loss, no gradient (a collective)
+    state_to_host: Callable = None  # state -> the global state on rank 0's host (a collective)
 
 
 def dist_leaf_mode(codec: Codec) -> str:
@@ -379,18 +384,74 @@ def build_dist_train(
                 got["packed_words_client0"] = words[0]
         return got
 
-    def train_step(state: dict, batch: dict) -> tuple:
-        with hints.activation_sharding(
+    def hinted():
+        return hints.activation_sharding(
             sizes, batch_axes=("data",) if cfg.client_mode == "pod" else None,
             seq_axis="model", expert_axis="data" if cfg.moe_dispatch == "flat_ep" else None,
-            seq_every=2 if "seq_every2" in opts else 1, lean_moe="lean_moe" in opts,
-        ):
+            seq_every=2 if "seq_every2" in opts else 1, lean_moe="lean_moe" in opts)
+
+    def train_step(state: dict, batch: dict) -> tuple:
+        with hinted():
             return step(state, batch)
+
+    def eval_loss(params: dict, batch: dict) -> torch.Tensor:
+        """The mean loss of ``batch`` (no client axis) at ``params``, no
+        gradient.  One rank a device: each rank takes its "data" share of
+        the rows, the model gathers each leaf at its use, and the loss is
+        the mean over the client's "data" ranks, as the step's; every
+        rank calls it."""
+        leaves_p = tree_flatten(params)[0]
+        shards = RankShards(ranks, leaves_p, blocks) if sharded else None
+        with torch.no_grad(), hinted(), hints.sharded_params(shards):
+            loss = model.loss_fn(treedef.unflatten(leaves_p),
+                                 tree_map(rank_rows, batch) if sharded else batch)
+            loss = loss.reshape(())
+            return ranks.data.pmean(loss) if sharded else loss
 
     def params_to_tree(params: dict) -> dict:
         """The whole params: gathered over the client's ranks with one rank
         a device (a collective), else ``params`` itself."""
         return assemble_tree(ranks, params, blocks) if sharded else params
+
+    def whole(v: torch.Tensor, lb: LeafBlocks) -> torch.Tensor:
+        """A leaf whole from this rank's block (one rank a device: a
+        collective of the client's ranks)."""
+        if not sharded or math.prod(lb.grid) == 1:
+            return v
+        return assemble(ranks.client_ranks.gather_list(v), lb.grid, lb.dev_block)
+
+    def state_to_host(state: dict) -> Optional[dict]:
+        """The global state as the reference's GSPMD backend holds it: the
+        params whole, and every client's optimizer and residual rows in
+        client order (a leading axis of C; the flat residual ``(C,
+        shards_per_client, n_pad)``), as CPU tensors on rank 0 and None on
+        every other rank.  A collective of every rank, one leaf at a time,
+        so no second whole copy of the state stays on the card."""
+        host = group.rank == 0
+
+        def keep(v: torch.Tensor):
+            return v.detach().cpu() if host else None
+
+        def rows(tree):  # a tree of the params' structure, leaves (1,) + block
+            return treedef.unflatten([keep(xgroup.all_gather_rows(whole(v[0], lb)))
+                                      for v, lb in zip(treedef.flatten_up_to(tree), blocks)])
+
+        params = treedef.unflatten([keep(whole(v, lb))
+                                    for v, lb in zip(tree_flatten(state["params"])[0], blocks)])
+        opt_state = state["opt"]  # Adam's (m, v), a momentum tree or SGD's ()
+        if isinstance(opt_state, AdamState):
+            opt_state = AdamState(rows(opt_state.m), rows(opt_state.v))
+        elif opt_state != ():
+            opt_state = rows(opt_state)
+        res = state["residual"]
+        if space is not None:
+            flat = res[0]  # (shards on this rank, n_pad)
+            if sharded:
+                flat = torch.cat(ranks.client_ranks.gather_list(flat))
+            residual = keep(xgroup.all_gather_rows(flat))
+        else:
+            residual = rows(res)
+        return {"params": params, "opt": opt_state, "residual": residual} if host else None
 
     residual_to_tree = None
     if space is not None or sharded:
@@ -409,8 +470,30 @@ def build_dist_train(
         bits_per_client=bits.per_client, bits_dense=bits.dense,
         flat_space=space, residual_to_tree=residual_to_tree, channel=channel,
         params_to_tree=params_to_tree, client=ranks.client if sharded else group.rank,
-        ranks=ranks, blocks=blocks,
+        ranks=ranks, blocks=blocks, eval_loss=eval_loss, state_to_host=state_to_host,
     )
+
+
+def make_dist_train(cfg: ModelConfig, *, group: Optional[ClientGroup] = None,
+                    compressor: str = "sbc", sparsity: float = 0.001,
+                    policy: Optional[CompressionPolicy] = None, model: Optional[Model] = None,
+                    opts: frozenset = frozenset(), fast: Optional[bool] = None,
+                    flat_engine: str = "exact", mesh_shape: Optional[dict] = None,
+                    device=None) -> DistTrainFns:
+    """Legacy name for :func:`build_dist_train`, kept as a shim: it warns
+    with a ``DeprecationWarning`` and returns ``build_dist_train``'s
+    result for the same arguments.  New code builds the backend through
+    ``repro_torch.run.build_run(RunSpec(backend="gspmd", ...))`` or calls
+    :func:`build_dist_train`.  ``group`` and ``mesh_shape`` stand for the
+    reference's ``mesh``."""
+    warnings.warn(
+        "make_dist_train() is the legacy GSPMD surface; build it declaratively via "
+        "repro_torch.run.build_run(RunSpec(backend='gspmd', ...)) or call "
+        "repro_torch.launch.dist.build_dist_train() (the same step)",
+        DeprecationWarning, stacklevel=2)
+    return build_dist_train(cfg, group=group, compressor=compressor, sparsity=sparsity,
+                            policy=policy, model=model, opts=opts, fast=fast,
+                            flat_engine=flat_engine, mesh_shape=mesh_shape, device=device)
 
 
 def _leaf_plan(cfg: ModelConfig, model: Model, sizes: dict, client_axes: tuple,

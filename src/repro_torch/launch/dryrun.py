@@ -120,6 +120,14 @@ class RecordingGroup(ClientGroup):
         return None
 
 
+def scan_trips_for(cfg) -> int:
+    """The trips of a config's superblock loop (``stack_pattern``'s scanned
+    superblocks, at least 1)."""
+    from repro_torch.models.transformer import stack_pattern
+
+    return max(1, stack_pattern(cfg)[1])
+
+
 def tree_bytes(tree) -> int:
     """Bytes of every tensor of ``tree`` (each storage once)."""
     seen, total = set(), 0

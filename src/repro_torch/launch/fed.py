@@ -41,6 +41,7 @@ from repro_torch.core.policy import DENSE_SMALL_PATTERN
 from repro_torch.core.tree import tree_flatten
 from repro_torch.run.build import build_run
 from repro_torch.run.flags import add_run_flags, spec_from_args
+from repro_torch.run.presets import fed_tiny_config  # noqa: F401 (re-export)
 
 
 def build_parser() -> argparse.ArgumentParser:

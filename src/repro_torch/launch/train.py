@@ -38,6 +38,7 @@ from repro_torch.core.baselines import dgc_policy  # noqa: F401 (registration)
 from repro_torch.core.tree import tree_flatten
 from repro_torch.run.build import build_run, lr_schedule  # noqa: F401 (re-export)
 from repro_torch.run.flags import add_run_flags, spec_from_args
+from repro_torch.run.presets import build_preset, lm_100m_config  # noqa: F401 (re-export)
 
 
 def build_parser() -> argparse.ArgumentParser:

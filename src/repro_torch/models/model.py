@@ -31,6 +31,8 @@ from repro_torch.core.tree import tree_flatten_with_path
 from repro_torch.models import cnn, hints, lstm, transformer
 from repro_torch.models.losses import chunked_softmax_xent, softmax_xent
 
+PyTree = Any  # a nested dict of tensors, as the reference's pytrees
+
 
 class Model(NamedTuple):
     cfg: ModelConfig

@@ -66,16 +66,19 @@ def make_telemetry() -> Telemetry:
 
 
 def finish_run(telemetry: Telemetry, trace: str = None,
-               metrics_out: str = None, meta: dict = None) -> dict:
+               metrics_out: str = None, meta: dict = None,
+               print_summary: bool = True) -> dict:
     """End-of-run export: write the requested files, print the console
-    summary tables.  The one epilogue every launcher shares."""
+    summary tables (unless ``print_summary`` is False).  The one epilogue
+    every launcher shares."""
     out = {}
     if not telemetry.enabled:
         return out
-    if telemetry.tracer.events:
-        print(span_table(telemetry.tracer))
-    if telemetry.metrics.samples:
-        print(summary_table(telemetry.metrics))
+    if print_summary:
+        if telemetry.tracer.events:
+            print(span_table(telemetry.tracer))
+        if telemetry.metrics.samples:
+            print(summary_table(telemetry.metrics))
     if trace:
         out["trace"] = write_trace_json(trace, telemetry.tracer, meta=meta)
         print(f"wrote {out['trace']} (load in ui.perfetto.dev)")

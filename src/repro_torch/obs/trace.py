@@ -26,6 +26,7 @@ and only by an *enabled* fence).
 """
 from __future__ import annotations
 
+import json
 import time
 from typing import Any, Dict, List
 
@@ -159,6 +160,13 @@ class Tracer:
                     "args": e["args"],
                 })
         return out
+
+    def write_chrome(self, path: str) -> str:
+        """Write a Perfetto-loadable ``trace.json`` (ui.perfetto.dev and
+        chrome://tracing both open it); returns ``path``."""
+        with open(path, "w") as f:
+            json.dump({"traceEvents": self.chrome_events(), "displayTimeUnit": "ms"}, f)
+        return path
 
 
 class NullTracer:

@@ -1,4 +1,4 @@
 """Client-side optimizers of the port."""
-from repro_torch.optim.optimizers import AdamState, Optimizer, get_optimizer
+from repro_torch.optim.optimizers import AdamState, Optimizer, adam, get_optimizer, momentum, sgd
 
-__all__ = ["AdamState", "Optimizer", "get_optimizer"]
+__all__ = ["AdamState", "Optimizer", "adam", "get_optimizer", "momentum", "sgd"]

@@ -20,6 +20,8 @@ from repro_torch.core.tree import tree_flatten, tree_map as _map
 
 Tree = dict
 
+PyTree = Any  # a nested dict of tensors, as the reference's pytrees
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:

@@ -11,11 +11,17 @@ from repro_torch.run.build import (
     FedRun,
     GspmdRun,
     LocalRun,
+    Run,
     build_run,
     lr_schedule,
     policy_from_spec,
 )
-from repro_torch.run.flags import build_parser, spec_from_args
+from repro_torch.run.flags import (
+    add_compression_flags,
+    add_run_flags,
+    build_parser,
+    spec_from_args,
+)
 from repro_torch.run.presets import build_preset
 from repro_torch.run.spec import BACKENDS, RunSpec
 
@@ -24,7 +30,10 @@ __all__ = [
     "FedRun",
     "GspmdRun",
     "LocalRun",
+    "Run",
     "RunSpec",
+    "add_compression_flags",
+    "add_run_flags",
     "build_parser",
     "build_preset",
     "build_run",

@@ -75,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.api import Compressor, make_compressor
@@ -85,6 +86,8 @@ from repro_torch.models.model import build_model
 from repro_torch.obs import NULL_TELEMETRY, make_telemetry
 from repro_torch.run.presets import build_preset
 from repro_torch.run.spec import RunSpec
+
+PyTree = Any  # a nested dict of tensors, as the reference's pytrees
 
 
 def policy_from_spec(spec: RunSpec) -> Union[Compressor, CompressionPolicy]:
@@ -116,22 +119,82 @@ def as_policy(thing: Union[Compressor, CompressionPolicy]) -> CompressionPolicy:
     return thing.policy if isinstance(thing, Compressor) else thing
 
 
-def lr_schedule(base_lr: float) -> Callable[[int], float]:
-    """``lr(iteration)``: the constant ``base_lr`` (a host float: the port's
-    rounds run on the host)."""
-    return lambda it: base_lr
+def lr_schedule(base_lr: float, decay_at: Tuple[int, ...] = (),
+                factor: float = 0.1) -> Callable[[int], float]:
+    """``lr(iteration)``: ``base_lr``, times ``factor`` for each of
+    ``decay_at`` that the iteration has reached.  A host float (the port's
+    rounds run on the host); with decay points it is the reference's f32
+    product, and without them ``base_lr`` itself, as in the reference."""
+    if not decay_at:
+        return lambda it: base_lr
+
+    def lr(it: int) -> float:
+        mult = 1.0
+        for d in decay_at:
+            mult = np.float32(mult * factor) if it >= d else np.float32(mult)
+        return float(np.float32(base_lr) * mult)
+
+    return lr
 
 
 # ---------------------------------------------------------------- Run base
 
 
 class Run:
-    """The run surface every backend shares: :meth:`run`, one round loop
-    that records the reference's telemetry when it is on (``build_run``
-    sets an enabled :attr:`telemetry`; the class default is the no-op
-    ``NULL_TELEMETRY``)."""
+    """The run surface every backend shares (the reference's ``Run``):
 
+      ``init``        the backend's whole training state
+      ``step``        one communication round: ``(state, metrics)``
+      ``evaluate``    the held-out loss of the state's master weights
+      ``checkpoint``  the state to one npz (:mod:`repro_torch.checkpoint`)
+      ``params_of``   the state's master weights
+      ``ledger``      the channel's :class:`~repro_torch.core.ledger.BandwidthLedger`
+      ``run``         the init + step loop, which records the reference's
+                      telemetry when it is on (``build_run`` sets an
+                      enabled :attr:`telemetry`; the class default is the
+                      no-op ``NULL_TELEMETRY``)
+
+    Each backend is a dataclass with these fields and its own."""
+
+    spec: RunSpec
+    cfg: Any
+    model: Any
+    task: Any
+    channel: Any  # the backend's CommChannel
     telemetry = NULL_TELEMETRY
+
+    # ------------------------------------------------------------ protocol
+
+    def init(self, gen: Optional[torch.Generator] = None):
+        raise NotImplementedError
+
+    def step(self, state, round_idx: int) -> tuple:
+        raise NotImplementedError
+
+    def evaluate(self, state) -> dict:
+        """Held-out loss: the batch ``task.sample(0, n_clients + 1)``, a
+        stream no training client draws (``n_clients`` is the backend's
+        real client count: gspmd's comes from its layout, not from
+        ``spec.clients``)."""
+        batch = self.task.sample(0, self.n_clients + 1)
+        with torch.no_grad():
+            return {"loss": float(self._loss(state, batch))}
+
+    def _loss(self, state, batch: dict) -> torch.Tensor:
+        return self.model.loss_fn(self.params_of(state), batch)
+
+    def checkpoint(self, state, path: str) -> None:
+        raise NotImplementedError
+
+    def params_of(self, state):
+        raise NotImplementedError
+
+    @property
+    def ledger(self):
+        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`."""
+        return self.channel.ledger
+
+    # ----------------------------------------------------------- telemetry
 
     def _init_for_run(self):
         """The state :meth:`run` starts from (fed reuses a live scheduler)."""
@@ -198,11 +261,6 @@ class LocalRun(Run):
     def n_clients(self) -> int:
         return self.spec.clients
 
-    @property
-    def ledger(self):
-        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`."""
-        return self.channel.ledger
-
     def init(self, gen: Optional[torch.Generator] = None):
         return self.trainer.init(gen, self.spec.seed)
 
@@ -214,12 +272,6 @@ class LocalRun(Run):
         return self.trainer.step(state, self.batch_fn(round_idx), round_idx,
                                  n_delay=self.spec.delay, sparsity=self.spec.sparsity,
                                  measure_wire=self.spec.measure_wire)
-
-    def evaluate(self, state) -> dict:
-        """Held-out loss: a batch stream no training client draws."""
-        batch = self.task.sample(0, self.spec.clients + 1)
-        with torch.no_grad():
-            return {"loss": float(self.model.loss_fn(state.params, batch))}
 
     def checkpoint(self, state, path: str) -> None:
         from repro_torch.checkpoint.io import save_train_state
@@ -293,12 +345,6 @@ class GspmdRun(Run):
         as the reference's ``batch_shardings`` puts ``P(lead, "data")``."""
         return {k: v[None] for k, v in self.task.sample(round_idx, self.fns.client).items()}
 
-    @property
-    def ledger(self):
-        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`
-        (rank 0's holds every client's uploads)."""
-        return self.channel.ledger
-
     def params_to_tree(self, state: dict) -> dict:
         """The whole params of ``state``: gathered over the client's ranks
         with one rank a device (a collective of those ranks)."""
@@ -328,6 +374,23 @@ class GspmdRun(Run):
 
     def params_of(self, state: dict):
         return state["params"]
+
+    def _loss(self, state: dict, batch: dict) -> torch.Tensor:
+        # one rank a device: the leaves gathered at their use, a collective
+        return self.fns.eval_loss(state["params"], batch)
+
+    def checkpoint(self, state: dict, path: str) -> None:
+        """The file the reference's ``save_pytree`` writes for the same
+        global state: the params whole and every client's optimizer and
+        residual rows.  A collective: every rank calls it, the leaves are
+        gathered one at a time to rank 0's host, and rank 0 alone writes;
+        :func:`~repro_torch.checkpoint.io.load_pytree` with ``like=`` a
+        one-rank run's state reads it back."""
+        from repro_torch.checkpoint.io import save_pytree
+
+        tree = self.fns.state_to_host(state)
+        if self.group.rank == 0:
+            save_pytree(path, tree)
 
     def _residual_of(self, state: dict):
         return state["residual"]
@@ -374,11 +437,6 @@ class FedRun(Run):
     @property
     def n_clients(self) -> int:
         return self.spec.clients
-
-    @property
-    def ledger(self):
-        """The channel's :class:`~repro_torch.core.ledger.BandwidthLedger`."""
-        return self.channel.ledger
 
     def init(self, gen: Optional[torch.Generator] = None):
         """Build the server (parameters drawn from ``gen``, default seeded

@@ -60,6 +60,12 @@ class DSGDTrainer:
     optimizer: Optimizer
     n_clients: int
     lr: Callable[[int], float]  # lr(iteration) schedule
+    # each client's ΔW is cast to it before compression, and its residual
+    # kept in it; a residual that is not f32 takes the per-leaf path
+    residual_dtype: Any = torch.float32
+    # None keeps the policy's own flag; True or False forces the flat fast
+    # path (core/flat.py §10, one flat f32 residual a client) on or off
+    fast: Optional[bool] = None
     device: Any = None  # the card unless "cpu" is asked for
     # repro_torch.run builds the trainer itself and suppresses the warning
     _from_run: dataclasses.InitVar[bool] = False
@@ -75,7 +81,11 @@ class DSGDTrainer:
         full_f32_math()
         if isinstance(self.compressor, CompressionPolicy):
             self.compressor = Compressor.from_policy(self.compressor.name, self.compressor)
-        self.channel = LocalVmapChannel(compressor=self.compressor, n_clients=self.n_clients)
+        if self.fast is not None and self.fast != self.compressor.policy.fast:
+            self.compressor = Compressor.from_policy(
+                self.compressor.name, dataclasses.replace(self.compressor.policy, fast=self.fast))
+        self.channel = LocalVmapChannel(compressor=self.compressor, n_clients=self.n_clients,
+                                        residual_dtype=self.residual_dtype)
 
     @property
     def ledger(self):
@@ -118,7 +128,7 @@ class DSGDTrainer:
                     self.model, self.optimizer, self.lr, params,
                     map_states(lambda v: v[0][c], [state.opt_states]),
                     [tree_map(lambda v: v[c, d], batch) for d in range(n_delay)], iteration)
-                deltas.append(delta)
+                deltas.append(tree_map(lambda v: v.to(self.residual_dtype), delta))
                 opt_states.append(os)
                 losses.append(loss)
 
