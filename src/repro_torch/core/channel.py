@@ -515,8 +515,10 @@ class ShardedGspmdChannel:
                       need_own: bool) -> tuple:
         """Residual add + compression + exchange on ONE flat buffer a
         device of the client, one launch per pass over all of them.
-        ``leaves`` carry the leading client axis of 1."""
+        ``leaves`` carry the leading client axis of 1.  The hist engine
+        opens the ``exchange.*`` stages of :attr:`telemetry`'s clock."""
         space = self.flat_space
+        stages = self.telemetry.stages
         bodies = [leaf[0] for leaf in leaves]
         S = space.shards_per_client
         res_local = res[0].reshape(space.local_shape)
@@ -526,25 +528,27 @@ class ShardedGspmdChannel:
                 bodies, res_local, device_pack=True
             )
             packed = (words.reshape(1, S, -1), nbits.reshape(1, S, -1))
+        elif self.flat_engine == "exact":
+            mean_f, own_f, new_res_f = space.exchange_local(bodies, res_local)
         else:
-            fn = (space.exchange_local if self.flat_engine == "exact"
-                  else space.exchange_local_hist)
-            mean_f, own_f, new_res_f = fn(bodies, res_local)
-        means = tuple(
-            m.to(leaf.dtype)[None]
-            for m, leaf in zip(space.unflatten_local(mean_f), leaves)
-        )
-        if need_own:
-            owns = tuple(
-                o.to(leaf.dtype)[None]
-                for o, leaf in zip(space.unflatten_local(own_f), leaves)
+            mean_f, own_f, new_res_f = space.exchange_local_hist(bodies, res_local,
+                                                                 stages=stages)
+        with stages.stage("exchange.unflatten"):
+            means = tuple(
+                m.to(leaf.dtype)[None]
+                for m, leaf in zip(space.unflatten_local(mean_f), leaves)
             )
-        else:
-            owns = tuple(
-                torch.zeros((1,) * leaf.dim(), dtype=leaf.dtype, device=leaf.device)
-                for leaf in leaves
-            )
-        new_res = new_res_f.reshape(1, S, space.n_pad)
+            if need_own:
+                owns = tuple(
+                    o.to(leaf.dtype)[None]
+                    for o, leaf in zip(space.unflatten_local(own_f), leaves)
+                )
+            else:
+                owns = tuple(
+                    torch.zeros((1,) * leaf.dim(), dtype=leaf.dtype, device=leaf.device)
+                    for leaf in leaves
+                )
+            new_res = new_res_f.reshape(1, S, space.n_pad)
         if self.device_pack:
             return means, new_res, owns, packed
         return means, new_res, owns

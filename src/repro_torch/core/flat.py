@@ -39,6 +39,7 @@ from repro_torch.kernels.pack import (bits_from_positions, golomb_decode_rows, p
                                       row_words)
 from repro_torch.kernels.reduce import _reciprocal
 from repro_torch.kernels.topk import _top_k, _two_sided_topk  # noqa: F401  (_top_k re-exported)
+from repro_torch.obs.stages import NULL_STAGES
 
 PyTree = Any  # a nested dict of tensors, as the reference's pytrees
 
@@ -87,6 +88,7 @@ def _hist_pipeline(
     bm: int,
     lanes: int,
     nbins: int,
+    stages=NULL_STAGES,
 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """The three segment-aware passes over one flat buffer.
 
@@ -97,6 +99,8 @@ def _hist_pipeline(
     pass writes ΔW* and the residual.  Returns ``(delta_star_flat,
     residual_flat, stats)`` with per-segment ``stats = {mu, count,
     nbits}``.  Everything stays on the device; nothing waits for it.
+    ``stages`` opens ``exchange.select``, ``exchange.moments`` and
+    ``exchange.binarize`` around the passes.
 
     ``acc_flat`` of shape ``(S, n_pad)`` holds S devices' buffers of the
     one layout (``bounds``, ``seg_of_block`` and ``n_blocks`` are one
@@ -115,51 +119,53 @@ def _hist_pipeline(
         ks, rates = list(ks) * S, list(rates) * S
     sob = seg_of_block.to(torch.float32)[:, None]
 
-    # per-segment |x| range for the coarse pass (max is order-independent
-    # → exact)
-    absmax = torch.stack([
-        torch.amax(torch.abs(rows2[:, off:off + size]), dim=1) for off, size in bounds
-    ], dim=1).reshape(-1) + 1e-30
-    lo0 = absmax * 2.0 ** -SPAN_OCTAVES
-    hi0 = absmax * 1.0001
-
     def block_params(*cols, seg: bool = True):
         rows = [c[seg_of_block][:, None] for c in cols]
         if seg:
             rows = [sob] + rows
         return torch.cat(rows, dim=1)
 
-    kf = torch.tensor(ks, dtype=torch.float32, device=dev)
+    with stages.stage("exchange.select"):
+        # per-segment |x| range for the coarse pass (max is order-independent
+        # → exact)
+        absmax = torch.stack([
+            torch.amax(torch.abs(rows2[:, off:off + size]), dim=1) for off, size in bounds
+        ], dim=1).reshape(-1) + 1e-30
+        lo0 = absmax * 2.0 ** -SPAN_OCTAVES
+        hi0 = absmax * 1.0001
+        kf = torch.tensor(ks, dtype=torch.float32, device=dev)
 
-    h1 = seg_hist2side(xpad, block_params(lo0, hi0, lo0, hi0), nseg=S * nseg,
-                       nbins=nbins, bm=bm, lanes=lanes)
-    edges0 = bucket_lower_edges(lo0, hi0, nbins)
-    lo_p, hi_p, above_p = _side_threshold(h1[:, 0], edges0, kf)
-    lo_n, hi_n, above_n = _side_threshold(h1[:, 1], edges0, kf)
+        h1 = seg_hist2side(xpad, block_params(lo0, hi0, lo0, hi0), nseg=S * nseg,
+                           nbins=nbins, bm=bm, lanes=lanes)
+        edges0 = bucket_lower_edges(lo0, hi0, nbins)
+        lo_p, hi_p, above_p = _side_threshold(h1[:, 0], edges0, kf)
+        lo_n, hi_n, above_n = _side_threshold(h1[:, 1], edges0, kf)
 
-    h2 = seg_hist2side(xpad, block_params(lo_p, hi_p, lo_n, hi_n), nseg=S * nseg,
-                       nbins=nbins, bm=bm, lanes=lanes)
-    t_pos, _, _ = _side_threshold(h2[:, 0], bucket_lower_edges(lo_p, hi_p, nbins),
-                                  kf - above_p)
-    t_neg, _, _ = _side_threshold(h2[:, 1], bucket_lower_edges(lo_n, hi_n, nbins),
-                                  kf - above_n)
+        h2 = seg_hist2side(xpad, block_params(lo_p, hi_p, lo_n, hi_n), nseg=S * nseg,
+                           nbins=nbins, bm=bm, lanes=lanes)
+        t_pos, _, _ = _side_threshold(h2[:, 0], bucket_lower_edges(lo_p, hi_p, nbins),
+                                      kf - above_p)
+        t_neg, _, _ = _side_threshold(h2[:, 1], bucket_lower_edges(lo_n, hi_n, nbins),
+                                      kf - above_n)
 
-    mom = seg_moments(xpad, block_params(t_pos, t_neg), nseg=S * nseg, bm=bm,
-                      lanes=lanes)
-    mu_pos = mom[:, 0, 0] / torch.clamp(mom[:, 0, 1], min=1.0)
-    mu_neg = -mom[:, 1, 0] / torch.clamp(mom[:, 1, 1], min=1.0)
-    pos_wins = mu_pos > mu_neg
-    mu = torch.where(pos_wins, mu_pos, -mu_neg)
-    count = torch.where(pos_wins, mom[:, 0, 1], mom[:, 1, 1])
+    with stages.stage("exchange.moments"):
+        mom = seg_moments(xpad, block_params(t_pos, t_neg), nseg=S * nseg, bm=bm,
+                          lanes=lanes)
+        mu_pos = mom[:, 0, 0] / torch.clamp(mom[:, 0, 1], min=1.0)
+        mu_neg = -mom[:, 1, 0] / torch.clamp(mom[:, 1, 1], min=1.0)
+        pos_wins = mu_pos > mu_neg
+        mu = torch.where(pos_wins, mu_pos, -mu_neg)
+        count = torch.where(pos_wins, mom[:, 0, 1], mom[:, 1, 1])
 
-    out_pad, res_pad = seg_binarize_apply(
-        xpad,
-        block_params(t_pos, t_neg, mu, pos_wins.to(torch.float32), seg=False),
-        bm=bm, lanes=lanes,
-    )
-    ebits = torch.tensor([expected_position_bits(min(p, 1.0)) for p in rates],
-                         dtype=torch.float32, device=dev)
-    stats = {"mu": mu, "count": count, "nbits": count * ebits + 32.0}
+    with stages.stage("exchange.binarize"):
+        out_pad, res_pad = seg_binarize_apply(
+            xpad,
+            block_params(t_pos, t_neg, mu, pos_wins.to(torch.float32), seg=False),
+            bm=bm, lanes=lanes,
+        )
+        ebits = torch.tensor([expected_position_bits(min(p, 1.0)) for p in rates],
+                             dtype=torch.float32, device=dev)
+        stats = {"mu": mu, "count": count, "nbits": count * ebits + 32.0}
     return out_pad.reshape(acc_flat.shape), res_pad.reshape(acc_flat.shape), stats
 
 
@@ -855,6 +861,7 @@ class ShardedFlatParamSpace:
         res_flat: Optional[torch.Tensor],
         *,
         nbins: int = 128,
+        stages=NULL_STAGES,
     ) -> tuple:
         """The segment-aware passes (:mod:`repro_torch.kernels.flat`) over
         this client's local flat buffer(s) — one launch per pass, over
@@ -864,6 +871,8 @@ class ShardedFlatParamSpace:
         (segment, device); the exchange is the group's ``pmean`` of the
         binarized ΔW* (none with one client).  Requires an all-sparse
         policy.  Returns ``(mean_flat, own_flat, new_res_flat)``.
+        ``stages`` (a :mod:`repro_torch.obs.stages` clock) times the
+        flatten, the three passes and the mean.
         """
         if any(s.kind != "sparse" for s in self.segments):
             raise ValueError(
@@ -871,9 +880,10 @@ class ShardedFlatParamSpace:
                 "leaves belong to the exact engine"
             )
         group = self._client_group()
-        acc = self.flatten_local(bodies)
-        if res_flat is not None:
-            acc = res_flat + acc
+        with stages.stage("exchange.flatten"):
+            acc = self.flatten_local(bodies)
+            if res_flat is not None:
+                acc = res_flat + acc
         own, res, _stats = _hist_pipeline(
             acc,
             bounds=[(s.offset, s.rows * s.n_loc) for s in self.segments],
@@ -884,8 +894,10 @@ class ShardedFlatParamSpace:
             bm=self.bm,
             lanes=self.lanes,
             nbins=nbins,
+            stages=stages,
         )
-        mean = (group.pmean(own, self.client_grid) if self.client_axes and self.n_clients > 1
-                else own)
+        with stages.stage("exchange.mean"):
+            mean = (group.pmean(own, self.client_grid)
+                    if self.client_axes and self.n_clients > 1 else own)
         new_res = res if res_flat is not None else None
         return mean, own, new_res

@@ -34,6 +34,10 @@ block takes its own k a row and μ, and Eq. 1 counts ``L · n_shards ·
     (:class:`~repro_torch.launch.mesh.DeviceRanks`).  Each rank's rows are
     its "data" coordinate's share of its client's batch.
 
+Each round is one ``train.step`` stage of the channel's telemetry clock
+(:mod:`repro_torch.obs.stages`) with its forward, backward, optimizer,
+exchange and apply stages in order; the disabled clock opens nothing.
+
 The exchange is the §11 flat fast path (``fast=True``: the exact engine,
 optionally with the device-packed Golomb wire, or the hist engine) or the
 per-leaf exchange (``fast=False``, or a non-f32 ``residual_dtype``, as
@@ -324,39 +328,46 @@ def build_dist_train(
         return v[d * n:(d + 1) * n]
 
     def step(state: dict, batch: dict) -> tuple:
-        params = state["params"]
-        leaves_p = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
-        rows = tree_map(lambda v: v[0], batch)
-        shards = RankShards(ranks, leaves_p, blocks, remat=cfg.remat) if sharded else None
-        with hints.sharded_params(shards):
-            loss = model.loss_fn(treedef.unflatten(leaves_p),
-                                 tree_map(rank_rows, rows) if sharded else rows)
-            if sharded:
-                shards.check_every_leaf_used()
-            grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves_p)))
-        with torch.no_grad():
-            p2, opt_state = opt.apply(map_states(lambda v: v[0][0], [state["opt"]]),
-                                      grads, params, cfg.base_lr, 0)
-            deltas = tree_map(
-                lambda a, b: (a.to(torch.float32) - b.to(torch.float32))
-                .to(cfg.residual_dtype)[None], p2, params)
-            out = channel.round_exchange(state["residual"], deltas, need_own=need_own)
-            mean_tree, new_residual, own_tree = out[:3]
-            # every client reconstructs the identical mean
-            new_params = tree_map(
-                lambda p, m: (p.to(torch.float32) + m[0].to(torch.float32)).to(p.dtype),
-                params, mean_tree)
-            opt_state = map_states(lambda v: v[0][None], [opt_state])
-            if need_mask:
-                transmitted = tree_map(lambda o: (o != 0).to(torch.float32), own_tree)
-                opt_state = opt.mask(opt_state, transmitted)
-            loss = loss.detach().reshape(())
-            if sharded:  # the client's loss: the mean over its "data" ranks
-                loss = ranks.data.pmean(loss)
-            metrics = {"loss": f32_mean_xla(xgroup.all_gather_rows(loss))}
-            if measure:
-                metrics.update(_metered(out, own_tree))
-        return {"params": new_params, "opt": opt_state, "residual": new_residual}, metrics
+        stages = channel.telemetry.stages  # build_run may swap in an enabled clock
+        with stages.stage("train.step"):
+            params = state["params"]
+            leaves_p = [p.detach().requires_grad_(True) for p in tree_flatten(params)[0]]
+            rows = tree_map(lambda v: v[0], batch)
+            shards = RankShards(ranks, leaves_p, blocks, remat=cfg.remat) if sharded else None
+            with hints.sharded_params(shards):
+                with stages.stage("train.forward"):
+                    loss = model.loss_fn(treedef.unflatten(leaves_p),
+                                         tree_map(rank_rows, rows) if sharded else rows)
+                    if sharded:
+                        shards.check_every_leaf_used()
+                with stages.stage("train.backward"):
+                    grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves_p)))
+            with torch.no_grad():
+                with stages.stage("train.optimizer"):
+                    p2, opt_state = opt.apply(map_states(lambda v: v[0][0], [state["opt"]]),
+                                              grads, params, cfg.base_lr, 0)
+                    deltas = tree_map(
+                        lambda a, b: (a.to(torch.float32) - b.to(torch.float32))
+                        .to(cfg.residual_dtype)[None], p2, params)
+                with stages.stage("train.exchange"):
+                    out = channel.round_exchange(state["residual"], deltas, need_own=need_own)
+                mean_tree, new_residual, own_tree = out[:3]
+                with stages.stage("train.apply"):
+                    # every client reconstructs the identical mean
+                    new_params = tree_map(
+                        lambda p, m: (p.to(torch.float32) + m[0].to(torch.float32)).to(p.dtype),
+                        params, mean_tree)
+                    opt_state = map_states(lambda v: v[0][None], [opt_state])
+                    if need_mask:
+                        transmitted = tree_map(lambda o: (o != 0).to(torch.float32), own_tree)
+                        opt_state = opt.mask(opt_state, transmitted)
+                    loss = loss.detach().reshape(())
+                    if sharded:  # the client's loss: the mean over its "data" ranks
+                        loss = ranks.data.pmean(loss)
+                    metrics = {"loss": f32_mean_xla(xgroup.all_gather_rows(loss))}
+                if measure:
+                    metrics.update(_metered(out, own_tree))
+            return {"params": new_params, "opt": opt_state, "residual": new_residual}, metrics
 
     def _metered(out, own_tree) -> dict:
         """Rank 0's client-0 ΔW* (and packed words), whole; with

@@ -63,7 +63,8 @@ reference's ``ValueError`` (its preset is an LM task of vocabulary 0).
 enabled :class:`~repro_torch.obs.Telemetry` to the run and its channel,
 and ``run()`` records what the reference's traced loop records (one
 ``round`` span a round, the ``train/*`` and ``leaf/*`` gauges, the
-ledger's ``wire/*``).
+ledger's ``wire/*``) and, on gspmd, the stage clock's device-timed
+``train.*`` and ``exchange.*`` stages (:mod:`repro_torch.obs.stages`).
 A world that is neither the layout's clients nor its devices raises
 ``ValueError``; none runs a different path in silence.  The run is on
 the CUDA card unless
@@ -356,10 +357,11 @@ class GspmdRun(Run):
         (every client's packed bits with ``device_pack``, else client 0's
         host-encoded ΔW*), which waits for the device."""
         # the round (local step, compress, exchange, apply) traced as one
-        # exchange span, as the reference traces its one jitted call
+        # exchange span, as the reference traces its one jitted call; the
+        # host clock, no fence (run_rounds fences the round, and the stage
+        # clock times the step's parts on the device)
         with self.telemetry.span("exchange", round=round_idx, fused=True):
             state, m = self.fns.train_step(state, self._batch(round_idx))
-            self.telemetry.fence(state["params"])
         m = dict(m)
         own_client0 = m.pop("own_client0", None)
         packed_nbits = m.pop("packed_nbits", None)
@@ -570,7 +572,7 @@ def build_run(spec: RunSpec, device=None, group=None, *,
         raise ValueError(f"mesh_shape is a layout of the gspmd backend, not of {spec.backend!r}")
     run = _build(spec, device, group, mesh_shape)
     if spec.telemetry:
-        run.telemetry = make_telemetry()
+        run.telemetry = make_telemetry(run.device)
         if run.channel is not None:
             run.channel.telemetry = run.telemetry
     return run

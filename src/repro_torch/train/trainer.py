@@ -224,8 +224,9 @@ def run_rounds(state: Any, step: Callable[[Any, int], tuple], *, n_rounds: int,
     the reference's traced loop does).  With an enabled ``telemetry`` each
     round is a ``round`` span fenced on ``params_of(state)``, with the
     ``train/*`` gauges (``phase="compile"`` on round 0) and the norm of
-    ``residual_of(state)`` unless that is None; with the default no-op one
-    nothing waits for the device.  Returns ``(state, history)``."""
+    ``residual_of(state)`` unless that is None, and the stage clock
+    drained once the round's loss is on the host; with the default no-op
+    one nothing waits for the device.  Returns ``(state, history)``."""
     tel = telemetry
     hist: dict = {"round": [], "loss": [], "bits_per_client": []}
     dense_total = None
@@ -236,6 +237,7 @@ def run_rounds(state: Any, step: Callable[[Any, int], tuple], *, n_rounds: int,
             tel.fence(params_of(state))
         step_ms = (time.perf_counter() - t0) * 1e3
         loss, bits = float(m["loss"]), float(m.get("bits_per_client", 0.0))
+        tel.stages.drain()  # the loss has synchronised the round
         if tel.enabled:
             tel.metrics.gauge("train/step_ms", step_ms, round=r,
                               phase="compile" if r == 0 else "steady")
