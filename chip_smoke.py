@@ -462,7 +462,7 @@ OPS_PER_S = 67e12
 ROUNDS = 5
 KERNELS = ("seg_hist2side", "seg_moments", "seg_binarize_apply", "seg_packbits",
            "seg_select_pack", "hist2side", "masked_moments", "binarize_apply",
-           "f32_mean_xla")
+           "f32_mean_xla", "seg_accumulate")
 LEAF_KERNELS = ("hist2side", "masked_moments", "binarize_apply")
 ONE_OP = ("seg_hist2side", "seg_moments")  # one device operation per call
 
@@ -472,9 +472,13 @@ def per_call(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
-# every GSPMD round also takes one f32_mean_xla of the clients' losses
-HIST_PER_ROUND = per_call(seg_hist2side=2, seg_moments=1, seg_binarize_apply=1,
-                          f32_mean_xla=1)
+# every GSPMD round also takes one f32_mean_xla of the clients' losses; with
+# one device a client the exchange's front (flatten, residual add, each
+# segment's max |x|) is one seg_accumulate, with several (HIST_SHARDS_PER_ROUND)
+# it stays tensor ops over the buffers gathered from the shards' blocks
+HIST_PER_ROUND = per_call(seg_accumulate=1, seg_hist2side=2, seg_moments=1,
+                          seg_binarize_apply=1, f32_mean_xla=1)
+HIST_SHARDS_PER_ROUND = dict(HIST_PER_ROUND, seg_accumulate=0)
 EXACT_PER_ROUND = per_call(seg_packbits=1, f32_mean_xla=6 + 1)  # one mean per segment
 # the codec + wire phase: LeNet5 under sbc with f1b and f2b dense (four SBC
 # leaves): a mean for topk_signed and one for binarize per SBC leaf, and
@@ -562,6 +566,11 @@ MIXTRAL1_LEAVES = 12
 # Eq. 1 bits a client a round, pinned to the reference's
 # (tests/test_torch_zoo_run.py::test_chip_smoke_mixtral_pin_is_the_references)
 MIXTRAL1_EQ1 = 18188887.14773302
+# the mixtral benchmark cell's layer: the variant with the published untied
+# head, whose head/embedding is a thirteenth leaf (seg_accumulate's row)
+MIXTRAL1_CELL_VARIANT = dict(MIXTRAL1_VARIANT, tie_embeddings=False)
+MIXTRAL1_CELL_PARAMS = 1_713_418_240
+MIXTRAL1_CELL_LEAVES = 13
 # phase 13b: each config serves at full width in bf16, cut in depth
 SERVE_ZOO = (
     # (config, layers, prompts, prompt length, parameters)
@@ -717,7 +726,7 @@ SCALE_PINS = {
 }
 SCALE_LAYOUT = {"data": 1, "model": 1}
 SCALE_B = dict(batch=4, seq_len=512, steps=2, sparsity=0.001)
-SCALE_B_PER_STEP = per_call(seg_hist2side=2, seg_moments=1, seg_binarize_apply=1, f32_mean_xla=1)
+SCALE_B_PER_STEP = HIST_PER_ROUND  # one rank of (1, 1): one device a client
 SCALE_PEAK_RATIO = (0.8, 1.25)  # predicted / measured peak
 SCALE_DRYRUN = ["--all", "--mesh", "single", "--jobs", "2"]
 SCALE_DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
@@ -741,13 +750,20 @@ REPLACES = {
     # no Pallas kernel: the jnp.mean of the exact engine's top-k values,
     # which XLA lowers to its f32 reduce-window cascade
     "f32_mean_xla": "src/repro/core/flat.py:733",
+    # no Pallas kernel: the hist exchange's flatten, residual add and
+    # per-segment max |x|, which XLA fuses
+    "seg_accumulate": "src/repro/core/flat.py:877",
 }
 REFERENCE = {"f32_mean_xla": "XLA's f32 reduce lowering of jnp.mean (src/repro/core/"
                              "flat.py:733, core/stages.py:161 and :330, kernels/ops.py:152), "
-                             "not a Pallas kernel"}
+                             "not a Pallas kernel",
+             "seg_accumulate": "XLA's fusion of the hist exchange's flatten and residual add "
+                               "(src/repro/core/flat.py:877) with jnp.max(jnp.abs(...)) a "
+                               "segment (:124), not a Pallas kernel"}
 # operations per element of the buffer, counted from each SBC kernel's body
 OPS_PER_ELEMENT = {"seg_hist2side": 12, "seg_moments": 4, "seg_binarize_apply": 3,
-                   "hist2side": 12, "masked_moments": 4, "binarize_apply": 3}
+                   "hist2side": 12, "masked_moments": 4, "binarize_apply": 3,
+                   "seg_accumulate": 3}
 SPEC = dict(preset="lenet5", backend="gspmd", fast=True, sparsity=0.01, batch=128,
             rounds=ROUNDS)
 
@@ -1043,6 +1059,7 @@ def hist_path(dev) -> tuple:
     profiled_round(run, cap["state"], "hist")
     rows, pipe = hist_kernels_vs_plain(cap["acc"], space, dev, "hist",
                                        launches=cap["launches"])
+    rows["seg_accumulate"] = accumulate_row(dev, cap["launches"]["seg_accumulate"])
     return rows, {"acc": cap["acc"], "space": space, **pipe}
 
 
@@ -1084,7 +1101,8 @@ def hist_kernels_vs_plain(acc, space, dev, label: str, launches: dict | None = N
 
     def pipeline():
         return core_flat._hist_pipeline(acc, bounds, ks, rates, sob, space.n_blocks,
-                                        space.bm, space.lanes, 128)
+                                        space.bm, space.lanes, 128,
+                                        absmax=kflat.seg_absmax(acc, bounds))
 
     names = ("seg_hist2side", "seg_moments", "seg_binarize_apply")
     calls: list = []
@@ -1145,6 +1163,61 @@ def hist_kernels_vs_plain(acc, space, dev, label: str, launches: dict | None = N
     print(f"{label}: {len(calls)} kernel calls == their plain versions on the path's "
           f"operands; seg_moments' sums' largest relative error {moments_rel:.3e} (limit 1e-6)")
     return rows, {"out": k_out, "res": k_res, "stats": k_stats}
+
+
+def accumulate_row(dev, launches: int) -> dict:
+    """``seg_accumulate`` at the mixtral cell's width (one layer with the
+    published untied head: ``MIXTRAL1_CELL_LEAVES`` leaves,
+    ``MIXTRAL1_CELL_PARAMS`` entries) on seeded leaves and residual: the
+    kernel bit-equal to its plain version (the composition the hist
+    exchange ran before it), then both timed on two copies of the operands,
+    beside the bound of 12 bytes an entry (the leaves and the residual
+    read, ``acc`` written) over 3.35 TB/s.  Returns its row of the kernels
+    line (``launches``: the hist path's)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import flat as kflat
+    from repro_torch.models.model import build_model
+
+    variant = {k: getattr(torch, v) if k.endswith("dtype") else v
+               for k, v in MIXTRAL1_CELL_VARIANT.items()}
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"), n_layers=1, **variant)
+    with torch.device("meta"):
+        shapes = [tuple(v.shape) for v in tree_flatten(build_model(cfg).init(torch.Generator()))[0]]
+    bounds, n_pad = [], 0
+    for shape in shapes:
+        bounds.append((n_pad, math.prod(shape)))
+        n_pad += max(1, -(-bounds[-1][1] // 1024)) * 1024
+    check(sum(b for _, b in bounds) == MIXTRAL1_CELL_PARAMS
+          and len(bounds) == MIXTRAL1_CELL_LEAVES, f"seg_accumulate: mixtral's leaves {shapes}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    copies = [([torch.randn(shape, generator=gen, device=dev) * 1e-3 for shape in shapes],
+               torch.randn(n_pad, generator=gen, device=dev) * 1e-4) for _ in range(2)]
+    fn_k = lambda leaves, res: kflat.seg_accumulate(leaves, res, bounds, n_pad)
+    fn_p = lambda leaves, res: kflat.seg_accumulate_plain(leaves, res, bounds, n_pad)
+    got, want = fn_k(*copies[0]), fn_p(*copies[0])
+    torch.cuda.synchronize(dev)
+    check(all(bit_equal(g, w) for g, w in zip(got, want)),
+          "seg_accumulate: kernel != plain version at the mixtral cell's width")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want
+    ms = device_ms(fn_k, copies, 24, "seg_accumulate", ops=1)
+    plain_ms = device_ms(fn_p, copies, 6)
+    nbytes = 4 * (sum(b for _, b in bounds) + 2 * n_pad + len(bounds))
+    grid, resident = kflat.launch_grid("seg_accumulate", dev, n_pad // 1024)
+    row = kernel_row("seg_accumulate", launches, err, ms, plain_ms, nbytes,
+                     OPS_PER_ELEMENT["seg_accumulate"] * n_pad,
+                     label=f"seg_accumulate (mixtral-8x7b cell, 1 layer, {n_pad} entries)")
+    row["hbm_share"] = row["bound_ms"] / ms
+    print(f"seg_accumulate: {row['hbm_share']:.1%} of {HBM_BYTES_PER_S / 1e12:.2f} TB/s over "
+          f"{nbytes} bytes; persistent grid G = {grid} ({resident} resident per SM); bit-equal "
+          f"to its plain version (acc and {len(bounds)} maxima)")
+    del copies
+    torch.cuda.empty_cache()
+    return row
 
 
 # -------------------------------------------------------------- exact path
@@ -2203,6 +2276,9 @@ def kernels_vs_plain_calls(calls: list, label: str) -> dict:
     pairs = {"seg_hist2side": (kflat.seg_hist2side, kflat.seg_hist2side_plain),
              "seg_moments": (kflat.seg_moments, kflat.seg_moments_plain),
              "seg_binarize_apply": (kflat.seg_binarize_apply, kflat.seg_binarize_apply_plain),
+             # the block size (bm, lanes) is the kernel's grid alone
+             "seg_accumulate": (kflat.seg_accumulate,
+                                lambda *a, **_: kflat.seg_accumulate_plain(*a)),
              "pack_bit_rows": (kpack.seg_packbits_stream, kpack.seg_packbits_stream_plain),
              "f32_mean_xla": (kreduce.f32_mean_xla, kreduce.f32_mean_xla_plain)}
     seen: dict = {}
@@ -2266,7 +2342,8 @@ def multi_rank_path(group, label: str, spec: dict, per_round: dict, run=None,
 
     ch.round_exchange = observed
     calls: list = []
-    flat_names = ("seg_hist2side", "seg_moments", "seg_binarize_apply", "pack_bit_rows")
+    flat_names = ("seg_hist2side", "seg_moments", "seg_binarize_apply", "seg_accumulate",
+                  "pack_bit_rows")
     try:
         state = run.init()
         torch.cuda.synchronize()
@@ -3415,7 +3492,8 @@ def largest_bins(acc, space, label: str) -> None:
     with swapped(core_flat, recording(core_flat, ("seg_hist2side",), calls)):
         core_flat._hist_pipeline(acc, bounds, [s.k for s in space.segments],
                                  [s.rate for s in space.segments], sob, space.n_blocks,
-                                 space.bm, space.lanes, 128)
+                                 space.bm, space.lanes, 128,
+                                 absmax=kflat.seg_absmax(acc, bounds))
     tops = [int(kflat.seg_hist2side(*a, **kw).max()) for _, a, kw in calls]
     print(f"{label}: the largest bin count of each pass {tops} (2^24 = {2 ** 24}); "
           f"{'above' if max(tops) > 2 ** 24 else 'within'} f32's exact integers")
@@ -3622,7 +3700,8 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
     (``spec``: sparsity, batch, sequence, rounds), the config's optimizer
     at its base_lr: the layout and Eq. 1 bits against ``pins`` (parameters,
     leaves, largest segment, bits a client a round), the rounds and a
-    profiled one (launches 2/1/1 + 1 a round, one mu a segment, the
+    profiled one (launches 1/2/1/1 + 1 a round with one device a client,
+    0/2/1/1 + 1 with several: ``HIST_PER_ROUND``; one mu a segment, the
     residual ``acc - dW*`` bit for bit, finite losses and a lower held-out
     loss), then each hist kernel call on the last accumulator bit-equal to
     its plain version (whose histogram and moments run over runs of
@@ -3667,8 +3746,8 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
         del whole
     peak_before = torch.cuda.max_memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND, label, rounds=spec["rounds"],
-                on_round=on_round, state=init.pop())
+    cap = drive(run, "exchange_local_hist", HIST_PER_ROUND if S == 1 else HIST_SHARDS_PER_ROUND,
+                label, rounds=spec["rounds"], on_round=on_round, state=init.pop())
     rounds_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     if heldout:
         _falls(cap["losses"], before,
@@ -3693,7 +3772,7 @@ def hist_at_scale(dev, label: str, cfg, task, spec: dict, pins: dict,
     with swapped(core_flat, recording(core_flat, names, calls)):
         out, res, stats = core_flat._hist_pipeline(
             acc, bounds, [s.k for s in space.segments], [s.rate for s in space.segments], sob,
-            space.n_blocks, space.bm, space.lanes, 128)
+            space.n_blocks, space.bm, space.lanes, 128, absmax=kflat.seg_absmax(acc, bounds))
     check(torch.equal(res, acc - out), f"{label}: pipeline residual != acc - dW*")
     del out, res
     tops, bounds_ms = [], {}
@@ -4080,9 +4159,12 @@ def pod_granite_phase(dev) -> dict:
     return hist_at_scale(dev, label, cfg, task, POD_A, pins, mesh_shape=SINGLE_POD)
 
 
-POD_B_PATHS = (("hist", dict(flat_engine="hist", measure_wire=True), HIST_PER_ROUND),
+# a client of POD_TWO holds 4 devices' buffers; one of FSDP_TWO_PODS's ranks
+# one device's
+POD_B_PATHS = (("hist", dict(flat_engine="hist", measure_wire=True), HIST_SHARDS_PER_ROUND),
                ("exact", dict(flat_engine="exact", device_pack=True, measure_wire=True),
                 POD_B_EXACT_PER_ROUND))
+FSDP_B_PATHS = (("hist", POD_B_PATHS[0][1], HIST_PER_ROUND), POD_B_PATHS[1])
 
 
 def pod_rank_worker(rank: int, world: int, store: str, out: str) -> int:
@@ -4326,7 +4408,7 @@ def fsdp_rank_worker(rank: int, world: int, store: str, out: str) -> int:
     """One rank, one device, of phase 16 (``--fsdp-rank-worker``): (a) the
     granite run of :func:`fsdp_one_rank` on ``FSDP_LAYOUT``, its gathered
     params after round 1 against that run's (rank 0; a leaf gathered at a
-    time), then (b) ``POD_B_PATHS`` on ``FSDP_TWO_PODS`` through
+    time), then (b) ``FSDP_B_PATHS`` on ``FSDP_TWO_PODS`` through
     :func:`multi_rank_path`; writes its results as JSON to ``out``."""
     import numpy as np
     import torch
@@ -4389,7 +4471,7 @@ def fsdp_rank_worker(rank: int, world: int, store: str, out: str) -> int:
         cfg_b, pin = pod_cfg("b"), FSDP_PINS["b"]
         task_b = make_lm_task(vocab=cfg_b.vocab_size, batch=POD_B["batch"],
                               seq_len=POD_B["seq_len"], temperature=0.5, seed=0, device=dev)
-        for engine, extra, per_round in POD_B_PATHS:
+        for engine, extra, per_round in FSDP_B_PATHS:
             label = f"two pods of two ranks {engine}"
             spec = RunSpec(preset="granite_20b", backend="gspmd", fast=True,
                            sparsity=pin["sparsity"], **extra)
@@ -4441,7 +4523,7 @@ def fsdp_phase(dev) -> dict:
         check(g["launches"] == want and g["eq1"] == one["eq1"],
               f"fsdp rank {r}: launches {g['launches']}, Eq. 1 {g['eq1']!r} (one rank's "
               f"{one['eq1']!r})")
-        for engine, _, per_round in POD_B_PATHS:
+        for engine, _, per_round in FSDP_B_PATHS:
             check(res[engine]["launches"] == {k: POD_B["rounds"] * v
                                               for k, v in per_round.items()},
                   f"two pods of two ranks {engine} rank {r}: launches {res[engine]['launches']}")
@@ -4456,7 +4538,7 @@ def fsdp_phase(dev) -> dict:
     out = {"granite one rank of 4 devices": one["launches"],
            "granite 4 ranks (rank 0)": results[0]["granite"]["launches"]}
     out.update({f"two pods of two ranks {e} (rank 0)": results[0][e]["launches"]
-                for e, _, _ in POD_B_PATHS})
+                for e, _, _ in FSDP_B_PATHS})
     return out
 
 

@@ -31,8 +31,8 @@ from repro_torch.core.golomb import expected_position_bits, golomb_bstar
 from repro_torch.core.policy import supports  # noqa: F401  (the reference's name for it here)
 from repro_torch.core.stages import LeafCompressed, k_for
 from repro_torch.core.tree import tree_map
-from repro_torch.kernels.flat import (check_flat_size, seg_binarize_apply, seg_hist2side,
-                                      seg_moments)
+from repro_torch.kernels.flat import (check_flat_size, seg_absmax, seg_accumulate,
+                                      seg_binarize_apply, seg_hist2side, seg_moments)
 from repro_torch.kernels.hist2side import SPAN_OCTAVES, bucket_lower_edges
 from repro_torch.kernels.ops import _side_threshold
 from repro_torch.kernels.pack import (bits_from_positions, golomb_decode_rows, pack_bit_rows,
@@ -89,14 +89,21 @@ def _hist_pipeline(
     lanes: int,
     nbins: int,
     stages=NULL_STAGES,
+    *,
+    absmax: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """The three segment-aware passes over one flat buffer.
 
     ``bounds`` is the static per-segment ``(offset, size)`` table and
-    ``seg_of_block`` an int64 tensor on ``acc_flat``'s device.  Two
-    histogram passes (the second zoomed into each side's chosen bucket)
-    pick per-segment thresholds, one moments pass gives μ±, and one fused
-    pass writes ΔW* and the residual.  Returns ``(delta_star_flat,
+    ``seg_of_block`` an int64 tensor on ``acc_flat``'s device; ``absmax``
+    each segment's max ``|x|`` (:func:`~repro_torch.kernels.flat.
+    seg_absmax`, or what the fused :func:`~repro_torch.kernels.flat.
+    seg_accumulate` gives with the buffer), which the pipeline takes over:
+    it adds its 1e-30 in place, so no second vector is held while the
+    passes run.  Two histogram passes (the first over ranges set by
+    ``absmax``, the second zoomed into each side's chosen bucket) pick
+    per-segment thresholds, one moments pass gives μ±, and one fused pass
+    writes ΔW* and the residual.  Returns ``(delta_star_flat,
     residual_flat, stats)`` with per-segment ``stats = {mu, count,
     nbits}``.  Everything stays on the device; nothing waits for it.
     ``stages`` opens ``exchange.select``, ``exchange.moments`` and
@@ -105,13 +112,12 @@ def _hist_pipeline(
     ``acc_flat`` of shape ``(S, n_pad)`` holds S devices' buffers of the
     one layout (``bounds``, ``seg_of_block`` and ``n_blocks`` are one
     device's): each pass is still one launch, over S × segments, device
-    d's segment i numbered ``d · nseg + i``, and the outputs keep that
-    shape.
+    d's segment i numbered ``d · nseg + i`` (in ``absmax`` too), and the
+    outputs keep that shape.
     """
     nseg = len(bounds)
     dev = acc_flat.device
     S = acc_flat.shape[0] if acc_flat.dim() == 2 else 1
-    rows2 = acc_flat.reshape(S, -1)
     xpad = acc_flat.reshape(S * n_blocks * bm, lanes)
     if S > 1:
         seg_of_block = (seg_of_block[None, :]
@@ -126,11 +132,8 @@ def _hist_pipeline(
         return torch.cat(rows, dim=1)
 
     with stages.stage("exchange.select"):
-        # per-segment |x| range for the coarse pass (max is order-independent
-        # → exact)
-        absmax = torch.stack([
-            torch.amax(torch.abs(rows2[:, off:off + size]), dim=1) for off, size in bounds
-        ], dim=1).reshape(-1) + 1e-30
+        # per-segment |x| range for the coarse pass
+        absmax = absmax.add_(1e-30)
         lo0 = absmax * 2.0 ** -SPAN_OCTAVES
         hi0 = absmax * 1.0001
         kf = torch.tensor(ks, dtype=torch.float32, device=dev)
@@ -414,12 +417,13 @@ class FlatParamSpace:
                              "belong to the exact engine")
         rates = self._check_rates(rates)
         residual = state.residual if self.resolved.any_residual else None
-        delta_flat = self.flatten(delta)
-        acc = delta_flat if residual is None else delta_flat + residual
+        bounds = [(s.offset, s.size) for s in self.segments]
+        acc, absmax = seg_accumulate(self.resolved._leaves_of(delta), residual, bounds,
+                                     self.n_pad, bm=self.bm, lanes=self.lanes)
         dense_flat, res_flat, stats = _hist_pipeline(
-            acc, bounds=[(s.offset, s.size) for s in self.segments], ks=self._ks(rates),
+            acc, bounds=bounds, ks=self._ks(rates),
             rates=rates, seg_of_block=self._device_maps(acc.device)[4],
-            n_blocks=self.n_blocks, bm=self.bm, lanes=self.lanes, nbins=nbins)
+            n_blocks=self.n_blocks, bm=self.bm, lanes=self.lanes, nbins=nbins, absmax=absmax)
         new_state = state._replace(residual=res_flat if residual is not None
                                    else state.residual, step=state.step + 1)
         return self.unflatten(dense_flat), new_state, stats
@@ -872,7 +876,14 @@ class ShardedFlatParamSpace:
         binarized ΔW* (none with one client).  Requires an all-sparse
         policy.  Returns ``(mean_flat, own_flat, new_res_flat)``.
         ``stages`` (a :mod:`repro_torch.obs.stages` clock) times the
-        flatten, the three passes and the mean.
+        flatten (the buffer and each segment's max ``|x|``), the three
+        passes and the mean.
+
+        With one device a client the buffer, the residual add and the
+        maxima are one pass (:func:`~repro_torch.kernels.flat.
+        seg_accumulate`); with several, each device's buffer is gathered
+        from its shards' blocks, then the residual add and the maxima follow
+        as tensor ops.
         """
         if any(s.kind != "sparse" for s in self.segments):
             raise ValueError(
@@ -880,13 +891,19 @@ class ShardedFlatParamSpace:
                 "leaves belong to the exact engine"
             )
         group = self._client_group()
+        bounds = [(s.offset, s.rows * s.n_loc) for s in self.segments]
         with stages.stage("exchange.flatten"):
-            acc = self.flatten_local(bodies)
-            if res_flat is not None:
-                acc = res_flat + acc
+            if self.shards_per_client == 1:
+                acc, absmax = seg_accumulate(bodies, res_flat, bounds, self.n_pad,
+                                             bm=self.bm, lanes=self.lanes)
+            else:
+                acc = self.flatten_local(bodies)
+                if res_flat is not None:
+                    acc = res_flat + acc
+                absmax = seg_absmax(acc, bounds)
         own, res, _stats = _hist_pipeline(
             acc,
-            bounds=[(s.offset, s.rows * s.n_loc) for s in self.segments],
+            bounds=bounds,
             ks=[k_for(s.rows * s.n_loc, s.rate) for s in self.segments],
             rates=[s.rate for s in self.segments],
             seg_of_block=self._device_maps(acc.device)[2],
@@ -895,6 +912,7 @@ class ShardedFlatParamSpace:
             lanes=self.lanes,
             nbins=nbins,
             stages=stages,
+            absmax=absmax,
         )
         with stages.stage("exchange.mean"):
             mean = (group.pmean(own, self.client_grid)

@@ -14,8 +14,8 @@ against (IEEE division, full-precision ``log2f``, denormals kept).
 
 Beside the build and :func:`launch`, the machinery that the one-launch
 kernels (``seg_hist2side`` and the per-leaf ``hist2side``, ``seg_moments``
-and the per-leaf ``masked_moments``, ``seg_select_pack``, ``f32_mean_xla``)
-share:
+and the per-leaf ``masked_moments``, ``seg_accumulate``, ``seg_select_pack``,
+``f32_mean_xla``) share:
 the size of a one-wave persistent grid (:func:`persistent_grid`) and the
 self-cleaning scratch they count in (:class:`Workspace`).
 
@@ -62,6 +62,8 @@ _SIGNATURES = {
         "seg_hist2side_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "seg_moments_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "seg_binarize_apply_launch": (_P, _P, _P, _P, _I, _I, _P),
+        "seg_accumulate_resident": (),
+        "seg_accumulate_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
         "hist2side_resident": (_I,),
         "hist2side_launch": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
         "masked_moments_gpw": (_I,),

@@ -18,6 +18,24 @@
 // per-partial code (moment_quad, partial_store, fold_warps, apply_one), so
 // both give the same bits on the same values by construction.
 //
+// A seventh, seg_accumulate, replaces no Pallas kernel: it is the front of
+// the hist exchange (the JAX package's core/flat.py exchange_local_hist and
+// _hist_pipeline), which XLA fuses there and PyTorch runs as a concat, a
+// residual add and an abs and an amax a segment.  In one pass it writes
+// acc = R + the leaves in the block-padded layout and each segment's max
+// |acc|, which the first histogram's ranges need: 12 bytes an entry (the
+// leaf and R read, acc written), against 32 for the unfused ops.  It is
+// bound by bytes.  The leaves' pointers change every round, so they ride in
+// the launch's parameters (AccLeaves, up to kAccLeaves a launch) and no
+// copy to the card waits for the stream.  A persistent grid walks the
+// blocks as the histogram does, every thread with the loads of kAccAhead
+// blocks in flight; each thread keeps its segment's running max of |acc|'s
+// bits (a max of uint32 bits is the float max on non-negative values, and
+// puts a NaN above +inf as torch.amax does), a warp folds it with one
+// shuffle reduction and adds it with one atomicMax at a change of segment,
+// and the last CTA writes the result and zeroes its words.  The max is
+// exact in any order, and acc is the same IEEE addition as R + flat.
+//
 // Segment layout (the flat contract of the JAX package's core/flat.py):
 // the buffer is `nblocks` data blocks of `block_elems` f32 (bm * lanes =
 // 8 * 128 = 1024 by default).  Every block belongs to exactly one
@@ -125,6 +143,8 @@ constexpr int kBatch = 5;               // loads a thread of the last CTA issues
 constexpr int kFoldChunk = kThreads * kBatch;  // partials the fold stages at once: 1,280,
                                         // LeNet5's 1,230 blocks in one
 constexpr int kChainStep = 4;           // steps of a lane's fold loaded at once
+constexpr int kAccLeaves = 224;         // leaves one seg_accumulate launch carries
+constexpr int kAccAhead = 4;            // blocks whose loads an accumulate thread issues at once
 
 // The two sides' magnitude ranges and their log2 terms.
 struct HistRanges {
@@ -848,6 +868,119 @@ binarize_apply_kernel(const float* __restrict__ x, int n, const float* __restric
     apply_one(x[i], tpos, ntneg, mu, pos_wins, out[i], res[i]);
 }
 
+// ------------------------------------------------------------ accumulate
+
+// The leaves of one seg_accumulate launch, by value in its parameters
+// (3,600 of the 4,096 bytes a launch takes), so that nothing is copied to
+// the card before it: leaf j is ptr[j][0 .. size[j]) and fills the flat
+// entries [off[j], off[j] + size[j]); its pad runs to off[j + 1], and
+// off[n] ends the launch's blocks.  seg0 is the segment id of leaf 0.
+struct AccLeaves {
+  const float* ptr[kAccLeaves];
+  int off[kAccLeaves + 1];
+  int size[kAccLeaves];
+  int n, seg0;
+};
+
+// Entries i .. i + 3 of a leaf of n entries, 0 past its end: one float4
+// where the leaf is 16-byte aligned and holds all four (i is a multiple of
+// 4), else scalar loads.
+__device__ __forceinline__ float4 leaf_quad(const float* p, int i, int n) {
+  if (i + 3 < n && (reinterpret_cast<uintptr_t>(p) & 15u) == 0u)
+    return *reinterpret_cast<const float4*>(p + i);
+  return make_float4(i < n ? p[i] : 0.0f, i + 1 < n ? p[i + 1] : 0.0f,
+                     i + 2 < n ? p[i + 2] : 0.0f, i + 3 < n ? p[i + 3] : 0.0f);
+}
+
+// acc = r + x (x is 0 in the pad); inside the leaf, |acc|'s bits into m.
+// The bits of a non-negative float order as the float does, and a NaN's
+// lie above +inf's.
+__device__ __forceinline__ float acc_one(float x, float r, bool has_res, bool in_leaf,
+                                         unsigned& m) {
+  const float a = has_res ? r + x : x;
+  if (in_leaf) m = max(m, __float_as_uint(a) & 0x7fffffffu);
+  return a;
+}
+
+// A segment's running max, folded over the warp; lane 0 adds it to the
+// segment's workspace word (a max, whose identity is the zero it starts at).
+__device__ __forceinline__ void acc_flush(unsigned m, unsigned* word) {
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0 && m) atomicMax(word, m);
+}
+
+// grid = G <= the launch's blocks (G >= 1), block = kThreads.  acc =
+// res + the leaves in the block-padded layout (res + 0 in the pads; the
+// leaves alone, pads 0, without res), and absmax[seg0 + j] = max |acc| over
+// leaf j's entries.  work[seg0 .. seg0 + n) and *ticket are zero on entry
+// and left zero.
+__global__ void __launch_bounds__(kThreads)
+seg_accumulate_kernel(const __grid_constant__ AccLeaves L, const float* __restrict__ res,
+                      float* __restrict__ acc, unsigned* __restrict__ work,
+                      unsigned* __restrict__ ticket, float* __restrict__ absmax,
+                      int block_elems) {
+  const int quads = block_elems / 4;
+  const int b_first = L.off[0] / block_elems;
+  int b_lo, b_hi;
+  cta_blocks(L.off[L.n] / block_elems - b_first, b_lo, b_hi);
+  const bool has_res = res != nullptr;
+  const float4* r4 = reinterpret_cast<const float4*>(res);
+  float4* a4 = reinterpret_cast<float4*>(acc);
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int j = 0, cur = -1;  // the leaf of the last block looked up; the leaf m holds
+  unsigned m = 0u;
+  for (int b0 = b_lo; b0 < b_hi; b0 += kAccAhead) {
+    int lf[kAccAhead];
+#pragma unroll
+    for (int u = 0; u < kAccAhead; ++u) {  // uniform: the same blocks in every thread
+      const long long e0 = (long long)(b_first + b0 + u) * block_elems;
+      if (b0 + u < b_hi)
+        while (e0 >= L.off[j + 1]) ++j;
+      lf[u] = j;
+    }
+    for (int q0 = 0; q0 < quads; q0 += kThreads) {
+      const int q = q0 + threadIdx.x;
+      float4 x[kAccAhead], r[kAccAhead];
+      long long e[kAccAhead];
+      int i[kAccAhead];
+#pragma unroll
+      for (int u = 0; u < kAccAhead; ++u) {  // every load in flight before the first add
+        const bool live = b0 + u < b_hi && q < quads;
+        e[u] = (long long)(b_first + b0 + u) * block_elems + 4 * q;
+        i[u] = (int)(e[u] - L.off[lf[u]]);
+        x[u] = live ? leaf_quad(L.ptr[lf[u]], i[u], L.size[lf[u]]) : zero4;
+        r[u] = live && has_res ? r4[e[u] / 4] : zero4;
+      }
+#pragma unroll
+      for (int u = 0; u < kAccAhead; ++u) {
+        if (b0 + u >= b_hi) break;
+        if (lf[u] != cur) {  // uniform
+          if (cur >= 0) acc_flush(m, &work[L.seg0 + cur]);
+          cur = lf[u];
+          m = 0u;
+        }
+        if (q < quads) {
+          const int n = L.size[cur];
+          float4 a;
+          a.x = acc_one(x[u].x, r[u].x, has_res, i[u] < n, m);
+          a.y = acc_one(x[u].y, r[u].y, has_res, i[u] + 1 < n, m);
+          a.z = acc_one(x[u].z, r[u].z, has_res, i[u] + 2 < n, m);
+          a.w = acc_one(x[u].w, r[u].w, has_res, i[u] + 3 < n, m);
+          a4[e[u] / 4] = a;
+        }
+      }
+    }
+  }
+  if (cur >= 0) acc_flush(m, &work[L.seg0 + cur]);
+
+  if (!last_cta(ticket)) return;
+  for (int s = threadIdx.x; s < L.n; s += kThreads) {
+    unsigned* word = &work[L.seg0 + s];
+    absmax[L.seg0 + s] = __uint_as_float(__ldcg(word));  // other CTAs' atomics: from L2
+    *word = 0u;
+  }
+}
+
 int leaf_ctas(int n) {
   const int ctas = (n + kLeafElemsPerCta - 1) / kLeafElemsPerCta;
   return ctas < 1 ? 1 : (ctas > kLeafMaxCtas ? kLeafMaxCtas : ctas);
@@ -885,6 +1018,37 @@ extern "C" int hist2side_resident(int nbins) {
 }
 
 extern "C" int seg_moments_resident(void) { return resident(seg_moments_kernel, 0); }
+
+extern "C" int seg_accumulate_resident(void) { return resident(seg_accumulate_kernel, 0); }
+
+// leaves: n (1 <= n <= kAccLeaves) pointers to the f32 leaves; offs: n + 1
+// ints, leaf j filling [offs[j], offs[j] + sizes[j]) with its pad up to
+// offs[j + 1], every offs[j] a multiple of block_elems (itself of 4).  seg0:
+// the segment id of leaf 0 (its word of work, its entry of absmax).  res:
+// f32 covering the blocks, 16-byte aligned, or null; acc: f32, 16-byte
+// aligned.  work: uint32 words seg0 .. seg0 + n - 1 and ticket: one uint32,
+// zero (and left zero).  grid: G >= 1, at most the launch's blocks.
+extern "C" int seg_accumulate_launch(const void* leaves, const void* offs, const void* sizes,
+                                     int n, int seg0, const void* res, void* acc, void* work,
+                                     void* ticket, void* absmax, int block_elems, int grid,
+                                     void* stream) {
+  if (n < 1 || n > kAccLeaves) return (int)cudaErrorInvalidValue;
+  AccLeaves L;
+  const float* const* p = (const float* const*)leaves;
+  const int *o = (const int*)offs, *z = (const int*)sizes;
+  for (int j = 0; j < n; ++j) {
+    L.ptr[j] = p[j];
+    L.off[j] = o[j];
+    L.size[j] = z[j];
+  }
+  L.off[n] = o[n];
+  L.n = n;
+  L.seg0 = seg0;
+  seg_accumulate_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      L, (const float*)res, (float*)acc, (unsigned*)work, (unsigned*)ticket, (float*)absmax,
+      block_elems);
+  return (int)cudaGetLastError();
+}
 
 // work: uint32[nseg * 2 * nbins] and ticket: one uint32, both zero (and
 // left zero).  grid: G >= 1.

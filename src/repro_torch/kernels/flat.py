@@ -4,7 +4,7 @@ Counterpart of ``repro.kernels.flat``.  Each pass has three pieces here:
 
   * ``*_plain``  the plain PyTorch version of the function — what a CPU
     tensor runs, and what the CUDA kernel is held against on the card;
-  * the wrapper (``seg_hist2side``, ``seg_moments``,
+  * the wrapper (``seg_accumulate``, ``seg_hist2side``, ``seg_moments``,
     ``seg_binarize_apply``) — checks device, dtype, shape and contiguity;
     a CPU tensor goes to the plain version, a CUDA tensor to the
     hand-written kernel in ``csrc/seg_sbc.cu`` (there is no fall back:
@@ -17,13 +17,16 @@ so every block belongs to one segment; block b's scalars ride in row b of
 a ``(nblocks, P)`` f32 params array (the segment id, where a pass needs
 it, is column 0, stored as f32).
 
-On the card ``seg_hist2side`` and ``seg_moments`` are one launch each, on
-a persistent grid that fits in one wave (:func:`launch_grid`); their last
-CTA writes the result and leaves the workspace it used zeroed
-(:class:`repro_torch.kernels._build.Workspace`).
+On the card ``seg_accumulate``, ``seg_hist2side`` and ``seg_moments`` are
+one launch each, on a persistent grid that fits in one wave
+(:func:`launch_grid`); their last CTA writes the result and leaves the
+workspace it used zeroed (:class:`repro_torch.kernels._build.Workspace`).
+``seg_accumulate`` builds the buffer the other passes read: the leaves and
+the residual in, ``acc`` and each segment's max ``|acc|`` out.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -39,9 +42,9 @@ _HISTOGRAMS = ("seg_hist2side", "hist2side")  # the kernels that take nbins
 @functools.lru_cache(maxsize=None)
 def _resident(device_index: int, kernel: str, nbins: int) -> int:
     lib = _build.library()
+    query = getattr(lib, f"{kernel}_resident")
     with torch.cuda.device(device_index):
-        n = (getattr(lib, f"{kernel}_resident")(nbins) if kernel in _HISTOGRAMS
-             else lib.seg_moments_resident())
+        n = query(nbins) if kernel in _HISTOGRAMS else query()
     if n < 1:
         raise RuntimeError(f"{kernel}: occupancy query failed (CUDA error {-n})")
     return n
@@ -50,16 +53,17 @@ def _resident(device_index: int, kernel: str, nbins: int) -> int:
 def launch_grid(kernel: str, device: torch.device, nblocks: int,
                 nbins: int = 128) -> tuple[int, int]:
     """``(G, resident CTAs per SM)`` of ``kernel`` (``"seg_hist2side"``,
-    the per-leaf ``"hist2side"`` or ``"seg_moments"``) over ``nblocks``
-    blocks on the CUDA ``device``."""
+    the per-leaf ``"hist2side"``, ``"seg_moments"`` or ``"seg_accumulate"``)
+    over ``nblocks`` blocks on the CUDA ``device``."""
     resident = _resident(device.index, kernel, nbins if kernel in _HISTOGRAMS else 0)
     return _build.persistent_grid(nblocks, _build.sm_count(device.index),
                                   resident), resident
 
 
-# word offsets in a workspace: the two kernels' tickets, then the counts of
-# seg_hist2side
-_HIST_TICKET, _MOMENTS_TICKET, _HIST_COUNTS = 0, 1, 2
+# word offsets in a workspace: the three kernels' tickets, then the words a
+# segment of seg_hist2side's counts or seg_accumulate's maxima (each call
+# leaves them zero, and calls on one stream run one after the other)
+_HIST_TICKET, _MOMENTS_TICKET, _ACC_TICKET, _SEG_WORDS = 0, 1, 2, 3
 
 
 # ------------------------------------------------------------------ checks
@@ -186,11 +190,11 @@ def seg_hist2side(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     if not 1 <= nbins <= 4096:
         raise ValueError(f"nbins must be in [1, 4096], got {nbins}")
     dev = xpad.device
-    ws = _build.workspace(dev, _HIST_COUNTS + nseg * 2 * nbins)
+    ws = _build.workspace(dev, _SEG_WORDS + nseg * 2 * nbins)
     out = torch.empty((nseg, 2, nbins), dtype=torch.float32, device=dev)
     grid, _ = launch_grid("seg_hist2side", dev, nblocks, nbins)
     _build.launch(_build.library().seg_hist2side_launch, "seg_hist2side", xpad,
-                  xpad.data_ptr(), params.data_ptr(), ws.data_ptr() + 4 * _HIST_COUNTS,
+                  xpad.data_ptr(), params.data_ptr(), ws.data_ptr() + 4 * _SEG_WORDS,
                   ws.data_ptr() + 4 * _HIST_TICKET, out.data_ptr(), nblocks, bm * lanes,
                   nbins, nseg, grid)
     seg_hist2side.launches += 1
@@ -302,7 +306,7 @@ def seg_moments(xpad: torch.Tensor, params: torch.Tensor, *, nseg: int,
     if not xpad.is_cuda:
         return seg_moments_plain(xpad, params, nseg=nseg, bm=bm, lanes=lanes)
     dev = xpad.device
-    ws = _build.workspace(dev, _HIST_COUNTS)
+    ws = _build.workspace(dev, _SEG_WORDS)
     psum = torch.empty((nblocks, 2), dtype=torch.float64, device=dev)
     pcnt = torch.empty((nblocks, 2), dtype=torch.int32, device=dev)
     out = torch.empty((nseg, 2, 2), dtype=torch.float32, device=dev)
@@ -363,7 +367,131 @@ def seg_binarize_apply(xpad: torch.Tensor, params: torch.Tensor, *,
 
 seg_binarize_apply.launches = 0
 
-WRAPPERS = (seg_hist2side, seg_moments, seg_binarize_apply)
+# ------------------------------------------------------------ accumulate
+
+
+# leaves one launch carries in its parameters (csrc/seg_sbc.cu kAccLeaves)
+ACC_LEAVES_PER_LAUNCH = 224
+
+
+def _check_accumulate(leaves, res, bounds, n_pad: int, block: int) -> None:
+    """Validate :func:`seg_accumulate`'s operands."""
+    if not leaves or len(leaves) != len(bounds):
+        raise ValueError(f"{len(leaves)} leaves for {len(bounds)} segments")
+    check_flat_size(n_pad)
+    end = 0
+    for i, (leaf, (off, size)) in enumerate(zip(leaves, bounds)):
+        if not isinstance(leaf, torch.Tensor) or not leaf.is_floating_point():
+            raise TypeError(f"a leaf must be a floating torch.Tensor, got {type(leaf)}")
+        if leaf.numel() != size:
+            raise ValueError(f"a leaf of {leaf.numel()} entries in a segment of {size}")
+        if off % block or off < end or (i == 0 and off != 0):
+            raise ValueError(f"segment {i} at {off} is not a {block}-entry block at or past "
+                             f"{end}")
+        end = off + size
+    if n_pad % block or n_pad < end:
+        raise ValueError(f"n_pad {n_pad} is not whole blocks of {block} past the last segment")
+    device = leaves[0].device
+    if any(leaf.device != device for leaf in leaves):
+        raise ValueError("the leaves lie on more than one device")
+    if res is not None:
+        if res.dtype != torch.float32:
+            raise TypeError(f"res must be float32, got {res.dtype}")
+        if tuple(res.shape) != (n_pad,) or not res.is_contiguous():
+            raise ValueError(f"res must be a contiguous ({n_pad},), got {tuple(res.shape)}")
+        if res.device != device:
+            raise ValueError(f"res on {res.device} but the leaves on {device}")
+    _build.check_device(leaves[0])
+
+
+def seg_absmax(acc_flat: torch.Tensor, bounds) -> torch.Tensor:
+    """Each segment's max ``|x|`` over ``acc_flat`` (``(n_pad,)``, or S
+    device buffers ``(S, n_pad)``: device d's segment i at ``d · nseg +
+    i``), an ``abs`` and an ``amax`` a segment of ``bounds`` (``(offset,
+    size)`` each); a max is exact in any order.  What
+    :func:`seg_accumulate` gives beside its buffer, and what a buffer
+    gathered from shards' blocks takes as tensor ops."""
+    S = acc_flat.shape[0] if acc_flat.dim() == 2 else 1
+    rows2 = acc_flat.reshape(S, -1)
+    return torch.stack([
+        torch.amax(torch.abs(rows2[:, off:off + size]), dim=1) for off, size in bounds
+    ], dim=1).reshape(-1)
+
+
+def seg_accumulate_plain(leaves, res, bounds, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(acc f32[n_pad], absmax f32[nseg])``: ``acc = res + flat`` (or
+    ``flat`` without ``res``), where ``flat`` holds leaf i (as f32) at
+    ``[offset_i, offset_i + size_i)`` of ``bounds`` and zeros in its pad up
+    to the next segment (or ``n_pad``), and ``absmax`` is
+    :func:`seg_absmax` of ``acc``: segment i's entries, its pad left out.
+
+    The composition the hist exchange ran before the fused pass: a concat,
+    the residual add, and ``amax(abs(...))`` a segment.
+    """
+    ends = [off for off, _ in bounds[1:]] + [n_pad]
+    pieces = []
+    for leaf, (off, size), end in zip(leaves, bounds, ends):
+        pieces.append(leaf.reshape(-1).to(torch.float32))
+        if end > off + size:
+            pieces.append(torch.zeros(end - off - size, dtype=torch.float32,
+                                      device=leaf.device))
+    flat = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+    acc = flat if res is None else res + flat
+    return acc, seg_absmax(acc, bounds)
+
+
+def seg_accumulate(leaves, res, bounds, n_pad: int, *, bm: int = 8,
+                   lanes: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(acc, absmax)`` of :func:`seg_accumulate_plain`, in one pass.
+
+    ``leaves`` fill the segments ``bounds`` (``(offset, size)`` each, in
+    order, the first at 0, every offset a multiple of ``bm·lanes``) of an
+    ``n_pad``-entry flat buffer; ``res`` is a contiguous f32 ``(n_pad,)``
+    or None.  Replaces no Pallas kernel (the JAX package leaves the
+    flatten, the residual add and the max to XLA).  On the card: one
+    launch per :data:`ACC_LEAVES_PER_LAUNCH` leaves, whose parameters carry
+    the leaves' pointers (nothing is copied to the card first); a leaf
+    that is not f32 or not contiguous is made so first (``.to``), as the
+    composition does.  The same bits as the composition: ``acc`` is the
+    same IEEE addition, and a max is exact in any order.
+    """
+    block = bm * lanes
+    _check_accumulate(leaves, res, bounds, n_pad, block)
+    device, nseg = leaves[0].device, len(bounds)
+    if device.type == "meta":
+        moved = sum(size for _, size in bounds) + n_pad * (2 if res is not None else 1) + nseg
+        _build.meta_launch("seg_accumulate", 4 * moved)
+        return (torch.empty((n_pad,), dtype=torch.float32, device=device),
+                torch.empty((nseg,), dtype=torch.float32, device=device))
+    if not leaves[0].is_cuda:
+        return seg_accumulate_plain(leaves, res, bounds, n_pad)
+    if block % 4 or (res is not None and res.data_ptr() % 16):
+        raise ValueError("the CUDA kernel moves float4: bm*lanes must be a multiple of 4 and "
+                         "res 16-byte aligned")
+    flat = [leaf.reshape(-1).to(torch.float32) for leaf in leaves]
+    acc = torch.empty((n_pad,), dtype=torch.float32, device=device)
+    absmax = torch.empty((nseg,), dtype=torch.float32, device=device)
+    ws = _build.workspace(device, _SEG_WORDS + nseg)
+    lib = _build.library()
+    res_ptr = None if res is None else res.data_ptr()
+    for j0 in range(0, nseg, ACC_LEAVES_PER_LAUNCH):
+        j1 = min(j0 + ACC_LEAVES_PER_LAUNCH, nseg)
+        offs = [off for off, _ in bounds[j0:j1]] + [bounds[j1][0] if j1 < nseg else n_pad]
+        grid, _ = launch_grid("seg_accumulate", device, (offs[-1] - offs[0]) // block)
+        _build.launch(lib.seg_accumulate_launch, "seg_accumulate", acc,
+                      (ctypes.c_void_p * (j1 - j0))(*(x.data_ptr() for x in flat[j0:j1])),
+                      (ctypes.c_int * (j1 - j0 + 1))(*offs),
+                      (ctypes.c_int * (j1 - j0))(*(size for _, size in bounds[j0:j1])),
+                      j1 - j0, j0, res_ptr, acc.data_ptr(),
+                      ws.data_ptr() + 4 * _SEG_WORDS, ws.data_ptr() + 4 * _ACC_TICKET,
+                      absmax.data_ptr(), block, grid)
+        seg_accumulate.launches += 1
+    return acc, absmax
+
+
+seg_accumulate.launches = 0
+
+WRAPPERS = (seg_hist2side, seg_moments, seg_binarize_apply, seg_accumulate)
 
 
 def reset_launches() -> None:

@@ -190,9 +190,135 @@ def test_lenet5_rounds_run_through_the_kernels(cuda):
         state, m = run.step(state, r)
         assert np.isfinite(float(m["loss"]))
     assert tflat.launch_counts() == {
-        "seg_hist2side": 4, "seg_moments": 2, "seg_binarize_apply": 2}
+        "seg_hist2side": 4, "seg_moments": 2, "seg_binarize_apply": 2, "seg_accumulate": 2}
     res = state["residual"]
     assert res.is_cuda and tuple(res.shape) == (1, 1, 1_259_520)
+
+
+def _accumulate_case(case: str, dev):
+    """``(leaves, res, bounds, n_pad, bm, lanes)`` of a seg_accumulate case:
+    LeNet5's six odd sizes, a leaf at an offset that is not 16-byte
+    aligned, no residual, NaN/inf/-0.0/denormals, bf16 leaves, 500
+    segments (past one launch's 224), and blocks of 256 and 2,048 entries
+    (fewer quads than a CTA's threads, and more)."""
+    rng = np.random.default_rng(40)
+    bm, lanes = {"small-blocks": (2, 128), "large-blocks": (16, 128)}.get(case, (BM, LANES))
+    sizes = {"segments-500": tuple(int(v) for v in rng.integers(1, 3000, 500)),
+             "offset": (1000, 77777, 3)}.get(case, LAYOUTS["lenet5"][0])
+    block, bounds, off = bm * lanes, [], 0
+    for size in sizes:
+        bounds.append((off, size))
+        off += max(1, -(-size // block)) * block
+    leaves = [t((rng.standard_normal(s) * np.exp(rng.standard_normal(s))).astype(np.float32), dev)
+              for s in sizes]
+    if case == "offset":  # the middle leaf a view one entry into a buffer
+        whole = t(rng.standard_normal(sizes[1] + 1).astype(np.float32), dev)
+        leaves[1] = whole[1:]
+        assert leaves[1].data_ptr() % 16
+    if case == "specials":
+        leaves[0][:6] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 1e-40,
+                                      -3e-39])
+        leaves[3][:] = torch.where(leaves[3] > 0, -0.0, 2e-41)
+        leaves[4][7] = float("-inf")
+    if case == "bf16":
+        leaves = [x.to(torch.bfloat16) for x in leaves]
+    res = None
+    if case != "no-residual":
+        res = t((rng.standard_normal(off) * 1e-2).astype(np.float32), dev)
+        if case == "specials":
+            res[bounds[3][0]:bounds[3][0] + bounds[3][1]] = 0.0
+            res[1:3] = torch.tensor([-0.0, 1e-39])
+    return leaves, res, bounds, off, bm, lanes
+
+
+ACCUMULATE_CASES = ("lenet5", "offset", "no-residual", "specials", "bf16", "segments-500",
+                    "small-blocks", "large-blocks")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ACCUMULATE_CASES)
+def test_seg_accumulate_kernel_is_bit_equal_to_plain(cuda, case):
+    """``acc`` and each segment's max bit for bit against the plain version
+    on the card, one launch per 224 leaves, no host sync, and the
+    workspace left zero (a second call gives the same bits)."""
+    leaves, res, bounds, n_pad, bm, lanes = _accumulate_case(case, cuda)
+    torch.cuda.synchronize()
+    tflat.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tflat.seg_accumulate(leaves, res, bounds, n_pad, bm=bm, lanes=lanes)
+               for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tflat.seg_accumulate.launches == 2 * -(-len(bounds) // tflat.ACC_LEAVES_PER_LAUNCH)
+    want = tflat.seg_accumulate_plain(leaves, res, bounds, n_pad)
+    for acc, absmax in got:
+        for g, w in ((acc, want[0]), (absmax, want[1])):
+            assert g.is_cuda and g.dtype == torch.float32 and g.shape == w.shape
+            np.testing.assert_array_equal(n(g).view(np.uint32), n(w).view(np.uint32))
+    if case == "specials":
+        assert np.isnan(n(want[1])[0]) and 0 < n(want[1])[3] < np.finfo(np.float32).tiny
+
+
+def _lm100m_space(dev):
+    """lm-100m's leaves at full width (137,841,408 entries) as one
+    client's sharded flat space, one device a client, p 0.001."""
+    from repro_torch.core.flat import ShardedFlatParamSpace
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.launch.mesh import make_host_group
+    from repro_torch.models.model import build_model
+    from repro_torch.run.presets import lm_100m_config
+
+    with torch.device("meta"):
+        shapes = [tuple(v.shape) for v in tree_flatten(
+            build_model(lm_100m_config()).init(torch.Generator()))[0]]
+    entries = [dict(path=str(i), shape=s, rows=1, kind="sparse", rate=0.001, n_shards=1,
+                    global_size=int(np.prod(s))) for i, s in enumerate(shapes)]
+    return ShardedFlatParamSpace.build(
+        entries, client_axes=("data",), shard_axes=("model",), n_clients=1,
+        shards_per_client=1, group=make_host_group(dev))
+
+
+def _two_device_space(dev):
+    from repro_torch.core.flat import ShardedFlatParamSpace
+    from repro_torch.launch.mesh import make_host_group
+
+    return ShardedFlatParamSpace.build(
+        [dict(path="w", shape=(64, 1000), rows=1, kind="sparse", rate=0.01, n_shards=2,
+              global_size=128_000, grid=(2,), dev_block=(0, 1)),
+         dict(path="b", shape=(300,), rows=1, kind="sparse", rate=0.05, n_shards=2,
+              global_size=600, grid=(2,), dev_block=(0, 1))],
+        client_axes=("data",), shard_axes=("model",), n_clients=1, shards_per_client=2,
+        group=make_host_group(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["lm-100m", "two-devices"])
+def test_exchange_local_hist_front_is_bit_identical_to_the_composition(cuda, layout):
+    """The hist exchange's mean, own and residual against the composition
+    it ran before the fused front (flatten, ``res +``, ``seg_absmax``,
+    then the pipeline), bit for bit: at lm-100m's full width through one
+    ``seg_accumulate``, and on two devices a client without it."""
+    space = _lm100m_space(cuda) if layout == "lm-100m" else _two_device_space(cuda)
+    S = space.shards_per_client
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    whole = lambda s: tuple(g * d for g, d in zip(s.grid + (1,) * len(s.shape), s.shape))
+    bodies = [torch.randn(whole(s), generator=gen, device=cuda) * 1e-3 for s in space.segments]
+    res = torch.randn(space.local_shape, generator=gen, device=cuda) * 1e-4
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    mean, own, new_res = space.exchange_local_hist(bodies, res)
+    counts = kernels.launch_counts()
+    assert (counts["seg_accumulate"], counts["seg_hist2side"]) == ((1, 2) if S == 1 else (0, 2))
+    acc = res + space.flatten_local(bodies)
+    bounds = [(s.offset, s.rows * s.n_loc) for s in space.segments]
+    want_own, want_res, _ = _hist_pipeline(
+        acc, bounds, [s.k for s in space.segments], [s.rate for s in space.segments],
+        torch.from_numpy(space.seg_of_block.astype(np.int64)).to(cuda), space.n_blocks,
+        space.bm, space.lanes, 128, absmax=tflat.seg_absmax(acc, bounds))
+    assert mean is own and bool((own != 0).any())
+    for g, w in ((own, want_own), (new_res, want_res)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -539,7 +665,7 @@ def test_exact_rounds_run_through_the_packer(cuda):
         state, m = run.step(state, r)
         assert np.isfinite(float(m["loss"]))
     assert kernels.launch_counts() == {
-        "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0,
+        "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0, "seg_accumulate": 0,
         "seg_packbits": 2, "seg_select_pack": 0, "hist2side": 0, "masked_moments": 0,
         "binarize_apply": 0, "f32_mean_xla": 2 * (run.fns.flat_space.n_mu + 1)}  # + the loss
     n_mu = run.fns.flat_space.n_mu
@@ -690,9 +816,10 @@ def test_per_leaf_pipeline_equals_the_flat_hist_engine(cuda):
     segs, xpad, sob = segment_layout(sizes, seed=27, zero_segments=zero)
     acc = t(xpad, cuda).reshape(-1)
     ks = [max(1, min(s, int(round(0.01 * s)))) for s in sizes]
-    out, res, stats = _hist_pipeline(acc, [(o, s) for o, s, _ in segs], ks,
-                                     [0.01] * len(sizes), t(sob.astype(np.int64), cuda),
-                                     len(sob), BM, LANES, 128)
+    bounds = [(o, s) for o, s, _ in segs]
+    out, res, stats = _hist_pipeline(acc, bounds, ks, [0.01] * len(sizes),
+                                     t(sob.astype(np.int64), cuda), len(sob), BM, LANES, 128,
+                                     absmax=tflat.seg_absmax(acc, bounds))
     for i, (o, s, _) in enumerate(segs):
         got = tops.sbc_compress_hist(acc[o:o + s], p=0.01, bm=BM, lanes=LANES)
         for g, w in ((got.delta_star, out[o:o + s]), (got.residual, res[o:o + s]),
@@ -703,19 +830,28 @@ def test_per_leaf_pipeline_equals_the_flat_hist_engine(cuda):
 def _device_ops_per_call(fn, calls=20):
     """Device operations (kernels, memsets, copies) per call of ``fn()``,
     from the profiler's trace after a warm-up: each operation's count over
-    the calls, rounded (the trace loses a record now and then)."""
+    the calls, rounded (the trace loses a record now and then).  The trace
+    loses the first records of a window, more of them the longer the
+    process has run, so the window opens and closes with spin kernels
+    (``torch.cuda._sleep``) that are not counted, as ``chip_smoke.py``'s
+    ``device_ms`` does."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
+        for _ in range(8):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if (getattr(e, "self_device_time_total", None)
-                  or getattr(e, "self_cuda_time_total", 0.0)) > 0]
+                  or getattr(e, "self_cuda_time_total", 0.0)) > 0
+              and "spin_kernel" not in e.key]
     assert events, "the profiler saw no device time"
     return sum(round(e.count / calls) for e in events)
 

@@ -87,6 +87,24 @@ def test_meta_branch_gives_the_plain_shapes_and_counts_one_call(call):
     assert kernels.launch_counts() == launches
 
 
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "no-residual"])
+def test_seg_accumulate_meta_branch_counts_one_call(residual):
+    """``seg_accumulate`` on ``meta`` leaves: the plain shapes, one call of
+    the leaves and residual read and ``acc`` and the maxima written."""
+    leaves, bounds = [_f32(1000), _f32(3, 1024)], [(0, 1000), (1024, 3072)]
+    res = _f32(4 * 1024) if residual else None
+    want = flat.seg_accumulate(leaves, res, bounds, 4 * 1024)
+    launches = kernels.launch_counts()
+    _build.reset_meta()
+    got = flat.seg_accumulate([x.to("meta") for x in leaves],
+                              None if res is None else res.to("meta"), bounds, 4 * 1024)
+    assert [(tuple(g.shape), g.dtype, g.device.type) for g in got] == [
+        (tuple(w.shape), w.dtype, "meta") for w in want]
+    read = 4072 + (4096 if residual else 0)
+    assert _build.META_TALLY == {"seg_accumulate": [1, 4 * (read + 4096 + 2)]}
+    assert kernels.launch_counts() == launches
+
+
 def test_other_devices_are_still_refused():
     class Elsewhere:
         device = torch.device("xla")

@@ -172,14 +172,51 @@ def test_wrappers_reject_bad_operands(which):
         call(x[:-1], params)  # not a whole number of blocks
 
 
+def _accumulate_operands():
+    """Two leaves in segments at blocks 0 and 1 of a 3-block buffer (the
+    second with a 2-block pad), and a residual."""
+    leaves = [torch.ones(BM * LANES - 3), torch.full((7,), -2.0)]
+    bounds = [(0, BM * LANES - 3), (BM * LANES, 7)]
+    return leaves, torch.zeros(3 * BM * LANES), bounds, 3 * BM * LANES
+
+
+@pytest.mark.parametrize("bad, error", [
+    ("one leaf short", ValueError), ("a leaf's size", ValueError),
+    ("offset off a block", ValueError), ("first offset", ValueError),
+    ("overlap", ValueError), ("n_pad short", ValueError), ("n_pad off a block", ValueError),
+    ("integer leaf", TypeError), ("f64 residual", TypeError), ("residual shape", ValueError),
+])
+def test_seg_accumulate_rejects_bad_operands(bad, error):
+    leaves, res, bounds, n_pad = _accumulate_operands()
+    acc, absmax = tflat.seg_accumulate(leaves, res, bounds, n_pad)  # well-formed: pass
+    assert tuple(acc.shape) == (n_pad,) and absmax.tolist() == [1.0, 2.0]
+    block = BM * LANES
+    args = {
+        "one leaf short": (leaves[:1], res, bounds, n_pad),
+        "a leaf's size": ([leaves[0], torch.ones(8)], res, bounds, n_pad),
+        "offset off a block": (leaves, res, [bounds[0], (block + 4, 7)], n_pad),
+        "first offset": (leaves, res, [(block, block - 3), (2 * block, 7)], n_pad),
+        "overlap": ([leaves[0], torch.ones(block - 3)], res, [bounds[0], (0, block - 3)],
+                    n_pad),
+        "n_pad short": (leaves, res[:block], bounds, block),
+        "n_pad off a block": (leaves, res[:-4], bounds, n_pad - 4),
+        "integer leaf": ([leaves[0].int(), leaves[1]], res, bounds, n_pad),
+        "f64 residual": (leaves, res.double(), bounds, n_pad),
+        "residual shape": (leaves, res[None], bounds, n_pad),
+    }[bad]
+    with pytest.raises(error):
+        tflat.seg_accumulate(*args)
+
+
 def test_cpu_tensors_leave_the_launch_counters_at_zero():
     tflat.reset_launches()
     x, p5, _ = _operands()
     tflat.seg_hist2side(x, p5, nseg=2, nbins=16)
     tflat.seg_moments(x, p5[:, :3].contiguous(), nseg=2)
     tflat.seg_binarize_apply(x, p5[:, 1:].contiguous())
+    tflat.seg_accumulate(*_accumulate_operands())
     assert tflat.launch_counts() == {
-        "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0}
+        "seg_hist2side": 0, "seg_moments": 0, "seg_binarize_apply": 0, "seg_accumulate": 0}
 
 
 # ------------------------------------------- one-launch kernels' geometry

@@ -46,6 +46,7 @@ from repro_torch import kernels
 from repro_torch.core.flat import _hist_pipeline
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.binarize_apply import binarize_apply, binarize_apply_plain
+from repro_torch.kernels.flat import seg_absmax
 from repro_torch.kernels.hist2side import (
     DEFAULT_BM,
     DEFAULT_LANES,
@@ -278,9 +279,10 @@ def test_per_leaf_pipeline_equals_the_flat_hist_engine():
     segs, xpad, sob = segment_layout(sizes, seed=11, zero_segments=(4,))
     acc = t(xpad).reshape(-1)
     ks = [max(1, min(s, int(round(rate * s)))) for s in sizes]
-    out, res, stats = _hist_pipeline(acc, [(o, s) for o, s, _ in segs], ks,
-                                     [rate] * len(sizes), t(sob.astype(np.int64)),
-                                     len(sob), BM, LANES, nbins)
+    bounds = [(o, s) for o, s, _ in segs]
+    out, res, stats = _hist_pipeline(acc, bounds, ks, [rate] * len(sizes),
+                                     t(sob.astype(np.int64)), len(sob), BM, LANES, nbins,
+                                     absmax=seg_absmax(acc, bounds))
     for i, (o, s, _) in enumerate(segs):
         got = ops.sbc_compress_hist(acc[o:o + s], p=rate, nbins=nbins, bm=BM, lanes=LANES)
         for g, w in ((got.delta_star, out[o:o + s]), (got.residual, res[o:o + s]),

@@ -52,6 +52,7 @@ from repro_torch.core.channel import ShardedGspmdChannel
 from repro_torch.core.flat import _hist_pipeline as t_hist_pipeline
 from repro_torch.data import make_classification_task
 from repro_torch.kernels import flat as tflat
+from repro_torch.kernels.flat import seg_absmax
 from repro_torch.launch.dist import build_dist_train
 from repro_torch.launch.mesh import make_host_group
 from repro_torch.run import RunSpec, build_parser, build_preset, build_run
@@ -162,7 +163,7 @@ def test_port_exchange_on_the_jax_round1_accumulator(pair):
     t_mean, t_own, t_res = t_space.exchange_local_hist([t(x) for x in bodies], t(res))
     _, _, t_stats = t_hist_pipeline(
         t(acc), bounds, ks, rates, torch.from_numpy(t_space.seg_of_block.astype(np.int64)),
-        t_space.n_blocks, 8, 128, 128)
+        t_space.n_blocks, 8, 128, 128, absmax=seg_absmax(t(acc), bounds))
     np.testing.assert_array_equal(n(t_res), n(acc) - n(t_own))
     assert t_mean is t_own
 

@@ -28,6 +28,8 @@ Tolerances:
   * the guard: ``ValueError`` from shapes on the ``meta`` device.
 """
 import dataclasses
+import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -201,6 +203,27 @@ def test_chip_smoke_mixtral_pin_is_the_references():
         cfg = dataclasses.replace(jbase.get_config(name), n_layers=layers)
         shapes = jax.eval_shape(j_build_model(cfg).init, jax.random.PRNGKey(0))
         assert sum(int(np.prod(v.shape)) for v in jax.tree.leaves(shapes)) == count, name
+
+
+def test_chip_smoke_accumulate_row_is_the_mixtral_cells_width():
+    """``chip_smoke.py``'s ``seg_accumulate`` row runs at the mixtral
+    benchmark cell's layout: the cell's configuration file sets the
+    variant's keys as ``MIXTRAL1_CELL_VARIANT`` does (the untied head
+    among them) at one layer, and the port's model of that variant has
+    ``MIXTRAL1_CELL_LEAVES`` leaves and ``MIXTRAL1_CELL_PARAMS`` entries,
+    from shapes alone."""
+    smoke = load_chip_smoke()
+    variant = smoke.MIXTRAL1_CELL_VARIANT
+    path = pathlib.Path(__file__).resolve().parent.parent / "perfbench" / "configs"
+    cell = json.loads((path / "mixtral-8x7b-l1.json").read_text())["model"]
+    assert cell["n_layers"] == 1 and {k: cell[k] for k in variant} == variant
+    assert variant["tie_embeddings"] is False
+    cfg = dataclasses.replace(tbase.get_config("mixtral_8x7b"), n_layers=1, **{
+        k: getattr(torch, v) if k.endswith("dtype") else v for k, v in variant.items()})
+    with torch.device("meta"):
+        leaves = tree_flatten(build_model(cfg).init(torch.Generator()))[0]
+    assert (sum(v.numel() for v in leaves), len(leaves)) == (
+        smoke.MIXTRAL1_CELL_PARAMS, smoke.MIXTRAL1_CELL_LEAVES)
 
 
 def test_flat_buffers_past_the_kernels_offsets_raise():
